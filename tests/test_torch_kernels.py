@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device and skips without one. The file imports
+no JAX, so on the GPU machine (which has no JAX) it runs without the JAX
+conftest:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
+
+chip_smoke.py makes the same comparisons at the main path's shapes. fp32
+tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
+relative to the largest output m: the plain attention rounds P to bf16 before
+P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m).
+"""
+import numpy as np
+import pytest
+import torch
+
+from unigen_tpu_torch.ops import fused_conv as FC
+from unigen_tpu_torch.ops import masks as M
+from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these comparisons on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, rtol):
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= rtol * max(1.0, ref.abs().max().item()), err
+
+
+def _qkv(b, lq, s, h, kvh, dh, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+                 for shape in ((b, lq, h, dh), (b, s, kvh, dh), (b, s, kvh, dh)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 37, 98, 12, 2, 128), (2, 16, 40, 4, 2, 16),
+                                   (1, 5, 33, 6, 3, 64)])
+def test_chunk_kernel_matches_plain(cuda, dtype, shape):
+    b, lq, s, h, kvh, dh = shape
+    q, k, v = _qkv(b, lq, s, h, kvh, dh, 10, cuda, dtype)
+    kvalid = torch.rand((b, s), generator=torch.Generator().manual_seed(1)) > 0.3
+    kvalid[:, -lq:] = True
+    kvalid = kvalid.to(cuda)
+    _close(chunk_attention(q, k, v, kvalid), chunk_attention_plain(q, k, v, kvalid), TOL[dtype])
+
+
+def _meta(name, b, l, device):
+    pos = torch.arange(l, device=device)[None].expand(b, l)
+    pad = pos < (torch.arange(b, device=device)[:, None] * 3)
+    z = torch.zeros_like(pad)
+    if name == "causal_pad":
+        return M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z)
+    if name == "all_pad_row":
+        pad = pad.clone()
+        pad[0] = True
+        return M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z)
+    if name == "omni_segments":
+        return M.AttnMeta(pad=pad, bidir_q=(pos % 4 == 1) & ~pad, bidir_k=(pos % 9 == 2) & ~pad,
+                          seg=(pos >= l // 2).to(torch.int32))
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["causal_pad", "all_pad_row", "omni_segments"])
+def test_flash_kernel_matches_plain(cuda, dtype, name):
+    b, l = 3, 45
+    q, k, v = _qkv(b, l, l, 12, 2, 128, 12, cuda, dtype)
+    bits = M.pack_meta(_meta(name, b, l, cuda))
+    _close(flash_attention(q, k, v, bits), flash_attention_plain(q, k, v, bits), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+def test_fused_conv_kernel_matches_plain(cuda, gn, dtype, rtol):
+    rng = np.random.default_rng(13)
+    c, cout = 64, 80
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dtype)
+    x = t(rng.normal(size=(2, 19, 37, c)))
+    conv_p = {"kernel": t(rng.normal(size=(3, 3, c, cout)) * 0.05),
+              "bias": t(rng.normal(size=(cout,)) * 0.1)}
+    gn_p = {"scale": t(1 + 0.3 * rng.normal(size=(c,))),
+            "bias": t(0.1 * rng.normal(size=(c,)))} if gn else None
+    _close(FC.conv3x3_gn_swish(conv_p, gn_p, x), FC.conv3x3_gn_swish_plain(conv_p, gn_p, x), rtol)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_only_on_the_card(cuda):
+    q, k, v = _qkv(1, 4, 8, 4, 2, 16, 14, cuda, torch.float32)
+    before = chunk_attention.launches
+    chunk_attention(q, k, v, torch.ones((1, 8), dtype=torch.bool, device=cuda))
+    chunk_attention(q.cpu(), k.cpu(), v.cpu(), torch.ones((1, 8), dtype=torch.bool))
+    assert chunk_attention.launches == before + 1

@@ -1,0 +1,136 @@
+"""Construction of tokenizers, models and pipelines from configs built in code.
+
+Counterpart of ``unigen_tpu/launch.py`` for the t2i slice. Configurations are
+built in code (no YAML), weights are a random init from a seed until real
+checkpoints are in the repo, and the tokenizer is the byte-level
+``FallbackTokenizer`` (the port's own copy of the JAX package's).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .device import DeviceLike, resolve_device
+from .models.magvit import MagvitConfig
+from .models.qwen2 import Qwen2Config
+from .models.unigen import UniGenConfig
+from .pipeline import UniGenPipeline
+from .prompting import UniPrompting
+from .weights import init_magvit, init_unigen
+
+TRAIN_SPECIAL_TOKENS = ("<|soi|>", "<|eoi|>", "<|sov|>", "<|eov|>", "<|t2i|>",
+                        "<|mmu|>", "<|t2v|>", "<|v2v|>", "<|lvg|>")
+
+# configs/unigen_1_5b/unigen_sft.yaml: max_seq_length 1344 + 256 image tokens + 3
+FLAGSHIP_MAX_SEQ_LEN = 1344 + 256 + 3
+
+
+class FallbackTokenizer:
+    """Deterministic byte-level tokenizer used when no Qwen tokenizer is on disk.
+
+    Mirrors the HF fast-tokenizer surface UniPrompting needs. Base ids 0..255
+    are bytes; Qwen special markers and added tokens get ids from
+    ``special_base`` up (151643 by default, the real Qwen2.5 id neighbourhood,
+    so the vocab layout stays realistic).
+    """
+
+    BASE = {"<|endoftext|>": 0, "<|im_start|>": 1, "<|im_end|>": 2,
+            "<|vision_start|>": 9, "<|vision_end|>": 10}
+
+    def __init__(self, special_base: int = 151643):
+        self.specials = {k: special_base + off for k, off in self.BASE.items()}
+        self.next_id = special_base + 22
+        self.pad_token_id = special_base
+        self.eos_token_id = special_base + 2
+        self.vocab_size = special_base
+
+    def add_tokens(self, tokens):
+        for t in tokens:
+            if t not in self.specials:
+                self.specials[t] = self.next_id
+                self.next_id += 1
+
+    def convert_tokens_to_ids(self, tokens):
+        return [self.specials.get(t, 0) for t in tokens]
+
+    def __len__(self):
+        return self.next_id
+
+    def _encode(self, text: str):
+        ids, i = [], 0
+        specials = sorted(self.specials, key=len, reverse=True)
+        while i < len(text):
+            for s in specials:
+                if text.startswith(s, i):
+                    ids.append(self.specials[s])
+                    i += len(s)
+                    break
+            else:
+                ids.extend(text[i].encode("utf-8"))
+                i += 1
+        return ids
+
+    def __call__(self, texts, **kw):
+        if isinstance(texts, str):
+            return {"input_ids": self._encode(texts)}
+        return {"input_ids": [self._encode(t) for t in texts]}
+
+    def decode(self, ids, **kw):
+        rev = {v: k for k, v in self.specials.items()}
+        out, buf = [], []
+        for i in ids:
+            if i < 256:
+                buf.append(i)
+            else:
+                if buf:
+                    out.append(bytes(buf).decode("utf-8", "replace"))
+                    buf = []
+                out.append(rev.get(int(i), ""))
+        if buf:
+            out.append(bytes(buf).decode("utf-8", "replace"))
+        return "".join(out)
+
+
+def build_prompting(tokenizer, max_seq_len: int = FLAGSHIP_MAX_SEQ_LEN) -> UniPrompting:
+    """Prompting as the UniGen-1.5B stage configs set it up (task token after
+    ``<|im_start|>``, separate soi/eoi tokens)."""
+    return UniPrompting(tokenizer, special_tokens=TRAIN_SPECIAL_TOKENS,
+                        max_seq_len=max_seq_len)
+
+
+def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = None,
+                   device: DeviceLike = None, seed: int = 0) -> UniGenPipeline:
+    """A t2i pipeline with random weights from ``seed``.
+
+    ``model="flagship"``: Qwen2.5-1.5B + MAGViTv2 (256 px, 8192 codes), bf16
+    by default. ``model="tiny"``: two narrow layers, an 8 px tokenizer with 16
+    tokens and a 32-entry codebook, fp32 by default, with the byte tokenizer's
+    special ids moved down to 256 so they fit the tiny vocabulary.
+    """
+    device = resolve_device(device)
+    if model == "flagship":
+        dtype = dtype or torch.bfloat16
+        tokenizer = FallbackTokenizer()
+        prompting = build_prompting(tokenizer)
+        text_vocab_len = len(tokenizer)
+        vocab = text_vocab_len + 8192 + 1
+        cfg = UniGenConfig.for_qwen25_15b(text_vocab_len=text_vocab_len,
+                                          llm=Qwen2Config(vocab_size=vocab, dtype=dtype))
+        vq_cfg = MagvitConfig(dtype=dtype)
+    elif model == "tiny":
+        dtype = dtype or torch.float32
+        tokenizer = FallbackTokenizer(special_base=256)
+        prompting = build_prompting(tokenizer, max_seq_len=64 + 16 + 3)
+        text_vocab_len = len(tokenizer)
+        cfg = UniGenConfig.tiny(text_vocab_len=text_vocab_len,
+                                llm=Qwen2Config.tiny(vocab_size=text_vocab_len + 32 + 1,
+                                                     dtype=dtype))
+        vq_cfg = MagvitConfig.tiny(resolution=8, z_channels=5, dtype=dtype)
+    else:
+        raise ValueError(f"unknown model {model!r}: 'flagship' or 'tiny'")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_unigen(cfg, gen, device, dtype)
+    vq_params = init_magvit(vq_cfg, gen, device, dtype)
+    return UniGenPipeline(params, cfg, vq_params, vq_cfg, prompting, device)

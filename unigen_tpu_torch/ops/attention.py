@@ -1,0 +1,37 @@
+"""Plain multi-head attention with an fp32 softmax (bskd layout).
+
+Counterpart of ``unigen_tpu/ops/attention.py::dot_product_attention``: fp32
+logits, masked logits set to ``finfo(float32).min`` (so a fully masked row
+gives uniform weights, as in JAX), softmax in fp32, weights cast to q.dtype
+before the PV product. GQA groups the query heads as [KVH, G] so K/V are never
+repeated.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_MIN = torch.finfo(torch.float32).min
+
+
+def dot_product_attention(
+    q: torch.Tensor,                       # [B, Lq, H, Dh]
+    k: torch.Tensor,                       # [B, Lk, KVH, Dh]
+    v: torch.Tensor,                       # [B, Lk, KVH, Dh]
+    mask: Optional[torch.Tensor] = None,   # [B, 1, Lq, Lk] bool (True = visible)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Returns [B, Lq, H, Dh] in q.dtype."""
+    b, lq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    if scale is None:
+        scale = dh ** -0.5
+    qg = q.reshape(b, lq, kvh, g, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, :, None], NEG_MIN)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v.to(q.dtype))
+    return out.reshape(b, lq, h, dh)

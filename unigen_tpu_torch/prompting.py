@@ -1,0 +1,90 @@
+"""Task-sequence assembly for text-to-image generation (numpy only).
+
+The port's own copy of ``unigen_tpu.prompting.UniPrompting``, as far as the
+``t2i_gen`` task needs it. Layout (identical to the JAX package):
+
+  t2i_gen  [pad...][task/<|im_start|>user\\n][text][<|im_end|>\\n<|im_start|>assistant\\n]
+           [<|soi|>][N image tokens][<|eoi|>]                          (left-pad)
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+DEFAULT_SPECIAL_TOKENS = (
+    "<|soi|>", "<|eoi|>", "<|sov|>", "<|eov|>", "<|t2i|>",
+    "<|mmu|>", "<|t2v|>", "<|think_start|>", "<|think_end|>",
+)
+
+
+class UniPrompting:
+    """Unified prompting over a HuggingFace-style text tokenizer.
+
+    The tokenizer must provide ``__call__``, ``add_tokens``,
+    ``convert_tokens_to_ids``, ``pad_token_id`` and ``__len__``
+    (``launch.FallbackTokenizer`` does). The special tokens are added to the
+    vocabulary and the task token follows ``<|im_start|>``, as every UniGen
+    stage config sets it (``task_token_first: false``).
+    """
+
+    def __init__(self, text_tokenizer,
+                 special_tokens: Sequence[str] = DEFAULT_SPECIAL_TOKENS,
+                 max_seq_len: Optional[int] = None):
+        self.text_tokenizer = text_tokenizer
+        self.pad_id = int(text_tokenizer.pad_token_id)
+        self.max_seq_len = max_seq_len
+        text_tokenizer.add_tokens(list(special_tokens))
+        self.sptids_dict: Dict[str, int] = {
+            tok: int(text_tokenizer.convert_tokens_to_ids([tok])[0])
+            for tok in (*special_tokens, "<|im_start|>", "<|im_end|>")}
+        self.sptids_dict["<|pad|>"] = self.pad_id
+
+    def _tokenize(self, texts) -> List[List[int]]:
+        out = self.text_tokenizer(texts)["input_ids"]
+        if isinstance(texts, str):
+            return [out]
+        return [list(ids) for ids in out]
+
+    def _conv_start_ids(self, task_token: str) -> List[int]:
+        return list(self._tokenize(f"<|im_start|>{task_token}user\n")[0])
+
+    def _conv_end_ids(self) -> List[int]:
+        return list(self._tokenize("<|im_end|>\n<|im_start|>assistant\n")[0])
+
+    def t2i_gen_prompt(self, texts: Sequence[str], image_ids: np.ndarray,
+                       max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Left-padded generation prompts: (input_ids, attention_mask)."""
+        text_ids = self._tokenize(list(texts))
+        n_img = image_ids.shape[1]
+        soi, eoi = self.sptids_dict["<|soi|>"], self.sptids_dict["<|eoi|>"]
+        conv_start = self._conv_start_ids("<|t2i|>")
+        conv_end = self._conv_end_ids()
+        if max_len is None:
+            max_len = max(len(t) for t in text_ids) + len(conv_start) + len(conv_end) + 2 + n_img
+        else:
+            max_len = max_len + len(conv_start) + len(conv_end) + 2 + n_img
+        max_len = min(max_len, self.max_seq_len)
+
+        seqs, masks = [], []
+        for i in range(len(text_ids)):
+            body = conv_start + text_ids[i] + conv_end
+            if max_len >= len(body) + n_img + 2:
+                pad_n = max_len - len(body) - n_img - 2
+                mask = [0] * pad_n + [1] * (len(body) + n_img + 2)
+                body = [self.pad_id] * pad_n + body
+            else:
+                mask = [1] * max_len
+                # clamp: a text budget smaller than the template would otherwise
+                # go negative and emit ragged rows
+                body = body[: max(0, max_len - n_img - 2 - len(conv_end))] + conv_end
+                body = body[: max_len - n_img - 2]
+            seqs.append(body + [soi] + list(image_ids[i]) + [eoi])
+            masks.append(mask)
+        return np.asarray(seqs, np.int64), np.asarray(masks, np.int64)
+
+    def __call__(self, inputs, task: str):
+        if task == "t2i_gen":
+            max_len = None if len(inputs) == 2 else inputs[2]
+            return self.t2i_gen_prompt(inputs[0], np.asarray(inputs[1]), max_len)
+        raise NotImplementedError(f"task {task!r} is not ported yet")
