@@ -6,19 +6,31 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``unigen_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the main path's shapes (bf16), at
-a ragged shape and in fp32, drives the GenEval text-to-image path
-(``build_pipeline`` -> ``generate_images``) at the flagship width with random
-weights, checks that the path went through every kernel, and compares a tiny
-fp32 run through the kernels on the card with the plain versions on the CPU
-under shared noise. Every check that fails makes the exit code nonzero. The
-last line of stdout is a JSON object naming the device; the line before it
-holds the kernels' measurements. Without a CUDA device, or without the
-package beside it, the script exits nonzero and prints no result.
+kernel against its plain PyTorch version at the main paths' shapes (bf16), at
+ragged shapes and in fp32, and drives two paths at the flagship width with
+random weights, each with the launch counts set to 0 just before it and read
+just after:
 
-``--phases`` (default: build,kernels,flagship,tiny) runs a subset, for
-quick checks; adding ``profile`` traces one more warm flagship run with
-``torch.profiler`` and prints where the device time goes.
+* ``flagship``: GenEval text-to-image (``build_pipeline`` ->
+  ``generate_images`` -> ``decode_codes``), Qwen2.5-1.5B + MAGViTv2;
+* ``understand``: SigLIP VQA (``build_pipeline(vision=True)`` ->
+  ``quantize_unigen_params_int4`` -> ``understand``), SigLIP-SO400M + the MM
+  projector + Qwen2.5-1.5B in W4A8, 8 images of 384 px, 128 new tokens
+  greedy; then once more with the bf16 backbone as a yardstick.
+
+It checks that each path went through every kernel it runs, and compares
+tiny fp32 runs through the kernels on the card with the plain versions on
+the CPU (t2i under shared noise; W4A8 understand, greedy). Every check that
+fails makes the exit code nonzero. The last line of stdout is a JSON object
+naming the device; the line before it holds the kernels' measurements.
+Without a CUDA device, or without the package beside it, the script exits
+nonzero and prints no result. Kernel times (``ms``, ``plain_ms``,
+``library_ms``) are device times from ``torch.profiler``; bounds are
+computed from each phase's inputs against the H100 SXM's published peaks.
+
+``--phases`` (default: build,kernels,flagship,understand,tiny) runs a
+subset, for quick checks; adding ``profile`` traces one more warm run of
+each path with ``torch.profiler`` and prints where the device time goes.
 """
 from __future__ import annotations
 
@@ -28,15 +40,25 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "flagship", "tiny")
+PHASES = ("build", "kernels", "flagship", "understand", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 (non-tensor) FLOP/s
 HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 PROMPTS = ("a photo of a red apple on a wooden table",
            "two dogs playing in the snow",
            "a blue bicycle leaning against a brick wall",
            "a bowl of ramen with chopsticks, studio lighting")
+QUESTIONS = ("What is in this image?",
+             "How many people are in the picture?",
+             "What color is the car on the left?",
+             "Describe the scene in one sentence.",
+             "Is it day or night?",
+             "What is the man holding in his hand?",
+             "Which animal is sitting on the sofa?",
+             "What is written on the red sign?")
+NEW_TOKENS = 128
 
 
 class Failed(Exception):
@@ -48,7 +70,9 @@ def check(ok: bool, what: str) -> None:
         raise Failed(what)
 
 
-def time_ms(fn, iters: int) -> float:
+def call_ms(fn, iters: int) -> float:
+    """Wall time per call of back-to-back calls, between CUDA events: the
+    device's time when it is the slower side, else the host's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -59,6 +83,26 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int) -> float:
+    """Device time per call: the summed durations of the kernels that ``fn``
+    launches, from ``torch.profiler`` over ``iters`` calls after a warm-up.
+    Unlike ``call_ms`` it does not count the host's time between launches,
+    which at decode shapes is longer than the kernels themselves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / iters
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -83,6 +127,12 @@ def sdpa_ms(q, k, v, mask, iters):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+
+
+def _measured(err, ms, plain_ms, lib_ms, b_ms, by, at):
+    """The JSON fields of one timed kernel phase; ``at`` names the shape."""
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_ms, at=at)
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +175,8 @@ def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed):
     b_ms, by = bound(flops, nbytes(q, k, v, kvalid, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                     f"t2i chunk step q [{b},{lq},{h},{dh}], S={s}")
 
 
 def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
@@ -169,8 +219,7 @@ def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
     b_ms, by = bound(flops, nbytes(q, k, v, bits, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"t2i prefill q [{b},{l},{h},{dh}]")
 
 
 def phase_conv(gen, b, hw, c, cout, dtype, rtol, iters, timed, gn=True):
@@ -211,8 +260,192 @@ def phase_conv(gen, b, hw, c, cout, dtype, rtol, iters, timed, gn=True):
                      + 2 * b * c * 4, BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (group_norm+silu+conv2d) "
           f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                     f"MAGViT decoder [{b},{hw},{hw},{c}]->{cout}")
+
+
+def understand_prompt_shape(questions=QUESTIONS):
+    """(L, prompt lengths) of the flagship understand prefill: part1 (3
+    tokens) + 729 image tokens + part2 (<|eoi|> and each question's chat
+    template without its first token, right-padded)."""
+    from unigen_tpu_torch.launch import FallbackTokenizer, build_prompting
+    prompting = build_prompting(FallbackTokenizer())
+    lens = [len(prompting._tokenize(
+        f"<|im_start|>user\n{q}<|im_end|>\n<|im_start|>assistant\n")[0]) for q in questions]
+    return 3 + 729 + max(lens), [3 + 729 + n for n in lens]
+
+
+def phase_flash_siglip(gen, b, dtype, rtol, iters):
+    """SigLIP-SO400M attention: q/k/v [b, 729, 16, 72] zero-padded to the
+    kernel's head dim 80, every token bidirectional, scale 72^-1/2."""
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_plain,
+                                                      kernel_head_dim)
+    l, h, dh = 729, 16, 72
+    q, k, v = _attn_inputs(gen, b, l, l, h, h, dh, dtype)
+    pad = kernel_head_dim(dh) - dh
+    qp, kp, vp = (F.pad(t, (0, pad)) for t in (q, k, v))
+    bits = torch.full((b, l), M.BIDIRQ_BIT, dtype=torch.int32, device="cuda")
+    got = flash_attention(qp, kp, vp, bits, scale=dh ** -0.5)[..., :dh]
+    ref = flash_attention_plain(qp, kp, vp, bits, scale=dh ** -0.5)[..., :dh]
+    torch.cuda.synchronize()
+    err, tol = _err_tol(got, ref, rtol)
+    check(bool(torch.isfinite(got).all()), "flash_attention (SigLIP) output not finite")
+    print(f"  flash_attention {dtype} SigLIP q{list(q.shape)} padded to {dh + pad}: "
+          f"max_abs_err {err:.3e} (tol {tol:.2e})")
+    check(err <= tol, "flash_attention at the SigLIP shape disagrees with its plain version")
+    ms = time_ms(lambda: flash_attention(qp, kp, vp, bits, scale=dh ** -0.5), iters)
+    plain_ms = time_ms(lambda: flash_attention_plain(qp, kp, vp, bits, scale=dh ** -0.5), 3)
+    lib_ms = sdpa_ms(q, k, v, None, iters)
+    b_ms, by = bound(4.0 * b * h * dh * l * l, nbytes(q, k, v, bits, got), BF16_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa, dh 72) {lib_ms:.4f}  "
+          f"bound_ms {b_ms:.4f} ({by})")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                     f"SigLIP q/k/v [{b},{l},{h},{dh}->{dh + pad}], all bidirectional")
+
+
+def phase_flash_mmu(gen, b, l, prompt_len, dtype, rtol, iters):
+    """The understanding prefill: q [b, l, 12, 128], k/v [b, l, 2, 128],
+    mmu_vit metadata (729-key image block after 3 prefix tokens, pads from
+    each row's prompt length)."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    h, kvh, dh = 12, 2, 128
+    q, k, v = _attn_inputs(gen, b, l, l, h, kvh, dh, dtype)
+    plen = torch.as_tensor(prompt_len, device="cuda")
+    meta = M.mmu_vit_attn_meta(b, l, num_tokens=729, prefix_length=3, prompt_len=plen)
+    bits = M.pack_meta(meta)
+    got = flash_attention(q, k, v, bits)
+    ref = flash_attention_plain(q, k, v, bits)
+    torch.cuda.synchronize()
+    err, tol = _err_tol(got, ref, rtol)
+    check(bool(torch.isfinite(got).all()), "flash_attention (mmu prefill) output not finite")
+    print(f"  flash_attention {dtype} mmu prefill q{list(q.shape)}: max_abs_err {err:.3e} "
+          f"(tol {tol:.2e})")
+    check(err <= tol, "flash_attention at the mmu prefill shape disagrees with its plain version")
+    ms = time_ms(lambda: flash_attention(q, k, v, bits), iters)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, bits), 3)
+    vis = meta.visibility()
+    lib_ms = sdpa_ms(q, k, v, vis, iters)
+    dead_rows = (~vis.any(-1)).sum().item()
+    flops = 4.0 * h * dh * vis.sum().item() + 2.0 * h * dh * l * dead_rows
+    b_ms, by = bound(flops, nbytes(q, k, v, bits, got), BF16_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
+          f"bound_ms {b_ms:.4f} ({by})")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                     f"understand prefill q [{b},{l},12,128], mmu_vit meta")
+
+
+def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters):
+    """One understanding decode step: q [b, 1, 12, 128] against the cache of
+    l + 128 slots, visible = the row's prompt slots and the decoded slots."""
+    import torch
+    from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    h, kvh, dh = 12, 2, 128
+    s = l + NEW_TOKENS
+    q, k, v = _attn_inputs(gen, b, 1, s, h, kvh, dh, dtype)
+    slots = torch.arange(s, device="cuda")[None]
+    plen = torch.as_tensor(prompt_len, device="cuda")[:, None]
+    kvalid = (slots < plen) | ((slots >= l) & (slots <= l + step))
+    got = chunk_attention(q, k, v, kvalid)
+    ref = chunk_attention_plain(q, k, v, kvalid)
+    torch.cuda.synchronize()
+    err, tol = _err_tol(got, ref, rtol)
+    check(bool(torch.isfinite(got).all()), "chunk_attention (decode) output not finite")
+    print(f"  chunk_attention {dtype} decode q{list(q.shape)} S={s}: max_abs_err {err:.3e} "
+          f"(tol {tol:.2e})")
+    check(err <= tol, "chunk_attention at the decode shape disagrees with its plain version")
+    ms = time_ms(lambda: chunk_attention(q, k, v, kvalid), iters)
+    plain_ms = time_ms(lambda: chunk_attention_plain(q, k, v, kvalid), iters)
+    lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
+    b_ms, by = bound(4.0 * h * dh * kvalid.sum().item(), nbytes(q, k, v, kvalid, got),
+                     BF16_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
+          f"bound_ms {b_ms:.4f} ({by})")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                     f"understand decode step q [{b},1,12,128], S={s}")
+
+
+def phase_w4a8(gen, t, k, n, group, rtol, iters, timed, label=""):
+    """W4A8 product [t, k] int8 x int4-packed [k/2, Npad] -> fp32, weights
+    packed from a normal * k^-1/2 matrix; the tolerance is relative to the
+    largest output magnitude (only fp32 rounding of the scale fold could
+    differ, and the kernel does it as the plain version does)."""
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops import int4
+    from unigen_tpu_torch.ops.int4 import pack_int4, w4a8_matmul, w4a8_matmul_plain
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    packed, scale = pack_int4(w, group)
+    x8 = torch.randint(-127, 128, (t, k), generator=gen, device="cuda").to(torch.int8)
+    got = w4a8_matmul(x8, packed, scale, group=group)
+    ref = w4a8_matmul_plain(x8, packed, scale, group=group)
+    torch.cuda.synchronize()
+    err, tol = _err_tol(got, ref, rtol)
+    check(bool(torch.isfinite(got).all()), "w4a8_matmul output not finite")
+    print(f"  w4a8_matmul {label} T={t} K={k} N={n} (Npad {packed.shape[1]}) group {group}: "
+          f"max_abs_err {err:.3e} (tol {tol:.2e}), exact {bool(torch.equal(got, ref))}")
+    check(err <= tol, f"w4a8_matmul T={t} K={k} N={n} disagrees with its plain version")
+    split = int4.splits_over_groups(t, packed.shape[1])
+    other_ms = None
+    if t <= 16:        # the same product on the path not chosen, for comparison
+
+        def other_path():
+            return int4._launch(x8, packed, scale, group, not split)
+        check(bool(torch.equal(other_path(), got)), "w4a8_matmul split and unsplit differ")
+        if timed:
+            other_ms = time_ms(other_path, iters)
+            print(f"    {'unsplit' if split else 'split over groups'} (the path not chosen) "
+                  f"ms {other_ms:.4f}, same bits")
+    if not timed:
+        return None
+    ms = time_ms(lambda: w4a8_matmul(x8, packed, scale, group=group), iters)
+    wall = call_ms(lambda: w4a8_matmul(x8, packed, scale, group=group), iters)
+    plain_ms = time_ms(lambda: w4a8_matmul_plain(x8, packed, scale, group=group), 3)
+    npad = packed.shape[1]
+    xb = torch.randn((t, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wb = torch.randn((npad, k), generator=gen, device="cuda").to(torch.bfloat16)
+    lib_ms = time_ms(lambda: F.linear(xb, wb), iters)
+    b_ms, by = bound(2.0 * t * k * npad, nbytes(x8, packed, scale, got), INT8_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (bf16 F.linear, 4x the "
+          f"weight bytes) {lib_ms:.4f}  bound_ms {b_ms:.4f} ({by}); back-to-back call "
+          f"{wall:.4f} ms")
+    return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                          f"{label} T={t} K={k} N={n} group {group}"
+                          + (", split over groups" if split else "")),
+                other_path_ms=other_ms, call_ms=wall)
+
+
+def phase_head_dims(gen):
+    """Flash and chunk attention at every head dim the wrappers' callers may
+    pad to (``KERNEL_HEAD_DIMS``), bf16 and fp32: a dim that the source does
+    not instantiate fails to launch here."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    from unigen_tpu_torch.ops.flash_attention import (KERNEL_HEAD_DIMS, flash_attention,
+                                                      flash_attention_plain)
+    b, l = 2, 37
+    pos = torch.arange(l, device="cuda")[None].expand(b, l)
+    pad = pos < torch.tensor([[0], [5]], device="cuda")
+    z = torch.zeros_like(pad)
+    bits = M.pack_meta(M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z))
+    worst = 0.0
+    for dtype, rtol in ((torch.bfloat16, 2 ** -7), (torch.float32, 2e-5)):
+        for dh in KERNEL_HEAD_DIMS:
+            q, k, v = _attn_inputs(gen, b, l, l, 4, 2, dh, dtype)
+            for name, got, ref in (
+                    ("flash", flash_attention(q, k, v, bits), flash_attention_plain(q, k, v, bits)),
+                    ("chunk", chunk_attention(q, k, v, ~pad), chunk_attention_plain(q, k, v, ~pad))):
+                err, tol = _err_tol(got, ref, rtol)
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"{name}_attention {dtype} head dim {dh}: max_abs_err {err} (tol {tol})")
+                worst = max(worst, err / tol)
+    print(f"  flash and chunk attention at head dims {KERNEL_HEAD_DIMS}, bf16 and fp32: all "
+          f"match their plain versions (largest err/tol {worst:.3f})")
 
 
 def run_kernel_phases(results):
@@ -239,6 +472,25 @@ def run_kernel_phases(results):
     phase_conv(gen, 2, 37, 96, 80, bf16, 2 ** -6, 0, False, gn=False)
     phase_conv(gen, 2, 64, 256, 128, f32, 1e-4, 0, False)
 
+    print("phase: kernels at the understanding path's shapes (bf16 unless noted)")
+    l, plen = understand_prompt_shape()
+    b = len(QUESTIONS)
+    results["chunk_attention"]["shapes"] = [
+        phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50)]
+    phase_chunk_decode(gen, 3, 61, [61, 40, 7], 5, f32, 2e-5, 1)      # ragged, fp32
+    results["flash_attention"]["shapes"] = [phase_flash_siglip(gen, b, bf16, 2 ** -7, 20),
+                                            phase_flash_mmu(gen, b, l, plen, bf16, 2 ** -7, 20)]
+    phase_flash_mmu(gen, 3, 800, [800, 741, 733], f32, 2e-5, 1)
+    w4 = [phase_w4a8(gen, b, 1536, 8960, 256, 1e-5, 50, True, "decode gate"),
+          phase_w4a8(gen, b, 8960, 1536, 256, 1e-5, 50, True, "decode down"),
+          phase_w4a8(gen, b, 1536, 256, 256, 1e-5, 50, True, "decode k"),
+          phase_w4a8(gen, b, 1536, 159867, 256, 1e-5, 20, True, "decode head"),
+          phase_w4a8(gen, b * l, 1536, 8960, 256, 1e-5, 10, True, "prefill gate")]
+    results["w4a8_matmul"] = dict(w4[0], shapes=w4[1:])
+    phase_head_dims(gen)
+    phase_w4a8(gen, 5, 128, 96, 32, 1e-5, 0, False, "ragged")
+    phase_w4a8(gen, 37, 512, 1000, 64, 1e-5, 0, False, "ragged")
+
 
 # ---------------------------------------------------------------------------
 # path phases
@@ -248,8 +500,9 @@ def _counters():
     from unigen_tpu_torch.ops.chunk_attention import chunk_attention
     from unigen_tpu_torch.ops.flash_attention import flash_attention
     from unigen_tpu_torch.ops.fused_conv import conv3x3_gn_swish
+    from unigen_tpu_torch.ops.int4 import w4a8_matmul
     return {"flash_attention": flash_attention, "chunk_attention": chunk_attention,
-            "conv3x3_gn_swish": conv3x3_gn_swish}
+            "conv3x3_gn_swish": conv3x3_gn_swish, "w4a8_matmul": w4a8_matmul}
 
 
 def _reset_counts():
@@ -261,8 +514,8 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def profile_flagship(run_once, warm_s: float, top: int = 12) -> None:
-    """Device time by kernel over one more warm flagship run. Busy time is the
+def profile_run(run_once, warm_s: float, top: int = 12) -> None:
+    """Device time by kernel over one more warm run of a path. Busy time is the
     union of the device intervals (GPU annotations overlap their kernels and
     are not counted twice); the idle share is taken against the unprofiled
     warm run's wall time."""
@@ -303,7 +556,7 @@ def run_flagship(results, profile=False):
     print(f"  build_pipeline {time.perf_counter() - t0:.2f} s")
     layers = pipe.cfg.llm.num_hidden_layers
     expect = {"flash_attention": layers, "chunk_attention": layers * 50,
-              "conv3x3_gn_swish": 44}
+              "conv3x3_gn_swish": 44, "w4a8_matmul": 0}
     counts = None
     for run in ("cold", "warm"):
         gen = torch.Generator(device="cuda")
@@ -333,13 +586,107 @@ def run_flagship(results, profile=False):
             pipe.decode_codes(pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0,
                                                    timesteps=50, max_text_len=128,
                                                    return_codes=True))
-        profile_flagship(run_once, dt)
+        profile_run(run_once, dt)
     ids, _ = pipe.prompt_ids(list(PROMPTS), 128)
     print(f"  prompt length {ids.shape[1]} (prefix {ids.shape[1] - 258}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["flagship"] = {"seconds": dt, "enqueue_s": enqueued,
                            "images_per_s": len(PROMPTS) / dt}
     return counts
+
+
+def run_understand(results, profile=False):
+    """SigLIP VQA at full width: bf16, 8 uint8 images of 384 px, 8 questions,
+    128 new tokens, greedy; the backbone and text head in W4A8 (group 256),
+    then the same call with the bf16 backbone as a yardstick."""
+    import dataclasses
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    print("phase: understand path (SigLIP-SO400M + projector + Qwen2.5-1.5B W4A8, random "
+          f"init, bf16, {len(QUESTIONS)} images of 384 px, {NEW_TOKENS} new tokens, greedy)")
+    t0 = time.perf_counter()
+    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0, vision=True)
+    qpipe = dataclasses.replace(pipe, params=quantize_unigen_params_int4(pipe.params, pipe.cfg))
+    torch.cuda.synchronize()
+    print(f"  build_pipeline + quantize_unigen_params_int4 {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    b = len(QUESTIONS)
+    size = pipe.vision_cfg.image_size
+    pixels = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    layers = pipe.cfg.llm.num_hidden_layers
+    per_forward = 7 * layers + 1                     # q, k, v, o, gate, up, down + head
+    expect_q = {"flash_attention": pipe.vision_cfg.num_layers_used + layers,
+                "chunk_attention": layers * (NEW_TOKENS - 1), "conv3x3_gn_swish": 0,
+                "w4a8_matmul": per_forward * NEW_TOKENS}
+    vocab = pipe.cfg.llm.vocab_size
+
+    def run(p):
+        return p.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
+
+    out = {}
+    for name, p, expect, runs in (("w4a8", qpipe, expect_q, ("cold", "warm")),
+                                  ("bf16", pipe, dict(expect_q, w4a8_matmul=0), ("warm",))):
+        if name == "bf16":
+            run(p)                                   # warm-up of the bf16 backbone
+        for which in runs:
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = run(p)
+            enqueued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _read_counts()
+            tps = b * NEW_TOKENS / dt
+            print(f"  {name} {which} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), "
+                  f"{tps:.2f} tokens/s, launches {counts}")
+            check(counts == expect, f"understand {name} launch counts {counts} != {expect}")
+            check(tuple(toks.shape) == (b, NEW_TOKENS), f"understand tokens {tuple(toks.shape)}")
+            check(bool(((toks >= 0) & (toks < vocab)).all()), "understand tokens out of range")
+        out[name] = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": tps, "tokens": toks,
+                     "counts": counts}
+    agree = (out["w4a8"]["tokens"] == out["bf16"]["tokens"]).float().mean().item()
+    print(f"  W4A8 vs bf16 backbone token agreement {agree:.4f} (random weights; not a gate)")
+    if profile:
+        for name, p in (("w4a8", qpipe), ("bf16", pipe)):
+            print(f"  profile of the {name} understand call:")
+            profile_run(lambda: run(p), out[name]["seconds"])
+    l, _ = understand_prompt_shape()
+    print(f"  prompt length {l} (3 + 729 image + {l - 732} question), cache {l + NEW_TOKENS} "
+          f"slots, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["understand"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                             for k, v in out.items()}
+    return out["w4a8"]["counts"]
+
+
+def run_tiny_understand():
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    print("phase: tiny fp32 W4A8 understand, kernels on the card vs plain versions on the "
+          "CPU, greedy")
+    import dataclasses
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision=True)
+    cpu = dataclasses.replace(cpu, params=quantize_unigen_params_int4(cpu.params, cpu.cfg,
+                                                                      group=32))
+    gpu = cpu.to("cuda")
+    size = cpu.vision_cfg.image_size
+    pixels = np.random.default_rng(6).integers(0, 256, (len(QUESTIONS), size, size, 3),
+                                               dtype=np.uint8)
+    _reset_counts()
+    toks_gpu = gpu.understand(pixels, list(QUESTIONS), None, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    toks_cpu = cpu.understand(pixels, list(QUESTIONS), None, max_new_tokens=32)
+    agree = (toks_gpu.cpu() == toks_cpu).float().mean().item()
+    print(f"  token agreement {agree:.4f} (need >= 0.99), launches {counts}")
+    check(all(counts[k] > 0 for k in ("flash_attention", "chunk_attention", "w4a8_matmul")),
+          f"tiny understand skipped a kernel: {counts}")
+    check(agree >= 0.99, f"tiny understand token agreement {agree}")
 
 
 def run_tiny():
@@ -369,7 +716,8 @@ def run_tiny():
     perr = (pix_gpu.cpu() - pix_cpu).abs().max().item()
     print(f"  token agreement {agree:.4f} (need >= 0.99), launches {counts}, "
           f"decode max_abs_err {perr:.3e} (tol 1e-4)")
-    check(all(v > 0 for v in counts.values()), f"tiny path skipped a kernel: {counts}")
+    check(all(counts[k] > 0 for k in ("flash_attention", "chunk_attention", "conv3x3_gn_swish")),
+          f"tiny path skipped a kernel: {counts}")
     check(agree >= 0.99, f"tiny token agreement {agree}")
     check(perr <= 1e-4, f"tiny decode disagrees: {perr}")
 
@@ -399,7 +747,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           "allow_tf32 matmul=False cudnn=False")
     results = {}
-    counts = {}
+    path_counts = {}
     try:
         t0 = time.perf_counter()
         built = _cuda.build()
@@ -412,27 +760,42 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             run_kernel_phases(results)
         if "flagship" in phases:
-            counts = run_flagship(results, profile="profile" in phases)
+            path_counts["t2i"] = run_flagship(results, profile="profile" in phases)
+        if "understand" in phases:
+            path_counts["understand"] = run_understand(results, profile="profile" in phases)
         if "tiny" in phases:
             run_tiny()
+            run_tiny_understand()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     replaces = {"chunk_attention": "unigen_tpu/ops/chunk_attention.py:70",
                 "flash_attention": "unigen_tpu/ops/flash_attention.py:95",
-                "conv3x3_gn_swish": "unigen_tpu/ops/fused_conv.py:239"}
+                "conv3x3_gn_swish": "unigen_tpu/ops/fused_conv.py:239",
+                "w4a8_matmul": "unigen_tpu/ops/int4.py:95"}
     sources = {"chunk_attention": "unigen_tpu_torch/csrc/attention.cu",
                "flash_attention": "unigen_tpu_torch/csrc/attention.cu",
-               "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu"}
+               "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu",
+               "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu"}
     kernels = []
     for name in replaces:
+        # launches: the sum over the main paths driven in this run (warm runs)
+        by_path = {path: c.get(name, 0) for path, c in path_counts.items()}
         row = {"name": name, "route": "cuda", "source": sources[name],
-               "replaces": replaces[name], "launches": counts.get(name)}
+               "replaces": replaces[name],
+               "launches": sum(by_path.values()) if by_path else None,
+               "launches_by_path": by_path}
         row.update(results.get(name) or {})
         kernels.append(row)
     if "flagship" in results:
         print(f"flagship: {results['flagship']['images_per_s']:.4f} images/s "
               f"({results['flagship']['seconds']:.3f} s for {len(PROMPTS)} images) on {card}")
+    if "understand" in results:
+        u = results["understand"]
+        print(f"understand: W4A8 {u['w4a8']['tokens_per_s']:.2f} tokens/s "
+              f"({u['w4a8']['seconds']:.3f} s), bf16 backbone {u['bf16']['tokens_per_s']:.2f} "
+              f"tokens/s ({u['bf16']['seconds']:.3f} s), batch {len(QUESTIONS)} x "
+              f"{NEW_TOKENS} tokens, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
 
-chip_smoke.py makes the same comparisons at the main path's shapes. fp32
+chip_smoke.py makes the same comparisons at the main path's shapes. The
+W4A8 kernel sums each group exactly in int32 and folds the scales in fp32
+without fused multiply-adds, in group order, as its plain version does: it
+is held to 1e-5 of the output's largest magnitude (expected exact). fp32
 tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
 relative to the largest output m: the plain attention rounds P to bf16 before
 P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m).
@@ -18,7 +21,9 @@ import torch
 from unigen_tpu_torch.ops import fused_conv as FC
 from unigen_tpu_torch.ops import masks as M
 from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
-from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from unigen_tpu_torch.ops.flash_attention import (KERNEL_HEAD_DIMS, flash_attention,
+                                                  flash_attention_plain)
+from unigen_tpu_torch.ops.int4 import pack_int4, w4a8_matmul, w4a8_matmul_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
 
@@ -85,6 +90,18 @@ def test_flash_kernel_matches_plain(cuda, dtype, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", KERNEL_HEAD_DIMS)
+def test_attention_kernels_launch_at_every_head_dim(cuda, dtype, dh):
+    """Every head dim the wrapper may pad to is one the kernel was built for."""
+    q, k, v = _qkv(2, 19, 19, 4, 2, dh, 17, cuda, dtype)
+    bits = M.pack_meta(_meta("causal_pad", 2, 19, cuda))
+    _close(flash_attention(q, k, v, bits), flash_attention_plain(q, k, v, bits), TOL[dtype])
+    kvalid = torch.arange(19, device=cuda)[None].expand(2, 19) >= 3
+    _close(chunk_attention(q, k, v, kvalid), chunk_attention_plain(q, k, v, kvalid), TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("gn", [True, False])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
 def test_fused_conv_kernel_matches_plain(cuda, gn, dtype, rtol):
@@ -108,3 +125,40 @@ def test_wrappers_count_launches_only_on_the_card(cuda):
     chunk_attention(q, k, v, torch.ones((1, 8), dtype=torch.bool, device=cuda))
     chunk_attention(q.cpu(), k.cpu(), v.cpu(), torch.ones((1, 8), dtype=torch.bool))
     assert chunk_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [8, 72])
+def test_flash_kernel_padded_siglip_head_dim(cuda, dtype, dh):
+    """SigLIP's bidirectional attention: head dim zero-padded to 16 / 80."""
+    from unigen_tpu_torch.models.siglip import _bidir_attention
+    q, k, v = _qkv(2, 41, 41, 4, 4, dh, 15, cuda, dtype)
+    got = _bidir_attention(q, k, v, dh ** -0.5)
+    ref = _bidir_attention(q.cpu().float(), k.cpu().float(), v.cpu().float(), dh ** -0.5)
+    _close(got, ref.to(cuda), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k,n,group", [(8, 1536, 8960, 256), (5, 128, 96, 32),
+                                         (37, 512, 1000, 64), (70, 256, 512, 16),
+                                         (3, 96, 40, 6)])
+def test_w4a8_kernel_matches_plain(cuda, t, k, n, group):
+    rng = np.random.default_rng(16)
+    packed, scale = pack_int4(torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)), group)
+    x8 = torch.from_numpy(rng.integers(-127, 128, size=(t, k)).astype(np.int8))
+    packed, scale, x8 = packed.to(cuda), scale.to(cuda), x8.to(cuda)
+    ref = w4a8_matmul_plain(x8, packed, scale, group=group)
+    for cols in (packed.shape[1], n):        # padded width, and an unaligned column slice
+        got = w4a8_matmul(x8, packed[:, :cols], scale[:, :cols], group=group)
+        _close(got, ref[:, :cols], 1e-5)
+
+
+@pytest.mark.cuda
+def test_w4a8_counts_launches_only_on_the_card(cuda):
+    packed, scale = pack_int4(torch.ones((64, 8)), 32)
+    x8 = torch.ones((2, 64), dtype=torch.int8)
+    before = w4a8_matmul.launches
+    w4a8_matmul(x8.to(cuda), packed.to(cuda), scale.to(cuda), group=32)
+    w4a8_matmul(x8, packed, scale, group=32)
+    assert w4a8_matmul.launches == before + 1

@@ -5,7 +5,8 @@
 * ``generate_images`` on the tiny pipeline (CPU) gives in-range codes and
   finite pixels, and the same ``torch.Generator`` seed gives the same images;
 * the package imports neither ``jax`` nor ``unigen_tpu``: checked in a
-  subprocess that runs the tiny pipeline, and by an AST scan of the sources;
+  subprocess that runs the tiny pipeline (t2i, and W4A8 ``understand``), and
+  by an AST scan of the sources;
 * an entry point called without ``device`` on a machine with no CUDA raises.
 """
 import ast
@@ -119,6 +120,14 @@ def test_package_runs_without_jax_in_a_subprocess():
         "px = p.generate_images(['a cat'], torch.Generator().manual_seed(0),\n"
         "                       guidance_scale=2.0, timesteps=2, max_text_len=8)\n"
         "assert torch.isfinite(px).all()\n"
+        "import numpy as np, dataclasses\n"
+        "from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4\n"
+        "v = build_pipeline('tiny', device='cpu', vision=True)\n"
+        "q = quantize_unigen_params_int4(v.params, v.cfg, group=32)\n"
+        "v = dataclasses.replace(v, params=q)\n"
+        "toks = v.understand(np.zeros((1, 28, 28, 3), np.uint8), ['what?'], None,\n"
+        "                    max_new_tokens=3)\n"
+        "assert toks.shape == (1, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'unigen_tpu' or m.startswith('unigen_tpu.')]\n"
         "assert not bad, bad\n"

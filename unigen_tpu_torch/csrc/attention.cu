@@ -17,7 +17,10 @@
 // give NaN in an online softmax.
 //
 // Layout: q [B, Lq, H, Dh], k and v [B, S, KVH, Dh], out like q; float32 or
-// bfloat16; query head h reads kv head h / (H / KVH).
+// bfloat16; query head h reads kv head h / (H / KVH). Dh is one of 16, 32,
+// 64, 80 and 128; 80 serves SigLIP-SO400M's head dim of 72, zero-padded by
+// the caller (zeros add nothing to q.k, and the padded output dims are
+// dropped), at 11% more work where padding to 128 would cost 78%.
 //
 // Design. A block owns one (batch row, kv head) and 64 rows of the flattened
 // (query position, head-in-group) index, so the G = H / KVH query heads that
@@ -463,10 +466,12 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, in
            int S, int H, int KVH, int Dh, float scale, Mask mask, cudaStream_t stream) {
   if (H % KVH != 0 || Lq <= 0 || S <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  // ops/flash_attention.py KERNEL_HEAD_DIMS lists these cases
   switch (Dh) {
     case 16: return launch_dh_typed<16>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
     case 32: return launch_dh_typed<32>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
     case 64: return launch_dh_typed<64>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
+    case 80: return launch_dh_typed<80>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
     case 128: return launch_dh_typed<128>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
     default: return (int)cudaErrorInvalidValue;
   }

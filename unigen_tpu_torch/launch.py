@@ -1,6 +1,7 @@
 """Construction of tokenizers, models and pipelines from configs built in code.
 
-Counterpart of ``unigen_tpu/launch.py`` for the t2i slice. Configurations are
+Counterpart of ``unigen_tpu/launch.py`` for the t2i and the SigLIP
+understanding slices. Configurations are
 built in code (no YAML), weights are a random init from a seed until real
 checkpoints are in the repo, and the tokenizer is the byte-level
 ``FallbackTokenizer`` (the port's own copy of the JAX package's).
@@ -14,10 +15,11 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models.magvit import MagvitConfig
 from .models.qwen2 import Qwen2Config
+from .models.siglip import SiglipConfig
 from .models.unigen import UniGenConfig
 from .pipeline import UniGenPipeline
 from .prompting import UniPrompting
-from .weights import init_magvit, init_unigen
+from .weights import init_magvit, init_siglip, init_unigen
 
 TRAIN_SPECIAL_TOKENS = ("<|soi|>", "<|eoi|>", "<|sov|>", "<|eov|>", "<|t2i|>",
                         "<|mmu|>", "<|t2v|>", "<|v2v|>", "<|lvg|>")
@@ -100,13 +102,18 @@ def build_prompting(tokenizer, max_seq_len: int = FLAGSHIP_MAX_SEQ_LEN) -> UniPr
 
 
 def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = None,
-                   device: DeviceLike = None, seed: int = 0) -> UniGenPipeline:
-    """A t2i pipeline with random weights from ``seed``.
+                   device: DeviceLike = None, seed: int = 0,
+                   vision: bool = False) -> UniGenPipeline:
+    """A pipeline with random weights from ``seed``.
 
     ``model="flagship"``: Qwen2.5-1.5B + MAGViTv2 (256 px, 8192 codes), bf16
-    by default. ``model="tiny"``: two narrow layers, an 8 px tokenizer with 16
-    tokens and a 32-entry codebook, fp32 by default, with the byte tokenizer's
-    special ids moved down to 256 so they fit the tiny vocabulary.
+    by default; with ``vision`` also the SigLIP-SO400M tower (384 px, patch
+    14, 26 of 27 layers) and the 2-layer MM projector 1152 -> 1536, as
+    ``configs/unigen_1_5b/unigen_sft.yaml`` sets them. ``model="tiny"``: two
+    narrow layers, an 8 px tokenizer with 16 tokens and a 32-entry codebook,
+    with ``vision`` a 3-layer 32-wide tower over 28 px images (4 patches),
+    fp32 by default, with the byte tokenizer's special ids moved down to 256
+    so they fit the tiny vocabulary.
     """
     device = resolve_device(device)
     if model == "flagship":
@@ -115,17 +122,22 @@ def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = No
         prompting = build_prompting(tokenizer)
         text_vocab_len = len(tokenizer)
         vocab = text_vocab_len + 8192 + 1
+        vision_cfg = SiglipConfig.so400m(dtype=dtype) if vision else None
         cfg = UniGenConfig.for_qwen25_15b(text_vocab_len=text_vocab_len,
-                                          llm=Qwen2Config(vocab_size=vocab, dtype=dtype))
+                                          llm=Qwen2Config(vocab_size=vocab, dtype=dtype),
+                                          w_und_encoder=vision, mm_input_dim=1152,
+                                          und_proj_depth=2)
         vq_cfg = MagvitConfig(dtype=dtype)
     elif model == "tiny":
         dtype = dtype or torch.float32
         tokenizer = FallbackTokenizer(special_base=256)
         prompting = build_prompting(tokenizer, max_seq_len=64 + 16 + 3)
         text_vocab_len = len(tokenizer)
+        vision_cfg = SiglipConfig.tiny(dtype=dtype) if vision else None
         cfg = UniGenConfig.tiny(text_vocab_len=text_vocab_len,
                                 llm=Qwen2Config.tiny(vocab_size=text_vocab_len + 32 + 1,
-                                                     dtype=dtype))
+                                                     dtype=dtype),
+                                w_und_encoder=vision, mm_input_dim=32)
         vq_cfg = MagvitConfig.tiny(resolution=8, z_channels=5, dtype=dtype)
     else:
         raise ValueError(f"unknown model {model!r}: 'flagship' or 'tiny'")
@@ -133,4 +145,6 @@ def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = No
     gen.manual_seed(seed)
     params = init_unigen(cfg, gen, device, dtype)
     vq_params = init_magvit(vq_cfg, gen, device, dtype)
-    return UniGenPipeline(params, cfg, vq_params, vq_cfg, prompting, device)
+    vision_params = init_siglip(vision_cfg, gen, device, dtype) if vision else None
+    return UniGenPipeline(params, cfg, vq_params, vq_cfg, prompting, device,
+                          vision_params=vision_params, vision_cfg=vision_cfg)

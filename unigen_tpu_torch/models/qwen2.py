@@ -12,7 +12,12 @@ fills an empty cache) goes to ``ops.flash_attention``; a cached chunk with
 plain ``ops.attention.dot_product_attention``. Each kernel wrapper launches
 its CUDA kernel on a GPU tensor and runs its plain version on a CPU tensor.
 Dense projections are ``torch`` matmuls, as the JAX package leaves them to
-XLA.
+XLA, except in a W4A8 tree (``ops.int4.quantize_unigen_params_int4``): there
+a layer holds ``<name>: {'kernel_int4', 'scale4', 'bias'}`` in place of
+``<name>_w`` / ``<name>_b`` and the projection goes through
+``ops.int4.dense_int4`` (q/k/v share one activation quantization, and so do
+gate/up). The JAX package's int8 (``kernel_int8``) and LoRA leaves are not
+ported: a tree that holds them raises.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.int4 import dense_int4, dense_int4_prequant, is_quantized_int4
+from ..ops.quantization import quantize_activations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +124,37 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta, scaling_factor))
 
 
+def _check_leaf(p: Dict, name: str) -> None:
+    """Raise on the JAX package's leaves that the port does not compute."""
+    leaf = p.get(name)
+    if isinstance(leaf, dict) and ("kernel_int8" in leaf or "lora_a" in leaf):
+        raise NotImplementedError(
+            f"{name}: int8 (kernel_int8) and LoRA layers are not ported; W4A8 "
+            "(kernel_int4) and float layers are")
+    if f"{name}_w" not in p and not is_quantized_int4(leaf):
+        raise KeyError(f"layer has neither {name}_w nor a W4A8 {name}")
+
+
+def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The projection ``name`` of layer ``p``: W4A8 when it holds
+    ``kernel_int4``, else ``F.linear`` with ``<name>_w`` and ``<name>_b``."""
+    _check_leaf(p, name)
+    if is_quantized_int4(p.get(name)):
+        return dense_int4(p[name], x)
+    return F.linear(x, p[f"{name}_w"], p.get(f"{name}_b"))
+
+
+def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
+    """Projections of one input: in a W4A8 layer the input is quantized once
+    for all of them, as the JAX package does."""
+    for name in names:
+        _check_leaf(p, name)
+    if is_quantized_int4(p.get(names[0])):
+        x8, xs = quantize_activations(x)
+        return [dense_int4_prequant(p[n], x8, xs, x.dtype) for n in names]
+    return [F.linear(x, p[f"{n}_w"], p.get(f"{n}_b")) for n in names]
+
+
 def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      mask: Optional[torch.Tensor],
                      cos_sin: Tuple[torch.Tensor, torch.Tensor],
@@ -125,9 +163,10 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      kv_rowmask: Optional[torch.Tensor]) -> torch.Tensor:
     b, l, _ = x.shape
     h, kvh, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = F.linear(x, p["q_w"], p["q_b"]).view(b, l, h, dh)
-    k = F.linear(x, p["k_w"], p["k_b"]).view(b, l, kvh, dh)
-    v = F.linear(x, p["v_w"], p["v_b"]).view(b, l, kvh, dh)
+    q, k, v = _dense_shared(p, ("q", "k", "v"), x)
+    q = q.view(b, l, h, dh)
+    k = k.view(b, l, kvh, dh)
+    v = v.view(b, l, kvh, dh)
     q = apply_rope(q, *cos_sin)
     k = apply_rope(k, *cos_sin)
 
@@ -144,11 +183,12 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                                     mask=mask)
     else:
         out = dot_product_attention(q, k, v, mask=mask)
-    return F.linear(out.reshape(b, l, h * dh), p["o_w"])
+    return _dense(p, "o", out.reshape(b, l, h * dh))
 
 
 def _mlp_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(F.silu(F.linear(x, p["gate_w"])) * F.linear(x, p["up_w"]), p["down_w"])
+    gate, up = _dense_shared(p, ("gate", "up"), x)
+    return _dense(p, "down", F.silu(gate) * up)
 
 
 def embed(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -203,3 +243,26 @@ def lm_head_weight(params: Dict, cfg: Qwen2Config) -> torch.Tensor:
     if cfg.tie_word_embeddings and "lm_head" not in params:
         return params["embed"]
     return params["lm_head"]
+
+
+def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
+           vocab_slice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Project hidden states to (a slice of) the vocabulary, in hidden.dtype.
+
+    A W4A8 head (``lm_head_q``) is used when present; ``vocab_slice=(a, b)``
+    then slices the packed columns, which stay contiguous because the packing
+    runs along K. The float head slices the [V, D] weight's rows.
+    """
+    if "lm_head_q" in params:
+        p = params["lm_head_q"]
+        if not is_quantized_int4(p):
+            raise NotImplementedError("lm_head_q: only the W4A8 head is ported, not int8")
+        if vocab_slice is not None:
+            a, b = vocab_slice
+            p = {"kernel_int4": p["kernel_int4"][:, a:b], "scale4": p["scale4"][:, a:b],
+                 "bias": p["bias"][a:b]}
+        return dense_int4(p, hidden)
+    w = lm_head_weight(params, cfg)
+    if vocab_slice is not None:
+        w = w[vocab_slice[0]:vocab_slice[1]]
+    return F.linear(hidden, w.to(hidden.dtype))

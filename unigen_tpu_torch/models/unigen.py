@@ -5,7 +5,10 @@ Port of the parts of ``unigen_tpu/models/unigen.py`` the t2i path uses:
 * the unified vocabulary ``vocab_size = text_vocab_len + codebook_size + 1``,
   image token i at ``i + text_vocab_len``, the mask token at ``vocab_size - 1``;
 * the optional gen projector: a (codebook+1)-entry embedding + MLP for image
-  tokens and a separate ``img_head``.
+  tokens and a separate ``img_head``;
+* the understanding projector (``w_und_encoder``): vision-tower features
+  -> LLM hidden space through ``mm_projector``, an MLP with the exact GELU
+  (the SigLIP tower itself uses the tanh GELU).
 """
 from __future__ import annotations
 
@@ -76,6 +79,11 @@ def mlp_apply(layers: List[Dict], x: torch.Tensor) -> torch.Tensor:
 def get_gen_embed(params: Dict, img_tokens: torch.Tensor) -> torch.Tensor:
     """(codebook+1)-space image tokens -> LLM hidden embeddings."""
     return mlp_apply(params["gen_projector"], F.embedding(img_tokens, params["gen_embed"]))
+
+
+def mm_project(params: Dict, image_feats: torch.Tensor) -> torch.Tensor:
+    """Vision-tower features [B, P, mm_input_dim] -> [B, P, hidden]."""
+    return mlp_apply(params["mm_projector"], image_feats)
 
 
 def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:

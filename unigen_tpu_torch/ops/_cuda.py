@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("attention", "fused_conv")
+SOURCES = ("attention", "fused_conv", "int4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,10 @@ SIGNATURES = {
     "fused_conv": {
         # dtype, x, ab, w, bias, out, B, H, W, C, Cout, stream
         "conv3x3_gn_swish_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "int4": {
+        # x, packed, scale4, out, scratch (or None), T, K, N, group, stream
+        "w4a8_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

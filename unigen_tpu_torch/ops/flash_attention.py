@@ -24,6 +24,20 @@ from .attention import dot_product_attention
 from .masks import unpack_meta
 
 
+# The head dims ``csrc/attention.cu`` instantiates (its ``launch`` switch);
+# tests/test_torch_siglip.py holds the two lists equal.
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128)
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The smallest head dim the kernel is built for that holds ``dh``; a
+    caller zero-pads q, k and v to it and passes the real ``scale``."""
+    for d in KERNEL_HEAD_DIMS:
+        if d >= dh:
+            return d
+    raise ValueError(f"head dim {dh} exceeds the kernel's {KERNEL_HEAD_DIMS[-1]}")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           meta_bits: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:

@@ -1,0 +1,210 @@
+"""W4A8 dense layers: int4-packed weights, int8 activations.
+
+Port of ``unigen_tpu/ops/int4.py``. The scheme and the byte layout are the
+JAX package's, so a tree that JAX packed loads unchanged:
+
+* weights: symmetric int4 per (group of ``group`` input rows, output
+  column), ``w ~ w_int4 * scale4[g, n]``, clipped to [-7, 7];
+* packing: within each group, row j of the low half and row j of the high
+  half share one byte, ``(row j+half) << 4 | (row j & 0xF)``; N is padded to a
+  multiple of 512 with zero columns; ``scale4`` is ``[K / group, Npad]`` fp32;
+* a ``bias [N]`` is always present (zeros when the layer had none): it is
+  the only record of the unpadded N;
+* activations: dynamic per-token int8 (``ops.quantization``);
+* accumulation: exact int32 per group, then ``acc += part * scale4[g]`` in
+  fp32, group by group in order.
+
+``w4a8_matmul`` launches the hand-written kernel ``csrc/int4.cu`` on a CUDA
+tensor and runs ``w4a8_matmul_plain`` on a CPU tensor; the plain version is
+also the kernel's reference on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from . import _cuda
+from .quantization import quantize_activations
+
+KEY = "kernel_int4"
+_N_MULTIPLE = 512
+# At T <= 16 a product with fewer 64-column tiles than this (about four
+# blocks per SM of an H100) is split over its groups (csrc/int4.cu). On the
+# card the split won at 144 tiles and lost at 2,504; between them the
+# threshold is an estimate.
+_SPLIT_BELOW_TILES = 512
+
+
+def pack_int4(w: torch.Tensor, group: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] float -> (packed int8 [K // 2, Npad], scale4 fp32 [K // group, Npad]).
+
+    Npad rounds N up to a multiple of 512; padded columns quantize zeros.
+    K must be a multiple of the even ``group``. Bit-identical to JAX."""
+    k, n = w.shape
+    if k % group or group % 2:
+        raise ValueError(f"K={k} must be a multiple of even group={group}")
+    npad = -(-n // _N_MULTIPLE) * _N_MULTIPLE
+    wf = w.float()
+    if npad != n:
+        wf = torch.nn.functional.pad(wf, (0, npad - n))
+    g = k // group
+    wg = wf.reshape(g, group, npad)
+    scale = torch.clamp(wg.abs().amax(dim=1) / 7.0, min=1e-8)          # [g, Npad]
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), -7, 7).to(torch.int32)
+    half = group // 2
+    lo, hi = q[:, :half], q[:, half:]
+    packed = ((hi << 4) | (lo & 0xF)).to(torch.int8)                    # wraps like JAX
+    return packed.reshape(k // 2, npad), scale
+
+
+def unpack_int4(packed: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K // 2, Npad] packed -> (lo, hi), each [K // group, group // 2, Npad]
+    int32 in [-8, 7]: lo sign-extends the low nibble, hi is the arithmetic
+    shift of the byte."""
+    k2, npad = packed.shape
+    half = group // 2
+    p = packed.to(torch.int32).reshape(k2 // half, half, npad)
+    return (p << 28) >> 28, p >> 4
+
+
+def w4a8_matmul_plain(x_int8: torch.Tensor, packed: torch.Tensor, scale4: torch.Tensor,
+                      *, group: int) -> torch.Tensor:
+    """[T, K] int8 x packed [K // 2, Npad] -> [T, Npad] fp32, the kernel's
+    arithmetic in plain torch. Each half-group product runs in float64 on
+    integer values: exact whatever the device's fp32 matmul precision (the
+    sums are integers below 2^24, so the fp32 cast of a group's part is exact
+    too). The scales are folded in fp32 in group order, as the kernel does."""
+    t, k = x_int8.shape
+    groups, half = k // group, group // 2
+    lo, hi = unpack_int4(packed, group)
+    xg = x_int8.to(torch.float64).reshape(t, groups, 2, half)
+    acc = torch.zeros((t, packed.shape[1]), dtype=torch.float32, device=x_int8.device)
+    for g in range(groups):
+        part = xg[:, g, 0] @ lo[g].to(torch.float64) + xg[:, g, 1] @ hi[g].to(torch.float64)
+        acc = acc + part.float() * scale4[g][None, :]
+    return acc
+
+
+def splits_over_groups(t: int, n: int) -> bool:
+    """Whether ``w4a8_matmul`` runs a [t, K] x [K, n] product split over its
+    groups (a part per group, then an ordered fold) rather than one block per
+    64 columns walking every group. Both give the same bits."""
+    return t <= 16 and -(-n // 64) < _SPLIT_BELOW_TILES
+
+
+def _launch(x_int8: torch.Tensor, packed: torch.Tensor, scale4: torch.Tensor, group: int,
+            split: bool) -> torch.Tensor:
+    """Launch ``csrc/int4.cu`` on checked, contiguous CUDA inputs, split over
+    the groups or not."""
+    t, k = x_int8.shape
+    n = packed.shape[1]
+    out = torch.empty((t, n), dtype=torch.float32, device=x_int8.device)
+    scratch = None
+    if split:
+        scratch = torch.empty((k // group, t, n), dtype=torch.float32, device=x_int8.device)
+    rc = _cuda.library("int4").w4a8_matmul_launch(
+        x_int8.data_ptr(), packed.data_ptr(), scale4.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), t, k, n, group,
+        _cuda.stream_of(x_int8))
+    _cuda.check(rc, "w4a8_matmul_launch")
+    return out
+
+
+def w4a8_matmul(x_int8: torch.Tensor, packed: torch.Tensor, scale4: torch.Tensor,
+                *, group: int) -> torch.Tensor:
+    """[T, K] int8 x int4-packed [K // 2, N] -> [T, N] fp32 with the group
+    scales folded in. The caller applies the per-token activation scales and
+    the bias."""
+    if x_int8.device.type == "cpu":
+        return w4a8_matmul_plain(x_int8, packed, scale4, group=group)
+    t, k = x_int8.shape
+    n = packed.shape[1]
+    if group <= 0 or group % 2 or k % group:
+        raise ValueError(f"K={k} must be a multiple of even group={group}")
+    if t < 1 or packed.shape != (k // 2, n) or scale4.shape != (k // group, n):
+        raise ValueError(f"w4a8_matmul shapes x {tuple(x_int8.shape)} packed "
+                         f"{tuple(packed.shape)} scale4 {tuple(scale4.shape)} group {group}")
+    if x_int8.dtype != torch.int8 or packed.dtype != torch.int8 or scale4.dtype != torch.float32:
+        raise TypeError(f"w4a8_matmul takes int8, int8, float32; got {x_int8.dtype}, "
+                        f"{packed.dtype}, {scale4.dtype}")
+    for a in (packed, scale4):
+        if a.device != x_int8.device:
+            raise ValueError(f"w4a8_matmul inputs on {x_int8.device} and {a.device}")
+    out = _launch(x_int8.contiguous(), packed.contiguous(), scale4.contiguous(), group,
+                  splits_over_groups(t, n))
+    w4a8_matmul.launches += 1
+    return out
+
+
+w4a8_matmul.launches = 0
+
+
+def quantize_dense_int4(p: Dict[str, torch.Tensor], group: int = 256) -> Dict[str, torch.Tensor]:
+    """{'kernel': [K, N], 'bias'?} -> {'kernel_int4', 'scale4', 'bias'}; the
+    bias is zeros (fp32) when the layer has none."""
+    w = p["kernel"]
+    packed, scale = pack_int4(w, group)
+    bias = p.get("bias")
+    if bias is None:
+        bias = torch.zeros((w.shape[1],), dtype=torch.float32, device=w.device)
+    return {KEY: packed, "scale4": scale, "bias": bias}
+
+
+def dense_int4_prequant(p: Dict[str, torch.Tensor], x_int8: torch.Tensor,
+                        act_scale: torch.Tensor, out_dtype) -> torch.Tensor:
+    """W4A8 matmul over pre-quantized activations (shared-input layers), with
+    JAX's epilogue order: ``y[:, :n] * act_scale + bias.float()``, then cast."""
+    n = p["bias"].shape[0]
+    lead, k = x_int8.shape[:-1], x_int8.shape[-1]
+    groups = p["scale4"].shape[-2]
+    y = w4a8_matmul(x_int8.reshape(-1, k), p[KEY], p["scale4"], group=k // groups)
+    # scaled on the [T, n] view of the padded product: no copy of the slice
+    y = y[:, :n] * act_scale.reshape(-1, 1)
+    y = y + p["bias"].float()
+    return y.reshape(*lead, n).to(out_dtype)
+
+
+def dense_int4(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """W4A8 matmul with dynamic per-token activation scales; returns x.dtype."""
+    x_int8, act_scale = quantize_activations(x)
+    return dense_int4_prequant(p, x_int8, act_scale, x.dtype)
+
+
+def is_quantized_int4(p) -> bool:
+    return isinstance(p, dict) and KEY in p
+
+
+_PROJECTIONS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def quantize_qwen2_params_int4(params: Dict, group: int = 256) -> Dict:
+    """Int4-pack every transformer dense layer of the port's Qwen2 params:
+    each layer's ``<name>_w [N, K]`` (and ``<name>_b``) becomes ``<name>``:
+    ``{'kernel_int4', 'scale4', 'bias'}``; norms and embeddings stay."""
+    out = dict(params)
+    dense_leaves = {f"{n}_{s}" for n in _PROJECTIONS for s in ("w", "b")}
+    layers = []
+    for lp in params["layers"]:
+        q = {k: v for k, v in lp.items() if k not in dense_leaves}
+        for name in _PROJECTIONS:
+            dense = {"kernel": lp[f"{name}_w"].t()}
+            if f"{name}_b" in lp:
+                dense["bias"] = lp[f"{name}_b"]
+            q[name] = quantize_dense_int4(dense, group)
+        layers.append(q)
+    out["layers"] = layers
+    return out
+
+
+def quantize_unigen_params_int4(params: Dict, cfg=None, lm_head: bool = True,
+                                group: int = 256) -> Dict:
+    """Backbone (and, with ``cfg``, the text head as ``lm_head_q``) to W4A8;
+    projectors, embeddings and norms stay in their float type."""
+    from ..models import qwen2
+    out = dict(params)
+    out["llm"] = quantize_qwen2_params_int4(params["llm"], group)
+    if lm_head and cfg is not None:
+        out["llm"]["lm_head_q"] = quantize_dense_int4(
+            {"kernel": qwen2.lm_head_weight(params["llm"], cfg.llm).t()}, group)
+    return out

@@ -1,6 +1,7 @@
 """Attention masks for the unified text/image token sequences.
 
-Counterpart of ``unigen_tpu/ops/masks.py`` (the parts the t2i path uses) and
+Counterpart of ``unigen_tpu/ops/masks.py`` (the parts the t2i and the SigLIP
+understanding paths use) and
 of the kernel bitfield in ``unigen_tpu/ops/flash_attention.py::pack_meta``:
 
     visible(q, k) = ~pad[q] & ~pad[k] & (k <= q | bidir_q[q] | bidir_k[k])
@@ -59,6 +60,23 @@ def t2i_attn_meta(input_ids: torch.Tensor, pad_id: int, soi_id: int,
     in_img = image_segments(input_ids, soi_id, eoi_id)
     pad = input_ids == pad_id
     return AttnMeta(pad=pad, bidir_q=in_img & ~pad, bidir_k=torch.zeros_like(pad))
+
+
+def mmu_vit_attn_meta(batch_size: int, seq_len: int, *, num_tokens: int,
+                      prefix_length: int, prompt_len: Optional[torch.Tensor] = None,
+                      device=None) -> AttnMeta:
+    """Metadata form of the JAX package's ``create_attention_mask_for_mmu_vit``
+    (int ``num_tokens``) and the prompt-length keep mask: bidir_k on the continuous-image block
+    [prefix_length, prefix_length + num_tokens), pad at and beyond each row's
+    ``prompt_len``. On every non-pad query row it equals the dense
+    ``(causal | block) & keep_q & keep_k``; pad query rows see nothing here
+    (they are never visible to a real query)."""
+    if prompt_len is not None:
+        device = prompt_len.device
+    pos = torch.arange(seq_len, device=device)[None].expand(batch_size, seq_len)
+    block = (pos >= prefix_length) & (pos < prefix_length + num_tokens)
+    pad = (pos >= prompt_len[:, None]) if prompt_len is not None else torch.zeros_like(block)
+    return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=block & ~pad)
 
 
 def pack_meta(meta: AttnMeta) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Sampling primitives for MaskGIT parallel decoding.
+"""Sampling primitives for MaskGIT parallel decoding and text decoding.
 
 Counterpart of ``unigen_tpu/ops/sampling.py``. Randomness comes from an
 explicit ``torch.Generator`` in place of a JAX key; the ``noise=`` hooks take
@@ -25,6 +25,18 @@ def gumbel_noise(generator: Optional[torch.Generator], shape, device,
     """Standard Gumbel noise -log(-log(U)), U ~ uniform[0, 1)."""
     u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
     return -safe_log(-safe_log(u))
+
+
+def sample_categorical(generator: Optional[torch.Generator], probs: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices drawn from (possibly unnormalized) ``probs`` by the Gumbel-max
+    trick over log-probabilities. ``noise``: optional uniform[0, 1) of
+    probs.shape used instead of the generator (the shared-noise hook)."""
+    if noise is not None:
+        g = -safe_log(-safe_log(noise.to(probs.dtype)))
+    else:
+        g = gumbel_noise(generator, probs.shape, probs.device, probs.dtype)
+    return torch.argmax(safe_log(probs) + g, dim=-1)
 
 
 def mask_by_random_topk(generator: Optional[torch.Generator], mask_len: torch.Tensor,

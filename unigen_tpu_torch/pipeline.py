@@ -1,20 +1,24 @@
-"""High-level inference pipeline: prompts -> images.
+"""High-level inference pipeline: prompts -> images, images -> answers.
 
-Port of ``unigen_tpu/pipeline.py::UniGenPipeline.generate_images`` (mode
-``"mask"``), ``decode_codes`` and ``pixels_to_uint8``: host-side prompt
-assembly, the MaskGIT sampler, then the MAGViTv2 decoder, all on the
-pipeline's device.
+Port of ``unigen_tpu/pipeline.py::UniGenPipeline``: ``generate_images`` (mode
+``"mask"``), ``decode_codes``, ``understand`` (VQA through the fixed-resolution
+SigLIP tower and the MM projector), ``generate_text``, ``decode_text`` and
+``pixels_to_uint8``. Host work is prompt assembly; everything else runs on the
+pipeline's device. ``understand`` takes pixels as arrays or tensors (uint8
+HWC, normalized on the device in fp32, or floats already in [-1, 1]), not as
+PIL images.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .generation import t2i_generate
-from .models import magvit, unigen
+from .generation import generate_text as _generate_text
+from .generation import mmu_generate, t2i_generate
+from .models import magvit, siglip, unigen
 from .ops import masks as M
 from .ops import sampling as S
 from .prompting import UniPrompting
@@ -44,12 +48,16 @@ class UniGenPipeline:
     vq_cfg: magvit.MagvitConfig
     prompting: UniPrompting
     device: torch.device
+    vision_params: Optional[Any] = None
+    vision_cfg: Optional[siglip.SiglipConfig] = None
 
     def to(self, device) -> "UniGenPipeline":
         """A pipeline with every parameter moved to ``device``."""
         device = torch.device(device)
         return dataclasses.replace(self, params=tree_to(self.params, device),
-                                   vq_params=tree_to(self.vq_params, device), device=device)
+                                   vq_params=tree_to(self.vq_params, device),
+                                   vision_params=tree_to(self.vision_params, device),
+                                   device=device)
 
     def prompt_ids(self, prompts: Sequence[str], max_text_len: int = 128
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -97,6 +105,98 @@ class UniGenPipeline:
         """Codebook ids -> pixels in [-1, 1] (clamped into the codebook first)."""
         codes = torch.clamp(codes, 0, self.cfg.codebook_size - 1)
         return magvit.decode_code(self.vq_params, self.vq_cfg, codes)
+
+    # ------------------------------------------------------------------ mmu --
+
+    def _vqa_question_ids(self, question: str) -> np.ndarray:
+        """The full chat template of one question; ``mmu_conv`` drops its
+        leading ``<|im_start|>`` (the template must carry it, or the first
+        question token would be lost)."""
+        return np.asarray(self.prompting._tokenize(
+            f"<|im_start|>user\n{question}<|im_end|>\n<|im_start|>assistant\n")[0], np.int64)
+
+    @torch.no_grad()
+    def _image_embeds(self, pixels) -> torch.Tensor:
+        """SigLIP tower + MM projector: [B, H, W, 3] -> [B, P, hidden]. uint8
+        pixels are normalized on the device, ``(x / 255 - 0.5) / 0.5`` in fp32."""
+        if self.vision_params is None:
+            raise ValueError("the pipeline was built without a vision tower")
+        x = torch.as_tensor(pixels, device=self.device)
+        if not torch.is_floating_point(x):
+            x = (x.float() / 255.0 - 0.5) / 0.5
+        feats = siglip.forward(self.vision_params, self.vision_cfg, x)
+        return unigen.mm_project(self.params, feats)
+
+    @torch.no_grad()
+    def understand(
+        self,
+        pixels,
+        questions: Sequence[str],
+        generator: Optional[torch.Generator],
+        *,
+        system_prompt_ids: Optional[np.ndarray] = None,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """VQA through the continuous SigLIP path: [B, max_new_tokens] ids.
+
+        ``pixels`` [B, 384, 384, 3]: uint8, or floats normalized with
+        mean = std = 0.5. ``noise`` is ``mmu_generate``'s shared-noise hook.
+        """
+        img_embeds = self._image_embeds(pixels)
+        b, p, _ = img_embeds.shape
+        q_ids = [self._vqa_question_ids(q) for q in questions]
+        q_arr = np.full((b, max(len(q) for q in q_ids)), self.prompting.pad_id, np.int64)
+        for i, q in enumerate(q_ids):
+            q_arr[i, :len(q)] = q
+        part1, part2, _, _ = self.prompting((np.zeros((b, p, 1)), q_arr, None,
+                                             system_prompt_ids), "mmu_conv")
+        q_lens = np.asarray([len(q) for q in q_ids])
+        prompt_len = torch.as_tensor(part1.shape[1] + p + 1 + (q_lens - 1),
+                                     device=self.device)      # part1 + img + eoi + text
+        e1 = unigen.embed_tokens(self.params, torch.as_tensor(part1, device=self.device))
+        e2 = unigen.embed_tokens(self.params, torch.as_tensor(part2, device=self.device))
+        embeds = torch.cat([e1, img_embeds.to(e1.dtype), e2], dim=1)
+        meta = M.pack_meta(M.mmu_vit_attn_meta(b, embeds.shape[1], num_tokens=p,
+                                               prefix_length=part1.shape[1],
+                                               prompt_len=prompt_len))
+        return mmu_generate(self.params, self.cfg, generator, input_embeddings=embeds,
+                            meta_bits=meta, prompt_len=prompt_len,
+                            max_new_tokens=max_new_tokens, temperature=temperature,
+                            top_k=top_k, eot_token=self.prompting.eos_token_id, noise=noise)
+
+    # ------------------------------------------------------------- text-only --
+
+    @torch.no_grad()
+    def generate_text(self, prompts: Sequence[str], generator: Optional[torch.Generator], *,
+                      max_new_tokens: int = 128, temperature: float = 0.0,
+                      top_k: Optional[int] = None) -> List[str]:
+        """Plain text generation with the unified backbone, decoded to strings."""
+        tok_ids = [self.prompting._tokenize(
+            f"<|im_start|>user\n{p}<|im_end|>\n<|im_start|>assistant\n")[0] for p in prompts]
+        ids = np.full((len(prompts), max(len(t) for t in tok_ids)), self.prompting.pad_id,
+                      np.int64)
+        for i, t in enumerate(tok_ids):
+            ids[i, :len(t)] = t
+        out = _generate_text(self.params, self.cfg, generator,
+                             torch.as_tensor(ids, device=self.device),
+                             torch.as_tensor([len(t) for t in tok_ids], device=self.device),
+                             max_new_tokens=max_new_tokens, temperature=temperature,
+                             top_k=top_k, eot_token=self.prompting.eos_token_id)
+        return self.decode_text(out)
+
+    def decode_text(self, token_ids) -> List[str]:
+        """Token ids -> strings, each row cut at its first eos."""
+        ids = token_ids.cpu().numpy() if isinstance(token_ids, torch.Tensor) else \
+            np.asarray(token_ids)
+        out = []
+        for row in ids:
+            stop = np.flatnonzero(row == self.prompting.eos_token_id)
+            row = row[: stop[0]] if len(stop) else row
+            out.append(self.prompting.text_tokenizer.decode([int(i) for i in row]))
+        return out
 
 
 def pixels_to_uint8(pixels) -> np.ndarray:

@@ -1,10 +1,14 @@
-"""Task-sequence assembly for text-to-image generation (numpy only).
+"""Task-sequence assembly (numpy only).
 
 The port's own copy of ``unigen_tpu.prompting.UniPrompting``, as far as the
-``t2i_gen`` task needs it. Layout (identical to the JAX package):
+``t2i_gen`` task and the continuous (SigLIP) ``mmu_conv`` task need it.
+Layouts (identical to the JAX package):
 
-  t2i_gen  [pad...][task/<|im_start|>user\\n][text][<|im_end|>\\n<|im_start|>assistant\\n]
-           [<|soi|>][N image tokens][<|eoi|>]                          (left-pad)
+  t2i_gen   [pad...][task/<|im_start|>user\\n][text][<|im_end|>\\n<|im_start|>assistant\\n]
+            [<|soi|>][N image tokens][<|eoi|>]                         (left-pad)
+  mmu_conv  part1 = [sys?][<|im_start|>][<|mmu|>][<|soi|>],
+            part2 = [<|eoi|>][conversation ids without their first token];
+            the caller splices the image embeddings between the two.
 """
 from __future__ import annotations
 
@@ -16,16 +20,17 @@ DEFAULT_SPECIAL_TOKENS = (
     "<|soi|>", "<|eoi|>", "<|sov|>", "<|eov|>", "<|t2i|>",
     "<|mmu|>", "<|t2v|>", "<|think_start|>", "<|think_end|>",
 )
+IGNORE_ID = -100  # label of positions without a training target
 
 
 class UniPrompting:
     """Unified prompting over a HuggingFace-style text tokenizer.
 
     The tokenizer must provide ``__call__``, ``add_tokens``,
-    ``convert_tokens_to_ids``, ``pad_token_id`` and ``__len__``
-    (``launch.FallbackTokenizer`` does). The special tokens are added to the
-    vocabulary and the task token follows ``<|im_start|>``, as every UniGen
-    stage config sets it (``task_token_first: false``).
+    ``convert_tokens_to_ids``, ``pad_token_id``, ``eos_token_id`` and
+    ``__len__`` (``launch.FallbackTokenizer`` does). The special tokens are
+    added to the vocabulary and the task token follows ``<|im_start|>``, as
+    every UniGen stage config sets it (``task_token_first: false``).
     """
 
     def __init__(self, text_tokenizer,
@@ -33,6 +38,7 @@ class UniPrompting:
                  max_seq_len: Optional[int] = None):
         self.text_tokenizer = text_tokenizer
         self.pad_id = int(text_tokenizer.pad_token_id)
+        self.eos_token_id = int(text_tokenizer.eos_token_id)
         self.max_seq_len = max_seq_len
         text_tokenizer.add_tokens(list(special_tokens))
         self.sptids_dict: Dict[str, int] = {
@@ -83,8 +89,54 @@ class UniPrompting:
             masks.append(mask)
         return np.asarray(seqs, np.int64), np.asarray(masks, np.int64)
 
+    def _eos_scan(self, part2: np.ndarray, extra_len: int, total_len: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-row valid length from the last eos (``<|im_end|>``) of part2;
+        a row without one counts part2's length alone, as the reference does."""
+        b, l2 = part2.shape
+        attn = np.zeros((b, total_len), dtype=bool)
+        pos = np.zeros((b, total_len), dtype=np.int64)
+        for i in range(b):
+            hits = np.flatnonzero(part2[i] == self.eos_token_id)
+            cur_len = l2 - (l2 - 1 - hits[-1]) + extra_len if len(hits) else l2
+            cur_len = min(cur_len, total_len)
+            attn[i, :cur_len] = True
+            pos[i, :cur_len] = np.arange(cur_len)
+        return attn, pos
+
+    def mmu_conv(self, images: np.ndarray, input_ids: np.ndarray,
+                 label_ids: Optional[np.ndarray], input_ids_system: Optional[np.ndarray]):
+        """Conversation assembly around continuous image embeddings.
+
+        ``images`` [B, N, D] gives only the image length N. Returns
+        (part1, part2, attention [B, max_seq_len] bool, labels)."""
+        if images.ndim != 3:
+            raise NotImplementedError("mmu_conv over discrete image ids is not ported yet")
+        img_seq_len = images.shape[1]
+        b = input_ids.shape[0]
+        if label_ids is None:
+            label_ids = input_ids.copy()
+        sp = self.sptids_dict
+        part1 = np.tile(np.asarray([sp["<|im_start|>"], sp["<|mmu|>"], sp["<|soi|>"]],
+                                   np.int64), (b, 1))
+        part2 = np.concatenate([np.full((b, 1), sp["<|eoi|>"], np.int64), input_ids[:, 1:]],
+                               axis=1)
+        head = [np.full((b, 3 + img_seq_len + 1), IGNORE_ID, np.int64), label_ids[:, 1:]]
+        if input_ids_system is not None:
+            if input_ids_system.shape[0] == 1 and b > 1:
+                input_ids_system = np.tile(input_ids_system, (b, 1))
+            part1 = np.concatenate([input_ids_system, part1], axis=1)
+            head = [np.full_like(input_ids_system, IGNORE_ID)] + head
+        labels = np.concatenate(head, axis=1)
+        attn, _ = self._eos_scan(part2, part1.shape[1] + img_seq_len, self.max_seq_len)
+        return part1, part2, attn, labels
+
     def __call__(self, inputs, task: str):
         if task == "t2i_gen":
             max_len = None if len(inputs) == 2 else inputs[2]
             return self.t2i_gen_prompt(inputs[0], np.asarray(inputs[1]), max_len)
+        if task == "mmu_conv":
+            return self.mmu_conv(np.asarray(inputs[0]), np.asarray(inputs[1]),
+                                 None if inputs[2] is None else np.asarray(inputs[2]),
+                                 None if inputs[3] is None else np.asarray(inputs[3]))
         raise NotImplementedError(f"task {task!r} is not ported yet")

@@ -11,10 +11,14 @@ them into the port's layout:
 * the tied embedding stays ``[V, D]`` and serves as the image head by row
   slice;
 * bfloat16 leaves (``ml_dtypes`` arrays, which ``torch.from_numpy`` cannot
-  take) are detected by dtype name and reinterpreted through int16.
+  take) are detected by dtype name and reinterpreted through int16;
+* W4A8 leaves (``ops.int4``: ``kernel_int4`` int8 ``[K/2, Npad]``,
+  ``scale4`` fp32 and ``bias``) are carried over unchanged, split per layer:
+  the packed layout is the same in both frameworks;
+* the SigLIP tower keeps its HWIO patch kernel (``models.siglip``).
 
-``init_unigen`` / ``init_magvit`` build the same layout from a
-``torch.Generator`` on the target device, with the JAX inits' scales
+``init_unigen`` / ``init_magvit`` / ``init_siglip`` build the same layout
+from a ``torch.Generator`` on the target device, with the JAX inits' scales
 (dense: normal * fan_in^-1/2, embeddings: normal * 0.02, conv: normal *
 (kh*kw*cin)^-1/2, biases zero, norm scales one).
 """
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from .models.magvit import MagvitConfig
+from .models.siglip import SiglipConfig
 from .models.unigen import UniGenConfig
 
 
@@ -68,9 +73,21 @@ def _mlp_from_jax(layers, device, dtype) -> List[Dict[str, torch.Tensor]]:
             for p in layers]
 
 
+_INT4_LEAVES = ("kernel_int4", "scale4", "bias")
+
+
+def _int4_from_jax(p, device, i=None) -> Dict[str, torch.Tensor]:
+    """A W4A8 leaf, unchanged (layer ``i`` of a stacked one)."""
+    return {k: to_tensor(np.asarray(p[k]) if i is None else np.asarray(p[k])[i], device)
+            for k in _INT4_LEAVES}
+
+
 def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
                     dtype=None) -> Dict[str, Any]:
-    """JAX ``unigen.init`` tree (numpy leaves) -> the port's parameters."""
+    """JAX ``unigen.init`` tree (numpy leaves) -> the port's parameters. A
+    tree packed by JAX's ``quantize_unigen_params_int4`` keeps its W4A8
+    leaves: each layer holds ``q``, ..., ``down`` as {kernel_int4, scale4,
+    bias}, and the head ``lm_head_q``."""
     dtype = dtype or cfg.llm.dtype
     llm = tree["llm"]
     stacked = llm["layers"]
@@ -78,6 +95,11 @@ def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
     for i in range(cfg.llm.num_hidden_layers):
         lp = {}
         for name, path in _LAYER_LEAVES.items():
+            dense = _get(stacked, path[:-1])
+            if "kernel_int4" in dense:
+                if name.endswith("_w"):
+                    lp[name[:-2]] = _int4_from_jax(dense, device, i)
+                continue
             leaf = np.asarray(_get(stacked, path))[i]
             lp[name] = (_linear_w(leaf, device, dtype) if name.endswith("_w")
                         else to_tensor(leaf, device, dtype))
@@ -87,11 +109,45 @@ def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
                                    "final_ln": to_tensor(llm["final_ln"]["scale"], device, dtype)}}
     if "lm_head" in llm:
         out["llm"]["lm_head"] = _linear_w(llm["lm_head"]["kernel"], device, dtype)
+    if "lm_head_q" in llm:
+        if "kernel_int4" not in llm["lm_head_q"]:
+            raise NotImplementedError("lm_head_q: only the W4A8 head is ported, not int8")
+        out["llm"]["lm_head_q"] = _int4_from_jax(llm["lm_head_q"], device)
     if "gen_embed" in tree:
         out["gen_embed"] = to_tensor(tree["gen_embed"]["weight"], device, dtype)
         out["gen_projector"] = _mlp_from_jax(tree["gen_projector"], device, dtype)
         out["img_head"] = _linear_w(tree["img_head"]["kernel"], device, dtype)
+    if "mm_projector" in tree:
+        out["mm_projector"] = _mlp_from_jax(tree["mm_projector"], device, dtype)
     return out
+
+
+_SIGLIP_DENSE = {"q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"),
+                 "o": ("attn", "o"), "fc1": ("mlp", "fc1"), "fc2": ("mlp", "fc2")}
+
+
+def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
+                    dtype=None) -> Dict[str, Any]:
+    """JAX ``siglip.init`` tree -> the port's tower (HWIO patch kernel kept,
+    one dict per layer, [N, K] linear weights)."""
+    dtype = dtype or cfg.dtype
+    stacked = tree["layers"]
+    if "kernel_int8" in stacked["attn"]["q"]:
+        raise NotImplementedError("the int8 SigLIP tower is not ported")
+    layers = []
+    for i in range(cfg.num_layers_used):
+        lp: Dict[str, Any] = {
+            ln: {k: to_tensor(np.asarray(stacked[ln][k])[i], device, dtype)
+                 for k in ("scale", "bias")} for ln in ("ln1", "ln2")}
+        for name, path in _SIGLIP_DENSE.items():
+            p = _get(stacked, path)
+            lp[f"{name}_w"] = _linear_w(np.asarray(p["kernel"])[i], device, dtype)
+            lp[f"{name}_b"] = to_tensor(np.asarray(p["bias"])[i], device, dtype)
+        layers.append(lp)
+    return {"patch_embed": {k: to_tensor(tree["patch_embed"][k], device, dtype)
+                            for k in ("kernel", "bias")},
+            "pos_embed": to_tensor(tree["pos_embed"]["weight"], device, dtype),
+            "layers": layers}
 
 
 def _map_tree(tree, fn):
@@ -157,7 +213,40 @@ def init_unigen(cfg: UniGenConfig, generator: torch.Generator, device,
         out["gen_projector"] = [{"w": lin(a, b), "b": zeros(b)}
                                 for a, b in zip(dims[:-1], dims[1:])]
         out["img_head"] = _normal(generator, (cfg.codebook_size, d), 0.02, device, dtype)
+    if cfg.w_und_encoder:
+        dims = [cfg.mm_input_dim] + [d] * max(2, cfg.und_proj_depth)
+        out["mm_projector"] = [{"w": lin(a, b), "b": zeros(b)}
+                               for a, b in zip(dims[:-1], dims[1:])]
     return out
+
+
+def init_siglip(cfg: SiglipConfig, generator: torch.Generator, device,
+                dtype=None) -> Dict[str, Any]:
+    """Random SigLIP tower parameters in the port's layout."""
+    dtype = dtype or cfg.dtype
+    d, inter, p, c = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size, cfg.num_channels
+
+    def ln():
+        return {"scale": torch.ones(d, device=device, dtype=dtype),
+                "bias": torch.zeros(d, device=device, dtype=dtype)}
+
+    def dense(name, n_in, n_out):
+        return {f"{name}_w": _normal(generator, (n_out, n_in), n_in ** -0.5, device, dtype),
+                f"{name}_b": torch.zeros(n_out, device=device, dtype=dtype)}
+
+    layers = []
+    for _ in range(cfg.num_layers_used):
+        lp: Dict[str, Any] = {"ln1": ln(), "ln2": ln()}
+        for name in ("q", "k", "v", "o"):
+            lp.update(dense(name, d, d))
+        lp.update(dense("fc1", d, inter))
+        lp.update(dense("fc2", inter, d))
+        layers.append(lp)
+    return {"patch_embed": {"kernel": _normal(generator, (p, p, c, d), (p * p * c) ** -0.5,
+                                              device, dtype),
+                            "bias": torch.zeros(d, device=device, dtype=dtype)},
+            "pos_embed": _normal(generator, (cfg.num_patches, d), 0.02, device, dtype),
+            "layers": layers}
 
 
 def init_magvit(cfg: MagvitConfig, generator: torch.Generator, device,
