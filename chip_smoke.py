@@ -35,6 +35,7 @@ each path with ``torch.profiler`` and prints where the device time goes.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -95,14 +96,16 @@ def time_ms(fn, iters: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(2):        # a trace now and then comes back without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            return us / 1e3 / iters
+    raise Failed("the profiler recorded no device time in two traces")
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -339,34 +342,78 @@ def phase_flash_mmu(gen, b, l, prompt_len, dtype, rtol, iters):
                      f"understand prefill q [{b},{l},12,128], mmu_vit meta")
 
 
-def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters):
+def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=True,
+                       new_tokens=NEW_TOKENS, masked=False):
     """One understanding decode step: q [b, 1, 12, 128] against the cache of
-    l + 128 slots, visible = the row's prompt slots and the decoded slots."""
+    l + new_tokens slots, visible = the row's prompt slots and the decoded
+    slots. Both routes of the kernel (unsplit, and split over the keys at 8
+    and at 15 splits) are held against the plain version through the
+    wrapper's ``_launch``; with ``masked``, keys 128..255 are invisible to
+    every row (a fully masked split at 8 splits) and row 0 sees no key at
+    all. Timed warm (one K/V pair, which stays in L2) and cold (a cycle of
+    K/V pairs larger than L2, as the path's 28 layers' caches are)."""
     import torch
-    from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops import chunk_attention as CA
     h, kvh, dh = 12, 2, 128
-    s = l + NEW_TOKENS
+    s = l + new_tokens
     q, k, v = _attn_inputs(gen, b, 1, s, h, kvh, dh, dtype)
     slots = torch.arange(s, device="cuda")[None]
     plen = torch.as_tensor(prompt_len, device="cuda")[:, None]
     kvalid = (slots < plen) | ((slots >= l) & (slots <= l + step))
-    got = chunk_attention(q, k, v, kvalid)
-    ref = chunk_attention_plain(q, k, v, kvalid)
-    torch.cuda.synchronize()
-    err, tol = _err_tol(got, ref, rtol)
-    check(bool(torch.isfinite(got).all()), "chunk_attention (decode) output not finite")
-    print(f"  chunk_attention {dtype} decode q{list(q.shape)} S={s}: max_abs_err {err:.3e} "
-          f"(tol {tol:.2e})")
-    check(err <= tol, "chunk_attention at the decode shape disagrees with its plain version")
-    ms = time_ms(lambda: chunk_attention(q, k, v, kvalid), iters)
-    plain_ms = time_ms(lambda: chunk_attention_plain(q, k, v, kvalid), iters)
+    if masked:
+        kvalid[:, 128:256] = False
+        kvalid[0] = False
+    ref = CA.chunk_attention_plain(q, k, v, kvalid)
+    chosen = CA.kv_splits(b, 1, s, h, kvh)
+    routes = sorted({1, 8, 15, chosen})
+    errs = {}
+    for n in routes:
+        got = CA._launch(q, k, v, kvalid, n)
+        torch.cuda.synchronize()
+        errs[n], tol = _err_tol(got, ref, rtol)
+        check(bool(torch.isfinite(got).all()), f"chunk_attention (decode, {n} splits) not finite")
+        check(errs[n] <= tol, f"chunk_attention {dtype} decode S={s} with {n} splits: "
+              f"max_abs_err {errs[n]:.3e} (tol {tol:.2e})")
+    before = CA.chunk_attention.launches
+    got = CA.chunk_attention(q, k, v, kvalid)
+    check(CA.chunk_attention.launches == before + 1, "chunk_attention counted no single launch")
+    check(bool(torch.equal(got, CA._launch(q, k, v, kvalid, chosen))),
+          "chunk_attention did not take the route kv_splits names")
+    err = errs[chosen]
+    print(f"  chunk_attention {dtype} decode q{list(q.shape)} S={s}"
+          f"{' (a masked split, a masked row)' if masked else ''}: the rule splits {chosen}x; "
+          "max_abs_err by splits " + ", ".join(f"{n}: {e:.3e}" for n, e in errs.items())
+          + f" (tol {tol:.2e})")
+    if not timed:
+        return None
+    check(chosen > 1, f"the decode step q{list(q.shape)} S={s} did not take the split route")
+    ms_by = {n: time_ms(lambda n=n: CA._launch(q, k, v, kvalid, n), iters) for n in routes}
+    ms = time_ms(lambda: CA.chunk_attention(q, k, v, kvalid), iters)
+    plain_ms = time_ms(lambda: CA.chunk_attention_plain(q, k, v, kvalid), iters)
     lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
+    # cold: 10 K/V pairs of this shape (75 MB) against 50 MB of L2
+    pairs = [(k, v)] + [tuple(_attn_inputs(gen, b, 1, s, h, kvh, dh, dtype)[1:])
+                        for _ in range(9)]
+
+    def cold(fn):
+        ring = itertools.cycle(pairs)
+        return time_ms(lambda: fn(*next(ring)), 5 * len(pairs))
+    cold_by = {n: cold(lambda kk, vv, n=n: CA._launch(q, kk, vv, kvalid, n)) for n in routes}
+    mask4 = kvalid[:, None, None, :]
+    lib_cold = cold(lambda kk, vv: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask4,
+        enable_gqa=True))
     b_ms, by = bound(4.0 * h * dh * kvalid.sum().item(), nbytes(q, k, v, kvalid, got),
                      BF16_PEAK)
-    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
-          f"bound_ms {b_ms:.4f} ({by})")
-    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                     f"understand decode step q [{b},1,12,128], S={s}")
+    print(f"    ms {ms:.4f} ({chosen} splits)  plain_ms {plain_ms:.4f}  library_ms (sdpa) "
+          f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
+    print("    by splits (1 = unsplit), warm / cold ms: "
+          + ", ".join(f"{n}: {ms_by[n]:.4f} / {cold_by[n]:.4f}" for n in routes)
+          + f"; sdpa cold {lib_cold:.4f}")
+    return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
+                          f"understand decode step q [{b},1,12,128], S={s}, {chosen} splits"),
+                ms_cold=cold_by[chosen])
 
 
 def phase_w4a8(gen, t, k, n, group, rtol, iters, timed, label=""):
@@ -420,12 +467,13 @@ def phase_w4a8(gen, t, k, n, group, rtol, iters, timed, label=""):
 
 
 def phase_head_dims(gen):
-    """Flash and chunk attention at every head dim the wrappers' callers may
-    pad to (``KERNEL_HEAD_DIMS``), bf16 and fp32: a dim that the source does
-    not instantiate fails to launch here."""
+    """Flash and chunk attention (both routes) at every head dim the
+    wrappers' callers may pad to (``KERNEL_HEAD_DIMS``), bf16 and fp32: a dim
+    that the source does not instantiate fails to launch here."""
     import torch
     from unigen_tpu_torch.ops import masks as M
-    from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    from unigen_tpu_torch.ops.chunk_attention import (_launch, chunk_attention,
+                                                      chunk_attention_plain)
     from unigen_tpu_torch.ops.flash_attention import (KERNEL_HEAD_DIMS, flash_attention,
                                                       flash_attention_plain)
     b, l = 2, 37
@@ -437,14 +485,19 @@ def phase_head_dims(gen):
     for dtype, rtol in ((torch.bfloat16, 2 ** -7), (torch.float32, 2e-5)):
         for dh in KERNEL_HEAD_DIMS:
             q, k, v = _attn_inputs(gen, b, l, l, 4, 2, dh, dtype)
+            q1, k1, v1 = _attn_inputs(gen, b, 1, 90, 4, 2, dh, dtype)   # one row: it may split
+            seen = torch.arange(90, device="cuda")[None] >= torch.tensor([[0], [5]], device="cuda")
             for name, got, ref in (
                     ("flash", flash_attention(q, k, v, bits), flash_attention_plain(q, k, v, bits)),
-                    ("chunk", chunk_attention(q, k, v, ~pad), chunk_attention_plain(q, k, v, ~pad))):
+                    ("chunk", chunk_attention(q, k, v, ~pad), chunk_attention_plain(q, k, v, ~pad)),
+                    ("chunk (split)", _launch(q1, k1, v1, seen, 2),
+                     chunk_attention_plain(q1, k1, v1, seen))):
                 err, tol = _err_tol(got, ref, rtol)
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"{name}_attention {dtype} head dim {dh}: max_abs_err {err} (tol {tol})")
                 worst = max(worst, err / tol)
-    print(f"  flash and chunk attention at head dims {KERNEL_HEAD_DIMS}, bf16 and fp32: all "
+    print(f"  flash and chunk attention (unsplit and split) at head dims {KERNEL_HEAD_DIMS}, "
+          "bf16 and fp32: all "
           f"match their plain versions (largest err/tol {worst:.3f})")
 
 
@@ -477,7 +530,14 @@ def run_kernel_phases(results):
     b = len(QUESTIONS)
     results["chunk_attention"]["shapes"] = [
         phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50)]
-    phase_chunk_decode(gen, 3, 61, [61, 40, 7], 5, f32, 2e-5, 1)      # ragged, fp32
+    for dtype, rtol in ((bf16, 2 ** -7), (f32, 2e-5)):
+        phase_chunk_decode(gen, b, l, plen, 64, dtype, rtol, 0, False, masked=True)
+        # ragged S: 98 (two splits, the last of 34 keys), 66 (a last split of 2), 1
+        phase_chunk_decode(gen, 3, 61, [61, 40, 7], 5, dtype, rtol, 0, False, new_tokens=37,
+                           masked=True)
+        phase_chunk_decode(gen, 3, 61, [61, 40, 7], 4, dtype, rtol, 0, False, new_tokens=5)
+        phase_chunk_decode(gen, 2, 0, [0, 0], 0, dtype, rtol, 0, False, new_tokens=1)
+    phase_chunk_decode(gen, b, l, plen, 64, f32, 2e-5, 0, False)
     results["flash_attention"]["shapes"] = [phase_flash_siglip(gen, b, bf16, 2 ** -7, 20),
                                             phase_flash_mmu(gen, b, l, plen, bf16, 2 ** -7, 20)]
     phase_flash_mmu(gen, 3, 800, [800, 741, 733], f32, 2e-5, 1)
@@ -514,11 +574,16 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+# the attention source's kernels: a profile prints them even below its top rows
+ATTENTION_KERNELS = ("attention_bf16_kernel", "chunk_split_bf16_kernel", "chunk_combine_kernel")
+
+
 def profile_run(run_once, warm_s: float, top: int = 12) -> None:
     """Device time by kernel over one more warm run of a path. Busy time is the
     union of the device intervals (GPU annotations overlap their kernels and
     are not counted twice); the idle share is taken against the unprofiled
-    warm run's wall time."""
+    warm run's wall time. The attention kernels are printed by name wherever
+    they rank."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -541,8 +606,10 @@ def profile_run(run_once, warm_s: float, top: int = 12) -> None:
     print(f"  profile: device busy {busy:.1f} ms (union of device intervals) in a profiled "
           f"wall of {prof_s * 1e3:.1f} ms; unprofiled warm wall {warm_s * 1e3:.1f} ms; "
           f"idle share {max(0.0, 1 - busy / (warm_s * 1e3)):.3f}")
-    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"    {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:100]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (ms, count)) in enumerate(ranked):
+        if rank < top or any(k in name for k in ATTENTION_KERNELS):
+            print(f"    {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:100]}")
 
 
 def run_flagship(results, profile=False):

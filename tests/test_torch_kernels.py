@@ -6,8 +6,9 @@ conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
 
-chip_smoke.py makes the same comparisons at the main path's shapes. The
-W4A8 kernel sums each group exactly in int32 and folds the scales in fp32
+chip_smoke.py makes the same comparisons at the main path's shapes. Chunk
+attention is held to its plain version on both of its routes (one block
+walking all keys; the keys split over blocks and combined). The W4A8 kernel sums each group exactly in int32 and folds the scales in fp32
 without fused multiply-adds, in group order, as its plain version does: it
 is held to 1e-5 of the output's largest magnitude (expected exact). fp32
 tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from unigen_tpu_torch.ops import chunk_attention as CA
 from unigen_tpu_torch.ops import fused_conv as FC
 from unigen_tpu_torch.ops import masks as M
 from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
@@ -61,6 +63,63 @@ def test_chunk_kernel_matches_plain(cuda, dtype, shape):
     kvalid[:, -lq:] = True
     kvalid = kvalid.to(cuda)
     _close(chunk_attention(q, k, v, kvalid), chunk_attention_plain(q, k, v, kvalid), TOL[dtype])
+
+
+def _decode_case(name, device, dtype):
+    """(q, k, v, kvalid) of a one-token step against a cache, 12 / 2 heads of 128."""
+    b, s = {"decode": (8, 915), "masked_split": (8, 915), "masked_row": (8, 915),
+            "ragged_98": (3, 98), "ragged_66": (3, 66), "one_key": (2, 1)}[name]
+    q, k, v = _qkv(b, 1, s, 12, 2, 128, 18, device, dtype)
+    kvalid = torch.rand((b, s), generator=torch.Generator().manual_seed(2)) > 0.3
+    kvalid[:, -1] = True
+    if name == "masked_split":
+        kvalid[:, 128:256] = False               # the second of 8 ranges of 128 keys
+    if name == "masked_row":
+        kvalid[0] = False
+    return q, k, v, kvalid.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["decode", "masked_split", "masked_row", "ragged_98",
+                                  "ragged_66", "one_key"])
+def test_chunk_split_and_unsplit_routes_match_plain(cuda, dtype, name):
+    """Both routes of the kernel at few rows: unsplit (1), and split over the
+    keys as the rule has it and at 8 and 15 ranges."""
+    q, k, v, kvalid = _decode_case(name, cuda, dtype)
+    ref = CA.chunk_attention_plain(q, k, v, kvalid)
+    rule = CA.kv_splits(q.shape[0], 1, k.shape[1], 12, 2)
+    assert (rule > 1) == (k.shape[1] > 64)
+    for nsplit in sorted({1, 8, 15, rule}):
+        _close(CA._launch(q, k, v, kvalid, nsplit), ref, TOL[dtype])
+    assert torch.equal(chunk_attention(q, k, v, kvalid), CA._launch(q, k, v, kvalid, rule))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_split_route_two_positions(cuda, dtype):
+    """Lq = 2 with 6 heads a group: 12 rows of the split kernel's 16."""
+    q, k, v = _qkv(2, 2, 300, 12, 2, 64, 19, cuda, dtype)
+    kvalid = torch.arange(300, device=cuda)[None].expand(2, 300) >= 17
+    assert CA.kv_splits(2, 2, 300, 12, 2) > 1
+    _close(chunk_attention(q, k, v, kvalid), CA.chunk_attention_plain(q, k, v, kvalid),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_split_route_refuses_more_rows_than_it_holds(cuda):
+    q, k, v = _qkv(1, 3, 200, 12, 2, 64, 20, cuda, torch.bfloat16)
+    with pytest.raises(ValueError):
+        CA._launch(q, k, v, torch.ones((1, 200), dtype=torch.bool, device=cuda), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode", "ragged_66", "one_key"])
+def test_chunk_counts_one_launch_on_either_route(cuda, name):
+    q, k, v, kvalid = _decode_case(name, cuda, torch.bfloat16)
+    before = chunk_attention.launches
+    chunk_attention(q, k, v, kvalid)
+    assert chunk_attention.launches == before + 1
 
 
 def _meta(name, b, l, device):

@@ -58,9 +58,11 @@ def test_bidir_attention_matches_jax_flash_path(dh):
 def test_kernel_head_dims_match_the_cuda_source():
     """The head dims SigLIP pads to are the ones csrc/attention.cu builds."""
     src = (_cuda.CSRC / "attention.cu").read_text()
-    cases = src[src.index("switch (Dh)"):]
-    cases = cases[:cases.index("default:")]
-    assert tuple(int(d) for d in re.findall(r"case (\d+):", cases)) == FA.KERNEL_HEAD_DIMS
+    switches = src.split("switch (Dh)")[1:]
+    assert len(switches) == 2                    # the unsplit launch and the split one
+    for cases in switches:
+        cases = cases[:cases.index("default:")]
+        assert tuple(int(d) for d in re.findall(r"case (\d+):", cases)) == FA.KERNEL_HEAD_DIMS
     assert [FA.kernel_head_dim(d) for d in (8, 72, 128)] == [16, 80, 128]
 
 

@@ -29,8 +29,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C entry points of each source; every one returns a cudaError_t as int.
 SIGNATURES = {
     "attention": {
-        # dtype, q, k, v, kvalid, out, B, Lq, S, H, KVH, Dh, scale, stream
-        "chunk_attention_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # dtype, q, k, v, kvalid, out, scratch (or None), B, Lq, S, H, KVH, Dh, nsplit,
+        # scale, stream
+        "chunk_attention_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                   _P),
         # dtype, q, k, v, meta, out, B, L, H, KVH, Dh, scale, stream
         "flash_attention_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
