@@ -20,7 +20,10 @@ just after:
 
 It checks that each path went through every kernel it runs, and compares
 tiny fp32 runs through the kernels on the card with the plain versions on
-the CPU (t2i under shared noise; W4A8 understand, greedy). Every check that
+the CPU (t2i under shared noise; W4A8 understand, greedy). Kernel 4 (the
+W4A8 product, its epilogue fused) and the per-token quantization are held
+to their plain versions bit for bit at every shape of the W4A8 path, on
+every route, and each W4A8 layer is timed whole against bf16 ``F.linear``. Every check that
 fails makes the exit code nonzero. The last line of stdout is a JSON object
 naming the device; the line before it holds the kernels' measurements.
 Without a CUDA device, or without the package beside it, the script exits
@@ -30,7 +33,9 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,understand,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of
-each path with ``torch.profiler`` and prints where the device time goes.
+each path with ``torch.profiler`` and prints where the device time goes, by
+kernel and by family (the port's kernels, cuBLAS, plain-torch copies,
+reductions and elementwise kernels).
 """
 from __future__ import annotations
 
@@ -416,54 +421,121 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
                 ms_cold=cold_by[chosen])
 
 
-def phase_w4a8(gen, t, k, n, group, rtol, iters, timed, label=""):
-    """W4A8 product [t, k] int8 x int4-packed [k/2, Npad] -> fp32, weights
-    packed from a normal * k^-1/2 matrix; the tolerance is relative to the
-    largest output magnitude (only fp32 rounding of the scale fold could
-    differ, and the kernel does it as the plain version does)."""
+def phase_w4a8(gen, t, k, n, group, iters, timed, label="", bias=True):
+    """Kernel 4 at [t, k] -> n (weights packed from a normal * k^-1/2 matrix;
+    activations quantized from a bf16 normal by the plain version; a bf16
+    bias, or with ``bias=False`` the fp32 zeros a layer without one gets).
+    The product alone (``w4a8_matmul``, fp32 [t, Npad]) and the fused dense
+    launch (``dense_int4_prequant``: product, ``* act_scale + bias``, cast;
+    bf16 and, untimed, fp32 [t, n]) must equal their plain versions bit for
+    bit, and at t <= 16 so must the route the wrapper does not choose (split
+    over groups or not). Timed: the fused launch (what the path runs) against
+    its plain version, its bound and bf16 ``F.linear`` (with the bias where
+    the layer has one), and the whole layer, ``dense_int4`` (quantization +
+    fused launch, what one layer enqueues), against the same ``F.linear``."""
     import torch
     import torch.nn.functional as F
     from unigen_tpu_torch.ops import int4
-    from unigen_tpu_torch.ops.int4 import pack_int4, w4a8_matmul, w4a8_matmul_plain
+    from unigen_tpu_torch.ops.quantization import quantize_activations_plain
+    bf16 = torch.bfloat16
     w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
-    packed, scale = pack_int4(w, group)
-    x8 = torch.randint(-127, 128, (t, k), generator=gen, device="cuda").to(torch.int8)
-    got = w4a8_matmul(x8, packed, scale, group=group)
-    ref = w4a8_matmul_plain(x8, packed, scale, group=group)
-    torch.cuda.synchronize()
-    err, tol = _err_tol(got, ref, rtol)
-    check(bool(torch.isfinite(got).all()), "w4a8_matmul output not finite")
-    print(f"  w4a8_matmul {label} T={t} K={k} N={n} (Npad {packed.shape[1]}) group {group}: "
-          f"max_abs_err {err:.3e} (tol {tol:.2e}), exact {bool(torch.equal(got, ref))}")
-    check(err <= tol, f"w4a8_matmul T={t} K={k} N={n} disagrees with its plain version")
-    split = int4.splits_over_groups(t, packed.shape[1])
+    dense = {"kernel": w}
+    if bias:
+        dense["bias"] = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(bf16)
+    p = int4.quantize_dense_int4(dense, group)
+    packed, scale = p[int4.KEY], p["scale4"]
+    npad = packed.shape[1]
+    x = torch.randn((t, k), generator=gen, device="cuda").to(bf16)
+    x8, act = quantize_activations_plain(x)
+    got = int4.w4a8_matmul(x8, packed, scale, group=group)
+    check(bool(torch.equal(got, int4.w4a8_matmul_plain(x8, packed, scale, group=group))),
+          f"w4a8_matmul {label} T={t} K={k} N={n} differs from its plain version")
+    split = int4.splits_over_groups(t, npad)
     other_ms = None
-    if t <= 16:        # the same product on the path not chosen, for comparison
+    for out_dtype in ((bf16,) if timed else (bf16, torch.float32)):
+        dref = int4.dense_int4_prequant_plain(p, x8, act, out_dtype)
+        dgot = int4.dense_int4_prequant(p, x8, act, out_dtype)
+        torch.cuda.synchronize()
+        check(dgot.shape == (t, n) and bool(torch.isfinite(dgot).all()),
+              f"w4a8 dense {label} output {tuple(dgot.shape)} not finite")
+        check(bool(torch.equal(dgot, dref)), f"w4a8 dense {label} T={t} K={k} N={n} group {group} "
+              f"{out_dtype} differs from its plain version")
+        if t <= 16:    # the same layer on the route not chosen
 
-        def other_path():
-            return int4._launch(x8, packed, scale, group, not split)
-        check(bool(torch.equal(other_path(), got)), "w4a8_matmul split and unsplit differ")
-        if timed:
-            other_ms = time_ms(other_path, iters)
-            print(f"    {'unsplit' if split else 'split over groups'} (the path not chosen) "
-                  f"ms {other_ms:.4f}, same bits")
+            def other_path(od=out_dtype):
+                return int4._dense_launch(x8, packed, scale, act, p["bias"], od, group, not split)
+            check(bool(torch.equal(other_path(), dgot)),
+                  f"w4a8 dense {label}: split and unsplit differ")
+            if timed:
+                other_ms = time_ms(other_path, iters)
+    err = (dgot.float() - dref.float()).abs().max().item()
+    layer_ref = int4.dense_int4_prequant_plain(p, x8, act, bf16)
+    check(bool(torch.equal(int4.dense_int4(p, x), layer_ref)),
+          f"dense_int4 {label} (quantization + fused launch) differs from the plain composition")
+    print(f"  w4a8 {label} T={t} K={k} N={n} (Npad {npad}) group {group}"
+          f"{', split over groups' if split else ''}: product, fused dense"
+          f"{'' if timed else ' (bf16 and fp32)'}{' and the other route' if t <= 16 else ''}"
+          " equal their plain versions bit for bit")
     if not timed:
         return None
-    ms = time_ms(lambda: w4a8_matmul(x8, packed, scale, group=group), iters)
-    wall = call_ms(lambda: w4a8_matmul(x8, packed, scale, group=group), iters)
-    plain_ms = time_ms(lambda: w4a8_matmul_plain(x8, packed, scale, group=group), 3)
-    npad = packed.shape[1]
-    xb = torch.randn((t, k), generator=gen, device="cuda").to(torch.bfloat16)
-    wb = torch.randn((npad, k), generator=gen, device="cuda").to(torch.bfloat16)
-    lib_ms = time_ms(lambda: F.linear(xb, wb), iters)
-    b_ms, by = bound(2.0 * t * k * npad, nbytes(x8, packed, scale, got), INT8_PEAK)
-    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (bf16 F.linear, 4x the "
-          f"weight bytes) {lib_ms:.4f}  bound_ms {b_ms:.4f} ({by}); back-to-back call "
-          f"{wall:.4f} ms")
+
+    def fused():
+        return int4.dense_int4_prequant(p, x8, act, bf16)
+    ms = time_ms(fused, iters)
+    matmul_ms = time_ms(lambda: int4.w4a8_matmul(x8, packed, scale, group=group), iters)
+    plain_ms = time_ms(lambda: int4.dense_int4_prequant_plain(p, x8, act, bf16), 3)
+    wb = (torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5).to(bf16)
+    bb = p["bias"] if bias else None
+
+    def library():
+        return F.linear(x, wb, bb)
+    lib_ms = time_ms(library, iters)
+    layer_ms = time_ms(lambda: int4.dense_int4(p, x), iters)
+    layer_call = call_ms(lambda: int4.dense_int4(p, x), iters)
+    lib_call = call_ms(library, iters)
+    # the first n columns of the padded weights are all the layer needs
+    b_ms, by = bound(2.0 * t * k * n, nbytes(x8, packed[:, :n], scale[:, :n], act, p["bias"], dgot),
+                     INT8_PEAK)
+    print(f"    fused launch ms {ms:.4f}  (product alone, fp32 [T, Npad] {matmul_ms:.4f}"
+          + (f"; {'unsplit' if split else 'split'} route {other_ms:.4f}" if other_ms else "")
+          + f")  plain_ms {plain_ms:.4f}  library_ms (bf16 F.linear{' + bias' if bias else ''})"
+          f" {lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
+    print(f"    layer (quantization + fused launch) device {layer_ms:.4f} ms, back to back "
+          f"{layer_call:.4f} ms; bf16 F.linear back to back {lib_call:.4f} ms")
     return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
                           f"{label} T={t} K={k} N={n} group {group}"
                           + (", split over groups" if split else "")),
-                other_path_ms=other_ms, call_ms=wall)
+                matmul_ms=matmul_ms, other_route_ms=other_ms, layer_ms=layer_ms,
+                layer_call_ms=layer_call, library_call_ms=lib_call)
+
+
+def phase_quant(gen, t, k, dtype, iters, timed, label=""):
+    """Per-token quantization of x [t, k] (normal * 3; where there are rows
+    for them, an all-zero row and a row of scale 1 with exact .5 ties and
+    +-127): both outputs must equal the plain version's bit for bit."""
+    import torch
+    from unigen_tpu_torch.ops.quantization import (quantize_activations,
+                                                   quantize_activations_plain)
+    x = torch.randn((t, k), generator=gen, device="cuda") * 3
+    if t > 2:
+        x[1] = 0.0
+        ties = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -127.0], device="cuda")
+        x[2] = ties.repeat(-(-k // 8))[:k]
+    x = x.to(dtype)
+    (q, s), (qr, sr) = quantize_activations(x), quantize_activations_plain(x)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(q, qr)) and bool(torch.equal(s, sr)),
+          f"quantize_activations {label} T={t} K={k} {dtype} differs from its plain version")
+    err = float(max((q.int() - qr.int()).abs().max().item(), (s - sr).abs().max().item()))
+    print(f"  quantize_activations {label} T={t} K={k} {dtype}: equal to the plain version "
+          f"(max_abs_err {err})")
+    if not timed:
+        return None
+    ms = time_ms(lambda: quantize_activations(x), iters)
+    plain_ms = time_ms(lambda: quantize_activations_plain(x), iters)
+    b_ms, by = bound(0.0, nbytes(x, q, s), INT8_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms none  bound_ms {b_ms:.4f} ({by})")
+    return _measured(err, ms, plain_ms, None, b_ms, by, f"{label} x [{t},{k}] {dtype}")
 
 
 def phase_head_dims(gen):
@@ -512,6 +584,7 @@ def run_kernel_phases(results):
     # two roundings), the plain conv rounds the conv before adding its bias and
     # sums 9 C products (conv: 2^-6 m). fp32: only the order of fp32 sums
     # differs, with TF32 off (attention 2e-5 m, conv 1e-4 m as in the CPU tests).
+    # Kernel 4 and the quantization: bit for bit (torch.equal), every dtype.
     print("phase: kernels (main-path shapes in bf16, a ragged shape, fp32)")
     results["chunk_attention"] = phase_chunk(gen, 8, 258, 148, bf16, 2 ** -7, 20, True)
     phase_chunk(gen, 3, 37, 61, bf16, 2 ** -7, 0, False)          # ragged: S = 98
@@ -541,16 +614,34 @@ def run_kernel_phases(results):
     results["flash_attention"]["shapes"] = [phase_flash_siglip(gen, b, bf16, 2 ** -7, 20),
                                             phase_flash_mmu(gen, b, l, plen, bf16, 2 ** -7, 20)]
     phase_flash_mmu(gen, 3, 800, [800, 741, 733], f32, 2e-5, 1)
-    w4 = [phase_w4a8(gen, b, 1536, 8960, 256, 1e-5, 50, True, "decode gate"),
-          phase_w4a8(gen, b, 8960, 1536, 256, 1e-5, 50, True, "decode down"),
-          phase_w4a8(gen, b, 1536, 256, 256, 1e-5, 50, True, "decode k"),
-          phase_w4a8(gen, b, 1536, 159867, 256, 1e-5, 20, True, "decode head"),
-          phase_w4a8(gen, b * l, 1536, 8960, 256, 1e-5, 10, True, "prefill gate")]
+    # kernel 4 and the quantization at every W4A8 shape of the understand call:
+    # decode T = 8 and prefill T = 8 x 787; q/k/v carry a bf16 bias, the rest
+    # the fp32 zeros a layer without one gets
+    t_pre = b * l
+    w4 = [phase_w4a8(gen, b, 1536, 8960, 256, 50, True, "decode gate/up", bias=False),
+          phase_w4a8(gen, b, 1536, 1536, 256, 50, True, "decode q/o"),
+          phase_w4a8(gen, b, 1536, 256, 256, 50, True, "decode k/v"),
+          phase_w4a8(gen, b, 8960, 1536, 256, 50, True, "decode down", bias=False),
+          phase_w4a8(gen, b, 1536, 159867, 256, 20, True, "decode head", bias=False),
+          phase_w4a8(gen, t_pre, 1536, 1536, 256, 10, True, "prefill q/o"),
+          phase_w4a8(gen, t_pre, 1536, 256, 256, 10, True, "prefill k/v"),
+          phase_w4a8(gen, t_pre, 1536, 8960, 256, 10, True, "prefill gate/up", bias=False),
+          phase_w4a8(gen, t_pre, 8960, 1536, 256, 10, True, "prefill down", bias=False)]
     results["w4a8_matmul"] = dict(w4[0], shapes=w4[1:])
+    qa = [phase_quant(gen, b, 1536, bf16, 50, True, "decode"),
+          phase_quant(gen, b, 8960, bf16, 50, True, "decode down input"),
+          phase_quant(gen, t_pre, 1536, bf16, 10, True, "prefill"),
+          phase_quant(gen, t_pre, 8960, bf16, 10, True, "prefill down input")]
+    results["quantize_activations"] = dict(qa[0], shapes=qa[1:])
     phase_head_dims(gen)
-    phase_w4a8(gen, 5, 128, 96, 32, 1e-5, 0, False, "ragged")
-    phase_w4a8(gen, 37, 512, 1000, 64, 1e-5, 0, False, "ragged")
-
+    # ragged T, N and groups on every route: both routes at T 5 (split chosen),
+    # the prefill body with 16-byte copies (T 37, 300) and with plain loads
+    # (group 16: half-groups of 8 bytes)
+    for t, k, n, group in ((5, 128, 96, 32), (5, 512, 1000, 64), (37, 512, 1000, 64),
+                           (37, 256, 96, 32), (70, 256, 512, 16), (300, 1024, 1000, 256)):
+        phase_w4a8(gen, t, k, n, group, 0, False, "ragged", bias=n != 1000)
+    for t, k, dtype in ((1, 999, f32), (37, 1000, bf16), (6296, 8960, f32)):
+        phase_quant(gen, t, k, dtype, 0, False, "ragged")
 
 # ---------------------------------------------------------------------------
 # path phases
@@ -561,8 +652,10 @@ def _counters():
     from unigen_tpu_torch.ops.flash_attention import flash_attention
     from unigen_tpu_torch.ops.fused_conv import conv3x3_gn_swish
     from unigen_tpu_torch.ops.int4 import w4a8_matmul
+    from unigen_tpu_torch.ops.quantization import quantize_activations
     return {"flash_attention": flash_attention, "chunk_attention": chunk_attention,
-            "conv3x3_gn_swish": conv3x3_gn_swish, "w4a8_matmul": w4a8_matmul}
+            "conv3x3_gn_swish": conv3x3_gn_swish, "w4a8_matmul": w4a8_matmul,
+            "quantize_activations": quantize_activations}
 
 
 def _reset_counts():
@@ -574,16 +667,28 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-# the attention source's kernels: a profile prints them even below its top rows
-ATTENTION_KERNELS = ("attention_bf16_kernel", "chunk_split_bf16_kernel", "chunk_combine_kernel")
+# the port's hand-written kernels: a profile prints them even below its top rows
+PORT_KERNELS = ("attention_bf16_kernel", "chunk_split_bf16_kernel", "chunk_combine_kernel",
+                "w4a8_", "quantize_kernel", "conv3x3")
+# kernel families by name, first match wins: what is the port's, cuBLAS's, and
+# what is left of plain-torch elementwise work
+FAMILIES = (("kernel 4 (w4a8_*)", ("w4a8_",)), ("quantization kernel", ("quantize_kernel",)),
+            ("attention kernels 1, 2", ("attention_bf16", "chunk_split", "chunk_combine",
+                                        "attention_fp32")),
+            ("conv kernel 3", ("conv3x3",)),
+            ("cuBLAS / cuDNN GEMMs and convs", ("gemm", "nvjet", "cutlass", "xmma", "cudnn")),
+            ("plain-torch copies and casts", ("copy",)),
+            ("plain-torch reductions", ("reduce",)),
+            ("plain-torch elementwise", ("elementwise", "index", "scatter", "gather", "cat",
+                                         "fill")))
 
 
 def profile_run(run_once, warm_s: float, top: int = 12) -> None:
     """Device time by kernel over one more warm run of a path. Busy time is the
     union of the device intervals (GPU annotations overlap their kernels and
     are not counted twice); the idle share is taken against the unprofiled
-    warm run's wall time. The attention kernels are printed by name wherever
-    they rank."""
+    warm run's wall time. The port's kernels are printed by name wherever they
+    rank, and every kernel is summed into a family (``FAMILIES``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -608,8 +713,17 @@ def profile_run(run_once, warm_s: float, top: int = 12) -> None:
           f"idle share {max(0.0, 1 - busy / (warm_s * 1e3)):.3f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (ms, count)) in enumerate(ranked):
-        if rank < top or any(k in name for k in ATTENTION_KERNELS):
+        if rank < top or any(k in name for k in PORT_KERNELS):
             print(f"    {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:100]}")
+    families = {}
+    for name, (ms, count) in by_name.items():
+        low = name.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in low for k in keys)), "other")
+        f_ms, f_count = families.get(fam, (0.0, 0))
+        families[fam] = (f_ms + ms, f_count + count)
+    print("  by family:")
+    for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<7d} {fam}")
 
 
 def run_flagship(results, profile=False):
@@ -623,7 +737,7 @@ def run_flagship(results, profile=False):
     print(f"  build_pipeline {time.perf_counter() - t0:.2f} s")
     layers = pipe.cfg.llm.num_hidden_layers
     expect = {"flash_attention": layers, "chunk_attention": layers * 50,
-              "conv3x3_gn_swish": 44, "w4a8_matmul": 0}
+              "conv3x3_gn_swish": 44, "w4a8_matmul": 0, "quantize_activations": 0}
     counts = None
     for run in ("cold", "warm"):
         gen = torch.Generator(device="cuda")
@@ -685,9 +799,11 @@ def run_understand(results, profile=False):
                            dtype=torch.uint8)
     layers = pipe.cfg.llm.num_hidden_layers
     per_forward = 7 * layers + 1                     # q, k, v, o, gate, up, down + head
+    quant_per_forward = 4 * layers + 1               # q/k/v, o, gate/up, down + head
     expect_q = {"flash_attention": pipe.vision_cfg.num_layers_used + layers,
                 "chunk_attention": layers * (NEW_TOKENS - 1), "conv3x3_gn_swish": 0,
-                "w4a8_matmul": per_forward * NEW_TOKENS}
+                "w4a8_matmul": per_forward * NEW_TOKENS,
+                "quantize_activations": quant_per_forward * NEW_TOKENS}
     vocab = pipe.cfg.llm.vocab_size
 
     def run(p):
@@ -695,7 +811,8 @@ def run_understand(results, profile=False):
 
     out = {}
     for name, p, expect, runs in (("w4a8", qpipe, expect_q, ("cold", "warm")),
-                                  ("bf16", pipe, dict(expect_q, w4a8_matmul=0), ("warm",))):
+                                  ("bf16", pipe, dict(expect_q, w4a8_matmul=0,
+                                                      quantize_activations=0), ("warm",))):
         if name == "bf16":
             run(p)                                   # warm-up of the bf16 backbone
         for which in runs:
@@ -751,7 +868,8 @@ def run_tiny_understand():
     toks_cpu = cpu.understand(pixels, list(QUESTIONS), None, max_new_tokens=32)
     agree = (toks_gpu.cpu() == toks_cpu).float().mean().item()
     print(f"  token agreement {agree:.4f} (need >= 0.99), launches {counts}")
-    check(all(counts[k] > 0 for k in ("flash_attention", "chunk_attention", "w4a8_matmul")),
+    check(all(counts[k] > 0 for k in ("flash_attention", "chunk_attention", "w4a8_matmul",
+                                      "quantize_activations")),
           f"tiny understand skipped a kernel: {counts}")
     check(agree >= 0.99, f"tiny understand token agreement {agree}")
 
@@ -839,11 +957,14 @@ def main(argv=None) -> int:
     replaces = {"chunk_attention": "unigen_tpu/ops/chunk_attention.py:70",
                 "flash_attention": "unigen_tpu/ops/flash_attention.py:95",
                 "conv3x3_gn_swish": "unigen_tpu/ops/fused_conv.py:239",
-                "w4a8_matmul": "unigen_tpu/ops/int4.py:95"}
+                "w4a8_matmul": "unigen_tpu/ops/int4.py:95",
+                # an XLA fusion in the JAX package, not a Pallas kernel
+                "quantize_activations": "unigen_tpu/ops/quantization.py:50"}
     sources = {"chunk_attention": "unigen_tpu_torch/csrc/attention.cu",
                "flash_attention": "unigen_tpu_torch/csrc/attention.cu",
                "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu",
-               "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu"}
+               "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu",
+               "quantize_activations": "unigen_tpu_torch/csrc/int4.cu"}
     kernels = []
     for name in replaces:
         # launches: the sum over the main paths driven in this run (warm runs)

@@ -8,9 +8,13 @@ conftest:
 
 chip_smoke.py makes the same comparisons at the main path's shapes. Chunk
 attention is held to its plain version on both of its routes (one block
-walking all keys; the keys split over blocks and combined). The W4A8 kernel sums each group exactly in int32 and folds the scales in fp32
-without fused multiply-adds, in group order, as its plain version does: it
-is held to 1e-5 of the output's largest magnitude (expected exact). fp32
+walking all keys; the keys split over blocks and combined). The W4A8 kernel
+sums each group exactly in int32 and folds the scales in fp32 without fused
+multiply-adds, in group order, as its plain version does: the product alone
+is held to 1e-5 of the output's largest magnitude (expected exact); the
+fused dense layer (product, ``* act_scale + bias``, cast) and the per-token
+quantization must equal their plain versions bit for bit, on every route
+(split over groups, unsplit, the prefill body). fp32
 tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
 relative to the largest output m: the plain attention rounds P to bf16 before
 P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m).
@@ -25,7 +29,9 @@ from unigen_tpu_torch.ops import masks as M
 from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
 from unigen_tpu_torch.ops.flash_attention import (KERNEL_HEAD_DIMS, flash_attention,
                                                   flash_attention_plain)
+from unigen_tpu_torch.ops import int4 as I4
 from unigen_tpu_torch.ops.int4 import pack_int4, w4a8_matmul, w4a8_matmul_plain
+from unigen_tpu_torch.ops.quantization import quantize_activations, quantize_activations_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
 
@@ -221,3 +227,96 @@ def test_w4a8_counts_launches_only_on_the_card(cuda):
     w4a8_matmul(x8.to(cuda), packed.to(cuda), scale.to(cuda), group=32)
     w4a8_matmul(x8, packed, scale, group=32)
     assert w4a8_matmul.launches == before + 1
+
+
+def _activations(t, k, seed, device, dtype):
+    """Normal * 3 rows with, where there are rows for them, an all-zero row
+    and a row whose scale is 1 (max 127) holding exact .5 ties and +-127."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t, k)).astype(np.float32) * 3
+    if t > 2:
+        x[1] = 0.0
+        ties = np.array([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -127.0], np.float32)
+        x[2] = np.resize(ties, k)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1536, 8960, 999])
+@pytest.mark.parametrize("t", [1, 8, 6296])
+def test_quantize_kernel_equals_plain(cuda, t, k, dtype):
+    x = _activations(t, k, 17, cuda, dtype)
+    got, ref = quantize_activations(x), quantize_activations_plain(x)
+    assert got[0].shape == (t, k) and got[1].shape == (t, 1)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_counts_one_launch_and_keeps_lead_dims(cuda):
+    x = _activations(6, 40, 18, cuda, torch.bfloat16).reshape(2, 3, 40)
+    before = quantize_activations.launches
+    x8, s = quantize_activations(x)
+    quantize_activations(x.cpu())
+    assert quantize_activations.launches == before + 1
+    assert x8.shape == (2, 3, 40) and s.shape == (2, 3, 1)
+    assert torch.equal(x8, quantize_activations_plain(x)[0])
+
+
+def _dense_case(t, k, n, group, seed, device, bias_dtype):
+    rng = np.random.default_rng(seed)
+    packed, scale = pack_int4(torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)), group)
+    x8 = torch.from_numpy(rng.integers(-127, 128, size=(t, k)).astype(np.int8))
+    act = torch.from_numpy((rng.random((t, 1)) * 0.05 + 1e-3).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32) * 0.1).to(bias_dtype)
+    p = {I4.KEY: packed.to(device), "scale4": scale.to(device), "bias": bias.to(device)}
+    return p, x8.to(device), act.to(device)
+
+
+# (T, K, N, group): decode (split), the head (unsplit), the prefill body, and
+# ragged T, N and groups on each route (group 16 and N 96 take the prefill
+# body's plain loads)
+DENSE_CASES = [(8, 1536, 8960, 256), (8, 512, 159867, 256), (6296, 1536, 8960, 256),
+               (5, 128, 96, 32), (5, 512, 1000, 64), (37, 512, 1000, 64), (37, 256, 96, 32),
+               (70, 256, 512, 16), (300, 1024, 1000, 256), (3, 96, 40, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,k,n,group", DENSE_CASES)
+def test_w4a8_dense_kernel_equals_plain(cuda, t, k, n, group, bias_dtype, out_dtype):
+    p, x8, act = _dense_case(t, k, n, group, 19, cuda, bias_dtype)
+    ref = I4.dense_int4_prequant_plain(p, x8, act, out_dtype)
+    got = I4.dense_int4_prequant(p, x8, act, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (t, n)
+    assert torch.equal(got, ref)
+    if t <= 16:        # the route the wrapper does not choose gives the same bits
+        other = I4._dense_launch(x8, p[I4.KEY], p["scale4"], act, p["bias"], out_dtype, group,
+                                 not I4.splits_over_groups(t, n))
+        assert torch.equal(other, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 37])
+def test_w4a8_dense_counts_one_launch(cuda, t):
+    p, x8, act = _dense_case(t, 256, 96, 64, 20, cuda, torch.float32)
+    before = w4a8_matmul.launches
+    y = I4.dense_int4_prequant(p, x8.reshape(1, t, 256), act.reshape(1, t, 1), torch.bfloat16)
+    I4.dense_int4_prequant({k: v.cpu() for k, v in p.items()}, x8.cpu(), act.cpu(),
+                           torch.bfloat16)
+    assert w4a8_matmul.launches == before + 1 and y.shape == (1, t, 96)
+
+
+@pytest.mark.cuda
+def test_dense_int4_layer_equals_plain_composition(cuda):
+    """quantization + fused product, as a layer runs them, against the plain
+    composition, in bf16 with a bf16 bias."""
+    rng = np.random.default_rng(21)
+    w = torch.from_numpy(rng.normal(size=(1536, 256)).astype(np.float32) * 0.03)
+    b = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32) * 0.1)
+    p = {k: v.to(cuda) for k, v in I4.quantize_dense_int4(
+        {"kernel": w, "bias": b.to(torch.bfloat16)}).items()}
+    x = _activations(37, 1536, 22, cuda, torch.bfloat16).reshape(1, 37, 1536)
+    ref = I4.dense_int4_prequant_plain(p, *quantize_activations_plain(x), torch.bfloat16)
+    assert torch.equal(I4.dense_int4(p, x), ref)

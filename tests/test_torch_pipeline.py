@@ -94,6 +94,36 @@ def test_same_generator_seed_same_images(tiny):
     assert not torch.equal(a, c)
 
 
+@pytest.mark.parametrize("guidance_scale", [1.0, 6.0])
+def test_prefix_cached_codes_build_no_omni_mask(tiny, monkeypatch, guidance_scale):
+    """``generate_images`` takes the prefix-cached path, which reads no dense
+    omni mask: it builds none, and its codes equal those of ``t2i_generate``
+    handed JAX's mask as before."""
+    from unigen_tpu_torch.generation import t2i_generate
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops import sampling as S
+    prompts = ["a red cat", "a dog"]
+    ids, uncond = (torch.as_tensor(a) for a in tiny.prompt_ids(prompts, 8))
+    sp, pad = tiny.prompting.sptids_dict, tiny.prompting.pad_id
+    mask = M.create_attention_mask_predict_next(
+        torch.cat([ids, uncond]), pad_id=pad, soi_id=sp["<|soi|>"], eoi_id=sp["<|eoi|>"],
+        rm_pad_in_image=True)
+    if guidance_scale <= 1:
+        mask = mask[:2]
+    want = t2i_generate(tiny.params, tiny.cfg, torch.Generator().manual_seed(0), ids, mask,
+                        uncond_input_ids=uncond, temperature=1.0, timesteps=3,
+                        guidance_scale=guidance_scale,
+                        noise_schedule=S.get_mask_schedule("cosine"), pad_id=pad)
+    built = []
+    real = M.create_attention_mask_predict_next
+    monkeypatch.setattr(M, "create_attention_mask_predict_next",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    got = tiny.generate_images(prompts, torch.Generator().manual_seed(0),
+                               guidance_scale=guidance_scale, timesteps=3, max_text_len=8,
+                               return_codes=True)
+    assert built == [] and torch.equal(got, want)
+
+
 def test_ar_mode_not_ported_raises(tiny):
     with pytest.raises(NotImplementedError):
         tiny.generate_images(["x"], None, mode="ar")

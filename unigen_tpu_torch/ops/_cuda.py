@@ -41,8 +41,11 @@ SIGNATURES = {
         "conv3x3_gn_swish_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "int4": {
-        # x, packed, scale4, out, scratch (or None), T, K, N, group, stream
-        "w4a8_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x, packed, scale4, act_scale, bias, bias dtype, out, out dtype, scratch (or None),
+        # T, K, N, n, group, stream
+        "w4a8_dense_launch": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+        # dtype, x, x_int8, act_scale, T, K, stream
+        "quantize_activations_launch": (_I, _P, _P, _P, _I, _I, _P),
     },
 }
 

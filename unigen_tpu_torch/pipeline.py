@@ -26,14 +26,11 @@ from .weights import tree_to
 
 
 @torch.no_grad()
-def _generate_codes(params, cfg, ids, uncond_ids, generator, *, pad_id, soi_id, eoi_id,
-                    guidance_scale, timesteps, temperature, mask_schedule, noise=None):
-    both = torch.cat([ids, uncond_ids], dim=0)
-    attn = M.create_attention_mask_predict_next(both, pad_id=pad_id, soi_id=soi_id,
-                                                eoi_id=eoi_id, rm_pad_in_image=True)
-    if guidance_scale <= 1:
-        attn = attn[: ids.shape[0]]
-    return t2i_generate(params, cfg, generator, ids, attn, uncond_input_ids=uncond_ids,
+def _generate_codes(params, cfg, ids, uncond_ids, generator, *, pad_id, guidance_scale,
+                    timesteps, temperature, mask_schedule, noise=None):
+    """``t2i_generate`` on its prefix-cached path, which reads no dense omni
+    mask, so none is built (JAX builds one and its jit drops it unread)."""
+    return t2i_generate(params, cfg, generator, ids, None, uncond_input_ids=uncond_ids,
                         temperature=temperature, timesteps=timesteps,
                         guidance_scale=guidance_scale,
                         noise_schedule=S.get_mask_schedule(mask_schedule),
@@ -90,12 +87,10 @@ class UniGenPipeline:
         if mode != "mask":
             raise NotImplementedError(f"mode {mode!r} is not ported yet; only 'mask'")
         ids, uncond_ids = self.prompt_ids(prompts, max_text_len)
-        sp = self.prompting.sptids_dict
         codes = _generate_codes(
             self.params, self.cfg, torch.as_tensor(ids, device=self.device),
             torch.as_tensor(uncond_ids, device=self.device), generator,
-            pad_id=self.prompting.pad_id, soi_id=sp["<|soi|>"], eoi_id=sp["<|eoi|>"],
-            guidance_scale=guidance_scale, timesteps=timesteps, temperature=temperature,
+            pad_id=self.prompting.pad_id, guidance_scale=guidance_scale, timesteps=timesteps, temperature=temperature,
             mask_schedule=mask_schedule, noise=noise)
         if return_codes:
             return codes
