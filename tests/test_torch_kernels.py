@@ -17,7 +17,9 @@ quantization must equal their plain versions bit for bit, on every route
 (split over groups, unsplit, the prefill body). fp32
 tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
 relative to the largest output m: the plain attention rounds P to bf16 before
-P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m).
+P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m). The GroupNorm
+statistics kernel is held to 1e-5 of the largest |A|, |B| of its plain
+version, on inputs with a mean of 100 against a spread of 1 too.
 """
 import numpy as np
 import pytest
@@ -181,6 +183,91 @@ def test_fused_conv_kernel_matches_plain(cuda, gn, dtype, rtol):
     gn_p = {"scale": t(1 + 0.3 * rng.normal(size=(c,))),
             "bias": t(0.1 * rng.normal(size=(c,)))} if gn else None
     _close(FC.conv3x3_gn_swish(conv_p, gn_p, x), FC.conv3x3_gn_swish_plain(conv_p, gn_p, x), rtol)
+
+
+def _conv_case(b, h, w, c, cout, gn, dtype, device, seed=13, shift=0.5, p_dtype=None):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+    x = t(rng.normal(size=(b, h, w, c)) + shift)
+    conv_p = {"kernel": t(rng.normal(size=(3, 3, c, cout)) * (9 * c) ** -0.5),
+              "bias": t(rng.normal(size=(cout,)) * 0.1)}
+    gn_p = {"scale": t(1 + 0.3 * rng.normal(size=(c,)), p_dtype or dtype),
+            "bias": t(0.1 * rng.normal(size=(c,)), p_dtype or dtype)} if gn else None
+    return x, conv_p, gn_p
+
+
+# every kernel-3 call of the MAGViTv2 decoder: (H = W, C, Cout, GroupNorm)
+DECODER_CONVS = [(16, 512, 512, True), (32, 512, 512, False), (32, 512, 256, True),
+                 (32, 256, 256, True), (64, 256, 256, False), (64, 256, 256, True),
+                 (128, 256, 256, False), (128, 256, 128, True), (128, 128, 128, True),
+                 (256, 128, 128, False), (256, 128, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,cout,gn", DECODER_CONVS)
+def test_fused_conv_kernel_at_decoder_shapes(cuda, hw, c, cout, gn):
+    x, conv_p, gn_p = _conv_case(1, hw, hw, c, cout, gn, torch.bfloat16, cuda)
+    _close(FC.conv3x3_gn_swish(conv_p, gn_p, x), FC.conv3x3_gn_swish_plain(conv_p, gn_p, x),
+           2 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("c,cout", [(96, 80), (16, 24), (24, 40), (64, 136), (12, 20)])
+def test_fused_conv_kernel_ragged(cuda, c, cout, gn, dtype, rtol):
+    """19 x 37 pixels (ragged tiles), C != Cout, one channel chunk (16), a last
+    chunk of 8 channels whose other 8 the 16-byte copies zero-fill (24), more
+    than one output block (136), and C % 8 != 0 (the plain-load staging)."""
+    x, conv_p, gn_p = _conv_case(2, 19, 37, c, cout, gn, dtype, cuda, seed=c + cout)
+    _close(FC.conv3x3_gn_swish(conv_p, gn_p, x), FC.conv3x3_gn_swish_plain(conv_p, gn_p, x), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+def test_fused_conv_kernel_unaligned_input(cuda, gn):
+    """x that starts 2 bytes past a 16-byte boundary takes the plain loads."""
+    x, conv_p, gn_p = _conv_case(2, 19, 37, 64, 64, gn, torch.bfloat16, cuda, seed=5)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    _close(FC.conv3x3_gn_swish(conv_p, gn_p, xu), FC.conv3x3_gn_swish_plain(conv_p, gn_p, x),
+           2 ** -6)
+
+
+# (B, H, W, C, x dtype, mean of x, scale/bias dtype)
+GN_CASES = {"large_mean_bf16": (1, 256, 256, 128, torch.bfloat16, 100.0, None),
+            "large_mean_fp32": (1, 256, 256, 128, torch.float32, 100.0, None),
+            "c16_large_mean": (2, 19, 37, 16, torch.bfloat16, 100.0, None),
+            "c12_bf16_params": (2, 19, 37, 12, torch.float32, -3.0, torch.bfloat16),
+            "c512": (4, 16, 16, 512, torch.bfloat16, 0.5, None),
+            "few_pixels_fp32_params": (3, 5, 7, 96, torch.bfloat16, 0.5, torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GN_CASES))
+def test_gn_affine_kernel_matches_plain(cuda, name):
+    b, h, w, c, dtype, shift, p_dtype = GN_CASES[name]
+    x, _, gn_p = _conv_case(b, h, w, c, 8, True, dtype, cuda, seed=23, shift=shift,
+                            p_dtype=p_dtype)
+    got, ref = FC.gn_affine(gn_p, x), FC.gn_affine_plain(gn_p, x)
+    assert got.shape == (b, 2, c) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+def test_fused_conv_counts_one_launch_each(cuda, gn):
+    x, conv_p, gn_p = _conv_case(1, 9, 9, 32, 32, gn, torch.bfloat16, cuda)
+    before = (FC.conv3x3_gn_swish.launches, FC.gn_affine.launches)
+    FC.conv3x3_gn_swish(conv_p, gn_p, x)
+    cpu = (lambda p: None if p is None else {k: v.cpu() for k, v in p.items()})
+    FC.conv3x3_gn_swish(cpu(conv_p), cpu(gn_p), x.cpu())
+    assert (FC.conv3x3_gn_swish.launches, FC.gn_affine.launches) == (before[0] + 1,
+                                                                      before[1] + int(gn))
 
 
 @pytest.mark.cuda

@@ -39,6 +39,9 @@ SIGNATURES = {
     "fused_conv": {
         # dtype, x, ab, w, bias, out, B, H, W, C, Cout, stream
         "conv3x3_gn_swish_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # x dtype, x, scale/bias dtype, scale, bias, ab, scratch, B, H*W, C, groups, nsplit,
+        # eps, stream
+        "gn_affine_launch": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "int4": {
         # x, packed, scale4, act_scale, bias, bias dtype, out, out dtype, scratch (or None),
