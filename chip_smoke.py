@@ -13,14 +13,23 @@ just after:
 
 * ``flagship``: GenEval text-to-image (``build_pipeline`` ->
   ``generate_images`` -> ``decode_codes``), Qwen2.5-1.5B + MAGViTv2;
+* ``flagship_int8``: the same t2i call on W8A8, the JAX package's shipped
+  t2i default (``build_pipeline(quantization="int8")``: backbone and image
+  head int8, ``torch._int_mm`` plus the epilogue kernel ``csrc/int8.cu``);
 * ``understand``: SigLIP VQA (``build_pipeline(vision=True)`` ->
   ``quantize_unigen_params_int4`` -> ``understand``), SigLIP-SO400M + the MM
   projector + Qwen2.5-1.5B in W4A8, 8 images of 384 px, 128 new tokens
-  greedy; then once more with the bf16 backbone as a yardstick.
+  greedy; then once more with the bf16 backbone as a yardstick;
+* ``understand_int8``: the same call as JAX's ``int8+kv``
+  (``build_pipeline(vision=True, quantization="int8",
+  quantized_cache=True)``: tower, backbone and text head W8A8, K/V int8).
 
-It checks that each path went through every kernel it runs, and compares
-tiny fp32 runs through the kernels on the card with the plain versions on
-the CPU (t2i under shared noise; W4A8 understand, greedy). Kernel 4 (the
+It checks that each path went through every kernel it runs (fixed launch
+counts), and compares tiny fp32 runs through the kernels on the card with
+the plain versions on the CPU (t2i under shared noise; W4A8 understand,
+greedy; int8 t2i and understand with the int8 cache). The W8A8 epilogue is
+held to its plain version bit for bit at every shape of the int8 paths and
+timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
 to their plain versions bit for bit at every shape of the W4A8 path, on
 every route, and each W4A8 layer is timed whole against bf16 ``F.linear``. Kernel 3
@@ -35,11 +44,11 @@ nonzero and prints no result. Kernel times (``ms``, ``plain_ms``,
 ``library_ms``) are device times from ``torch.profiler``; bounds are
 computed from each phase's inputs against the H100 SXM's published peaks.
 
-``--phases`` (default: build,kernels,flagship,understand,tiny) runs a
-subset, for quick checks; adding ``profile`` traces one more warm run of
-each path with ``torch.profiler`` and prints where the device time goes, by
-kernel and by family (the port's kernels, cuBLAS, plain-torch copies,
-reductions and elementwise kernels).
+``--phases`` (default: build,kernels,flagship,flagship_int8,understand,
+understand_int8,tiny) runs a subset, for quick checks; adding ``profile``
+traces one more warm run of each path with ``torch.profiler`` and prints
+where the device time goes, by kernel and by family (the port's kernels,
+cuBLAS, plain-torch copies, reductions and elementwise kernels).
 """
 from __future__ import annotations
 
@@ -51,7 +60,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "flagship", "understand", "tiny")
+PHASES = ("build", "kernels", "flagship", "flagship_int8", "understand", "understand_int8",
+          "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -738,6 +748,7 @@ def run_kernel_phases(results):
           phase_quant(gen, t_pre, 8960, bf16, 10, True, "prefill down input")]
     results["quantize_activations"] = dict(qa[0], shapes=qa[1:])
     phase_head_dims(gen)
+    run_w8a8_phases(results)
     # ragged T, N and groups on every route: both routes at T 5 (split chosen),
     # the prefill body with 16-byte copies (T 37, 300) and with plain loads
     # (group 16: half-groups of 8 bytes)
@@ -747,19 +758,172 @@ def run_kernel_phases(results):
     for t, k, dtype in ((1, 999, f32), (37, 1000, bf16), (6296, 8960, f32)):
         phase_quant(gen, t, k, dtype, 0, False, "ragged")
 
+def phase_w8a8(gen, t, k, n, iters, timed, label="", bias_dtype=None):
+    """The W8A8 layer at [t, k] -> n: weights quantized from a normal * k^-1/2
+    matrix, activations from a bf16 normal by the plain quantization, a bias
+    of ``bias_dtype`` or none. ``torch._int_mm`` (on rows padded to 32 at
+    t <= 16) must give the exact product; the epilogue kernel must equal its
+    plain version bit for bit (bf16 and, untimed, fp32 out), and so must the
+    whole layer ``dense_int8`` against the plain composition. Timed: the
+    epilogue launch against its plain version and its byte bound; the product
+    alone; the whole layer (quantization, product, epilogue: what one layer
+    enqueues) against bf16 ``F.linear`` (with the bias where the layer has
+    one), on the device and back to back."""
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops import quantization as QZ
+    bf16 = torch.bfloat16
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    dense = {"kernel": w}
+    if bias_dtype is not None:
+        dense["bias"] = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(bias_dtype)
+    p = QZ.quantize_dense(dense)
+    w8, scale, bias = p[QZ.KEY], p["scale"], p.get("bias")
+    x = torch.randn((t, k), generator=gen, device="cuda").to(bf16)
+    x8, act = QZ.quantize_activations_plain(x)
+    acc = QZ.int8_matmul(x8, w8)
+    check(acc.shape == (t, w8.shape[0]) and bool(torch.equal(acc.double(),
+                                                             x8.double() @ w8.double().t())),
+          f"int8_matmul {label} T={t} K={k} N={n} is not the exact product")
+    for out_dtype in ((bf16,) if timed else (bf16, torch.float32)):
+        ref = QZ.w8a8_epilogue_plain(acc, act, scale, bias, out_dtype)
+        got = QZ.w8a8_epilogue(acc, act, scale, bias, out_dtype)
+        torch.cuda.synchronize()
+        check(got.shape == (t, n) and bool(torch.isfinite(got).all()),
+              f"w8a8_epilogue {label} output {tuple(got.shape)} not finite")
+        check(bool(torch.equal(got, ref)), f"w8a8_epilogue {label} T={t} N={n} {out_dtype} "
+              "differs from its plain version")
+    check(bool(torch.equal(QZ.dense_int8(p, x), QZ.dense_int8_prequant_plain(p, x8, act, bf16))),
+          f"dense_int8 {label} (quantization + _int_mm + epilogue) differs from the plain "
+          "composition")
+    print(f"  w8a8 {label} T={t} K={k} N={n} (Npad {w8.shape[0]}, bias "
+          f"{'none' if bias is None else str(bias_dtype).split('.')[-1]}): exact product; "
+          f"epilogue{'' if timed else ' (bf16 and fp32)'} and layer equal their plain versions "
+          "bit for bit")
+    if not timed:
+        return None
+    ms = time_ms(lambda: QZ.w8a8_epilogue(acc, act, scale, bias, bf16), iters)
+    plain_ms = time_ms(lambda: QZ.w8a8_epilogue_plain(acc, act, scale, bias, bf16), iters)
+    mm_ms = time_ms(lambda: QZ.int8_matmul(x8, w8), iters)
+    layer_ms = time_ms(lambda: QZ.dense_int8(p, x), iters)
+    layer_call = call_ms(lambda: QZ.dense_int8(p, x), iters)
+    wb = w.t().contiguous().to(bf16)
+
+    def library():
+        return F.linear(x, wb, bias)
+    lib_ms = time_ms(library, iters)
+    lib_call = call_ms(library, iters)
+    b_ms, by = bound(0.0, nbytes(acc[:, :n], act, scale, got) + (0 if bias is None else
+                                                                 nbytes(bias)), INT8_PEAK)
+    lb_ms, lby = bound(2.0 * t * k * n, nbytes(x, w8[:n], scale, got) + (0 if bias is None else
+                                                                        nbytes(bias)), INT8_PEAK)
+    print(f"    epilogue ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {b_ms:.4f} ({by})  "
+          f"library_ms none")
+    print(f"    layer: device {layer_ms:.4f} ms (_int_mm {mm_ms:.4f}), bound {lb_ms:.4f} ({lby}); "
+          f"bf16 F.linear{' + bias' if bias is not None else ''} {lib_ms:.4f}; back to back "
+          f"layer {layer_call:.4f}, F.linear {lib_call:.4f}")
+    return dict(_measured(0.0, ms, plain_ms, None, b_ms, by,
+                          f"{label} [{t},{n}] of [{t},{k}] x [{k},{n}]"),
+                int_mm_ms=mm_ms, layer_ms=layer_ms, layer_bound_ms=lb_ms,
+                linear_ms=lib_ms, layer_call_ms=layer_call, linear_call_ms=lib_call)
+
+
+def phase_int_mm_layout(gen, t, k, n, iters):
+    """torch._int_mm with the W8A8 leaf's weight ([Npad, K], read as its
+    transpose) against the same weight stored [K, N]: the device kernels of
+    each (the leaf's may hold no copy or transpose) and their times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from unigen_tpu_torch.ops import quantization as QZ
+    x8 = torch.randint(-127, 128, (t, k), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    w_kn = w.t().contiguous()
+    QZ.int8_matmul(x8, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        QZ.int8_matmul(x8, w)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.is_user_annotation]
+    check(bool(names) and not any("copy" in m.lower() or "transpose" in m.lower() for m in names),
+          f"torch._int_mm on the W8A8 weight layout launched {names}")
+    leaf_ms = time_ms(lambda: torch._int_mm(x8, w.t()), iters)
+    kn_ms = time_ms(lambda: torch._int_mm(x8, w_kn), iters)
+    print(f"  torch._int_mm [{t},{k}] x [{k},{n}]: the leaf's [N, K] weight {leaf_ms:.4f} ms "
+          f"({names[0][:70]}), a [K, N] weight {kn_ms:.4f} ms; no copy kernel")
+    return {"leaf_ms": leaf_ms, "kn_ms": kn_ms, "kernel": names[0]}
+
+
+def run_w8a8_phases(results):
+    """The W8A8 layer at every shape of the int8 paths: t2i (prefill 8 x 148
+    rows, steps 8 x 258, the image head on 4 x 256 blended rows), the
+    understand call (SigLIP 8 x 729, prefill 8 x 787, decode 8 rows and the
+    159,867-wide head); timed at the t2i step and decode shapes and one
+    prefill and one SigLIP shape; ragged shapes and an fp32 bias untimed."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("phase: kernels, the W8A8 layer (torch._int_mm + the epilogue kernel) at the int8 "
+          "paths' shapes (bf16 activations)")
+    l, _ = understand_prompt_shape()
+    b = len(QUESTIONS)
+    t_step, t_pre, t_vit = 8 * 258, b * l, b * 729
+    timed = [phase_w8a8(gen, t_step, 1536, 8960, 20, True, "t2i step gate/up"),
+             phase_w8a8(gen, t_step, 1536, 1536, 20, True, "t2i step q", bf16),
+             phase_w8a8(gen, t_step, 1536, 256, 20, True, "t2i step k/v", bf16),
+             phase_w8a8(gen, t_step, 8960, 1536, 20, True, "t2i step down"),
+             phase_w8a8(gen, 4 * 256, 1536, 8192, 20, True, "t2i image head"),
+             phase_w8a8(gen, b, 1536, 8960, 50, True, "decode gate/up"),
+             phase_w8a8(gen, b, 1536, 1536, 50, True, "decode q", bf16),
+             phase_w8a8(gen, b, 1536, 256, 50, True, "decode k/v", bf16),
+             phase_w8a8(gen, b, 8960, 1536, 50, True, "decode down"),
+             phase_w8a8(gen, b, 1536, 159867, 20, True, "decode head"),
+             phase_w8a8(gen, t_pre, 1536, 8960, 10, True, "understand prefill gate/up"),
+             phase_w8a8(gen, t_vit, 1152, 4304, 10, True, "SigLIP fc1", bf16)]
+    for t, k, n, label, bias in ((8 * 148, 1536, 1536, "t2i prefill q", bf16),
+                                 (8 * 148, 1536, 256, "t2i prefill k/v", bf16),
+                                 (8 * 148, 1536, 8960, "t2i prefill gate/up", None),
+                                 (8 * 148, 8960, 1536, "t2i prefill down", None),
+                                 (t_step, 1536, 1536, "t2i step o", None),
+                                 (b, 1536, 1536, "decode o", None),
+                                 (t_pre, 1536, 1536, "understand prefill q", bf16),
+                                 (t_pre, 1536, 256, "understand prefill k/v", bf16),
+                                 (t_pre, 8960, 1536, "understand prefill down", None),
+                                 (t_vit, 1152, 1152, "SigLIP q/k/v/o", bf16),
+                                 (t_vit, 4304, 1152, "SigLIP fc2", bf16),
+                                 (5, 128, 96, "ragged", None), (37, 512, 1000, "ragged", f32),
+                                 (16, 64, 161, "ragged", bf16), (17, 96, 40, "ragged", f32),
+                                 (300, 1024, 1000, "ragged", bf16)):
+        phase_w8a8(gen, t, k, n, 0, False, label, bias)
+    results["w8a8_epilogue"] = dict(timed[0], shapes=timed[1:],
+                                    int_mm_layout=phase_int_mm_layout(gen, t_step, 1536, 8960,
+                                                                      20))
+
+
 # ---------------------------------------------------------------------------
 # path phases
 # ---------------------------------------------------------------------------
 
 def _counters():
+    """Every launch count a path phase reads: the port's kernels, and
+    ``int8_matmul`` (the W8A8 layers' ``torch._int_mm`` calls on the card)."""
     from unigen_tpu_torch.ops.chunk_attention import chunk_attention
     from unigen_tpu_torch.ops.flash_attention import flash_attention
     from unigen_tpu_torch.ops.fused_conv import conv3x3_gn_swish, gn_affine
     from unigen_tpu_torch.ops.int4 import w4a8_matmul
-    from unigen_tpu_torch.ops.quantization import quantize_activations
+    from unigen_tpu_torch.ops.quantization import (int8_matmul, quantize_activations,
+                                                   w8a8_epilogue)
     return {"flash_attention": flash_attention, "chunk_attention": chunk_attention,
             "conv3x3_gn_swish": conv3x3_gn_swish, "gn_affine": gn_affine,
-            "w4a8_matmul": w4a8_matmul, "quantize_activations": quantize_activations}
+            "w4a8_matmul": w4a8_matmul, "quantize_activations": quantize_activations,
+            "w8a8_epilogue": w8a8_epilogue, "int8_matmul": int8_matmul}
+
+
+NO_LAUNCHES = dict.fromkeys(("flash_attention", "chunk_attention", "conv3x3_gn_swish",
+                             "gn_affine", "w4a8_matmul", "quantize_activations",
+                             "w8a8_epilogue", "int8_matmul"), 0)
 
 
 def _reset_counts():
@@ -773,10 +937,13 @@ def _read_counts():
 
 # the port's hand-written kernels: a profile prints them even below its top rows
 PORT_KERNELS = ("attention_bf16_kernel", "chunk_split_bf16_kernel", "chunk_combine_kernel",
-                "w4a8_", "quantize_kernel", "conv3x3", "gn_partial", "gn_finish")
+                "w4a8_", "quantize_kernel", "conv3x3", "gn_partial", "gn_finish",
+                "w8a8_epilogue")
 # kernel families by name, first match wins: what is the port's, cuBLAS's, and
 # what is left of plain-torch elementwise work
 FAMILIES = (("kernel 4 (w4a8_*)", ("w4a8_",)), ("quantization kernel", ("quantize_kernel",)),
+            ("W8A8 epilogue kernel", ("w8a8_epilogue",)),
+            ("cuBLAS int8 GEMMs (torch._int_mm)", ("gemm_s8", "_s8_", "i8i8")),
             ("attention kernels 1, 2", ("attention_bf16", "chunk_split", "chunk_combine",
                                         "attention_fp32")),
             ("conv kernel 3", ("conv3x3",)),
@@ -894,9 +1061,8 @@ def run_flagship(results, profile=False):
     torch.cuda.synchronize()
     print(f"  build_pipeline {time.perf_counter() - t0:.2f} s")
     layers = pipe.cfg.llm.num_hidden_layers
-    expect = {"flash_attention": layers, "chunk_attention": layers * 50,
-              "conv3x3_gn_swish": 44, "gn_affine": 40, "w4a8_matmul": 0,
-              "quantize_activations": 0}
+    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * 50,
+                  conv3x3_gn_swish=44, gn_affine=40)
     counts = None
     census = {}
     for run in ("cold", "warm"):
@@ -948,6 +1114,67 @@ def run_flagship(results, profile=False):
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["flagship"] = {"seconds": dt, "enqueue_s": enqueued,
                            "images_per_s": len(PROMPTS) / dt}
+    results["flagship_codes"] = codes
+    return counts
+
+
+def run_flagship_int8(results, profile=False):
+    """The t2i flagship on W8A8, JAX's shipped t2i default
+    (``build_pipeline(quantization="int8")``: backbone and image head int8):
+    the same seed-0 weights, prompts and generator seed as ``run_flagship``,
+    fixed launch counts, images/s, and the codes' agreement with the bf16 run
+    of this call (random weights: not a gate)."""
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: flagship_int8 path (the flagship t2i with build_pipeline(quantization="
+          "'int8'): W8A8 backbone and image head, the same weights, prompts and seeds)")
+    t0 = time.perf_counter()
+    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int8")
+    torch.cuda.synchronize()
+    print(f"  build_pipeline(quantization='int8') {time.perf_counter() - t0:.2f} s")
+    layers, steps = pipe.cfg.llm.num_hidden_layers, 50
+    # the prefill (7 projections a layer, 4 quantizations) and 50 steps, each
+    # with the image head (one more of each)
+    dense = 7 * layers * (steps + 1) + steps
+    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * steps,
+                  conv3x3_gn_swish=44, gn_affine=40,
+                  quantize_activations=4 * layers + steps * (4 * layers + 1),
+                  w8a8_epilogue=dense, int8_matmul=dense)
+
+    def run_once():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        codes = pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0, timesteps=steps,
+                                     max_text_len=128, return_codes=True)
+        return codes, pipe.decode_codes(codes)
+    for run in ("cold", "warm"):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, pixels = run_once()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        print(f"  {run} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), "
+              f"{len(PROMPTS) / dt:.4f} images/s, launches {counts}")
+        check(counts == expect, f"flagship_int8 launch counts {counts} != {expect}")
+        check(bool(((codes >= 0) & (codes < pipe.cfg.codebook_size)).all()),
+              "flagship_int8 codes out of [0, 8192)")
+        check(tuple(pixels.shape) == (len(PROMPTS), 256, 256, 3) and
+              bool(torch.isfinite(pixels).all()), "flagship_int8 pixels")
+    out = {"seconds": dt, "enqueue_s": enqueued, "images_per_s": len(PROMPTS) / dt}
+    if "flagship_codes" in results:
+        out["agreement_with_bf16"] = (codes == results["flagship_codes"]).float().mean().item()
+        bf = results["flagship"]
+        print(f"  beside the bf16 run of this call: {bf['seconds']:.3f} s ({bf['enqueue_s']:.3f} s "
+              f"to enqueue), {bf['images_per_s']:.4f} images/s; codes agree with bf16's on "
+              f"{out['agreement_with_bf16']:.4f} (random weights; not a gate)")
+    if profile:
+        profile_run(run_once, dt)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["flagship_int8"] = out
     return counts
 
 
@@ -975,11 +1202,10 @@ def run_understand(results, profile=False):
     layers = pipe.cfg.llm.num_hidden_layers
     per_forward = 7 * layers + 1                     # q, k, v, o, gate, up, down + head
     quant_per_forward = 4 * layers + 1               # q/k/v, o, gate/up, down + head
-    expect_q = {"flash_attention": pipe.vision_cfg.num_layers_used + layers,
-                "chunk_attention": layers * (NEW_TOKENS - 1), "conv3x3_gn_swish": 0,
-                "gn_affine": 0,
-                "w4a8_matmul": per_forward * NEW_TOKENS,
-                "quantize_activations": quant_per_forward * NEW_TOKENS}
+    expect_q = dict(NO_LAUNCHES, flash_attention=pipe.vision_cfg.num_layers_used + layers,
+                    chunk_attention=layers * (NEW_TOKENS - 1),
+                    w4a8_matmul=per_forward * NEW_TOKENS,
+                    quantize_activations=quant_per_forward * NEW_TOKENS)
     vocab = pipe.cfg.llm.vocab_size
 
     def run(p):
@@ -1019,7 +1245,73 @@ def run_understand(results, profile=False):
           f"slots, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["understand"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                              for k, v in out.items()}
+    results["understand_tokens"] = {k: v["tokens"] for k, v in out.items()}
     return out["w4a8"]["counts"]
+
+
+def run_understand_int8(results, profile=False):
+    """SigLIP VQA as JAX's ``int8+kv``: ``build_pipeline(vision=True,
+    quantization="int8", quantized_cache=True)`` puts the tower, the backbone
+    and the text head on W8A8 and keeps K/V in int8. The same weights,
+    pixels, questions and 128 greedy tokens as ``run_understand``; tokens/s
+    beside its W4A8 and bf16 runs of this call."""
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: understand_int8 path (SigLIP-SO400M + Qwen2.5-1.5B, all W8A8, int8 KV cache, "
+          f"{len(QUESTIONS)} images of 384 px, {NEW_TOKENS} new tokens, greedy)")
+    t0 = time.perf_counter()
+    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0, vision=True,
+                          quantization="int8", quantized_cache=True)
+    torch.cuda.synchronize()
+    print(f"  build_pipeline(vision=True, quantization='int8', quantized_cache=True) "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    b = len(QUESTIONS)
+    size = pipe.vision_cfg.image_size
+    pixels = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
+    # a forward: 7 projections and 4 quantizations a layer, and the head; the
+    # tower: q/k/v, o, fc1, fc2 on 4 quantizations a layer. No chunk kernel:
+    # the int8 cache's decode steps run the plain q8 attention.
+    dense = (7 * layers + 1) * NEW_TOKENS + 6 * vit
+    expect = dict(NO_LAUNCHES, flash_attention=vit + layers,
+                  quantize_activations=(4 * layers + 1) * NEW_TOKENS + 4 * vit,
+                  w8a8_epilogue=dense, int8_matmul=dense)
+    vocab = pipe.cfg.llm.vocab_size
+
+    def run_once():
+        return pipe.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
+    for which in ("cold", "warm"):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = run_once()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        tps = b * NEW_TOKENS / dt
+        print(f"  int8+kv {which} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), {tps:.2f} "
+              f"tokens/s, launches {counts}")
+        check(counts == expect, f"understand_int8 launch counts {counts} != {expect}")
+        check(tuple(toks.shape) == (b, NEW_TOKENS) and bool(((toks >= 0) & (toks < vocab)).all()),
+              f"understand_int8 tokens {tuple(toks.shape)} out of range")
+    out = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": tps}
+    if "understand" in results:
+        u = results["understand"]
+        out["agreement_with_bf16"] = (
+            toks == results["understand_tokens"]["bf16"]).float().mean().item()
+        print(f"  beside this call's understand runs: W4A8 {u['w4a8']['tokens_per_s']:.2f} "
+              f"tokens/s ({u['w4a8']['seconds']:.3f} s), bf16 {u['bf16']['tokens_per_s']:.2f} "
+              f"tokens/s ({u['bf16']['seconds']:.3f} s); tokens agree with bf16's on "
+              f"{out['agreement_with_bf16']:.4f} (random weights; not a gate)")
+    if profile:
+        profile_run(run_once, dt)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["understand_int8"] = out
+    return counts
 
 
 def run_tiny_understand():
@@ -1048,6 +1340,95 @@ def run_tiny_understand():
                                       "quantize_activations")),
           f"tiny understand skipped a kernel: {counts}")
     check(agree >= 0.99, f"tiny understand token agreement {agree}")
+
+
+@contextlib.contextmanager
+def decode_decisions(record, force=None):
+    """While open, records each step's greedy decision of
+    ``generation.decode`` ([B] tokens a step) into ``record``; with ``force``
+    ([B, steps] tokens) every step continues from force's token instead of
+    its own, so that two runs decide each step from the same history."""
+    from unigen_tpu_torch.generation import decode as TD
+    real = TD._sample_step
+
+    def spy(generator, logits, temperature, top_k, inj=None):
+        tok = real(generator, logits, temperature, top_k, inj)
+        record.append(tok.cpu())
+        return tok if force is None else force[:, len(record) - 1].to(tok.device)
+    TD._sample_step = spy
+    try:
+        yield record
+    finally:
+        TD._sample_step = real
+
+
+def run_tiny_int8():
+    """The tiny fp32 pipeline with ``quantization="int8"``: understand with
+    W8A8 alone and with the int8 KV cache (greedy), and t2i on the int8
+    image head (shared noise), through the kernels on the card against the
+    plain versions on the CPU. An fp32 difference in the last bits (sums in
+    another order) can move a value across an int8 rounding boundary, and a
+    greedy decode then follows the moved token for the rest of its row; so
+    the int8-cache run is held per decision, each step decided from the
+    CPU's history (the per-step measure of JAX's int8 gates), and its
+    free-running agreement is printed beside it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: tiny fp32 int8 (W8A8, int8 KV cache), kernels on the card vs plain versions on "
+          "the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision=True,
+                         quantization="int8", quantized_cache=True)
+    gpu = cpu.to("cuda")
+    size = cpu.vision_cfg.image_size
+    pixels = np.random.default_rng(6).integers(0, 256, (len(QUESTIONS), size, size, 3),
+                                               dtype=np.uint8)
+
+    def understand(p):
+        return p.understand(pixels, list(QUESTIONS), None, max_new_tokens=32).cpu()
+    _reset_counts()
+    toks_gpu = understand(gpu)
+    torch.cuda.synchronize()
+    u_counts = _read_counts()
+    cpu_dec, gpu_dec = [], []
+    with decode_decisions(cpu_dec):
+        toks_cpu = understand(cpu)
+    with decode_decisions(gpu_dec, force=toks_cpu):
+        understand(gpu)
+    per_decision = (torch.stack(gpu_dec, 1) == torch.stack(cpu_dec, 1)).float().mean().item()
+    free = (toks_gpu == toks_cpu).float().mean().item()
+    w8 = (understand(dataclasses.replace(gpu, quantized_cache=False)) ==
+          understand(dataclasses.replace(cpu, quantized_cache=False))).float().mean().item()
+    b, steps = len(PROMPTS), 8
+    n, cb = cpu.cfg.num_vq_tokens, cpu.cfg.codebook_size
+    rng = np.random.default_rng(5)
+    u_sample = rng.random((steps, b, n, cb), dtype=np.float32)
+    u_mask = rng.random((steps, b, n), dtype=np.float32)
+    kw = dict(guidance_scale=6.0, timesteps=steps, max_text_len=16, return_codes=True)
+    _reset_counts()
+    codes_gpu = gpu.generate_images(list(PROMPTS), None, noise=(
+        torch.from_numpy(u_sample).cuda(), torch.from_numpy(u_mask).cuda()), **kw)
+    torch.cuda.synchronize()
+    t_counts = _read_counts()
+    codes_cpu = cpu.generate_images(list(PROMPTS), None, noise=(
+        torch.from_numpy(u_sample), torch.from_numpy(u_mask)), **kw)
+    t_agree = (codes_gpu.cpu() == codes_cpu).float().mean().item()
+    print(f"  understand, W8A8 + int8 KV cache: decisions from the CPU's histories agree on "
+          f"{per_decision:.4f} (need >= 0.99); free-running token agreement {free:.4f}; "
+          f"launches {u_counts}")
+    print(f"  understand, W8A8 alone: token agreement {w8:.4f} (need >= 0.99)")
+    print(f"  t2i (int8 image head) token agreement {t_agree:.4f} (need >= 0.99), launches "
+          f"{t_counts}")
+    check(all(u_counts[k] > 0 for k in ("flash_attention", "w8a8_epilogue",
+                                        "quantize_activations")) and
+          u_counts["chunk_attention"] == 0, f"tiny int8 understand launches {u_counts}")
+    check(all(t_counts[k] > 0 for k in ("flash_attention", "chunk_attention", "w8a8_epilogue",
+                                        "quantize_activations")),
+          f"tiny int8 t2i skipped a kernel: {t_counts}")
+    check(per_decision >= 0.99 and w8 >= 0.99 and t_agree >= 0.99,
+          f"tiny int8 agreement: int8-cache decisions {per_decision}, W8A8 understand {w8}, "
+          f"t2i {t_agree}")
 
 
 def run_tiny():
@@ -1123,11 +1504,17 @@ def main(argv=None) -> int:
             run_kernel_phases(results)
         if "flagship" in phases:
             path_counts["t2i"] = run_flagship(results, profile="profile" in phases)
+        if "flagship_int8" in phases:
+            path_counts["t2i_int8"] = run_flagship_int8(results, profile="profile" in phases)
         if "understand" in phases:
             path_counts["understand"] = run_understand(results, profile="profile" in phases)
+        if "understand_int8" in phases:
+            path_counts["understand_int8"] = run_understand_int8(results,
+                                                                 profile="profile" in phases)
         if "tiny" in phases:
             run_tiny()
             run_tiny_understand()
+            run_tiny_int8()
         conv_batch_sums(results)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1139,13 +1526,16 @@ def main(argv=None) -> int:
                 "gn_affine": "unigen_tpu/ops/fused_conv.py:172",
                 "w4a8_matmul": "unigen_tpu/ops/int4.py:95",
                 # an XLA fusion in the JAX package, not a Pallas kernel
-                "quantize_activations": "unigen_tpu/ops/quantization.py:50"}
+                "quantize_activations": "unigen_tpu/ops/quantization.py:50",
+                # the XLA fusion that ends dense_int8_prequant, not a Pallas kernel
+                "w8a8_epilogue": "unigen_tpu/ops/quantization.py:62"}
     sources = {"chunk_attention": "unigen_tpu_torch/csrc/attention.cu",
                "flash_attention": "unigen_tpu_torch/csrc/attention.cu",
                "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu",
                "gn_affine": "unigen_tpu_torch/csrc/fused_conv.cu",
                "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu",
-               "quantize_activations": "unigen_tpu_torch/csrc/int4.cu"}
+               "quantize_activations": "unigen_tpu_torch/csrc/int4.cu",
+               "w8a8_epilogue": "unigen_tpu_torch/csrc/int8.cu"}
     kernels = []
     for name in replaces:
         # launches: the sum over the main paths driven in this run (warm runs)
@@ -1165,6 +1555,13 @@ def main(argv=None) -> int:
               f"({u['w4a8']['seconds']:.3f} s), bf16 backbone {u['bf16']['tokens_per_s']:.2f} "
               f"tokens/s ({u['bf16']['seconds']:.3f} s), batch {len(QUESTIONS)} x "
               f"{NEW_TOKENS} tokens, on {card}")
+    if "flagship_int8" in results:
+        f8 = results["flagship_int8"]
+        print(f"flagship_int8: {f8['images_per_s']:.4f} images/s ({f8['seconds']:.3f} s) on {card}")
+    if "understand_int8" in results:
+        u8 = results["understand_int8"]
+        print(f"understand_int8 (int8+kv): {u8['tokens_per_s']:.2f} tokens/s "
+              f"({u8['seconds']:.3f} s) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -184,10 +184,13 @@ def test_float_head_logits_match_jax(model):
 
 
 def test_unported_quantized_leaves_raise(model):
+    """int8 layers are ported (tests/test_torch_int8.py); a quantized layer
+    with LoRA adapters is not, and raises."""
     _, _, tcfg, tq, _ = model
     bad = dict(tq["llm"])
     bad["layers"] = [dict(lp) for lp in tq["llm"]["layers"]]
-    bad["layers"][0]["o"] = {"kernel_int8": torch.zeros(1), "scale": torch.zeros(1)}
+    bad["layers"][0]["o"] = dict(bad["layers"][0]["o"], lora_a=torch.zeros(1),
+                                 lora_b=torch.zeros(1), lora_scale=torch.ones(()))
     with pytest.raises(NotImplementedError):
         TQ.forward(bad, tcfg.llm, input_ids=torch.ones((1, 3), dtype=torch.long),
                    mask=torch.ones((1, 1, 3, 3), dtype=torch.bool))

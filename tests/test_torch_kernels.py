@@ -19,7 +19,11 @@ tolerances: the order of the sums differs, TF32 is off. bf16 tolerances are
 relative to the largest output m: the plain attention rounds P to bf16 before
 P.V (2^-7 m), the plain conv rounds before its bias (2^-6 m). The GroupNorm
 statistics kernel is held to 1e-5 of the largest |A|, |B| of its plain
-version, on inputs with a mean of 100 against a spread of 1 too.
+version, on inputs with a mean of 100 against a spread of 1 too. The W8A8
+epilogue kernel must equal its plain version bit for bit (ragged rows and
+columns, a row slice of a wider product, bf16 and fp32 out, with and without
+a bias), ``torch._int_mm`` on rows padded to 32 must give the exact product,
+and the W8A8 weight layout must make the product launch no copy.
 """
 import numpy as np
 import pytest
@@ -407,3 +411,100 @@ def test_dense_int4_layer_equals_plain_composition(cuda):
     x = _activations(37, 1536, 22, cuda, torch.bfloat16).reshape(1, 37, 1536)
     ref = I4.dense_int4_prequant_plain(p, *quantize_activations_plain(x), torch.bfloat16)
     assert torch.equal(I4.dense_int4(p, x), ref)
+
+
+# ---------------------------------------------------------------------------
+# W8A8: the epilogue kernel (csrc/int8.cu) and the product around it
+# ---------------------------------------------------------------------------
+
+def _epilogue_case(m, ld, n, bias_dtype, seed, device):
+    """An int32 product [m, ld] (values up to 2^27, as K 8960 x 127 x 127
+    reaches), per-row activation scales, per-column scales, a bias of n."""
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.integers(-2 ** 27, 2 ** 27, size=(m, ld)).astype(np.int32))
+    act = torch.from_numpy((rng.random((m, 1)) * 0.05 + 1e-3).astype(np.float32))
+    scale = torch.from_numpy((rng.random(n) * 0.01 + 1e-4).astype(np.float32))
+    bias = None if bias_dtype is None else torch.from_numpy(
+        rng.normal(size=(n,)).astype(np.float32)).to(bias_dtype)
+    return tuple(None if t is None else t.to(device) for t in (acc, act, scale, bias))
+
+
+# (M, ld, n): t2i gate/up, decode head (odd n, padded ld), ragged rows and
+# columns, a column slice of a wider product, one row
+EPILOGUE_CASES = [(2064, 8960, 8960), (8, 159872, 159867), (37, 1000, 1000), (5, 104, 97),
+                  (300, 2048, 1000), (1, 8, 3), (6296, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,ld,n", EPILOGUE_CASES)
+def test_w8a8_epilogue_kernel_equals_plain(cuda, m, ld, n, bias_dtype, out_dtype):
+    from unigen_tpu_torch.ops import quantization as QZ
+    acc, act, scale, bias = _epilogue_case(m, ld, n, bias_dtype, 23, cuda)
+    ref = QZ.w8a8_epilogue_plain(acc, act, scale, bias, out_dtype)
+    got = QZ.w8a8_epilogue(acc, act, scale, bias, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, ref)
+    if m > 1:             # a row slice (the padded decode product's view)
+        assert torch.equal(QZ.w8a8_epilogue(acc[1:], act[1:], scale, bias, out_dtype), ref[1:])
+
+
+@pytest.mark.cuda
+def test_w8a8_epilogue_counts_one_launch(cuda):
+    from unigen_tpu_torch.ops import quantization as QZ
+    acc, act, scale, bias = _epilogue_case(4, 16, 16, torch.float32, 24, cuda)
+    before = QZ.w8a8_epilogue.launches
+    QZ.w8a8_epilogue(acc, act, scale, bias, torch.bfloat16)
+    QZ.w8a8_epilogue(acc.cpu(), act.cpu(), scale.cpu(), bias.cpu(), torch.bfloat16)
+    assert QZ.w8a8_epilogue.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 2064])
+def test_int8_matmul_exact_with_padded_rows(cuda, m):
+    """torch._int_mm on the card takes more than 16 rows: smaller products
+    run on rows padded with zeros to 32; every result is the exact product."""
+    from unigen_tpu_torch.ops import quantization as QZ
+    rng = np.random.default_rng(25)
+    x8 = torch.from_numpy(rng.integers(-127, 128, size=(m, 1536)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-127, 128, size=(264, 1536)).astype(np.int8)).to(cuda)
+    got = QZ.int8_matmul(x8, w)
+    assert got.dtype == torch.int32 and got.shape == (m, 264)
+    assert torch.equal(got.double(), x8.double() @ w.double().t())
+
+
+@pytest.mark.cuda
+def test_int8_matmul_weight_layout_makes_no_copy(cuda):
+    """The W8A8 leaf's [Npad, K] weight is what torch._int_mm reads as its
+    transposed operand: the product launches no copy or transpose kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from unigen_tpu_torch.ops import quantization as QZ
+    p = QZ.quantize_dense({"kernel": torch.randn((1536, 8960), device=cuda)})
+    assert p["kernel_int8"].shape == (8960, 1536) and p["kernel_int8"].is_contiguous()
+    x8 = torch.randint(-127, 128, (2064, 1536), dtype=torch.int8, device=cuda)
+    QZ.int8_matmul(x8, p["kernel_int8"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        QZ.int8_matmul(x8, p["kernel_int8"])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [n for n in names if "copy" in n.lower() or "transpose" in n.lower()]
+    assert names and not copies, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 37])
+def test_dense_int8_layer_equals_plain_composition(cuda, t):
+    """quantization + torch._int_mm + the epilogue kernel, as a layer runs
+    them, against the plain composition, in bf16 with a bf16 bias."""
+    from unigen_tpu_torch.ops import quantization as QZ
+    rng = np.random.default_rng(26)
+    w = torch.from_numpy(rng.normal(size=(1536, 256)).astype(np.float32) * 0.03)
+    b = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32) * 0.1)
+    p = {k: v.to(cuda) for k, v in QZ.quantize_dense(
+        {"kernel": w, "bias": b.to(torch.bfloat16)}).items()}
+    x = _activations(t, 1536, 27, cuda, torch.bfloat16).reshape(1, t, 1536)
+    ref = QZ.dense_int8_prequant_plain(p, *quantize_activations_plain(x), torch.bfloat16)
+    assert torch.equal(QZ.dense_int8(p, x), ref)

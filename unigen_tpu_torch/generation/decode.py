@@ -16,6 +16,12 @@ and those are never read):
   mask ``valid`` (the prompt's slots and the decoded ones), which is exactly
   JAX's ``valid[:, None, None, :]`` step mask at one query.
 
+``quantized_cache`` stores K/V in int8 (``qwen2.init_kv_cache(quantize=
+True)``): the prefill still runs the flash kernel, on the K/V it wrote to
+the cache, and each decode step runs the plain
+``ops.attention.dot_product_attention_q8`` with ``valid`` as the key mask
+(``models/qwen2.py``).
+
 The loop always runs its full length: a row that emitted ``eot_token``
 repeats it, as the JAX ``scan`` does, so the output and the kernel launches
 do not depend on the weights. ``noise=[max_new_tokens, B, V]`` takes
@@ -91,17 +97,19 @@ def mmu_generate(
     temperature: float = 1.0,
     top_k: Optional[int] = None,
     eot_token: Optional[int] = None,
+    quantized_cache: bool = False,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """VQA / captioning decode. Returns [B, max_new_tokens] token ids; rows
     stop at ``eot_token`` and then repeat it. ``meta_bits`` must mark every
-    slot at or beyond a row's ``prompt_len`` as pad."""
+    slot at or beyond a row's ``prompt_len`` as pad. ``quantized_cache``
+    keeps K/V in int8."""
     if input_embeddings is None:
         input_embeddings = embed_tokens(params, input_ids)
     b, l, _ = input_embeddings.shape
     dev = input_embeddings.device
     prompt_len = prompt_len.to(device=dev, dtype=torch.long)
-    cache = qwen2.init_kv_cache(cfg.llm, b, l + max_new_tokens, dev)
+    cache = qwen2.init_kv_cache(cfg.llm, b, l + max_new_tokens, dev, quantize=quantized_cache)
     pos = torch.arange(l, device=dev)[None]
     positions = torch.minimum(pos, prompt_len[:, None] - 1)   # pads collapse, masked anyway
     hidden, cache = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=input_embeddings,
@@ -125,6 +133,7 @@ def generate_text(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     eot_token: Optional[int] = None,
+    quantized_cache: bool = False,
 ) -> torch.Tensor:
     """Plain causal text generation with the same cached decode loop."""
     prompt_len = prompt_len.to(device=input_ids.device, dtype=torch.long)
@@ -134,4 +143,5 @@ def generate_text(
     meta = M.pack_meta(M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z))
     return mmu_generate(params, cfg, generator, input_ids=input_ids, meta_bits=meta,
                         prompt_len=prompt_len, max_new_tokens=max_new_tokens,
-                        temperature=temperature, top_k=top_k, eot_token=eot_token)
+                        temperature=temperature, top_k=top_k, eot_token=eot_token,
+                        quantized_cache=quantized_cache)

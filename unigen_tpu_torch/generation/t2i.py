@@ -27,13 +27,18 @@ from ..models import qwen2
 from ..models.unigen import UniGenConfig, embed_tokens, get_gen_embed
 from ..ops import masks as M
 from ..ops import sampling as S
+from ..ops.quantization import dense_int8
 
 FLOAT_MAX = torch.finfo(torch.float32).max
 
 
 def _image_head(params, cfg: UniGenConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Codebook logits in fp32. The tied head slices the 8192 image rows of
-    the [V, D] embedding before the matmul; the table is never transposed."""
+    """Codebook logits in fp32. An int8 head (``img_head_q``, from
+    ``ops.quantization.quantize_unigen_params(..., cfg)``) runs W8A8; the
+    float tied head slices the 8192 image rows of the [V, D] embedding before
+    the matmul, and the table is never transposed."""
+    if "img_head_q" in params:
+        return dense_int8(params["img_head_q"], hidden).float()
     if cfg.use_gen_projector:
         w = params["img_head"]
     else:
@@ -45,8 +50,9 @@ def _image_head(params, cfg: UniGenConfig, hidden: torch.Tensor) -> torch.Tensor
 def _cfg_head_logits(params, cfg: UniGenConfig, hidden_img: torch.Tensor, bsz: int,
                      use_cfg: bool, guidance_scale: float, cfg_combine: str) -> torch.Tensor:
     """Image-head logits with CFG. ``"hidden"`` blends the cond/uncond hidden
-    states in fp32 and runs one head matmul; ``"logits"`` blends the fp32
-    logits (the reference's operation order)."""
+    states in fp32 and runs one head matmul (an int8 head quantizes the
+    blended activations, as JAX does); ``"logits"`` blends the fp32 logits
+    (the reference's operation order)."""
     if use_cfg and cfg_combine == "hidden":
         hc = hidden_img[:bsz].float()
         hu = hidden_img[bsz:].float()
@@ -158,7 +164,7 @@ def t2i_generate(
             # rewind the write pointer: every step overwrites the same chunk slots
             hidden, _ = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=chunk,
                                       positions=step_positions,
-                                      cache=qwen2.KVCache(cache.k, cache.v, lp),
+                                      cache=cache._replace(index=lp),
                                       kv_rowmask=slot_visible)
             return hidden[:, 1:n + 1]
     else:

@@ -17,6 +17,8 @@ from .models.magvit import MagvitConfig
 from .models.qwen2 import Qwen2Config
 from .models.siglip import SiglipConfig
 from .models.unigen import UniGenConfig
+from .ops.int4 import quantize_unigen_params_int4
+from .ops.quantization import quantize_siglip_params, quantize_unigen_params
 from .pipeline import UniGenPipeline
 from .prompting import UniPrompting
 from .weights import init_magvit, init_siglip, init_unigen
@@ -102,8 +104,9 @@ def build_prompting(tokenizer, max_seq_len: int = FLAGSHIP_MAX_SEQ_LEN) -> UniPr
 
 
 def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = None,
-                   device: DeviceLike = None, seed: int = 0,
-                   vision: bool = False) -> UniGenPipeline:
+                   device: DeviceLike = None, seed: int = 0, vision: bool = False,
+                   quantization: Optional[str] = None,
+                   quantized_cache: bool = False) -> UniGenPipeline:
     """A pipeline with random weights from ``seed``.
 
     ``model="flagship"``: Qwen2.5-1.5B + MAGViTv2 (256 px, 8192 codes), bf16
@@ -114,7 +117,15 @@ def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = No
     with ``vision`` a 3-layer 32-wide tower over 28 px images (4 patches),
     fp32 by default, with the byte tokenizer's special ids moved down to 256
     so they fit the tiny vocabulary.
+
+    ``quantization="int8"`` (JAX's ``model.quantization=int8``) puts the
+    backbone, the image and text heads and, with ``vision``, the SigLIP
+    tower on W8A8 (``ops.quantization``); ``"int4"`` puts the backbone and
+    the text head on W4A8 (``ops.int4``, group 256; 32 at the tiny width). ``quantized_cache``
+    gives ``understand`` and ``generate_text`` an int8 KV cache.
     """
+    if quantization not in (None, "int8", "int4"):
+        raise ValueError(f"quantization must be None, 'int8' or 'int4', got {quantization!r}")
     device = resolve_device(device)
     if model == "flagship":
         dtype = dtype or torch.bfloat16
@@ -146,5 +157,12 @@ def build_pipeline(model: str = "flagship", *, dtype: Optional[torch.dtype] = No
     params = init_unigen(cfg, gen, device, dtype)
     vq_params = init_magvit(vq_cfg, gen, device, dtype)
     vision_params = init_siglip(vision_cfg, gen, device, dtype) if vision else None
+    if quantization == "int8":
+        params = quantize_unigen_params(params, cfg, lm_head=True)
+        if vision:
+            vision_params = quantize_siglip_params(vision_params)
+    elif quantization == "int4":
+        params = quantize_unigen_params_int4(params, cfg, group=256 if model == "flagship" else 32)
     return UniGenPipeline(params, cfg, vq_params, vq_cfg, prompting, device,
-                          vision_params=vision_params, vision_cfg=vision_cfg)
+                          vision_params=vision_params, vision_cfg=vision_cfg,
+                          quantized_cache=quantized_cache)

@@ -14,6 +14,11 @@ Attention runs through ``ops.flash_attention`` with every token marked
 bidirectional, as the JAX package does on the TPU; the head dim is
 zero-padded to one the kernel is built for (72 -> 80, 8 -> 16) with the real
 ``dh ** -0.5`` scale, which leaves the result unchanged.
+
+An int8 tower (``ops.quantization.quantize_siglip_params``) holds ``<name>:
+{'kernel_int8', 'scale', 'bias'}`` for q, k, v, o, fc1 and fc2 and runs them
+W8A8 (q/k/v on one activation quantization), as the JAX package does; the
+patch embedding and the layer norms stay float.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention, kernel_head_dim
 from ..ops.masks import BIDIRQ_BIT
+from ..ops.quantization import (dense_int8, dense_int8_prequant, is_quantized,
+                                quantize_activations)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,21 +88,31 @@ def _bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :dh] if pad else out
 
 
+def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    if is_quantized(p.get(name)):
+        return dense_int8(p[name], x)
+    return F.linear(x, p[f"{name}_w"], p[f"{name}_b"])
+
+
 def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor) -> torch.Tensor:
     b, l, d = x.shape
     h = cfg.num_attention_heads
     dh = d // h
     res = x
     x = layer_norm(p["ln1"], x, cfg.layer_norm_eps)
-    q = F.linear(x, p["q_w"], p["q_b"]).view(b, l, h, dh)
-    k = F.linear(x, p["k_w"], p["k_b"]).view(b, l, h, dh)
-    v = F.linear(x, p["v_w"], p["v_b"]).view(b, l, h, dh)
+    if is_quantized(p.get("q")):
+        # q/k/v share the input: one activation quantization for all three
+        x8, xs = quantize_activations(x)
+        q, k, v = (dense_int8_prequant(p[n], x8, xs, x.dtype).view(b, l, h, dh)
+                   for n in ("q", "k", "v"))
+    else:
+        q, k, v = (_dense(p, n, x).view(b, l, h, dh) for n in ("q", "k", "v"))
     attn = _bidir_attention(q, k, v, dh ** -0.5).reshape(b, l, d)
-    x = res + F.linear(attn, p["o_w"], p["o_b"])
+    x = res + _dense(p, "o", attn)
     res = x
     x = layer_norm(p["ln2"], x, cfg.layer_norm_eps)
-    x = F.gelu(F.linear(x, p["fc1_w"], p["fc1_b"]), approximate="tanh")
-    return res + F.linear(x, p["fc2_w"], p["fc2_b"])
+    x = F.gelu(_dense(p, "fc1", x), approximate="tanh")
+    return res + _dense(p, "fc2", x)
 
 
 @torch.no_grad()

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("attention", "fused_conv", "int4")
+SOURCES = ("attention", "fused_conv", "int4", "int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,10 @@ SIGNATURES = {
         "w4a8_dense_launch": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
         # dtype, x, x_int8, act_scale, T, K, stream
         "quantize_activations_launch": (_I, _P, _P, _P, _I, _I, _P),
+    },
+    "int8": {
+        # acc, act_scale, scale, bias (or None), bias dtype, out, out dtype, M, n, ld, stream
+        "w8a8_epilogue_launch": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     },
 }
 

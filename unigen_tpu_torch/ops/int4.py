@@ -29,7 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import _cuda
-from .quantization import quantize_activations
+from .quantization import QWEN2_PROJECTIONS, quantize_activations, quantize_layers
 
 KEY = "kernel_int4"
 _N_MULTIPLE = 512
@@ -224,26 +224,12 @@ def is_quantized_int4(p) -> bool:
     return isinstance(p, dict) and KEY in p
 
 
-_PROJECTIONS = ("q", "k", "v", "o", "gate", "up", "down")
-
-
 def quantize_qwen2_params_int4(params: Dict, group: int = 256) -> Dict:
     """Int4-pack every transformer dense layer of the port's Qwen2 params:
     each layer's ``<name>_w [N, K]`` (and ``<name>_b``) becomes ``<name>``:
     ``{'kernel_int4', 'scale4', 'bias'}``; norms and embeddings stay."""
-    out = dict(params)
-    dense_leaves = {f"{n}_{s}" for n in _PROJECTIONS for s in ("w", "b")}
-    layers = []
-    for lp in params["layers"]:
-        q = {k: v for k, v in lp.items() if k not in dense_leaves}
-        for name in _PROJECTIONS:
-            dense = {"kernel": lp[f"{name}_w"].t()}
-            if f"{name}_b" in lp:
-                dense["bias"] = lp[f"{name}_b"]
-            q[name] = quantize_dense_int4(dense, group)
-        layers.append(q)
-    out["layers"] = layers
-    return out
+    return dict(params, layers=quantize_layers(params["layers"], QWEN2_PROJECTIONS,
+                                               lambda d: quantize_dense_int4(d, group)))
 
 
 def quantize_unigen_params_int4(params: Dict, cfg=None, lm_head: bool = True,

@@ -47,6 +47,7 @@ class UniGenPipeline:
     device: torch.device
     vision_params: Optional[Any] = None
     vision_cfg: Optional[siglip.SiglipConfig] = None
+    quantized_cache: bool = False   # int8 KV cache for understand and generate_text
 
     def to(self, device) -> "UniGenPipeline":
         """A pipeline with every parameter moved to ``device``."""
@@ -160,7 +161,8 @@ class UniGenPipeline:
         return mmu_generate(self.params, self.cfg, generator, input_embeddings=embeds,
                             meta_bits=meta, prompt_len=prompt_len,
                             max_new_tokens=max_new_tokens, temperature=temperature,
-                            top_k=top_k, eot_token=self.prompting.eos_token_id, noise=noise)
+                            top_k=top_k, eot_token=self.prompting.eos_token_id,
+                            quantized_cache=self.quantized_cache, noise=noise)
 
     # ------------------------------------------------------------- text-only --
 
@@ -179,7 +181,8 @@ class UniGenPipeline:
                              torch.as_tensor(ids, device=self.device),
                              torch.as_tensor([len(t) for t in tok_ids], device=self.device),
                              max_new_tokens=max_new_tokens, temperature=temperature,
-                             top_k=top_k, eot_token=self.prompting.eos_token_id)
+                             top_k=top_k, eot_token=self.prompting.eos_token_id,
+                             quantized_cache=self.quantized_cache)
         return self.decode_text(out)
 
     def decode_text(self, token_ids) -> List[str]:

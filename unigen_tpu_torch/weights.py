@@ -15,6 +15,10 @@ them into the port's layout:
 * W4A8 leaves (``ops.int4``: ``kernel_int4`` int8 ``[K/2, Npad]``,
   ``scale4`` fp32 and ``bias``) are carried over unchanged, split per layer:
   the packed layout is the same in both frameworks;
+* W8A8 leaves (``kernel_int8`` int8 ``[K, N]``, ``scale`` fp32, ``bias``?)
+  become the port's ``[Npad, K]`` (``ops.quantization``): transposed, rows
+  padded with zeros to a multiple of 8; scale and bias unchanged. So do an
+  int8 ``lm_head_q`` and the int8 image head ``img_head_q``;
 * the SigLIP tower keeps its HWIO patch kernel (``models.siglip``).
 
 ``init_unigen`` / ``init_magvit`` / ``init_siglip`` build the same layout
@@ -32,6 +36,7 @@ import torch
 from .models.magvit import MagvitConfig
 from .models.siglip import SiglipConfig
 from .models.unigen import UniGenConfig
+from .ops.quantization import int8_leaf
 
 
 def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
@@ -82,12 +87,26 @@ def _int4_from_jax(p, device, i=None) -> Dict[str, torch.Tensor]:
             for k in _INT4_LEAVES}
 
 
+def _int8_from_jax(p, device, i=None) -> Dict[str, torch.Tensor]:
+    """A W8A8 leaf (layer ``i`` of a stacked one) in the port's layout."""
+    def get(k):
+        return np.asarray(p[k]) if i is None else np.asarray(p[k])[i]
+    return int8_leaf(to_tensor(get("kernel_int8"), device).t(), to_tensor(get("scale"), device),
+                     to_tensor(get("bias"), device) if "bias" in p else None)
+
+
+def _quantized_from_jax(p, device, i=None) -> Dict[str, torch.Tensor]:
+    return _int8_from_jax(p, device, i) if "kernel_int8" in p else _int4_from_jax(p, device, i)
+
+
 def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
                     dtype=None) -> Dict[str, Any]:
     """JAX ``unigen.init`` tree (numpy leaves) -> the port's parameters. A
-    tree packed by JAX's ``quantize_unigen_params_int4`` keeps its W4A8
-    leaves: each layer holds ``q``, ..., ``down`` as {kernel_int4, scale4,
-    bias}, and the head ``lm_head_q``."""
+    tree quantized by JAX's ``quantize_unigen_params`` (W8A8) or
+    ``quantize_unigen_params_int4`` (W4A8) keeps its quantized leaves: each
+    layer holds ``q``, ..., ``down`` as {kernel_int8, scale, bias?} or
+    {kernel_int4, scale4, bias}, and the heads ``lm_head_q`` and
+    ``img_head_q`` come along."""
     dtype = dtype or cfg.llm.dtype
     llm = tree["llm"]
     stacked = llm["layers"]
@@ -96,9 +115,9 @@ def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
         lp = {}
         for name, path in _LAYER_LEAVES.items():
             dense = _get(stacked, path[:-1])
-            if "kernel_int4" in dense:
+            if "kernel_int4" in dense or "kernel_int8" in dense:
                 if name.endswith("_w"):
-                    lp[name[:-2]] = _int4_from_jax(dense, device, i)
+                    lp[name[:-2]] = _quantized_from_jax(dense, device, i)
                 continue
             leaf = np.asarray(_get(stacked, path))[i]
             lp[name] = (_linear_w(leaf, device, dtype) if name.endswith("_w")
@@ -110,9 +129,9 @@ def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
     if "lm_head" in llm:
         out["llm"]["lm_head"] = _linear_w(llm["lm_head"]["kernel"], device, dtype)
     if "lm_head_q" in llm:
-        if "kernel_int4" not in llm["lm_head_q"]:
-            raise NotImplementedError("lm_head_q: only the W4A8 head is ported, not int8")
-        out["llm"]["lm_head_q"] = _int4_from_jax(llm["lm_head_q"], device)
+        out["llm"]["lm_head_q"] = _quantized_from_jax(llm["lm_head_q"], device)
+    if "img_head_q" in tree:
+        out["img_head_q"] = _int8_from_jax(tree["img_head_q"], device)
     if "gen_embed" in tree:
         out["gen_embed"] = to_tensor(tree["gen_embed"]["weight"], device, dtype)
         out["gen_projector"] = _mlp_from_jax(tree["gen_projector"], device, dtype)
@@ -129,11 +148,10 @@ _SIGLIP_DENSE = {"q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"),
 def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
                     dtype=None) -> Dict[str, Any]:
     """JAX ``siglip.init`` tree -> the port's tower (HWIO patch kernel kept,
-    one dict per layer, [N, K] linear weights)."""
+    one dict per layer, [N, K] linear weights; a tower quantized by JAX's
+    ``quantize_siglip_params`` keeps its W8A8 leaves)."""
     dtype = dtype or cfg.dtype
     stacked = tree["layers"]
-    if "kernel_int8" in stacked["attn"]["q"]:
-        raise NotImplementedError("the int8 SigLIP tower is not ported")
     layers = []
     for i in range(cfg.num_layers_used):
         lp: Dict[str, Any] = {
@@ -141,6 +159,9 @@ def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
                  for k in ("scale", "bias")} for ln in ("ln1", "ln2")}
         for name, path in _SIGLIP_DENSE.items():
             p = _get(stacked, path)
+            if "kernel_int8" in p:
+                lp[name] = _int8_from_jax(p, device, i)
+                continue
             lp[f"{name}_w"] = _linear_w(np.asarray(p["kernel"])[i], device, dtype)
             lp[f"{name}_b"] = to_tensor(np.asarray(p["bias"])[i], device, dtype)
         layers.append(lp)
