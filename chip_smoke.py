@@ -6,10 +6,11 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``unigen_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the main paths' shapes (bf16), at
-ragged shapes and in fp32, and drives two paths at the flagship width with
-random weights, each with the launch counts set to 0 just before it and read
-just after:
+kernel against its plain PyTorch version at the main paths' shapes and dtypes
+(bf16; the tokenizer's encoder in fp32, the dtype of its pixels), at ragged
+shapes and in fp32, and drives the main paths at the flagship width
+with random weights, each with the launch counts set to 0 just before it and
+read just after:
 
 * ``flagship``: GenEval text-to-image (``build_pipeline`` ->
   ``generate_images`` -> ``decode_codes``), Qwen2.5-1.5B + MAGViTv2;
@@ -22,21 +23,33 @@ just after:
   greedy; then once more with the bf16 backbone as a yardstick;
 * ``understand_int8``: the same call as JAX's ``int8+kv``
   (``build_pipeline(vision=True, quantization="int8",
-  quantized_cache=True)``: tower, backbone and text head W8A8, K/V int8).
+  quantized_cache=True)``: tower, backbone and text head W8A8, K/V int8);
+* ``flagship_ar``: the t2i call with ``mode="ar"`` (255 cached steps, one
+  image token each, cond and uncond rows);
+* ``understand_discrete``: VQA over the tokenizer's codes, 8 fp32 images of
+  256 px through the MAGViTv2 encoder (kernel 3 at its 7 shapes in fp32,
+  counted by shape), the mmu prompt right-padded to 1,603, 128 greedy tokens;
+* ``score``: ``score_continuations`` of 8 (image, question, continuation)
+  requests, one cache-free forward;
+* ``geneval``: ``evaluation.geneval.run_geneval`` over 2 prompts x 4
+  samples, every PNG read back against its batch's pixels.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
 the plain versions on the CPU (t2i under shared noise; W4A8 understand,
-greedy; int8 t2i and understand with the int8 cache). The W8A8 epilogue is
+greedy; int8 t2i and understand with the int8 cache; the codes of
+``encode_pixels``, AR t2i under shared noise, ``understand_discrete``
+greedy and ``score_continuations``). The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
 to their plain versions bit for bit at every shape of the W4A8 path, on
 every route, and each W4A8 layer is timed whole against bf16 ``F.linear``. Kernel 3
 (GroupNorm statistics + fused conv, two launches) is held to its plain version
-and timed at all 11 conv shapes of the MAGViTv2 decoder; the flagship
-phase counts its launches by shape in the warm run, and the sum over a
-t2i batch of launches x ms is taken from that count. Every check that
+and timed at all 11 conv shapes of the MAGViTv2 decoder and all 7 of its
+encoder; the flagship and understand_discrete phases count its launches by
+shape in the warm run, and the sums of launches x ms over a t2i batch and
+over an encode are taken from those counts. Every check that
 fails makes the exit code nonzero. The last line of stdout is a JSON object
 naming the device; the line before it holds the kernels' measurements.
 Without a CUDA device, or without the package beside it, the script exits
@@ -44,9 +57,9 @@ nonzero and prints no result. Kernel times (``ms``, ``plain_ms``,
 ``library_ms``) are device times from ``torch.profiler``; bounds are
 computed from each phase's inputs against the H100 SXM's published peaks.
 
-``--phases`` (default: build,kernels,flagship,flagship_int8,understand,
-understand_int8,tiny) runs a subset, for quick checks; adding ``profile``
-traces one more warm run of each path with ``torch.profiler`` and prints
+``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
+understand,understand_int8,understand_discrete,score,geneval,tiny) runs a
+subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
 """
@@ -60,8 +73,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "flagship", "flagship_int8", "understand", "understand_int8",
-          "tiny")
+PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
+          "understand_int8", "understand_discrete", "score", "geneval", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -80,6 +93,10 @@ QUESTIONS = ("What is in this image?",
              "Which animal is sitting on the sofa?",
              "What is written on the red sign?")
 NEW_TOKENS = 128
+# continuations of 1-16 tokens (one byte-tokenizer token a character) scored
+# after QUESTIONS by the score phase
+CONTINUATIONS = ("A", "Two.", "Red.", "A busy street.", "Day", "An umbrella", "A cat",
+                 "STOP, no entry!!")
 
 
 class Failed(Exception):
@@ -172,6 +189,16 @@ def _measured(err, ms, plain_ms, lib_ms, b_ms, by, at):
 # kernel phases
 # ---------------------------------------------------------------------------
 
+def attn_flops(vis, h, kvh, dh):
+    """The operations masked attention needs under visibility ``vis`` [B, 1,
+    Lq, S]: q.k and p.v on each visible (query, key) pair of every head, and
+    for a batch row with fully masked queries the mean of V over all keys
+    once per KV head (every such query's output is that mean), not once per
+    query."""
+    dead_batches = (~vis.any(-1)).flatten(1).any(-1).sum().item()
+    return 4.0 * h * dh * vis.sum().item() + 1.0 * kvh * dh * vis.shape[-1] * dead_batches
+
+
 def _attn_inputs(gen, b, lq, s, h, kvh, dh, dtype):
     import torch
     q = torch.randn((b, lq, h, dh), generator=gen, device="cuda").to(dtype)
@@ -246,10 +273,7 @@ def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, bits), iters)
     vis = meta.visibility()
     lib_ms = sdpa_ms(q, k, v, vis, iters)
-    # visible (q, k) pairs, plus a uniform average over all keys for each all-masked row
-    dead_rows = (~vis.any(-1)).sum().item()
-    flops = 4.0 * h * dh * vis.sum().item() + 2.0 * h * dh * l * dead_rows
-    b_ms, by = bound(flops, nbytes(q, k, v, bits, got), BF16_PEAK)
+    b_ms, by = bound(attn_flops(vis, h, kvh, dh), nbytes(q, k, v, bits, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
     return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"t2i prefill q [{b},{l},{h},{dh}]")
@@ -263,6 +287,14 @@ DECODER_CONVS = ((16, 512, 512, True, 10), (32, 512, 512, False, 1), (32, 512, 2
                  (32, 256, 256, True, 7), (64, 256, 256, False, 1), (64, 256, 256, True, 6),
                  (128, 256, 256, False, 1), (128, 256, 128, True, 1), (128, 128, 128, True, 7),
                  (256, 128, 128, False, 1), (256, 128, 128, True, 8))
+
+
+# Every kernel-3 call of the MAGViTv2 encoder (models/magvit.py, MagvitConfig(),
+# batch 8, the understand_discrete phase, fp32 like its pixels): (H = W, C,
+# Cout, GroupNorm before the conv, launches a call): 40 launches, all with GroupNorm.
+ENCODER_CONVS = ((256, 128, 128, True, 8), (128, 128, 256, True, 1), (128, 256, 256, True, 5),
+                 (64, 256, 256, True, 8), (32, 256, 512, True, 1), (32, 512, 512, True, 5),
+                 (16, 512, 512, True, 12))
 
 
 def _conv_inputs(gen, b, h, w, c, cout, dtype, gn, shift=0.5, spread=2.0):
@@ -295,7 +327,7 @@ def phase_gn(gen, b, h, w, c, dtype, shift=0.5, spread=2.0, p_dtype=None):
     return err
 
 
-def phase_conv(gen, b, h, w, c, cout, dtype, rtol, iters=0, gn=True):
+def phase_conv(gen, b, h, w, c, cout, dtype, rtol, iters=0, gn=True, part="decoder"):
     """Fused GN + swish + conv3x3 at [b, h, w, c] -> cout; the tolerance is
     relative to the largest output magnitude. Timed (``iters`` > 0): the
     whole wrapper (statistics + conv), its plain version, cuDNN's
@@ -326,9 +358,11 @@ def phase_conv(gen, b, h, w, c, cout, dtype, rtol, iters=0, gn=True):
     lib_ms = time_ms(library, iters)
     ab_bytes = 2 * b * c * 4 if gn else 0
     b_ms, by = bound(2.0 * b * h * w * 9 * c * cout,
-                     nbytes(x, conv_p["kernel"], conv_p["bias"], got) + ab_bytes, BF16_PEAK)
+                     nbytes(x, conv_p["kernel"], conv_p["bias"], got) + ab_bytes,
+                     BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
     out = dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                         f"MAGViT decoder [{b},{h},{w},{c}]->{cout}{'' if gn else ', no GN'}"),
+                         f"MAGViT {part} [{b},{h},{w},{c}]->{cout}{'' if gn else ', no GN'}"
+                         f"{'' if dtype == torch.bfloat16 else f', {dtype}'}"),
                launches_per_batch=None)
     line = (f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
             f"({'group_norm+silu+conv2d' if gn else 'conv2d'}) {lib_ms:.4f}  "
@@ -352,7 +386,7 @@ def phase_conv(gen, b, h, w, c, cout, dtype, rtol, iters=0, gn=True):
 
 def run_conv_phases(results):
     """Kernel 3 and the GroupNorm statistics at every decoder shape (bf16,
-    batch 4, timed), the statistics at a large mean against the spread and at
+    batch 4, timed) and every encoder shape (fp32, batch 8, timed), the statistics at a large mean against the spread and at
     C < 32, and the conv at ragged shapes, C != Cout, C % 8 != 0 (plain loads)
     and in fp32."""
     import torch
@@ -372,6 +406,15 @@ def run_conv_phases(results):
     gn_rows[-1].update(shapes=[r for r in gn_rows[:-1] if r], batch_ms=None)
     results["conv_rows"] = [(key[:4], conv, gn_row)
                             for key, conv, gn_row in zip(DECODER_CONVS, conv_rows, gn_rows)]
+    print("phase: kernels, conv3x3_gn_swish and gn_affine at the encoder's 7 shapes (batch 8, "
+          "fp32: understand_discrete encodes fp32 pixels, and the encoder runs in their dtype)")
+    enc = [phase_conv(gen, 8, hw, hw, c, cout, f32, 1e-4, 10 if hw < 128 else 3, gn,
+                      part="encoder") for hw, c, cout, gn, _ in ENCODER_CONVS]
+    enc_rows = [{k: v for k, v in e.items() if k != "gn"} for e in enc]
+    conv_rows[-1]["shapes"] += enc_rows
+    gn_rows[-1]["shapes"] += [e["gn"] for e in enc]
+    results["encoder_conv_rows"] = [(key[:4], row, e["gn"])
+                                    for key, row, e in zip(ENCODER_CONVS, enc_rows, enc)]
     worst = 0.0
     for b, h, w, c, dtype, shift, p_dtype in ((4, 256, 256, 128, bf16, 100.0, None),
                                               (4, 256, 256, 128, f32, 100.0, None),
@@ -390,15 +433,68 @@ def run_conv_phases(results):
     phase_conv(gen, 2, 19, 37, 96, 80, f32, 1e-4, gn=False)
 
 
-def understand_prompt_shape(questions=QUESTIONS):
-    """(L, prompt lengths) of the flagship understand prefill: part1 (3
-    tokens) + 729 image tokens + part2 (<|eoi|> and each question's chat
-    template without its first token, right-padded)."""
-    from unigen_tpu_torch.launch import FallbackTokenizer, build_prompting
-    prompting = build_prompting(FallbackTokenizer())
-    lens = [len(prompting._tokenize(
-        f"<|im_start|>user\n{q}<|im_end|>\n<|im_start|>assistant\n")[0]) for q in questions]
-    return 3 + 729 + max(lens), [3 + 729 + n for n in lens]
+_PIPELINES = {}
+
+
+def flagship_pipeline(vision=False):
+    """The seed-0 bf16 flagship pipeline (with the SigLIP tower when
+    ``vision``), built once and shared by the phases that drive it and by
+    the kernels phase, which takes its prompt layouts from it."""
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    if vision not in _PIPELINES:
+        t0 = time.perf_counter()
+        _PIPELINES[vision] = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda",
+                                            seed=0, vision=vision)
+        torch.cuda.synchronize()
+        print(f"  build_pipeline('flagship', vision={vision}) {time.perf_counter() - t0:.2f} s")
+    return _PIPELINES[vision]
+
+
+def understand_prompt_shape(pipe, questions=QUESTIONS):
+    """(L, prompt lengths) of the understand prefill, from the pipeline's
+    ``_vqa_parts``: part1, the image tokens and part2 (<|eoi|> and each
+    question's template without its first token, right-padded)."""
+    p = pipe.vision_cfg.num_patches
+    part1, part2, q_lens = pipe._vqa_parts(questions, p, None)
+    return part1.shape[1] + p + part2.shape[1], (part1.shape[1] + p + q_lens).tolist()
+
+
+def ar_prompt_layout(pipe, prompts=PROMPTS):
+    """(Lp, left pads of each of the 2B rows) of the AR prefill: the cond and
+    uncond rows of the pipeline's ``prompt_ids`` (text budget 128) without
+    the image block that ``t2i_generate_ar`` cuts off."""
+    import numpy as np
+    ids, uncond = pipe.prompt_ids(list(prompts), 128)
+    prompt = np.concatenate([ids, uncond])[:, :-(pipe.cfg.num_vq_tokens + 1)]
+    return prompt.shape[1], (prompt == pipe.prompting.pad_id).sum(axis=1).tolist()
+
+
+def mmu_prompt_layout(pipe, questions=QUESTIONS):
+    """(ids [B, max_seq_len], prompt lengths, <|eoi|> id) of the
+    understand_discrete prompt, from the pipeline's ``_mmu_prompt`` (the
+    codes' values do not move the mask)."""
+    import numpy as np
+    codes = np.zeros((len(questions), pipe.cfg.num_vq_tokens), np.int64)
+    ids, plen = pipe._mmu_prompt(codes, questions)
+    return ids, plen.tolist(), pipe.prompting.sptids_dict["<|eoi|>"]
+
+
+def score_conts(pipe):
+    import numpy as np
+    return [np.asarray(pipe.prompting._tokenize(c)[0]) for c in CONTINUATIONS]
+
+
+def score_layout(pipe, questions=QUESTIONS):
+    """(L, prompt lengths) of the scoring forward, from the pipeline's
+    ``_score_parts`` at ``score_continuations``' bucket: part1, the image
+    tokens and part2c."""
+    from unigen_tpu_torch.pipeline import SCORE_LENGTH_BUCKET
+    p = pipe.vision_cfg.num_patches
+    part1, part2c, _, l2_real = pipe._score_parts(questions, score_conts(pipe), p, None,
+                                                  SCORE_LENGTH_BUCKET)
+    off = part1.shape[1] + p
+    return off + part2c.shape[1], (off + l2_real).tolist()
 
 
 def phase_flash_siglip(gen, b, dtype, rtol, iters):
@@ -438,38 +534,48 @@ def phase_flash_mmu(gen, b, l, prompt_len, dtype, rtol, iters):
     each row's prompt length)."""
     import torch
     from unigen_tpu_torch.ops import masks as M
-    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    h, kvh, dh = 12, 2, 128
-    q, k, v = _attn_inputs(gen, b, l, l, h, kvh, dh, dtype)
     plen = torch.as_tensor(prompt_len, device="cuda")
     meta = M.mmu_vit_attn_meta(b, l, num_tokens=729, prefix_length=3, prompt_len=plen)
+    return phase_flash_meta(gen, meta, dtype, rtol, iters,
+                            f"understand prefill q [{b},{l},12,128], mmu_vit meta")
+
+
+def phase_flash_meta(gen, meta, dtype, rtol, iters, at):
+    """Flash attention of q [b, l, 12, 128], k/v [b, l, 2, 128] under the
+    metadata ``meta`` (a path's prefill); timed when ``iters`` > 0."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    h, kvh, dh = 12, 2, 128
+    b, l = meta.pad.shape
+    q, k, v = _attn_inputs(gen, b, l, l, h, kvh, dh, dtype)
     bits = M.pack_meta(meta)
     got = flash_attention(q, k, v, bits)
     ref = flash_attention_plain(q, k, v, bits)
     torch.cuda.synchronize()
     err, tol = _err_tol(got, ref, rtol)
-    check(bool(torch.isfinite(got).all()), "flash_attention (mmu prefill) output not finite")
-    print(f"  flash_attention {dtype} mmu prefill q{list(q.shape)}: max_abs_err {err:.3e} "
-          f"(tol {tol:.2e})")
-    check(err <= tol, "flash_attention at the mmu prefill shape disagrees with its plain version")
+    check(bool(torch.isfinite(got).all()), f"flash_attention ({at}) output not finite")
+    print(f"  flash_attention {dtype} {at}: max_abs_err {err:.3e} (tol {tol:.2e})")
+    check(err <= tol, f"flash_attention at {at} disagrees with its plain version")
+    if not iters:
+        return None
     ms = time_ms(lambda: flash_attention(q, k, v, bits), iters)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, bits), 3)
     vis = meta.visibility()
     lib_ms = sdpa_ms(q, k, v, vis, iters)
-    dead_rows = (~vis.any(-1)).sum().item()
-    flops = 4.0 * h * dh * vis.sum().item() + 2.0 * h * dh * l * dead_rows
-    b_ms, by = bound(flops, nbytes(q, k, v, bits, got), BF16_PEAK)
+    b_ms, by = bound(attn_flops(vis, h, kvh, dh), nbytes(q, k, v, bits, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
-    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                     f"understand prefill q [{b},{l},12,128], mmu_vit meta")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, at)
 
 
 def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=True,
-                       new_tokens=NEW_TOKENS, masked=False):
+                       new_tokens=NEW_TOKENS, masked=False, left_pads=None,
+                       at="understand decode step"):
     """One understanding decode step: q [b, 1, 12, 128] against the cache of
     l + new_tokens slots, visible = the row's prompt slots and the decoded
-    slots. Both routes of the kernel (unsplit, and split over the keys at 8
+    slots (with ``left_pads``, the prompt slots from each row's pads on: the
+    AR t2i step). Both routes of the kernel (unsplit, and split over the keys at 8
     and at 15 splits) are held against the plain version through the
     wrapper's ``_launch``; with ``masked``, keys 128..255 are invisible to
     every row (a fully masked split at 8 splits) and row 0 sees no key at
@@ -484,6 +590,8 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     slots = torch.arange(s, device="cuda")[None]
     plen = torch.as_tensor(prompt_len, device="cuda")[:, None]
     kvalid = (slots < plen) | ((slots >= l) & (slots <= l + step))
+    if left_pads is not None:
+        kvalid &= slots >= torch.as_tensor(left_pads, device="cuda")[:, None]
     if masked:
         kvalid[:, 128:256] = False
         kvalid[0] = False
@@ -535,7 +643,7 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
           + ", ".join(f"{n}: {ms_by[n]:.4f} / {cold_by[n]:.4f}" for n in routes)
           + f"; sdpa cold {lib_cold:.4f}")
     return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                          f"understand decode step q [{b},1,12,128], S={s}, {chosen} splits"),
+                          f"{at} q [{b},1,12,128], S={s}, {chosen} splits"),
                 ms_cold=cold_by[chosen])
 
 
@@ -713,7 +821,8 @@ def run_kernel_phases(results):
     run_conv_phases(results)
 
     print("phase: kernels at the understanding path's shapes (bf16 unless noted)")
-    l, plen = understand_prompt_shape()
+    pipe, vpipe = flagship_pipeline(), flagship_pipeline(vision=True)
+    l, plen = understand_prompt_shape(vpipe)
     b = len(QUESTIONS)
     results["chunk_attention"]["shapes"] = [
         phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50)]
@@ -728,6 +837,32 @@ def run_kernel_phases(results):
     results["flash_attention"]["shapes"] = [phase_flash_siglip(gen, b, bf16, 2 ** -7, 20),
                                             phase_flash_mmu(gen, b, l, plen, bf16, 2 ** -7, 20)]
     phase_flash_mmu(gen, 3, 800, [800, 741, 733], f32, 2e-5, 1)
+
+    print("phase: kernels at the AR t2i, discrete understanding and scoring shapes (bf16)")
+    from unigen_tpu_torch.ops import masks as M
+    lp, pads = ar_prompt_layout(pipe)
+    rows = 2 * len(PROMPTS)
+    pos = torch.arange(lp, device="cuda")[None].expand(rows, lp)
+    pad = pos < torch.as_tensor(pads, device="cuda")[:, None]
+    z = torch.zeros_like(pad)
+    ids, mmu_plen, eoi = mmu_prompt_layout(pipe)
+    l_score, score_plen = score_layout(vpipe)
+    results["flash_attention"]["shapes"] += [
+        phase_flash_meta(gen, M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z), bf16, 2 ** -7, 20,
+                         f"AR t2i prefill q [{rows},{lp},12,128], pad bits"),
+        phase_flash_meta(gen, M.mmu_attn_meta(torch.as_tensor(ids, device="cuda"), eoi,
+                                              torch.as_tensor(mmu_plen, device="cuda")),
+                         bf16, 2 ** -7, 10,
+                         f"understand_discrete prefill q [{b},{ids.shape[1]},12,128], mmu meta"),
+        phase_flash_meta(gen, M.mmu_vit_attn_meta(
+            b, l_score, num_tokens=729, prefix_length=3,
+            prompt_len=torch.as_tensor(score_plen, device="cuda")), bf16, 2 ** -7, 20,
+            f"score forward q [{b},{l_score},12,128], mmu_vit meta")]
+    results["chunk_attention"]["shapes"] += [
+        phase_chunk_decode(gen, rows, lp, [lp] * rows, 128, bf16, 2 ** -7, 50, new_tokens=256,
+                           left_pads=pads, at="AR t2i step"),
+        phase_chunk_decode(gen, b, ids.shape[1], mmu_plen, 64, bf16, 2 ** -7, 50,
+                           at="understand_discrete decode step")]
     # kernel 4 and the quantization at every W4A8 shape of the understand call:
     # decode T = 8 and prefill T = 8 x 787; q/k/v carry a bf16 bias, the rest
     # the fp32 zeros a layer without one gets
@@ -867,7 +1002,7 @@ def run_w8a8_phases(results):
     bf16, f32 = torch.bfloat16, torch.float32
     print("phase: kernels, the W8A8 layer (torch._int_mm + the epilogue kernel) at the int8 "
           "paths' shapes (bf16 activations)")
-    l, _ = understand_prompt_shape()
+    l, _ = understand_prompt_shape(flagship_pipeline(vision=True))
     b = len(QUESTIONS)
     t_step, t_pre, t_vit = 8 * 258, b * l, b * 729
     timed = [phase_w8a8(gen, t_step, 1536, 8960, 20, True, "t2i step gate/up"),
@@ -1024,16 +1159,26 @@ def conv_census(census):
 
 def conv_batch_sums(results):
     """Fills kernel 3's and the statistics' launches_per_batch and batch_ms
-    (the sum of launches x ms over a t2i batch) from the flagship run's
-    census; they stay null where that phase or the timed shapes did not run."""
-    census = results.get("conv_census")
-    rows = results.get("conv_rows")
-    if not rows:
-        return
-    if census is None:
-        print("  sum of launches x ms over a t2i batch: not computed (the flagship phase, "
-              "which counts the launches by shape, did not run)")
-        return
+    (the sum of launches x ms over a t2i batch, the decoder's) and
+    encoder_batch_ms (over an understand_discrete call, the encoder's) from
+    the censuses of the flagship and understand_discrete runs; they stay
+    null where that phase or the timed shapes did not run."""
+    for part, rows_key, census_key, field, phase in (
+            ("decoder", "conv_rows", "conv_census", "batch_ms", "flagship"),
+            ("encoder", "encoder_conv_rows", "encoder_census", "encoder_batch_ms",
+             "understand_discrete")):
+        rows, census = results.get(rows_key), results.get(census_key)
+        if not rows:
+            continue
+        if census is None:
+            print(f"  sum of launches x ms over the {part}: not computed (the {phase} phase, "
+                  "which counts the launches by shape, did not run)")
+            results["conv3x3_gn_swish"][field] = results["gn_affine"][field] = None
+            continue
+        _conv_sum(results, part, rows, census, field)
+
+
+def _conv_sum(results, part, rows, census, field):
     total = gn_total = b_total = lib_total = 0.0
     for key, conv_row, gn_row in rows:
         n_conv, n_gn = census.get(key, (0, 0))
@@ -1044,51 +1189,85 @@ def conv_batch_sums(results):
         if gn_row is not None:
             gn_row["launches_per_batch"] = n_gn
             gn_total += n_gn * gn_row["ms"]
-    results["conv3x3_gn_swish"]["batch_ms"] = total
-    results["gn_affine"]["batch_ms"] = gn_total
-    print(f"kernel 3 over a t2i batch (the flagship run's launches by shape x each shape's ms): "
+    results["conv3x3_gn_swish"][field] = total
+    results["gn_affine"][field] = gn_total
+    print(f"kernel 3 in the {part} (the path run's launches by shape x each shape's ms): "
           f"{total:.4f} ms (statistics + conv), of it the statistics {gn_total:.4f} ms; bound "
           f"{b_total:.4f} ms; cuDNN {lib_total:.4f} ms")
 
 
-def run_flagship(results, profile=False):
+def _timed_runs(name, run_once, expect, runs=("cold", "warm"), census=None, validate=None,
+                work=None):
+    """Runs a path ``runs`` times, each with the launch counts set to 0 just
+    before and read just after, checks them against ``expect`` and each
+    run's output with ``validate``; ``work`` = (count, unit) prints a rate.
+    The warm run also counts kernel 3's launches by shape into ``census``
+    when given. Returns (the last run's output, its wall seconds, enqueue
+    seconds, counts)."""
     import torch
-    from unigen_tpu_torch.launch import build_pipeline
-    print("phase: flagship path (Qwen2.5-1.5B + MAGViTv2, random init, bf16, 4 prompts, "
-          "guidance 6, 50 steps, max_text_len 128)")
-    t0 = time.perf_counter()
-    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0)
-    torch.cuda.synchronize()
-    print(f"  build_pipeline {time.perf_counter() - t0:.2f} s")
-    layers = pipe.cfg.llm.num_hidden_layers
-    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * 50,
-                  conv3x3_gn_swish=44, gn_affine=40)
-    counts = None
-    census = {}
-    for run in ("cold", "warm"):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
+    for run in runs:
         _reset_counts()
         torch.cuda.synchronize()
-        # the warm run also counts kernel 3's launches by shape (44 wrapped
-        # Python calls; their cost is within the run's noise)
-        with conv_census(census) if run == "warm" else contextlib.nullcontext():
+        with conv_census(census) if census is not None and run == "warm" else \
+                contextlib.nullcontext():
             t0 = time.perf_counter()
-            codes = pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0, timesteps=50,
-                                         max_text_len=128, return_codes=True)
-            pixels = pipe.decode_codes(codes)
+            out = run_once()
             enqueued = time.perf_counter() - t0  # the host's share: work queued, not done
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         counts = _read_counts()
-        print(f"  {run} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), "
-              f"{len(PROMPTS) / dt:.4f} images/s, launches {counts}")
-        check(counts == expect, f"flagship launch counts {counts} != {expect}")
-        check(bool(((codes >= 0) & (codes < pipe.cfg.codebook_size)).all()),
-              "flagship codes out of [0, 8192)")
-        check(tuple(pixels.shape) == (len(PROMPTS), 256, 256, 3),
-              f"flagship pixels shape {tuple(pixels.shape)}")
-        check(bool(torch.isfinite(pixels).all()), "flagship pixels not finite")
+        rate = f", {work[0] / dt:.4f} {work[1]}/s" if work else ""
+        print(f"  {name} {run} run: {dt:.3f} s ({enqueued:.3f} s to enqueue){rate}, "
+              f"launches {counts}")
+        check(counts == expect, f"{name} launch counts {counts} != {expect}")
+        if validate is not None:
+            validate(out)
+    return out, dt, enqueued, counts
+
+
+def _t2i_checker(name, pipe):
+    """Checks a t2i run's (codes, pixels): codes in the codebook, finite
+    pixels of 256 px."""
+    import torch
+
+    def validate(out):
+        codes, pixels = out
+        check(tuple(codes.shape) == (len(PROMPTS), pipe.cfg.num_vq_tokens) and
+              bool(((codes >= 0) & (codes < pipe.cfg.codebook_size)).all()), f"{name} codes")
+        check(tuple(pixels.shape) == (len(PROMPTS), 256, 256, 3) and
+              bool(torch.isfinite(pixels).all()), f"{name} pixels")
+    return validate
+
+
+def _t2i_run(pipe, **kw):
+    """One GenEval t2i call of the 4 prompts (guidance 6, text budget 128,
+    generator seed 0) and its decode: () -> (codes, pixels)."""
+    import torch
+
+    def run_once():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        codes = pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0, max_text_len=128,
+                                     return_codes=True, **kw)
+        return codes, pipe.decode_codes(codes)
+    return run_once
+
+
+def run_flagship(results, profile=False):
+    import torch
+    print("phase: flagship path (Qwen2.5-1.5B + MAGViTv2, random init, bf16, 4 prompts, "
+          "guidance 6, 50 steps, max_text_len 128)")
+    pipe = flagship_pipeline()
+    layers = pipe.cfg.llm.num_hidden_layers
+    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * 50,
+                  conv3x3_gn_swish=44, gn_affine=40)
+    census = {}
+    run_once = _t2i_run(pipe, timesteps=50)
+    # the warm run also counts kernel 3's launches by shape (44 wrapped Python
+    # calls; their cost is within the run's noise)
+    (codes, _), dt, enqueued, counts = _timed_runs(
+        "flagship", run_once, expect, census=census, validate=_t2i_checker("flagship", pipe),
+        work=(len(PROMPTS), "images"))
     expect_census = {(hw, c, cout, gn): [n, n if gn else 0]
                      for hw, c, cout, gn, n in DECODER_CONVS}
     print("  warm run, kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
@@ -1096,12 +1275,6 @@ def run_flagship(results, profile=False):
     check(census == expect_census, f"decoder conv launches {census} != {expect_census}")
     results["conv_census"] = census
     if profile:
-        def run_once():
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(0)
-            pipe.decode_codes(pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0,
-                                                   timesteps=50, max_text_len=128,
-                                                   return_codes=True))
         profile_run(run_once, dt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1141,29 +1314,10 @@ def run_flagship_int8(results, profile=False):
                   conv3x3_gn_swish=44, gn_affine=40,
                   quantize_activations=4 * layers + steps * (4 * layers + 1),
                   w8a8_epilogue=dense, int8_matmul=dense)
-
-    def run_once():
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        codes = pipe.generate_images(list(PROMPTS), gen, guidance_scale=6.0, timesteps=steps,
-                                     max_text_len=128, return_codes=True)
-        return codes, pipe.decode_codes(codes)
-    for run in ("cold", "warm"):
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        codes, pixels = run_once()
-        enqueued = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _read_counts()
-        print(f"  {run} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), "
-              f"{len(PROMPTS) / dt:.4f} images/s, launches {counts}")
-        check(counts == expect, f"flagship_int8 launch counts {counts} != {expect}")
-        check(bool(((codes >= 0) & (codes < pipe.cfg.codebook_size)).all()),
-              "flagship_int8 codes out of [0, 8192)")
-        check(tuple(pixels.shape) == (len(PROMPTS), 256, 256, 3) and
-              bool(torch.isfinite(pixels).all()), "flagship_int8 pixels")
+    run_once = _t2i_run(pipe, timesteps=steps)
+    (codes, _), dt, enqueued, counts = _timed_runs(
+        "flagship_int8", run_once, expect, validate=_t2i_checker("flagship_int8", pipe),
+        work=(len(PROMPTS), "images"))
     out = {"seconds": dt, "enqueue_s": enqueued, "images_per_s": len(PROMPTS) / dt}
     if "flagship_codes" in results:
         out["agreement_with_bf16"] = (codes == results["flagship_codes"]).float().mean().item()
@@ -1178,27 +1332,39 @@ def run_flagship_int8(results, profile=False):
     return counts
 
 
+def _vqa_pixels(pipe):
+    """8 uint8 images at the tower's size, from generator seed 7."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    size = pipe.vision_cfg.image_size
+    return torch.randint(0, 256, (len(QUESTIONS), size, size, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+
+
+def _token_checker(name, vocab, b=len(QUESTIONS)):
+    def validate(toks):
+        check(tuple(toks.shape) == (b, NEW_TOKENS) and bool(((toks >= 0) & (toks < vocab)).all()),
+              f"{name} tokens {tuple(toks.shape)} out of range")
+    return validate
+
+
 def run_understand(results, profile=False):
     """SigLIP VQA at full width: bf16, 8 uint8 images of 384 px, 8 questions,
     128 new tokens, greedy; the backbone and text head in W4A8 (group 256),
     then the same call with the bf16 backbone as a yardstick."""
     import dataclasses
     import torch
-    from unigen_tpu_torch.launch import build_pipeline
     from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
     print("phase: understand path (SigLIP-SO400M + projector + Qwen2.5-1.5B W4A8, random "
           f"init, bf16, {len(QUESTIONS)} images of 384 px, {NEW_TOKENS} new tokens, greedy)")
+    pipe = flagship_pipeline(vision=True)
     t0 = time.perf_counter()
-    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0, vision=True)
     qpipe = dataclasses.replace(pipe, params=quantize_unigen_params_int4(pipe.params, pipe.cfg))
     torch.cuda.synchronize()
-    print(f"  build_pipeline + quantize_unigen_params_int4 {time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
+    print(f"  quantize_unigen_params_int4 {time.perf_counter() - t0:.2f} s")
     b = len(QUESTIONS)
-    size = pipe.vision_cfg.image_size
-    pixels = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda",
-                           dtype=torch.uint8)
+    pixels = _vqa_pixels(pipe)
     layers = pipe.cfg.llm.num_hidden_layers
     per_forward = 7 * layers + 1                     # q, k, v, o, gate, up, down + head
     quant_per_forward = 4 * layers + 1               # q/k/v, o, gate/up, down + head
@@ -1206,43 +1372,28 @@ def run_understand(results, profile=False):
                     chunk_attention=layers * (NEW_TOKENS - 1),
                     w4a8_matmul=per_forward * NEW_TOKENS,
                     quantize_activations=quant_per_forward * NEW_TOKENS)
-    vocab = pipe.cfg.llm.vocab_size
+    validate = _token_checker("understand", pipe.cfg.llm.vocab_size)
 
     def run(p):
         return p.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
 
     out = {}
-    for name, p, expect, runs in (("w4a8", qpipe, expect_q, ("cold", "warm")),
-                                  ("bf16", pipe, dict(expect_q, w4a8_matmul=0,
-                                                      quantize_activations=0), ("warm",))):
-        if name == "bf16":
-            run(p)                                   # warm-up of the bf16 backbone
-        for which in runs:
-            _reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            toks = run(p)
-            enqueued = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            counts = _read_counts()
-            tps = b * NEW_TOKENS / dt
-            print(f"  {name} {which} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), "
-                  f"{tps:.2f} tokens/s, launches {counts}")
-            check(counts == expect, f"understand {name} launch counts {counts} != {expect}")
-            check(tuple(toks.shape) == (b, NEW_TOKENS), f"understand tokens {tuple(toks.shape)}")
-            check(bool(((toks >= 0) & (toks < vocab)).all()), "understand tokens out of range")
-        out[name] = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": tps, "tokens": toks,
-                     "counts": counts}
+    for name, p, expect in (("w4a8", qpipe, expect_q),
+                            ("bf16", pipe, dict(expect_q, w4a8_matmul=0, quantize_activations=0))):
+        toks, dt, enqueued, counts = _timed_runs(f"understand {name}", lambda p=p: run(p), expect,
+                                                 validate=validate, work=(b * NEW_TOKENS, "tokens"))
+        out[name] = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": b * NEW_TOKENS / dt,
+                     "tokens": toks, "counts": counts}
     agree = (out["w4a8"]["tokens"] == out["bf16"]["tokens"]).float().mean().item()
     print(f"  W4A8 vs bf16 backbone token agreement {agree:.4f} (random weights; not a gate)")
     if profile:
         for name, p in (("w4a8", qpipe), ("bf16", pipe)):
             print(f"  profile of the {name} understand call:")
             profile_run(lambda: run(p), out[name]["seconds"])
-    l, _ = understand_prompt_shape()
-    print(f"  prompt length {l} (3 + 729 image + {l - 732} question), cache {l + NEW_TOKENS} "
-          f"slots, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    l, _ = understand_prompt_shape(pipe)
+    p = pipe.vision_cfg.num_patches
+    print(f"  prompt length {l} (3 + {p} image + {l - 3 - p} question), cache "
+          f"{l + NEW_TOKENS} slots, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["understand"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
                              for k, v in out.items()}
     results["understand_tokens"] = {k: v["tokens"] for k, v in out.items()}
@@ -1265,12 +1416,8 @@ def run_understand_int8(results, profile=False):
     torch.cuda.synchronize()
     print(f"  build_pipeline(vision=True, quantization='int8', quantized_cache=True) "
           f"{time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
     b = len(QUESTIONS)
-    size = pipe.vision_cfg.image_size
-    pixels = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda",
-                           dtype=torch.uint8)
+    pixels = _vqa_pixels(pipe)
     layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
     # a forward: 7 projections and 4 quantizations a layer, and the head; the
     # tower: q/k/v, o, fc1, fc2 on 4 quantizations a layer. No chunk kernel:
@@ -1279,26 +1426,14 @@ def run_understand_int8(results, profile=False):
     expect = dict(NO_LAUNCHES, flash_attention=vit + layers,
                   quantize_activations=(4 * layers + 1) * NEW_TOKENS + 4 * vit,
                   w8a8_epilogue=dense, int8_matmul=dense)
-    vocab = pipe.cfg.llm.vocab_size
 
     def run_once():
         return pipe.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
-    for which in ("cold", "warm"):
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = run_once()
-        enqueued = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _read_counts()
-        tps = b * NEW_TOKENS / dt
-        print(f"  int8+kv {which} run: {dt:.3f} s ({enqueued:.3f} s to enqueue), {tps:.2f} "
-              f"tokens/s, launches {counts}")
-        check(counts == expect, f"understand_int8 launch counts {counts} != {expect}")
-        check(tuple(toks.shape) == (b, NEW_TOKENS) and bool(((toks >= 0) & (toks < vocab)).all()),
-              f"understand_int8 tokens {tuple(toks.shape)} out of range")
-    out = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": tps}
+    toks, dt, enqueued, counts = _timed_runs(
+        "understand_int8 (int8+kv)", run_once, expect,
+        validate=_token_checker("understand_int8", pipe.cfg.llm.vocab_size),
+        work=(b * NEW_TOKENS, "tokens"))
+    out = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": b * NEW_TOKENS / dt}
     if "understand" in results:
         u = results["understand"]
         out["agreement_with_bf16"] = (
@@ -1312,6 +1447,223 @@ def run_understand_int8(results, profile=False):
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["understand_int8"] = out
     return counts
+
+
+def run_flagship_ar(results, profile=False):
+    """GenEval t2i with ``mode="ar"``: the 4 prompts, guidance 6, bf16; one
+    prefill and 255 cached steps of 8 rows (cond and uncond), then the
+    decoder."""
+    import torch
+    print("phase: flagship_ar path (Qwen2.5-1.5B + MAGViTv2, random init, bf16, 4 prompts, "
+          "mode='ar', guidance 6, max_text_len 128)")
+    pipe = flagship_pipeline()
+    layers, n = pipe.cfg.llm.num_hidden_layers, pipe.cfg.num_vq_tokens
+    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * (n - 1),
+                  conv3x3_gn_swish=44, gn_affine=40)
+    run_once = _t2i_run(pipe, mode="ar")
+    _, dt, enqueued, counts = _timed_runs("flagship_ar", run_once, expect,
+                                          validate=_t2i_checker("flagship_ar", pipe),
+                                          work=(len(PROMPTS), "images"))
+    if profile:
+        profile_run(run_once, dt)
+    lp, _ = ar_prompt_layout(pipe)
+    print(f"  prefill [{2 * len(PROMPTS)}, {lp}], cache {lp + n} slots, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["flagship_ar"] = {"seconds": dt, "enqueue_s": enqueued,
+                              "images_per_s": len(PROMPTS) / dt}
+    return counts
+
+
+def run_understand_discrete(results, profile=False):
+    """VQA over the tokenizer's codes: 8 fp32 images of 256 px in [-1, 1]
+    through the MAGViTv2 encoder (in the pixels' dtype, batch 8), the mmu
+    prompt right-padded to 1,603, the bf16 backbone, 128 greedy tokens;
+    kernel 3's launches counted by shape."""
+    import torch
+    print("phase: understand_discrete path (MAGViTv2 encoder on fp32 pixels + Qwen2.5-1.5B bf16, "
+          f"random init, {len(QUESTIONS)} images of 256 px, {NEW_TOKENS} new tokens, greedy)")
+    pipe = flagship_pipeline()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    b = len(QUESTIONS)
+    pixels = torch.rand((b, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    layers = pipe.cfg.llm.num_hidden_layers
+    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * (NEW_TOKENS - 1),
+                  conv3x3_gn_swish=40, gn_affine=40)
+    census = {}
+
+    def run_once():
+        return pipe.understand_discrete(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
+    _, dt, enqueued, counts = _timed_runs(
+        "understand_discrete", run_once, expect, census=census,
+        validate=_token_checker("understand_discrete", pipe.cfg.llm.vocab_size),
+        work=(b * NEW_TOKENS, "tokens"))
+    if profile:
+        profile_run(run_once, dt)
+        t0 = time.perf_counter()
+        pipe.encode_pixels(pixels)
+        torch.cuda.synchronize()
+        print("  profile of the encoder alone (encode_pixels):")
+        profile_run(lambda: pipe.encode_pixels(pixels), time.perf_counter() - t0)
+    expect_census = {(hw, c, cout, gn): [n, n] for hw, c, cout, gn, n in ENCODER_CONVS}
+    print("  warm run, kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
+          + ", ".join(f"{k}: {v}" for k, v in sorted(census.items())))
+    check(census == expect_census, f"encoder conv launches {census} != {expect_census}")
+    codes = pipe.encode_pixels(pixels)
+    check(tuple(codes.shape) == (b, pipe.cfg.num_vq_tokens) and
+          bool(((codes >= 0) & (codes < pipe.cfg.codebook_size)).all()), "encode_pixels codes")
+    ids, _, _ = mmu_prompt_layout(pipe)
+    print(f"  prefill [{b}, {ids.shape[1]}], cache {ids.shape[1] + NEW_TOKENS} slots, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["encoder_census"] = census
+    results["understand_discrete"] = {"seconds": dt, "enqueue_s": enqueued,
+                                      "tokens_per_s": b * NEW_TOKENS / dt}
+    return counts
+
+
+def run_score(results, profile=False):
+    """Continuation scoring (the lmms-eval loglikelihood call): SigLIP +
+    projector + one cache-free backbone forward, bf16, 8 images of 384 px x
+    question x a continuation of 1-16 tokens."""
+    import numpy as np
+    print("phase: score path (SigLIP-SO400M + projector + Qwen2.5-1.5B, random init, bf16, "
+          f"{len(QUESTIONS)} (image, question, continuation) requests)")
+    pipe = flagship_pipeline(vision=True)
+    b = len(QUESTIONS)
+    pixels = _vqa_pixels(pipe)
+    conts = score_conts(pipe)
+    expect = dict(NO_LAUNCHES, flash_attention=pipe.vision_cfg.num_layers_used +
+                  pipe.cfg.llm.num_hidden_layers)
+
+    def run_once():
+        return pipe.score_continuations(pixels, list(QUESTIONS), conts)
+
+    def validate(out):
+        check(len(out) == b and all(np.isfinite(lp) and lp <= 0 and isinstance(g, bool)
+                                    for lp, g in out), f"score results {out}")
+    out, dt, enqueued, counts = _timed_runs("score", run_once, expect, validate=validate,
+                                            work=(b, "requests"))
+    if profile:
+        profile_run(run_once, dt)
+    l_score, _ = score_layout(pipe)
+    print(f"  forward [{b}, {l_score}], continuations of {[len(c) for c in conts]} tokens; "
+          f"log-likelihoods {[round(lp, 3) for lp, _ in out]}")
+    results["score"] = {"seconds": dt, "enqueue_s": enqueued, "requests_per_s": b / dt}
+    return counts
+
+
+def run_geneval(results, profile=False):
+    """``evaluation.geneval.run_geneval`` over 2 metadata lines x 4 samples
+    (mode mask, guidance 6, 50 steps, bf16) into a temporary directory; every
+    PNG must decode back to ``pixels_to_uint8`` of its prompt's batch."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    from unigen_tpu_torch.evaluation import geneval
+    from unigen_tpu_torch.pipeline import pixels_to_uint8
+    print("phase: geneval (run_geneval, 2 prompts x 4 samples, guidance 6, 50 steps, PNG writes)")
+    pipe = dataclasses.replace(flagship_pipeline())    # a copy whose generate_images records
+    metadata = [{"prompt": p} for p in PROMPTS[:2]]
+    n_samples, layers = 4, pipe.cfg.llm.num_hidden_layers
+    expect = dict(NO_LAUNCHES, flash_attention=2 * layers, chunk_attention=2 * 50 * layers,
+                  conv3x3_gn_swish=2 * 44, gn_affine=2 * 40)
+    batches = []
+    real = pipe.generate_images
+
+    def recorded(*a, **kw):
+        batches.append(real(*a, **kw))
+        return batches[-1]
+    pipe.generate_images = recorded
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_once():
+            batches.clear()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            return geneval.run_geneval(pipe, metadata, os.path.join(tmp, "out"), gen,
+                                       n_samples=n_samples)
+        written, dt, enqueued, counts = _timed_runs("geneval", run_once, expect,
+                                                    work=(len(metadata) * n_samples, "images"))
+        if profile:
+            profile_run(run_once, dt)
+        check(len(written) == len(metadata) == len(batches), f"geneval wrote {written}")
+        for d, md, pixels in zip(written, metadata, batches):
+            want = pixels_to_uint8(pixels)
+            check(geneval.load_metadata_jsonl(os.path.join(d, "metadata.jsonl")) == [md],
+                  f"{d}: metadata")
+            for i in range(n_samples):
+                got = geneval.load_png(os.path.join(d, "samples", f"{i:05}.png"))
+                check(got.shape == (256, 256, 3) and (got == want[i]).all(),
+                      f"{d} sample {i}: the PNG does not decode to its batch's pixels")
+        imgs = [im for pixels in batches for im in pixels_to_uint8(pixels)]
+        t0 = time.perf_counter()
+        for i, im in enumerate(imgs):
+            geneval.save_png(im, os.path.join(tmp, f"{i}.png"))
+        png_s = time.perf_counter() - t0
+    rate = len(metadata) * n_samples / dt
+    print(f"  {len(metadata) * n_samples} PNGs decode to their batches' pixels; {rate:.4f} "
+          f"images/s with the PNG writes; the {len(imgs)} writes alone take {png_s:.3f} s")
+    results["geneval"] = {"seconds": dt, "images_per_s": rate}
+    return counts
+
+
+def run_tiny_slice():
+    """The tiny fp32 pipeline through the kernels on the card against the
+    plain versions on the CPU: the codes of ``encode_pixels``, AR tokens
+    under shared noise, ``understand_discrete``'s greedy tokens (agreement
+    >= 0.99 each) and ``score_continuations`` (relative difference <= 1e-4)."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: tiny fp32 encode, AR t2i, discrete understanding and scoring, kernels on the "
+          "card vs plain versions on the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision=True)
+    gpu = cpu.to("cuda")
+    b, res = len(QUESTIONS), cpu.vq_cfg.resolution
+    rng = np.random.default_rng(6)
+    px = rng.uniform(-1, 1, (b, res, res, 3)).astype(np.float32)
+
+    def launched(fn):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _read_counts()
+    codes_gpu, c_enc = launched(lambda: gpu.encode_pixels(px))
+    enc = (codes_gpu.cpu() == cpu.encode_pixels(px)).float().mean().item()
+    n, cb = cpu.cfg.num_vq_tokens, cpu.cfg.codebook_size
+    noise = rng.random((n, len(PROMPTS), cb), dtype=np.float32)
+    kw = dict(guidance_scale=6.0, max_text_len=16, mode="ar", return_codes=True)
+    ar_gpu, c_ar = launched(lambda: gpu.generate_images(
+        list(PROMPTS), None, noise=torch.from_numpy(noise).cuda(), **kw))
+    ar = (ar_gpu.cpu() == cpu.generate_images(list(PROMPTS), None,
+                                              noise=torch.from_numpy(noise), **kw)
+          ).float().mean().item()
+    und_gpu, c_und = launched(lambda: gpu.understand_discrete(px, list(QUESTIONS), None,
+                                                              max_new_tokens=32))
+    und = (und_gpu.cpu() == cpu.understand_discrete(px, list(QUESTIONS), None,
+                                                    max_new_tokens=32)).float().mean().item()
+    img = rng.integers(0, 256, (b, cpu.vision_cfg.image_size, cpu.vision_cfg.image_size, 3),
+                       dtype=np.uint8)
+    conts = score_conts(cpu)
+    sc_gpu, c_sc = launched(lambda: gpu.score_continuations(img, list(QUESTIONS), conts))
+    sc_cpu = cpu.score_continuations(img, list(QUESTIONS), conts)
+    rel = max(abs(g - c) / max(abs(c), 1e-30) for (g, _), (c, _) in zip(sc_gpu, sc_cpu))
+    flags = np.mean([g == c for (_, g), (_, c) in zip(sc_gpu, sc_cpu)])
+    print(f"  encode_pixels code agreement {enc:.4f}, AR token agreement {ar:.4f}, "
+          f"understand_discrete token agreement {und:.4f} (each need >= 0.99); score "
+          f"log-likelihoods max relative difference {rel:.3e} (need <= 1e-4), greedy flags "
+          f"agree on {flags:.4f}")
+    print(f"  launches: encode {c_enc}; AR {c_ar}; understand_discrete {c_und}; score {c_sc}")
+    check(c_enc["conv3x3_gn_swish"] > 0 and c_enc["gn_affine"] > 0,
+          f"tiny encode skipped kernel 3: {c_enc}")
+    check(c_ar["flash_attention"] > 0 and c_ar["chunk_attention"] > 0,
+          f"tiny AR skipped an attention kernel: {c_ar}")
+    check(all(c_und[k] > 0 for k in ("flash_attention", "chunk_attention", "conv3x3_gn_swish",
+                                     "gn_affine")), f"tiny understand_discrete launches {c_und}")
+    check(c_sc["flash_attention"] > 0 and c_sc["chunk_attention"] == 0,
+          f"tiny score launches {c_sc}")
+    check(enc >= 0.99 and ar >= 0.99 and und >= 0.99 and rel <= 1e-4,
+          f"tiny slice agreement: encode {enc}, AR {ar}, understand_discrete {und}, score {rel}")
 
 
 def run_tiny_understand():
@@ -1506,15 +1858,25 @@ def main(argv=None) -> int:
             path_counts["t2i"] = run_flagship(results, profile="profile" in phases)
         if "flagship_int8" in phases:
             path_counts["t2i_int8"] = run_flagship_int8(results, profile="profile" in phases)
+        if "flagship_ar" in phases:
+            path_counts["t2i_ar"] = run_flagship_ar(results, profile="profile" in phases)
         if "understand" in phases:
             path_counts["understand"] = run_understand(results, profile="profile" in phases)
         if "understand_int8" in phases:
             path_counts["understand_int8"] = run_understand_int8(results,
                                                                  profile="profile" in phases)
+        if "understand_discrete" in phases:
+            path_counts["understand_discrete"] = run_understand_discrete(
+                results, profile="profile" in phases)
+        if "score" in phases:
+            path_counts["score"] = run_score(results, profile="profile" in phases)
+        if "geneval" in phases:
+            path_counts["geneval"] = run_geneval(results, profile="profile" in phases)
         if "tiny" in phases:
             run_tiny()
             run_tiny_understand()
             run_tiny_int8()
+            run_tiny_slice()
         conv_batch_sums(results)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1562,6 +1924,22 @@ def main(argv=None) -> int:
         u8 = results["understand_int8"]
         print(f"understand_int8 (int8+kv): {u8['tokens_per_s']:.2f} tokens/s "
               f"({u8['seconds']:.3f} s) on {card}")
+    if "flagship_ar" in results:
+        fa = results["flagship_ar"]
+        print(f"flagship_ar: {fa['images_per_s']:.4f} images/s ({fa['seconds']:.3f} s for "
+              f"{len(PROMPTS)} images) on {card}")
+    if "understand_discrete" in results:
+        ud = results["understand_discrete"]
+        print(f"understand_discrete: {ud['tokens_per_s']:.2f} tokens/s ({ud['seconds']:.3f} s, "
+              f"batch {len(QUESTIONS)} x {NEW_TOKENS} tokens) on {card}")
+    if "score" in results:
+        sc = results["score"]
+        print(f"score: {sc['requests_per_s']:.3f} requests/s ({sc['seconds']:.3f} s for "
+              f"{len(QUESTIONS)} requests) on {card}")
+    if "geneval" in results:
+        ge = results["geneval"]
+        print(f"geneval: {ge['images_per_s']:.4f} images/s with the PNG writes "
+              f"({ge['seconds']:.3f} s for 2 prompts x 4 samples) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -124,11 +124,6 @@ def test_prefix_cached_codes_build_no_omni_mask(tiny, monkeypatch, guidance_scal
     assert built == [] and torch.equal(got, want)
 
 
-def test_ar_mode_not_ported_raises(tiny):
-    with pytest.raises(NotImplementedError):
-        tiny.generate_images(["x"], None, mode="ar")
-
-
 def test_pixels_to_uint8_matches_jax():
     x = np.random.default_rng(0).uniform(-1.3, 1.3, size=(2, 4, 4, 3)).astype(np.float32)
     np.testing.assert_array_equal(pixels_to_uint8(torch.from_numpy(x)), j_to_uint8(x))

@@ -1,7 +1,7 @@
-"""Text-to-image MaskGIT sampler with classifier-free guidance.
+"""Text-to-image samplers with classifier-free guidance: MaskGIT and autoregressive.
 
-Port of ``unigen_tpu/generation/t2i.py::t2i_generate`` (both paths) with
-MaskGIT semantics unchanged: Gumbel-max sampling on the logits, confidence
+Port of ``unigen_tpu/generation/t2i.py::t2i_generate`` (both paths) and
+``t2i_generate_ar``, with MaskGIT semantics unchanged: Gumbel-max sampling on the logits, confidence
 re-masking with annealed Gumbel noise, the mask_len schedule with its
 keep-one / mask-one clamps, and the compounding temperature decay.
 
@@ -16,6 +16,11 @@ keep-one / mask-one clamps, and the compounding temperature decay.
 ``noise=(u_sample [T, B, N, CB], u_mask [T, B, N])`` takes pre-drawn
 uniform[0, 1) arrays instead of the generator: fed the same numbers and the
 same logits, the port and the JAX package emit the same tokens.
+
+``t2i_generate_ar`` prefills the cond and uncond prompts (through
+``ops.flash_attention`` with pad bits) and then emits one image token a step
+against the KV cache (through ``ops.chunk_attention`` with the per-row key
+mask ``valid``); its shared-noise hook is ``noise [N, B, CB]``.
 """
 from __future__ import annotations
 
@@ -193,3 +198,62 @@ def t2i_generate(
         ids_cb, sampled, temp = _maskgit_update(generator, logits, ids_cb, s, temp,
                                                 timesteps, n, mask_id, noise_schedule, inj)
     return sampled
+
+
+@torch.no_grad()
+def t2i_generate_ar(
+    params,
+    cfg: UniGenConfig,
+    generator: Optional[torch.Generator],
+    input_ids: torch.Tensor,                      # [B, L] cond prompt incl. image block
+    uncond_input_ids: torch.Tensor,               # [B, L]
+    attention_1d: torch.Tensor,                   # [2B, L] 0/1 padding mask (cond; uncond)
+    guidance_scale: float = 0.0,
+    temperature: float = 1.0,
+    image_token_num_per_image: Optional[int] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Autoregressive image generation with CFG on the logits and a KV cache.
+    Returns [B, N] codebook ids.
+
+    The cond and uncond rows always run (2B rows, whatever the guidance
+    scale), and the logits are ``uncond + guidance_scale * (cond - uncond)``.
+    The rotary positions are the cache slots, left pads included:
+    ``arange(Lp)`` at the prefill and the slot written at each step.
+    ``noise``: optional pre-drawn uniform[0, 1) [N, B, CB], one slice a
+    token, used instead of the generator."""
+    n = image_token_num_per_image or cfg.num_vq_tokens
+    bsz = input_ids.shape[0]
+    dev = input_ids.device
+    prompt = torch.cat([input_ids[:, :-(n + 1)], uncond_input_ids[:, :-(n + 1)]], dim=0)
+    rb, lp = prompt.shape
+    total = lp + n
+    keep = attention_1d[:, :lp].to(device=dev, dtype=torch.bool)
+    z = torch.zeros_like(keep)
+    meta = M.pack_meta(M.AttnMeta(pad=~keep, bidir_q=z, bidir_k=z))
+    cache = qwen2.init_kv_cache(cfg.llm, rb, total, dev)
+    hidden, cache = qwen2.forward(params["llm"], cfg.llm,
+                                  inputs_embeds=embed_tokens(params, prompt),
+                                  meta_bits=meta, cache=cache)
+
+    def sample_from(hidden_last, inj):
+        logits = _image_head(params, cfg, hidden_last)
+        cond, uncond = logits[:bsz], logits[bsz:]
+        logits = uncond + guidance_scale * (cond - uncond)
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return S.sample_categorical(generator, probs, noise=inj)
+
+    tok = sample_from(hidden[:, -1], None if noise is None else noise[0])
+    toks = [tok]
+    valid = torch.cat([keep, torch.zeros((rb, n), dtype=torch.bool, device=dev)], dim=1)
+    slots = torch.arange(total, device=dev)
+    for t in range(n - 1):
+        slot = cache.index                                # the slot this step writes
+        valid = valid | (slots == slot)[None]
+        emb = _embed_image_tokens(params, cfg, torch.cat([tok, tok])[:, None])
+        hidden, cache = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=emb,
+                                      positions=torch.full((rb, 1), slot, device=dev),
+                                      cache=cache, kv_rowmask=valid)
+        tok = sample_from(hidden[:, -1], None if noise is None else noise[t + 1])
+        toks.append(tok)
+    return torch.stack(toks, dim=1)

@@ -39,12 +39,17 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def conv2d(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME convolution, NHWC activations and an HWIO kernel."""
+def conv2d(p: Dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """Convolution of NHWC activations with an HWIO kernel: ``"SAME"`` pads
+    (kh // 2, kw // 2) and keeps the size at stride 1 (odd kernels);
+    ``"VALID"`` pads nothing."""
     kernel = p["kernel"].to(x.dtype)
     kh, kw = kernel.shape[0], kernel.shape[1]
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                 padding=(kh // 2, kw // 2))
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    pad = (kh // 2, kw // 2) if padding == "SAME" else (0, 0)
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), stride=stride,
+                 padding=pad)
     return y.permute(0, 2, 3, 1).contiguous() + p["bias"].to(x.dtype)
 
 

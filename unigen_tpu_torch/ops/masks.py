@@ -1,7 +1,7 @@
 """Attention masks for the unified text/image token sequences.
 
-Counterpart of ``unigen_tpu/ops/masks.py`` (the parts the t2i and the SigLIP
-understanding paths use) and
+Counterpart of ``unigen_tpu/ops/masks.py`` (the parts the t2i, the discrete
+and the SigLIP understanding paths use) and
 of the kernel bitfield in ``unigen_tpu/ops/flash_attention.py::pack_meta``:
 
     visible(q, k) = ~pad[q] & ~pad[k] & (k <= q | bidir_q[q] | bidir_k[k])
@@ -60,6 +60,20 @@ def t2i_attn_meta(input_ids: torch.Tensor, pad_id: int, soi_id: int,
     in_img = image_segments(input_ids, soi_id, eoi_id)
     pad = input_ids == pad_id
     return AttnMeta(pad=pad, bidir_q=in_img & ~pad, bidir_k=torch.zeros_like(pad))
+
+
+def mmu_attn_meta(input_ids: torch.Tensor, eoi_id: int,
+                  prompt_len: torch.Tensor) -> AttnMeta:
+    """Metadata form of the JAX package's ``create_attention_mask_for_mmu``
+    and the prompt-length keep mask: causal, with every column up to and
+    including each row's first ``<|eoi|>`` (task tokens and the image block)
+    visible to all queries; pad at and beyond each row's ``prompt_len`` (not
+    from the pad id). On every non-pad query row it equals the dense
+    ``(causal | prefix) & keep_q & keep_k``."""
+    pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None]
+    eoi_pos = torch.argmax((input_ids == eoi_id).to(torch.int32), dim=-1, keepdim=True)
+    pad = pos >= prompt_len.to(input_ids.device)[:, None]
+    return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=(pos <= eoi_pos) & ~pad)
 
 
 def mmu_vit_attn_meta(batch_size: int, seq_len: int, *, num_tokens: int,

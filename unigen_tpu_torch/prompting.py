@@ -1,11 +1,14 @@
 """Task-sequence assembly (numpy only).
 
 The port's own copy of ``unigen_tpu.prompting.UniPrompting``, as far as the
-``t2i_gen`` task and the continuous (SigLIP) ``mmu_conv`` task need it.
+``t2i_gen`` task, the discrete ``mmu`` task and the continuous (SigLIP)
+``mmu_conv`` task need it.
 Layouts (identical to the JAX package):
 
   t2i_gen   [pad...][task/<|im_start|>user\\n][text][<|im_end|>\\n<|im_start|>assistant\\n]
             [<|soi|>][N image tokens][<|eoi|>]                         (left-pad)
+  mmu       [<|im_start|>][<|mmu|>][<|soi|>][N image tokens][<|eoi|>][text][<|im_end|>]
+            [pad...]                                                   (right-pad)
   mmu_conv  part1 = [sys?][<|im_start|>][<|mmu|>][<|soi|>],
             part2 = [<|eoi|>][conversation ids without their first token];
             the caller splices the image embeddings between the two.
@@ -89,6 +92,32 @@ class UniPrompting:
             masks.append(mask)
         return np.asarray(seqs, np.int64), np.asarray(masks, np.int64)
 
+    def mmu_prompt(self, image_ids: np.ndarray, texts: Sequence[str]
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Right-padded sequences over discrete image tokens (already offset
+        into the unified vocabulary), padded to ``max_seq_len``: (input_ids,
+        attention_mask, labels). The text is cut to fit; labels mark the
+        head, the image block, ``<|eoi|>`` and the pads with ``IGNORE_ID``."""
+        text_ids = self._tokenize(list(texts))
+        n_img = image_ids.shape[1]
+        sp = self.sptids_dict
+        head = [sp["<|im_start|>"], sp["<|mmu|>"], sp["<|soi|>"]]
+        seqs, masks, labs = [], [], []
+        for i, ids in enumerate(text_ids):
+            free = self.max_seq_len - n_img - 5
+            if free >= len(ids):
+                mask = [1] * (len(ids) + n_img + 5) + [0] * (free - len(ids))
+                body = ids + [sp["<|im_end|>"]] + [self.pad_id] * (free - len(ids))
+            else:
+                mask = [1] * self.max_seq_len
+                body = ids[:free] + [sp["<|im_end|>"]]
+            lab = [IGNORE_ID] * (n_img + 4) + body
+            labs.append([IGNORE_ID if t == self.pad_id else t for t in lab])
+            seqs.append(head + list(image_ids[i]) + [sp["<|eoi|>"]] + body)
+            masks.append(mask)
+        return (np.asarray(seqs, np.int64), np.asarray(masks, np.int64),
+                np.asarray(labs, np.int64))
+
     def _eos_scan(self, part2: np.ndarray, extra_len: int, total_len: int
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-row valid length from the last eos (``<|im_end|>``) of part2;
@@ -135,6 +164,8 @@ class UniPrompting:
         if task == "t2i_gen":
             max_len = None if len(inputs) == 2 else inputs[2]
             return self.t2i_gen_prompt(inputs[0], np.asarray(inputs[1]), max_len)
+        if task == "mmu":
+            return self.mmu_prompt(np.asarray(inputs[0]), inputs[1])
         if task == "mmu_conv":
             return self.mmu_conv(np.asarray(inputs[0]), np.asarray(inputs[1]),
                                  None if inputs[2] is None else np.asarray(inputs[2]),

@@ -183,9 +183,10 @@ def _map_tree(tree, fn):
 
 def magvit_from_jax(tree: Dict[str, Any], cfg: MagvitConfig, device="cpu",
                     dtype=None) -> Dict[str, Any]:
-    """JAX ``magvit.init`` tree -> the port's decoder parameters (HWIO kept)."""
+    """JAX ``magvit.init`` tree -> the port's encoder and decoder parameters (HWIO kept)."""
     dtype = dtype or cfg.dtype
-    return {"decoder": _map_tree(tree["decoder"], lambda a: to_tensor(a, device, dtype))}
+    return {part: _map_tree(tree[part], lambda a: to_tensor(a, device, dtype))
+            for part in ("encoder", "decoder")}
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +273,9 @@ def init_siglip(cfg: SiglipConfig, generator: torch.Generator, device,
 
 def init_magvit(cfg: MagvitConfig, generator: torch.Generator, device,
                 dtype=None) -> Dict[str, Any]:
-    """Random MAGViTv2 decoder parameters (HWIO convs), the JAX decoder's structure."""
+    """Random MAGViTv2 parameters (HWIO convs), the JAX tree's structure. The
+    decoder is drawn first, so a seed gives the same decoder with or without
+    the encoder."""
     dtype = dtype or cfg.dtype
 
     def conv(k, cin, cout):
@@ -318,7 +321,32 @@ def init_magvit(cfg: MagvitConfig, generator: torch.Generator, device,
     p["up"] = up
     p["norm_out"] = gn(block_in)
     p["conv_out"] = conv(3, block_in, cfg.out_ch)
-    return {"decoder": p}
+
+    in_ch_mult = (1,) + tuple(cfg.enc_ch_mult)
+    num_levels = len(cfg.enc_ch_mult)
+    curr_res = cfg.resolution
+    enc: Dict[str, Any] = {"conv_in": conv(3, cfg.in_ch, cfg.ch)}
+    down: List[Any] = []
+    for i_level in range(num_levels):
+        level = {"block": [], "attn": []}
+        block_in = cfg.ch * in_ch_mult[i_level]
+        block_out = cfg.ch * cfg.enc_ch_mult[i_level]
+        for _ in range(cfg.enc_num_res_blocks[i_level]):
+            level["block"].append(res(block_in, block_out))
+            block_in = block_out
+            if curr_res in cfg.attn_resolutions:
+                level["attn"].append(attn(block_in))
+        if i_level != num_levels - 1:
+            level["downsample"] = {"conv": conv(3, block_in, block_in)}
+            curr_res //= 2
+        down.append(level)
+    enc["down"] = down
+    enc["mid"] = {"block_1": res(block_in, block_in), "attn_1": attn(block_in),
+                  "block_2": res(block_in, block_in)}
+    enc["norm_out"] = gn(block_in)
+    enc["conv_out"] = conv(3, block_in, cfg.z_channels)
+    enc["quant_conv"] = conv(1, cfg.z_channels, cfg.z_channels)
+    return {"encoder": enc, "decoder": p}
 
 
 def tree_to(tree, device) -> Any:
