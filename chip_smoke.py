@@ -32,14 +32,25 @@ read just after:
 * ``score``: ``score_continuations`` of 8 (image, question, continuation)
   requests, one cache-free forward;
 * ``geneval``: ``evaluation.geneval.run_geneval`` over 2 prompts x 4
-  samples, every PNG read back against its batch's pixels.
+  samples, every PNG read back against its batch's pixels;
+* ``cot``: ``evaluation.cot.run_cot`` (CoT-V Best-of-N) on one two-colour
+  GenEval prompt (4 rule questions): 20 candidates rated through the SigLIP
+  tower (the candidates resized to 384 px, the Qwen system prompt, 128
+  greedy tokens), then 8 candidates rated over the tokenizer's codes (the
+  encoder in bf16, the candidates' dtype); top 4 kept, and the selection
+  also held on the table with planted answers whose scores do not tie;
+* ``dpg``: ``evaluation.dpg.run_dpg`` over 2 prompts x 4 samples at the
+  DPG text budget of 256, every grid PNG read back against its batch;
+* ``image_serving``: ``serving.ImageServingEngine`` at batch 4, 6 requests
+  from 3 threads (one full batch, one padded), each image held against the
+  direct call of its padded batch under the batch's derived generator.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
 the plain versions on the CPU (t2i under shared noise; W4A8 understand,
 greedy; int8 t2i and understand with the int8 cache; the codes of
 ``encode_pixels``, AR t2i under shared noise, ``understand_discrete``
-greedy and ``score_continuations``). The W8A8 epilogue is
+greedy and ``score_continuations``; CoT rating tokens of both raters). The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
@@ -47,9 +58,10 @@ to their plain versions bit for bit at every shape of the W4A8 path, on
 every route, and each W4A8 layer is timed whole against bf16 ``F.linear``. Kernel 3
 (GroupNorm statistics + fused conv, two launches) is held to its plain version
 and timed at all 11 conv shapes of the MAGViTv2 decoder and all 7 of its
-encoder; the flagship and understand_discrete phases count its launches by
-shape in the warm run, and the sums of launches x ms over a t2i batch and
-over an encode are taken from those counts. Every check that
+encoder, and again at the CoT slice's batches (the decoder at 20, the
+encoder in bf16 at 8); the flagship, understand_discrete and cot phases
+count its launches by shape in the warm run, and the sums of launches x ms
+over a t2i batch and over an encode are taken from those counts. Every check that
 fails makes the exit code nonzero. The last line of stdout is a JSON object
 naming the device; the line before it holds the kernels' measurements.
 Without a CUDA device, or without the package beside it, the script exits
@@ -58,7 +70,8 @@ nonzero and prints no result. Kernel times (``ms``, ``plain_ms``,
 computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
-understand,understand_int8,understand_discrete,score,geneval,tiny) runs a
+understand,understand_int8,understand_discrete,score,geneval,cot,dpg,
+image_serving,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -74,7 +87,8 @@ import sys
 import time
 
 PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
-          "understand_int8", "understand_discrete", "score", "geneval", "tiny")
+          "understand_int8", "understand_discrete", "score", "geneval", "cot", "dpg",
+          "image_serving", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -97,6 +111,15 @@ NEW_TOKENS = 128
 # after QUESTIONS by the score phase
 CONTINUATIONS = ("A", "Two.", "Red.", "A busy street.", "Day", "An umbrella", "A cat",
                  "STOP, no entry!!")
+# CoT-V: a two-colour GenEval prompt (4 rule questions); candidates rated
+# through the SigLIP tower, and fewer over the tokenizer's codes; top-k kept
+COT_PROMPT = "a photo of a red cube and a blue sphere"
+COT_SAMPLES, COT_DISCRETE_SAMPLES, COT_TOPK = 20, 8, 4
+DPG_TEXT_LEN = 256       # DPG-bench's text budget (GenEval's is 128)
+SERVING_BATCH = 4
+SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
+                   "a lighthouse at dusk", "two cups of coffee on a table",
+                   "a green bus in the rain", "a watercolor of a fox")
 
 
 class Failed(Exception):
@@ -207,7 +230,7 @@ def _attn_inputs(gen, b, lq, s, h, kvh, dh, dtype):
     return q, k, v
 
 
-def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed):
+def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed, at="t2i chunk step"):
     """Chunk attention: q [b, lq, 12, 128] against a cache of lp prefix slots
     (left pads masked out) plus the lq chunk slots. The tolerance is relative
     to the largest output magnitude."""
@@ -235,8 +258,7 @@ def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed):
     b_ms, by = bound(flops, nbytes(q, k, v, kvalid, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
-    return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                     f"t2i chunk step q [{b},{lq},{h},{dh}], S={s}")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"{at} q [{b},{lq},{h},{dh}], S={s}")
 
 
 def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
@@ -451,22 +473,38 @@ def flagship_pipeline(vision=False):
     return _PIPELINES[vision]
 
 
-def understand_prompt_shape(pipe, questions=QUESTIONS):
-    """(L, prompt lengths) of the understand prefill, from the pipeline's
-    ``_vqa_parts``: part1, the image tokens and part2 (<|eoi|> and each
-    question's template without its first token, right-padded)."""
+def understand_prompt_shape(pipe, questions=QUESTIONS, system_prompt_ids=None):
+    """(L, prompt lengths, part1's length) of the understand prefill, from
+    the pipeline's ``_vqa_parts``: part1 (the system prompt, if any, and the
+    prefix), the image tokens and part2 (<|eoi|> and each question's template
+    without its first token, right-padded)."""
     p = pipe.vision_cfg.num_patches
-    part1, part2, q_lens = pipe._vqa_parts(questions, p, None)
-    return part1.shape[1] + p + part2.shape[1], (part1.shape[1] + p + q_lens).tolist()
+    part1, part2, q_lens = pipe._vqa_parts(questions, p, system_prompt_ids)
+    return (part1.shape[1] + p + part2.shape[1], (part1.shape[1] + p + q_lens).tolist(),
+            part1.shape[1])
 
 
-def ar_prompt_layout(pipe, prompts=PROMPTS):
-    """(Lp, left pads of each of the 2B rows) of the AR prefill: the cond and
-    uncond rows of the pipeline's ``prompt_ids`` (text budget 128) without
-    the image block that ``t2i_generate_ar`` cuts off."""
+def cot_rating_shape(vpipe):
+    """(L, prompt lengths, part1's length) of the CoT vision rater's
+    longest understand prefill: COT_SAMPLES rows of one rule question of
+    COT_PROMPT, after the Qwen system prompt."""
     import numpy as np
-    ids, uncond = pipe.prompt_ids(list(prompts), 128)
-    prompt = np.concatenate([ids, uncond])[:, :-(pipe.cfg.num_vq_tokens + 1)]
+    from unigen_tpu_torch.evaluation import cot
+    sys_ids = np.asarray([vpipe.prompting._tokenize(cot.QWEN_SYSTEM_PROMPT)[0]])
+    shapes = [understand_prompt_shape(vpipe, [cot.MMU_RATING_USER_PROMPT["rule"].format(
+        context=q)] * COT_SAMPLES, sys_ids) for q in cot.geneval_prompt2questions(COT_PROMPT)]
+    return max(shapes, key=lambda sh: sh[0])
+
+
+def t2i_prefix_layout(pipe, prompts=PROMPTS, text_len=128, mode="ar"):
+    """(Lp, left pads of each of the 2B rows) of a t2i prefill: the cond and
+    uncond rows of the pipeline's ``prompt_ids`` without the image block the
+    sampler cuts off: ``[img x N][eoi]`` in AR mode, ``[soi][img x N][eoi]``
+    in mask mode."""
+    import numpy as np
+    ids, uncond = pipe.prompt_ids(list(prompts), text_len)
+    cut = pipe.cfg.num_vq_tokens + (1 if mode == "ar" else 2)
+    prompt = np.concatenate([ids, uncond])[:, :-cut]
     return prompt.shape[1], (prompt == pipe.prompting.pad_id).sum(axis=1).tolist()
 
 
@@ -822,7 +860,7 @@ def run_kernel_phases(results):
 
     print("phase: kernels at the understanding path's shapes (bf16 unless noted)")
     pipe, vpipe = flagship_pipeline(), flagship_pipeline(vision=True)
-    l, plen = understand_prompt_shape(vpipe)
+    l, plen, _ = understand_prompt_shape(vpipe)
     b = len(QUESTIONS)
     results["chunk_attention"]["shapes"] = [
         phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50)]
@@ -840,7 +878,7 @@ def run_kernel_phases(results):
 
     print("phase: kernels at the AR t2i, discrete understanding and scoring shapes (bf16)")
     from unigen_tpu_torch.ops import masks as M
-    lp, pads = ar_prompt_layout(pipe)
+    lp, pads = t2i_prefix_layout(pipe)
     rows = 2 * len(PROMPTS)
     pos = torch.arange(lp, device="cuda")[None].expand(rows, lp)
     pad = pos < torch.as_tensor(pads, device="cuda")[:, None]
@@ -892,6 +930,64 @@ def run_kernel_phases(results):
         phase_w4a8(gen, t, k, n, group, 0, False, "ragged", bias=n != 1000)
     for t, k, dtype in ((1, 999, f32), (37, 1000, bf16), (6296, 8960, f32)):
         phase_quant(gen, t, k, dtype, 0, False, "ragged")
+    run_slice_kernel_phases(results)
+
+
+def run_slice_kernel_phases(results):
+    """Kernels 1-3 at the shapes the CoT, DPG and image-serving paths give
+    them, bf16, each held against its plain version and timed: the t2i
+    prefill and step at batch 20 (40 rows with the uncond ones), SigLIP, the
+    understand prefill (the system prompt first) and its decode step at 20
+    rows, the decoder's 11 convs at batch 20, the encoder's 7 in bf16 at
+    batch 8 (the discrete rater encodes the candidates in their dtype), and
+    the t2i prefill and step at DPG's text budget of 256."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8642)
+    bf16 = torch.bfloat16
+    pipe, vpipe = flagship_pipeline(), flagship_pipeline(vision=True)
+    b = COT_SAMPLES
+    print(f"phase: kernels at the CoT, DPG and image-serving shapes (bf16; CoT batch {b})")
+
+    def pad_meta(prompts, text_len):
+        lp, pads = t2i_prefix_layout(pipe, prompts, text_len, mode="mask")
+        pos = torch.arange(lp, device="cuda")[None].expand(len(pads), lp)
+        pad = pos < torch.as_tensor(pads, device="cuda")[:, None]
+        z = torch.zeros_like(pad)
+        return lp, M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z)
+    lp, meta = pad_meta([COT_PROMPT] * b, 128)
+    l, plen, prefix = cot_rating_shape(vpipe)
+    flash = [phase_flash_meta(gen, meta, bf16, 2 ** -7, 20,
+                              f"CoT t2i prefill q [{2 * b},{lp},12,128], pad bits"),
+             phase_flash_siglip(gen, b, bf16, 2 ** -7, 10),
+             phase_flash_meta(gen, M.mmu_vit_attn_meta(
+                 b, l, num_tokens=729, prefix_length=prefix,
+                 prompt_len=torch.as_tensor(plen, device="cuda")), bf16, 2 ** -7, 10,
+                 f"CoT rating prefill q [{b},{l},12,128], mmu_vit meta, system prompt")]
+    chunk = [phase_chunk(gen, 2 * b, 258, lp, bf16, 2 ** -7, 20, True, at="CoT t2i step"),
+             phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50,
+                                at="CoT rating decode step")]
+    dlp, dmeta = pad_meta([PROMPTS[0]] * 4, DPG_TEXT_LEN)
+    flash.append(phase_flash_meta(gen, dmeta, bf16, 2 ** -7, 20,
+                                  f"DPG t2i prefill q [8,{dlp},12,128], pad bits"))
+    chunk.append(phase_chunk(gen, 8, 258, dlp, bf16, 2 ** -7, 20, True, at="DPG t2i step"))
+    results["flash_attention"]["shapes"] += flash
+    results["chunk_attention"]["shapes"] += chunk
+    print(f"phase: kernels, conv3x3_gn_swish and gn_affine at the decoder's 11 shapes, batch {b}")
+    dec = [phase_conv(gen, b, hw, hw, c, cout, bf16, 2 ** -6, 10 if hw < 128 else 3, gn)
+           for hw, c, cout, gn, _ in DECODER_CONVS]
+    print("phase: kernels, conv3x3_gn_swish and gn_affine at the encoder's 7 shapes, batch "
+          f"{COT_DISCRETE_SAMPLES}, bf16 (the CoT discrete rater encodes bf16 candidates)")
+    enc = [phase_conv(gen, COT_DISCRETE_SAMPLES, hw, hw, c, cout, bf16, 2 ** -6,
+                      10 if hw < 128 else 5, gn, part="encoder")
+           for hw, c, cout, gn, _ in ENCODER_CONVS]
+    for key, convs, table in (("cot_decoder_rows", dec, DECODER_CONVS),
+                              ("cot_encoder_rows", enc, ENCODER_CONVS)):
+        rows = [{k: v for k, v in c.items() if k != "gn"} for c in convs]
+        results["conv3x3_gn_swish"]["shapes"] += rows
+        results["gn_affine"]["shapes"] += [c["gn"] for c in convs if c.get("gn")]
+        results[key] = [(t[:4], row, c.get("gn")) for t, row, c in zip(table, rows, convs)]
 
 def phase_w8a8(gen, t, k, n, iters, timed, label="", bias_dtype=None):
     """The W8A8 layer at [t, k] -> n: weights quantized from a normal * k^-1/2
@@ -1002,7 +1098,7 @@ def run_w8a8_phases(results):
     bf16, f32 = torch.bfloat16, torch.float32
     print("phase: kernels, the W8A8 layer (torch._int_mm + the epilogue kernel) at the int8 "
           "paths' shapes (bf16 activations)")
-    l, _ = understand_prompt_shape(flagship_pipeline(vision=True))
+    l, _, _ = understand_prompt_shape(flagship_pipeline(vision=True))
     b = len(QUESTIONS)
     t_step, t_pre, t_vit = 8 * 258, b * l, b * 729
     timed = [phase_w8a8(gen, t_step, 1536, 8960, 20, True, "t2i step gate/up"),
@@ -1159,14 +1255,21 @@ def conv_census(census):
 
 def conv_batch_sums(results):
     """Fills kernel 3's and the statistics' launches_per_batch and batch_ms
-    (the sum of launches x ms over a t2i batch, the decoder's) and
-    encoder_batch_ms (over an understand_discrete call, the encoder's) from
-    the censuses of the flagship and understand_discrete runs; they stay
-    null where that phase or the timed shapes did not run."""
+    (the sum of launches x ms over a t2i batch, the decoder's),
+    encoder_batch_ms (over an understand_discrete call, the encoder's), and
+    cot_batch_ms and cot_encoder_batch_ms (the decoder at batch 20 and the
+    bf16 encoder at batch 8, over the CoT generation and one discrete
+    rating call) from the censuses of the flagship, understand_discrete and
+    cot runs; they stay null where that phase or the timed shapes did not
+    run."""
     for part, rows_key, census_key, field, phase in (
             ("decoder", "conv_rows", "conv_census", "batch_ms", "flagship"),
             ("encoder", "encoder_conv_rows", "encoder_census", "encoder_batch_ms",
-             "understand_discrete")):
+             "understand_discrete"),
+            (f"decoder at batch {COT_SAMPLES}", "cot_decoder_rows", "cot_decoder_census",
+             "cot_batch_ms", "cot"),
+            (f"bf16 encoder at batch {COT_DISCRETE_SAMPLES}", "cot_encoder_rows",
+             "cot_encoder_census", "cot_encoder_batch_ms", "cot")):
         rows, census = results.get(rows_key), results.get(census_key)
         if not rows:
             continue
@@ -1253,14 +1356,32 @@ def _t2i_run(pipe, **kw):
     return run_once
 
 
+def _recording(pipe, record):
+    """A copy of ``pipe`` whose ``generate_images`` appends each call's
+    (prompts, output) to ``record``."""
+    import dataclasses
+    copy = dataclasses.replace(pipe)
+    real = pipe.generate_images
+
+    def generate_images(prompts, *a, **kw):
+        record.append((list(prompts), real(prompts, *a, **kw)))
+        return record[-1][1]
+    copy.generate_images = generate_images
+    return copy
+
+
+def _t2i_launches(layers, n=1):
+    """The launches of ``n`` GenEval t2i batches (50 steps, the decoder)."""
+    return dict(flash_attention=n * layers, chunk_attention=n * layers * 50,
+                conv3x3_gn_swish=n * 44, gn_affine=n * 40)
+
+
 def run_flagship(results, profile=False):
     import torch
     print("phase: flagship path (Qwen2.5-1.5B + MAGViTv2, random init, bf16, 4 prompts, "
           "guidance 6, 50 steps, max_text_len 128)")
     pipe = flagship_pipeline()
-    layers = pipe.cfg.llm.num_hidden_layers
-    expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * 50,
-                  conv3x3_gn_swish=44, gn_affine=40)
+    expect = dict(NO_LAUNCHES, **_t2i_launches(pipe.cfg.llm.num_hidden_layers))
     census = {}
     run_once = _t2i_run(pipe, timesteps=50)
     # the warm run also counts kernel 3's launches by shape (44 wrapped Python
@@ -1390,7 +1511,7 @@ def run_understand(results, profile=False):
         for name, p in (("w4a8", qpipe), ("bf16", pipe)):
             print(f"  profile of the {name} understand call:")
             profile_run(lambda: run(p), out[name]["seconds"])
-    l, _ = understand_prompt_shape(pipe)
+    l, _, _ = understand_prompt_shape(pipe)
     p = pipe.vision_cfg.num_patches
     print(f"  prompt length {l} (3 + {p} image + {l - 3 - p} question), cache "
           f"{l + NEW_TOKENS} slots, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1466,7 +1587,7 @@ def run_flagship_ar(results, profile=False):
                                           work=(len(PROMPTS), "images"))
     if profile:
         profile_run(run_once, dt)
-    lp, _ = ar_prompt_layout(pipe)
+    lp, _ = t2i_prefix_layout(pipe)
     print(f"  prefill [{2 * len(PROMPTS)}, {lp}], cache {lp + n} slots, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["flagship_ar"] = {"seconds": dt, "enqueue_s": enqueued,
@@ -1556,25 +1677,17 @@ def run_geneval(results, profile=False):
     """``evaluation.geneval.run_geneval`` over 2 metadata lines x 4 samples
     (mode mask, guidance 6, 50 steps, bf16) into a temporary directory; every
     PNG must decode back to ``pixels_to_uint8`` of its prompt's batch."""
-    import dataclasses
     import os
     import tempfile
     import torch
     from unigen_tpu_torch.evaluation import geneval
     from unigen_tpu_torch.pipeline import pixels_to_uint8
     print("phase: geneval (run_geneval, 2 prompts x 4 samples, guidance 6, 50 steps, PNG writes)")
-    pipe = dataclasses.replace(flagship_pipeline())    # a copy whose generate_images records
-    metadata = [{"prompt": p} for p in PROMPTS[:2]]
-    n_samples, layers = 4, pipe.cfg.llm.num_hidden_layers
-    expect = dict(NO_LAUNCHES, flash_attention=2 * layers, chunk_attention=2 * 50 * layers,
-                  conv3x3_gn_swish=2 * 44, gn_affine=2 * 40)
     batches = []
-    real = pipe.generate_images
-
-    def recorded(*a, **kw):
-        batches.append(real(*a, **kw))
-        return batches[-1]
-    pipe.generate_images = recorded
+    pipe = _recording(flagship_pipeline(), batches)
+    metadata = [{"prompt": p} for p in PROMPTS[:2]]
+    n_samples = 4
+    expect = dict(NO_LAUNCHES, **_t2i_launches(pipe.cfg.llm.num_hidden_layers, len(metadata)))
     with tempfile.TemporaryDirectory() as tmp:
         def run_once():
             batches.clear()
@@ -1587,7 +1700,7 @@ def run_geneval(results, profile=False):
         if profile:
             profile_run(run_once, dt)
         check(len(written) == len(metadata) == len(batches), f"geneval wrote {written}")
-        for d, md, pixels in zip(written, metadata, batches):
+        for d, md, (_, pixels) in zip(written, metadata, batches):
             want = pixels_to_uint8(pixels)
             check(geneval.load_metadata_jsonl(os.path.join(d, "metadata.jsonl")) == [md],
                   f"{d}: metadata")
@@ -1595,7 +1708,7 @@ def run_geneval(results, profile=False):
                 got = geneval.load_png(os.path.join(d, "samples", f"{i:05}.png"))
                 check(got.shape == (256, 256, 3) and (got == want[i]).all(),
                       f"{d} sample {i}: the PNG does not decode to its batch's pixels")
-        imgs = [im for pixels in batches for im in pixels_to_uint8(pixels)]
+        imgs = [im for _, pixels in batches for im in pixels_to_uint8(pixels)]
         t0 = time.perf_counter()
         for i, im in enumerate(imgs):
             geneval.save_png(im, os.path.join(tmp, f"{i}.png"))
@@ -1604,6 +1717,236 @@ def run_geneval(results, profile=False):
     print(f"  {len(metadata) * n_samples} PNGs decode to their batches' pixels; {rate:.4f} "
           f"images/s with the PNG writes; the {len(imgs)} writes alone take {png_s:.3f} s")
     results["geneval"] = {"seconds": dt, "images_per_s": rate}
+    return counts
+
+
+def run_cot(results, profile=False):
+    """``evaluation.cot.run_cot`` on COT_PROMPT (4 rule questions), bf16,
+    guidance 6, 50 steps, text budget 128, 128 greedy rating tokens: 20
+    candidates rated through the SigLIP tower (``flagship_pipeline(vision=
+    True)``), then 8 rated over the tokenizer's codes (``flagship_pipeline()``);
+    top 4 kept. Checks the table's size, that every candidate is its
+    generated batch in uint8 and that the selection is the top 4 by score;
+    counts kernel 3's launches by shape."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.evaluation import cot
+    from unigen_tpu_torch.pipeline import pixels_to_uint8
+    questions = cot.geneval_prompt2questions(COT_PROMPT)
+    print(f"phase: cot (run_cot, {COT_PROMPT!r}: {len(questions)} rule questions, bf16, guidance "
+          f"6, 50 steps, {NEW_TOKENS} greedy rating tokens, top {COT_TOPK})")
+    decoder = {(hw, c, cout, gn): [k, k if gn else 0] for hw, c, cout, gn, k in DECODER_CONVS}
+    out = {}
+    counts_by_rater = {}
+    censuses = {}
+    for rater, vision, n in (("vision", True, COT_SAMPLES), ("discrete", False, COT_DISCRETE_SAMPLES)):
+        batches = []
+        pipe = _recording(flagship_pipeline(vision=vision), batches)
+        layers = pipe.cfg.llm.num_hidden_layers
+        rating = dict(flash_attention=layers, chunk_attention=layers * (NEW_TOKENS - 1))
+        expect_census = dict(decoder)
+        if vision:
+            rating["flash_attention"] += pipe.vision_cfg.num_layers_used
+        else:   # each question encodes the candidates again, as in JAX
+            rating.update(conv3x3_gn_swish=40, gn_affine=40)
+            for hw, c, cout, gn, k in ENCODER_CONVS:
+                conv, stats = expect_census.get((hw, c, cout, gn), [0, 0])
+                expect_census[(hw, c, cout, gn)] = [conv + len(questions) * k,
+                                                    stats + len(questions) * k]
+        generation = _t2i_launches(layers)
+        expect = dict(NO_LAUNCHES, **{k: generation.get(k, 0) + len(questions) * rating.get(k, 0)
+                                      for k in set(generation) | set(rating)})
+
+        def run_once(pipe=pipe, vision=vision, n=n, batches=batches):
+            batches.clear()
+            return cot.run_cot(pipe, [COT_PROMPT], 0, n_samples=n, topk=COT_TOPK, style="rule",
+                               use_vision_tower=vision, max_new_tokens=NEW_TOKENS)
+
+        def validate(result, n=n, batches=batches, rater=rater, pipe=pipe):
+            (res,), table, stats = result
+            check(len(batches) == 1 and batches[0][0] == [COT_PROMPT] * n,
+                  f"cot {rater}: generate_images calls {[b[0] for b in batches]}")
+            cands = res["candidates"]
+            res_px = pipe.vq_cfg.resolution
+            check(cands.shape == (n, res_px, res_px, 3) and
+                  np.array_equal(cands, pixels_to_uint8(batches[0][1])),
+                  f"cot {rater}: the candidates are not the generated batch in uint8")
+            check(len(table) == len(questions) * n and
+                  all(r["answer"] in ("yes", "no") for r in table) and
+                  sorted(r["question"] for r in table) ==
+                  sorted(cot.QWEN_TEMPLATE.format(user_prompt=cot.MMU_RATING_USER_PROMPT[
+                      "rule"].format(context=q)).strip() for q in questions for _ in range(n)),
+                  f"cot {rater}: rating table of {len(table)} rows")
+            score = {int(s["image_id"].split("/")[-1][:-4]): s["score"] for s in stats}
+            check(sorted(score) == list(range(n)), f"cot {rater}: stats {stats}")
+            top = sorted(range(n), key=lambda i: -score[i])[:COT_TOPK]
+            rest = [score[i] for i in range(n) if i not in top]
+            check(np.array_equal(res["selected"], cands[top]) and
+                  (not rest or min(score[i] for i in top) >= max(rest)),
+                  f"cot {rater}: the selection is not the top {COT_TOPK} by score")
+            # under random weights the answers can all be "no" and the scores
+            # tie, so the selection is also held on the table with planted
+            # answers: 4 candidates far from the stable order answer yes to
+            # every question, every other candidate i to i mod 4 of them
+            best = {n - 1, n // 2, 3, n - 2}
+            yes_left = {i: len(questions) if i in best else i % len(questions)
+                        for i in range(n)}
+            planted = []
+            for r in table:
+                i = int(r["image_id"].split("/")[-1][:-4])
+                planted.append(dict(r, answer="yes" if yes_left[i] > 0 else "no"))
+                yes_left[i] -= 1
+            chosen, _ = cot.greedy_samples_byscore(planted, topk=COT_TOPK)
+            check({int(s.split("/")[-1][:-4]) for s in chosen} == best,
+                  f"cot {rater}: on planted answers the selection is {chosen}, not {best}")
+        census = censuses[rater] = {}
+        result, dt, enqueued, counts = _timed_runs(
+            f"cot {rater} rater ({n} candidates)", run_once, expect, census=census,
+            validate=validate, work=(n, "candidates"))
+        print("  warm run, kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
+              + ", ".join(f"{k}: {v}" for k, v in sorted(census.items())))
+        check(census == expect_census, f"cot {rater} conv launches {census} != {expect_census}")
+        table = result[1]
+        yes = sum(r["answer"] == "yes" for r in table) / len(table)
+        print(f"  {n / dt:.4f} candidates/s, {len(table) / dt:.4f} ratings/s; answers yes on "
+              f"{yes:.4f} (random weights)")
+        if profile:
+            print(f"  profile of the {rater} CoT call:")
+            profile_run(run_once, dt)
+        out[rater] = {"seconds": dt, "enqueue_s": enqueued, "candidates": n,
+                      "candidates_per_s": n / dt, "ratings_per_s": len(table) / dt}
+        counts_by_rater[rater] = counts
+    l, _, _ = cot_rating_shape(flagship_pipeline(vision=True))
+    print(f"  vision rating prefill [{COT_SAMPLES}, {l}], cache {l + NEW_TOKENS} slots, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # the measured censuses: the vision run's is the decoder's (one generation
+    # call); the discrete run's less it is the encoder's, once per question
+    results["cot_decoder_census"] = censuses["vision"]
+    results["cot_encoder_census"] = {
+        key: [(d - v) // len(questions) for d, v in
+              zip(censuses["discrete"].get(key, [0, 0]), censuses["vision"].get(key, [0, 0]))]
+        for key in {(hw, c, cout, gn) for hw, c, cout, gn, _ in ENCODER_CONVS}}
+    results["cot"] = out
+    return counts_by_rater
+
+
+def run_dpg(results, profile=False):
+    """``evaluation.dpg.run_dpg`` over 2 prompts x 4 samples (guidance 6, 50
+    steps, text budget 256, bf16) into a temporary directory; every grid PNG
+    must decode back to ``make_grid_2x2`` of its prompt's batch."""
+    import os
+    import tempfile
+    import torch
+    from unigen_tpu_torch.evaluation import dpg, geneval
+    from unigen_tpu_torch.pipeline import pixels_to_uint8
+    print(f"phase: dpg (run_dpg, 2 prompts x 4 samples, guidance 6, 50 steps, text budget "
+          f"{DPG_TEXT_LEN}, grid PNG writes)")
+    batches = []
+    pipe = _recording(flagship_pipeline(), batches)
+    items = [{"item_id": f"dpg_{i:02}", "text": p} for i, p in enumerate(PROMPTS[:2])]
+    expect = dict(NO_LAUNCHES, **_t2i_launches(pipe.cfg.llm.num_hidden_layers, len(items)))
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_once():
+            batches.clear()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            return dpg.run_dpg(pipe, items, os.path.join(tmp, "out"), gen,
+                               eval_text_len=DPG_TEXT_LEN)
+
+        def validate(written):
+            check(len(written) == len(items) == len(batches), f"dpg wrote {written}")
+            for path, item, (prompts, pixels) in zip(written, items, batches):
+                check(os.path.basename(path) == f"{item['item_id']}.png" and
+                      prompts == [item["text"]] * 4, f"dpg: {path} for {prompts}")
+                got = geneval.load_png(path)
+                check(got.shape == (2 * pipe.vq_cfg.resolution,) * 2 + (3,) and
+                      (got == dpg.make_grid_2x2(pixels_to_uint8(pixels))).all(),
+                      f"dpg: {path} does not decode to its batch's grid")
+        _, dt, enqueued, counts = _timed_runs("dpg", run_once, expect, validate=validate,
+                                              work=(4 * len(items), "images"))
+        if profile:
+            profile_run(run_once, dt)
+    ids, _ = pipe.prompt_ids([PROMPTS[0]], DPG_TEXT_LEN)
+    print(f"  every grid decodes to its batch; {4 * len(items) / dt:.4f} images/s with the grid "
+          f"writes; prompt length {ids.shape[1]} (prefix {ids.shape[1] - 258}, cache "
+          f"{ids.shape[1]} slots)")
+    results["dpg"] = {"seconds": dt, "enqueue_s": enqueued, "images_per_s": 4 * len(items) / dt}
+    return counts
+
+
+def run_image_serving(results, profile=False):
+    """``serving.ImageServingEngine`` at batch 4 and the GenEval protocol
+    (bf16): 6 requests from 3 client threads, which the microbatcher serves
+    as one full batch and one padded one. Each image must equal the direct
+    ``generate_images`` of its padded batch under that batch's derived
+    generator, and every kernel the scheduler thread launches must queue on
+    the stream the direct call uses."""
+    import threading
+    import torch
+    from unigen_tpu_torch.ops import _cuda
+    from unigen_tpu_torch.ops.sampling import derived_generator
+    from unigen_tpu_torch.pipeline import pixels_to_uint8
+    from unigen_tpu_torch.serving import ImageServingEngine
+    print(f"phase: image_serving (ImageServingEngine batch {SERVING_BATCH}, guidance 6, 50 steps, "
+          f"{len(SERVING_PROMPTS)} requests from 3 threads)")
+    base = flagship_pipeline()
+    batches = []
+    pipe = _recording(base, batches)
+    expect = dict(NO_LAUNCHES, **_t2i_launches(pipe.cfg.llm.num_hidden_layers, 2))
+    streams = set()
+    real_stream = _cuda.stream_of
+
+    def stream_of(t):
+        stream = real_stream(t)
+        if threading.current_thread().name == "unigen-image-serving":
+            streams.add(stream)
+        return stream
+
+    def run_once():
+        batches.clear()
+        futs = {}
+        start = threading.Barrier(3)
+        with ImageServingEngine(pipe, batch=SERVING_BATCH) as eng:
+            def client(k):
+                start.wait()
+                for prompt in SERVING_PROMPTS[2 * k:2 * k + 2]:
+                    futs[prompt] = eng.submit(prompt)
+            clients = [threading.Thread(target=client, args=(k,)) for k in range(3)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(600)
+            check(not any(c.is_alive() for c in clients), "image_serving: a client hung")
+            images = {p: f.result(timeout=600) for p, f in futs.items()}
+        return images, {p: f.done_t - f.submit_t for p, f in futs.items()}
+
+    def validate(out):
+        images, _ = out
+        check(sorted(images) == sorted(SERVING_PROMPTS) and len(batches) == 2 and
+              sorted(sum(p != "" for p in prompts) for prompts, _ in batches) == [2, 4],
+              f"image_serving batches {[prompts for prompts, _ in batches]}")
+        check(streams == {torch.cuda.current_stream().cuda_stream},
+              f"image_serving: the engine thread queued on streams {streams}")
+        for i, (prompts, _) in enumerate(list(batches)):
+            direct = pixels_to_uint8(base.generate_images(
+                prompts, derived_generator(0, i, device="cuda"), guidance_scale=6.0,
+                timesteps=50, max_text_len=128))
+            for row, prompt in enumerate(prompts):
+                check(prompt == "" or (images[prompt] == direct[row]).all(),
+                      f"image_serving: {prompt!r} differs from row {row} of the direct call "
+                      f"of batch {i}")
+    _cuda.stream_of = stream_of
+    try:
+        (_, latency), dt, enqueued, counts = _timed_runs(
+            "image_serving", run_once, expect, validate=validate,
+            work=(len(SERVING_PROMPTS), "images"))
+    finally:
+        _cuda.stream_of = real_stream
+    print(f"  every image equals its batch's direct call; the engine thread queued on the "
+          f"caller's stream; submit-to-done latency by request, s: "
+          + ", ".join(f"{latency[p]:.3f}" for p in SERVING_PROMPTS))
+    results["image_serving"] = {"seconds": dt, "images_per_s": len(SERVING_PROMPTS) / dt,
+                                "latency_s": [latency[p] for p in SERVING_PROMPTS]}
     return counts
 
 
@@ -1664,6 +2007,51 @@ def run_tiny_slice():
           f"tiny score launches {c_sc}")
     check(enc >= 0.99 and ar >= 0.99 and und >= 0.99 and rel <= 1e-4,
           f"tiny slice agreement: encode {enc}, AR {ar}, understand_discrete {und}, score {rel}")
+
+
+def run_tiny_cot():
+    """``evaluation.cot.rate_candidates`` on the tiny fp32 pipeline, both
+    raters, the card against the CPU on the same candidates: the rating
+    tokens agree (>= 0.99, as every tiny check) and the rating rows are
+    printed beside them."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.evaluation import cot
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: tiny fp32 CoT rating (SigLIP and discrete raters), kernels on the card vs "
+          "plain versions on the CPU, greedy")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision=True)
+    gpu = cpu.to("cuda")
+    res = cpu.vq_cfg.resolution
+    px = np.random.default_rng(7).uniform(-1, 1, (4, res, res, 3)).astype(np.float32)
+
+    def recording(p, tokens):
+        p = dataclasses.replace(p)
+        for name in ("understand", "understand_discrete"):
+            def spy(*a, _real=getattr(p, name), **k):
+                out = _real(*a, **k)
+                tokens.append(out.cpu())
+                return out
+            setattr(p, name, spy)
+        return p
+    for rater, vision in (("vision", True), ("discrete", False)):
+        toks_gpu, toks_cpu = [], []
+        kw = dict(style="rule", max_new_tokens=32, use_vision_tower=vision)
+        _reset_counts()
+        rows_gpu = cot.rate_candidates(recording(gpu, toks_gpu), px, COT_PROMPT, None, **kw)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        rows_cpu = cot.rate_candidates(recording(cpu, toks_cpu), px, COT_PROMPT, None, **kw)
+        agree = (torch.cat(toks_gpu) == torch.cat(toks_cpu)).float().mean().item()
+        same_rows = np.mean([g == c for g, c in zip(rows_gpu, rows_cpu)])
+        print(f"  {rater} rater: {len(rows_gpu)} rows, rating token agreement {agree:.4f} (need "
+              f">= 0.99), rows equal on {same_rows:.4f}, launches {counts}")
+        used = ("flash_attention", "chunk_attention") + (
+            () if vision else ("conv3x3_gn_swish", "gn_affine"))
+        check(len(rows_gpu) == len(rows_cpu) == 4 * len(cot.geneval_prompt2questions(COT_PROMPT))
+              and all(counts[k] > 0 for k in used), f"tiny cot {rater}: launches {counts}")
+        check(agree >= 0.99, f"tiny cot {rater}: rating token agreement {agree}")
 
 
 def run_tiny_understand():
@@ -1872,11 +2260,19 @@ def main(argv=None) -> int:
             path_counts["score"] = run_score(results, profile="profile" in phases)
         if "geneval" in phases:
             path_counts["geneval"] = run_geneval(results, profile="profile" in phases)
+        if "cot" in phases:
+            for rater, counts in run_cot(results, profile="profile" in phases).items():
+                path_counts[f"cot_{rater}"] = counts
+        if "dpg" in phases:
+            path_counts["dpg"] = run_dpg(results, profile="profile" in phases)
+        if "image_serving" in phases:
+            path_counts["image_serving"] = run_image_serving(results)
         if "tiny" in phases:
             run_tiny()
             run_tiny_understand()
             run_tiny_int8()
             run_tiny_slice()
+            run_tiny_cot()
         conv_batch_sums(results)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1940,6 +2336,20 @@ def main(argv=None) -> int:
         ge = results["geneval"]
         print(f"geneval: {ge['images_per_s']:.4f} images/s with the PNG writes "
               f"({ge['seconds']:.3f} s for 2 prompts x 4 samples) on {card}")
+    if "cot" in results:
+        for rater, c in results["cot"].items():
+            print(f"cot, {rater} rater: {c['candidates_per_s']:.4f} candidates/s, "
+                  f"{c['ratings_per_s']:.4f} ratings/s ({c['seconds']:.3f} s for "
+                  f"{c['candidates']} candidates x 4 questions) on {card}")
+    if "dpg" in results:
+        dp = results["dpg"]
+        print(f"dpg: {dp['images_per_s']:.4f} images/s with the grid writes ({dp['seconds']:.3f} "
+              f"s for 2 prompts x 4 samples) on {card}")
+    if "image_serving" in results:
+        sv = results["image_serving"]
+        print(f"image_serving: {sv['images_per_s']:.4f} images/s ({sv['seconds']:.3f} s for "
+              f"{len(SERVING_PROMPTS)} requests at batch {SERVING_BATCH}), submit-to-done "
+              f"{min(sv['latency_s']):.3f}-{max(sv['latency_s']):.3f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,8 +60,9 @@ def _tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def make_pipes():
+    """(JAX pipeline, port pipeline) on the same tiny weights: the pair the
+    port's pipeline-level tests hold against each other."""
     tok = DecodableMockTokenizer()
     jprompt = JPrompting(tok, special_tokens=SPECIALS, max_seq_len=64, cond_dropout_prob=0.0)
     cfg_kw = dict(text_vocab_len=len(tok), w_und_encoder=True, mm_input_dim=32)
@@ -82,6 +83,11 @@ def pipes():
                       torch.device("cpu"),
                       vision_params=W.siglip_from_jax(_tree(vs_params), tvs), vision_cfg=tvs)
     return jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return make_pipes()
 
 
 def _pixels(seed=1, b=2, res=8):

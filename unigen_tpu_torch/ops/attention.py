@@ -50,9 +50,11 @@ def dot_product_attention_q8(
     product (``unigen_tpu/ops/attention.py::dot_product_attention_q8``): the
     per-(slot, head) scales are constant over the head dimension, so the key
     scales multiply the logits' columns and the value scales fold into the
-    softmax weights; no dequantized copy of the cache is made. fp32 logits
-    and softmax; weights cast to q.dtype before the PV product. Returns
-    [B, Lq, H, Dh] in q.dtype."""
+    softmax weights. The int8 values themselves are converted before each
+    product, ``k_q.float()`` and ``v_q.to(q.dtype)``: each step makes a
+    full-size fp32 copy of the keys and a q.dtype copy of the values (JAX
+    converts inside the einsum). fp32 logits and softmax; weights cast to
+    q.dtype before the PV product. Returns [B, Lq, H, Dh] in q.dtype."""
     b, lq, h, dh = q.shape
     kvh = k_q.shape[2]
     g = h // kvh

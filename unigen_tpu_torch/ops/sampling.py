@@ -3,6 +3,7 @@
 Counterpart of ``unigen_tpu/ops/sampling.py``. Randomness comes from an
 explicit ``torch.Generator`` in place of a JAX key; the ``noise=`` hooks take
 pre-drawn uniforms so that both frameworks can be fed the same numbers.
+``derived_generator`` stands in for ``jax.random.fold_in``.
 """
 from __future__ import annotations
 
@@ -10,9 +11,30 @@ import math
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 _LOG_EPS = 1e-20
+
+
+def derived_generator(seed: int, *index: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from a fixed function of ``(seed,
+    *index)`` (numpy's ``SeedSequence``), the stand-in for
+    ``jax.random.fold_in``: the same seed and index give the same draws in
+    every process and shard, whatever was drawn before. The seed and each
+    index lie in [0, 2**64). SeedSequence splits a large int into 32-bit
+    words and pads with zeros, so each value goes in as two words after the
+    number of indices: no two keys share an entropy."""
+    words = [len(index)]
+    for v in (seed, *index):
+        v = int(v)
+        if not 0 <= v < 2 ** 64:
+            raise ValueError(f"derived_generator takes values in [0, 2**64), got {v}")
+        words += [v & 0xFFFFFFFF, v >> 32]
+    state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state))
+    return gen
 
 
 def safe_log(t: torch.Tensor, eps: float = _LOG_EPS) -> torch.Tensor:
