@@ -43,14 +43,28 @@ read just after:
   DPG text budget of 256, every grid PNG read back against its batch;
 * ``image_serving``: ``serving.ImageServingEngine`` at batch 4, 6 requests
   from 3 threads (one full batch, one padded), each image held against the
-  direct call of its padded batch under the batch's derived generator.
+  direct call of its padded batch under the batch's derived generator;
+* ``serving``: the continuous-batching ``serving.ServingEngine`` on the JAX
+  serving bench's trace (96 requests of 600 prompt ids, budgets in [32,
+  224], 32 slots, chunk 16, all queued at once), greedy, in bf16 (and in
+  static waves of 32 over the same trace), ``int8+int4`` (W8A8 admission,
+  W4A8 decode chunks) and ``int8+kv`` (W8A8, int8 KV cache): useful
+  tokens/s, requests/s, TTFT, ITL, occupancy; launch counts exact from each
+  run's admissions and decode steps;
+* ``serving_vqa``: 8 VQA requests through ``pipeline.vqa_serving_inputs``
+  and ``submit_embeds``, 128 greedy tokens;
+* ``serving_http``: ``serving.ServingHTTPServer`` over the bf16 engine and
+  the image engine, replies held against ``submit`` and the direct call.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
 the plain versions on the CPU (t2i under shared noise; W4A8 understand,
 greedy; int8 t2i and understand with the int8 cache; the codes of
 ``encode_pixels``, AR t2i under shared noise, ``understand_discrete``
-greedy and ``score_continuations``; CoT rating tokens of both raters). The W8A8 epilogue is
+greedy and ``score_continuations``; CoT rating tokens of both raters; a
+tiny serving engine with staggered admissions, an eot stop, a cancellation,
+the int8 cache and a shared prefix, token for token, and one of its decode
+chunks under CUDA's sync debug mode "error"). The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
@@ -71,7 +85,7 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,score,geneval,cot,dpg,
-image_serving,tiny) runs a
+image_serving,serving,serving_vqa,serving_http,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -88,7 +102,7 @@ import time
 
 PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
           "understand_int8", "understand_discrete", "score", "geneval", "cot", "dpg",
-          "image_serving", "tiny")
+          "image_serving", "serving", "serving_vqa", "serving_http", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -117,6 +131,12 @@ COT_PROMPT = "a photo of a red cube and a blue sphere"
 COT_SAMPLES, COT_DISCRETE_SAMPLES, COT_TOPK = 20, 8, 4
 DPG_TEXT_LEN = 256       # DPG-bench's text budget (GenEval's is 128)
 SERVING_BATCH = 4
+# the text serving engine at JAX's serving bench (bench.py::bench_serve): 96
+# requests of 600 random prompt ids, budgets uniform in [32, 224], 32 slots,
+# chunk 16, bucket 640, cache 896, groups of up to 16 admitted at once
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_CHUNK = 32, 96, 600, 16
+SERVE_BUCKET, SERVE_MAX_LEN, SERVE_ADMIT = 640, 896, 16
+SERVE_VQA_BUCKET = 64    # vqa_serving_inputs' l2_bucket
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
@@ -146,14 +166,12 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int) -> float:
-    """Device time per call: the summed durations of the kernels that ``fn``
-    launches, from ``torch.profiler`` over ``iters`` calls after a warm-up.
-    Unlike ``call_ms`` it does not count the host's time between launches,
-    which at decode shapes is longer than the kernels themselves. A trace now
-    and then comes back with some or all of its device records missing, so
-    traces are taken until two hold the same number of device records (at
-    most four), and the mean of the fullest ones counts."""
+def device_traces(fn, iters: int):
+    """The device kernels that ``iters`` calls of ``fn`` launch, as one
+    [(name, microseconds)] list a trace, after a warm-up. A trace now and then
+    comes back with some or all of its device records missing, so traces are
+    taken until two hold the same number of device records (at most four),
+    and every trace is returned; it fails if none holds a device record."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -165,16 +183,25 @@ def time_ms(fn, iters: int) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        traces.append((len(us), sum(us)))
-        counts = [n for n, _ in traces if n > 0]
+        traces.append([(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation])
+        counts = [len(t) for t in traces if t]
         if len(counts) > len(set(counts)):
             break
-    most = max(n for n, _ in traces)
-    if most == 0:
+    if not any(traces):
         raise Failed(f"the profiler recorded no device time in {len(traces)} traces")
-    kept = [us for n, us in traces if n == most]
+    return traces
+
+
+def time_ms(fn, iters: int) -> float:
+    """Device time per call: the summed durations of the kernels that ``fn``
+    launches over ``iters`` calls (``device_traces``; the mean of the fullest
+    traces counts). Unlike ``call_ms`` it does not count the host's time
+    between launches, which at decode shapes is longer than the kernels
+    themselves."""
+    traces = device_traces(fn, iters)
+    most = max(len(t) for t in traces)
+    kept = [sum(us for _, us in t) for t in traces if len(t) == most]
     return sum(kept) / len(kept) / 1e3 / iters
 
 
@@ -931,6 +958,7 @@ def run_kernel_phases(results):
     for t, k, dtype in ((1, 999, f32), (37, 1000, bf16), (6296, 8960, f32)):
         phase_quant(gen, t, k, dtype, 0, False, "ragged")
     run_slice_kernel_phases(results)
+    run_serving_kernel_phases(results)
 
 
 def run_slice_kernel_phases(results):
@@ -988,6 +1016,58 @@ def run_slice_kernel_phases(results):
         results["conv3x3_gn_swish"]["shapes"] += rows
         results["gn_affine"]["shapes"] += [c["gn"] for c in convs if c.get("gn")]
         results[key] = [(t[:4], row, c.get("gn")) for t, row, c in zip(table, rows, convs)]
+
+def run_serving_kernel_phases(results):
+    """Kernels 1, 2 and 4 at the serving engine's shapes (bf16): kernel 1 at
+    the decode step of 32 slots against the 896-slot cache, each row at its
+    own key count (the per-row index); kernel 2 at a batched admission of 16
+    rows of 640 (600 real tokens, pad bits) and at the VQA admission of 8
+    rows of the splice with mmu_vit bits; kernel 4 and the quantization at
+    T 32 (the W4A8 decode chunks of ``int8+int4``) and the W8A8 layer at 32
+    rows (``int8+kv``'s decode)."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9753)
+    bf16 = torch.bfloat16
+    b = SERVE_SLOTS
+    print(f"phase: kernels at the serving engine's shapes (bf16; {b} slots, cache "
+          f"{SERVE_MAX_LEN}, admission {SERVE_ADMIT} x {SERVE_BUCKET})")
+    # each slot at its own age: a 600-token prompt and 0..223 decoded tokens
+    ages = torch.randint(SERVE_PROMPT, SERVE_PROMPT + 224, (b,), generator=gen,
+                         device="cuda").tolist()
+    results["chunk_attention"]["shapes"].append(phase_chunk_decode(
+        gen, b, SERVE_MAX_LEN, [a + 1 for a in ages], -1, bf16, 2 ** -7, 50, new_tokens=0,
+        at="serving decode step (per-row key counts)"))
+    k = SERVE_ADMIT
+    pad = torch.arange(SERVE_BUCKET, device="cuda")[None].expand(k, SERVE_BUCKET) >= SERVE_PROMPT
+    z = torch.zeros_like(pad)
+    vpipe = flagship_pipeline(vision=True)
+    l, plen, prefix = serving_vqa_shape(vpipe)
+    results["flash_attention"]["shapes"] += [
+        phase_flash_meta(gen, M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z), bf16, 2 ** -7, 10,
+                         f"serving admission q [{k},{SERVE_BUCKET},12,128], pad bits"),
+        phase_flash_meta(gen, M.mmu_vit_attn_meta(
+            len(QUESTIONS), l, num_tokens=729, prefix_length=prefix,
+            prompt_len=torch.as_tensor(plen, device="cuda")), bf16, 2 ** -7, 10,
+            f"serving VQA admission q [{len(QUESTIONS)},{l},12,128], mmu_vit bits")]
+    t = b
+    results["w4a8_matmul"]["shapes"] += [
+        phase_w4a8(gen, t, 1536, 8960, 256, 50, True, "serving decode gate/up", bias=False),
+        phase_w4a8(gen, t, 1536, 1536, 256, 50, True, "serving decode q/o"),
+        phase_w4a8(gen, t, 1536, 256, 256, 50, True, "serving decode k/v"),
+        phase_w4a8(gen, t, 8960, 1536, 256, 50, True, "serving decode down", bias=False),
+        phase_w4a8(gen, t, 1536, 159867, 256, 20, True, "serving decode head", bias=False)]
+    results["quantize_activations"]["shapes"] += [
+        phase_quant(gen, t, 1536, bf16, 50, True, "serving decode"),
+        phase_quant(gen, t, 8960, bf16, 50, True, "serving decode down input")]
+    results["w8a8_epilogue"]["shapes"] += [
+        phase_w8a8(gen, t, 1536, 8960, 50, True, "serving decode gate/up"),
+        phase_w8a8(gen, t, 1536, 1536, 50, True, "serving decode q", bf16),
+        phase_w8a8(gen, t, 1536, 256, 50, True, "serving decode k/v", bf16),
+        phase_w8a8(gen, t, 8960, 1536, 50, True, "serving decode down"),
+        phase_w8a8(gen, t, 1536, 159867, 20, True, "serving decode head")]
+
 
 def phase_w8a8(gen, t, k, n, iters, timed, label="", bias_dtype=None):
     """The W8A8 layer at [t, k] -> n: weights quantized from a normal * k^-1/2
@@ -1064,21 +1144,15 @@ def phase_int_mm_layout(gen, t, k, n, iters):
     transpose) against the same weight stored [K, N]: the device kernels of
     each (the leaf's may hold no copy or transpose) and their times."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from unigen_tpu_torch.ops import quantization as QZ
     x8 = torch.randint(-127, 128, (t, k), generator=gen, device="cuda", dtype=torch.int8)
     w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
     w_kn = w.t().contiguous()
-    QZ.int8_matmul(x8, w)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        QZ.int8_matmul(x8, w)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.is_user_annotation]
-    check(bool(names) and not any("copy" in m.lower() or "transpose" in m.lower() for m in names),
-          f"torch._int_mm on the W8A8 weight layout launched {names}")
+    traces = device_traces(lambda: QZ.int8_matmul(x8, w), 1)
+    names = max(([m for m, _ in tr] for tr in traces), key=len)
+    every = {m for tr in traces for m, _ in tr}
+    check(not any("copy" in m.lower() or "transpose" in m.lower() for m in every),
+          f"torch._int_mm on the W8A8 weight layout launched {sorted(every)}")
     leaf_ms = time_ms(lambda: torch._int_mm(x8, w.t()), iters)
     kn_ms = time_ms(lambda: torch._int_mm(x8, w_kn), iters)
     print(f"  torch._int_mm [{t},{k}] x [{k},{n}]: the leaf's [N, K] weight {leaf_ms:.4f} ms "
@@ -1950,6 +2024,446 @@ def run_image_serving(results, profile=False):
     return counts
 
 
+def serving_vqa_shape(pipe):
+    """(L, prompt lengths, part1's length) of ``vqa_serving_inputs`` over
+    QUESTIONS: part1, the image tokens and each question's part right-padded
+    to a multiple of SERVE_VQA_BUCKET; every question in one bucket."""
+    p = pipe.vision_cfg.num_patches
+    shapes = set()
+    plens = []
+    for q in QUESTIONS:
+        part1, part2, _ = pipe._vqa_parts([q], p, None)
+        l2b = -(-part2.shape[1] // SERVE_VQA_BUCKET) * SERVE_VQA_BUCKET
+        shapes.add((part1.shape[1] + p + l2b, part1.shape[1]))
+        plens.append(part1.shape[1] + p + part2.shape[1])
+    check(len(shapes) == 1, f"the VQA questions fall in several buckets: {shapes}")
+    (l, prefix), = shapes
+    return l, plens, prefix
+
+
+def serving_trace(n=SERVE_REQUESTS):
+    """bench_serve's trace (numpy seed 0): n prompts of 600 ids in [10, 1000),
+    then n budgets uniform in [32, 224]."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(10, 1000, size=(SERVE_PROMPT,)).tolist() for _ in range(n)]
+    return prompts, rng.integers(32, 225, size=n).tolist()
+
+
+def serving_engine(params, cfg, **kw):
+    """The engine of bench_serve: 32 slots, cache 896, bucket 640, chunk 16,
+    seed 0, its admission signature warmed up (once a process)."""
+    from unigen_tpu_torch.serving import ServingEngine
+    kw = dict(dict(slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, buckets=(SERVE_BUCKET,),
+                   chunk=SERVE_CHUNK, seed=0, precompile=[("ids", SERVE_BUCKET)],
+                   device="cuda"), **kw)
+    return ServingEngine(params, cfg, **kw)
+
+
+@contextlib.contextmanager
+def admission_census(sizes):
+    """Records, while open, the row count of every batched admission the
+    engine dispatches (``serving.engine._admit_core``) into ``sizes``."""
+    from unigen_tpu_torch.serving import engine as TE
+    real = TE._admit_core
+
+    def counted(params, cfg, cache, state, inputs_embeds, *a, **kw):
+        sizes.append(inputs_embeds.shape[0])
+        return real(params, cfg, cache, state, inputs_embeds, *a, **kw)
+    TE._admit_core = counted
+    try:
+        yield sizes
+    finally:
+        TE._admit_core = real
+
+
+def _percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+
+def serve_run(eng, make_requests, static=False):
+    """Drives one trace through ``eng`` with the launch counts set to 0 just
+    before and read just after: ``make_requests()`` (called inside that
+    window) gives [(submit kwargs, budget, eot)], all queued at once, or with
+    ``static`` in waves of the slot count, each drained before the next. Checks that every request resolves
+    with its budget's count of tokens or stops at its eot, that the engine
+    thread serves until ``close`` and that no slot stays occupied after it.
+    Returns the run's measures."""
+    import torch
+    sizes = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    with admission_census(sizes):
+        t0 = time.perf_counter()
+        requests = make_requests()
+        futs = []
+        step = eng.slots if static else len(requests)
+        for w0 in range(0, len(requests), step):
+            wave = [(eng.submit_embeds(**kw) if "inputs_embeds" in kw else eng.submit(**kw))
+                    for kw, _, _ in requests[w0:w0 + step]]
+            for f in wave:
+                f.result(timeout=900)
+            futs += wave
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = _read_counts()
+    check(eng.healthy, "the serving engine's thread died during the trace")
+    toks = [f.result(timeout=0) for f in futs]
+    for (kw, budget, eot), t in zip(requests, toks):
+        check(len(t) == budget or (eot is not None and 0 < len(t) < budget and t[-1] == eot
+                                   and eot not in t[:-1]),
+              f"a request of budget {budget} (eot {eot}) resolved with {len(t)} tokens")
+    stats = eng.stats
+    eng.close(timeout=120)
+    check(not eng._thread.is_alive(), "the serving engine's thread outlived close")
+    check(not eng._active.any() and all(r is None for r in eng._slot_req),
+          "a slot stayed occupied after the trace")
+    useful = sum(len(t) for t in toks)
+    ttft = [f.ttft for f in futs]
+    itl = [f.itl for f in futs if f.itl is not None]
+    return {"seconds": dt, "tokens": toks, "counts": counts, "groups": len(sizes),
+            "group_sizes": sizes, "steps": stats.slot_steps // eng.slots,
+            "chunks": stats.decode_chunks, "useful_tokens": useful,
+            "tokens_per_s": useful / dt, "requests_per_s": len(futs) / dt,
+            "ttft_p50_s": _percentile(ttft, 50), "ttft_p99_s": _percentile(ttft, 99),
+            "itl_p50_s": _percentile(itl, 50), "occupancy": stats.occupancy,
+            "t_admit_s": stats.t_admit, "t_dispatch_s": stats.t_dispatch,
+            "t_harvest_s": stats.t_harvest}
+
+
+def _serve_expect(run, layers, mode, tower=0):
+    """The launch counts of a serving run from its admissions and decode
+    steps: a group prefill is one flash launch a layer, a decode step one
+    chunk launch a layer (none with the int8 cache); a W8A8 forward quantizes
+    4 x layers + 1 times (q/k/v, o, gate/up, down, head) and runs 7 x layers
+    + 1 products and epilogues, a W4A8 one as many quantizations and kernel-4
+    launches. ``mode``: bf16, int8+int4 (W8A8 admission, W4A8 decode), int8+kv."""
+    g, st = run["groups"], run["steps"]
+    quant, dense = 4 * layers + 1, 7 * layers + 1
+    out = dict(NO_LAUNCHES, flash_attention=tower + layers * g,
+               chunk_attention=0 if mode == "int8+kv" else layers * st)
+    if mode == "int8+int4":
+        out.update(quantize_activations=quant * (g + st), w4a8_matmul=dense * st,
+                   w8a8_epilogue=dense * g, int8_matmul=dense * g)
+    elif mode == "int8+kv":
+        out.update(quantize_activations=quant * (g + st), w8a8_epilogue=dense * (g + st),
+                   int8_matmul=dense * (g + st))
+    return out
+
+
+def _serve_report(name, run, card_line=True):
+    print(f"  {name}: {run['seconds']:.3f} s wall, {run['useful_tokens']} useful tokens, "
+          f"{run['tokens_per_s']:.2f} tokens/s, {run['requests_per_s']:.4f} requests/s; TTFT p50 "
+          f"{run['ttft_p50_s']:.3f} s, p99 {run['ttft_p99_s']:.3f} s; ITL p50 "
+          f"{run['itl_p50_s'] * 1e3:.2f} ms; occupancy {run['occupancy']:.4f}; "
+          f"{run['groups']} admissions (rows {sorted(run['group_sizes'])}), {run['chunks']} "
+          f"chunks, {run['steps']} decode steps; scheduler admit / dispatch / harvest "
+          f"{run['t_admit_s']:.3f} / {run['t_dispatch_s']:.3f} / {run['t_harvest_s']:.3f} s")
+    c, st, g = run["counts"], max(run["steps"], 1), max(run["groups"], 1)
+    print(f"    launches {c}; a decode step: "
+          + ", ".join(f"{k} {v / st:.2f}" for k, v in c.items() if v) + "; a request: "
+          + ", ".join(f"{k} {v / len(run['tokens']):.2f}" for k, v in c.items() if v)
+          + f"; an admission group averages {sum(run['group_sizes']) / g:.2f} rows")
+
+
+def run_serving(results, profile=False):
+    """The text serving engine at full width on bench_serve's trace: 96
+    requests of 600 prompt ids, greedy, budgets in [32, 224], all queued at
+    once, 32 slots, chunk 16; bf16 (and the static-wave discipline over the
+    same trace), ``int8+int4`` (W8A8 admission, W4A8 decode chunks, bf16
+    cache) and ``int8+kv`` (W8A8 with the int8 cache, bench_serve's default).
+    Launch counts exact from each run's admissions and decode steps."""
+    import torch
+    from unigen_tpu_torch.generation import generate_text
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    from unigen_tpu_torch.ops.quantization import quantize_unigen_params
+    print(f"phase: serving (ServingEngine on Qwen2.5-1.5B, random init, bf16: {SERVE_REQUESTS} "
+          f"requests of {SERVE_PROMPT} ids, budgets in [32, 224], {SERVE_SLOTS} slots, chunk "
+          f"{SERVE_CHUNK}, bucket {SERVE_BUCKET}, cache {SERVE_MAX_LEN}, greedy)")
+    pipe = flagship_pipeline()
+    cfg, layers = pipe.cfg, pipe.cfg.llm.num_hidden_layers
+    prompts, budgets = serving_trace()
+    requests = [(dict(input_ids=p, max_new_tokens=b), b, None) for p, b in zip(prompts, budgets)]
+    t0 = time.perf_counter()
+    w8 = quantize_unigen_params(pipe.params, cfg, lm_head=True)
+    w4 = quantize_unigen_params_int4(pipe.params, cfg)
+    torch.cuda.synchronize()
+    print(f"  W8A8 and W4A8 trees {time.perf_counter() - t0:.2f} s")
+    modes = (("bf16", pipe.params, {}), ("int8+int4", w8, dict(decode_params=w4)),
+             ("int8+kv", w8, dict(quantized_cache=True)))
+    out = {}
+    for mode, params, kw in modes:
+        t0 = time.perf_counter()
+        eng = serving_engine(params, cfg, **kw)
+        warm = time.perf_counter() - t0
+        run = serve_run(eng, lambda: requests)
+        expect = _serve_expect(run, layers, mode)
+        _serve_report(f"{mode} continuous (engine and warm-up {warm:.2f} s before)", run)
+        check(run["counts"] == expect, f"serving {mode} launch counts {run['counts']} != {expect}")
+        out[mode] = run
+    static = serve_run(serving_engine(pipe.params, cfg), lambda: requests, static=True)
+    _serve_report(f"bf16 static waves of {SERVE_SLOTS}", static)
+    check(static["counts"] == _serve_expect(static, layers, "bf16"),
+          f"serving static launch counts {static['counts']}")
+    check(static["tokens"] == out["bf16"]["tokens"],
+          "the static-wave run's tokens differ from the continuous run's")
+    ratio = out["bf16"]["tokens_per_s"] / static["tokens_per_s"]
+    print(f"  continuous / static (bf16): {ratio:.4f}x useful tokens/s; occupancy "
+          f"{out['bf16']['occupancy']:.4f} vs {static['occupancy']:.4f}")
+    # a direct batch decode of the first 32 prompts: in bf16 the prefill and
+    # decode shapes differ from the engine's, so agreement is printed, not gated
+    n = SERVE_SLOTS
+    ids = torch.as_tensor(prompts[:n], device="cuda")
+    direct = generate_text(pipe.params, cfg, None, ids,
+                           torch.full((n,), SERVE_PROMPT, device="cuda"),
+                           max_new_tokens=max(budgets[:n])).cpu().tolist()
+    same = sum(int(a == b) for t, d, b_ in zip(out["bf16"]["tokens"][:n], direct, budgets[:n])
+               for a, b in zip(t, d[:b_]))
+    print(f"  bf16 engine tokens equal to a direct batch decode of the first {n} prompts: "
+          f"{same / sum(budgets[:n]):.4f} of {sum(budgets[:n])} (not a gate)")
+    if profile:
+        # a cut trace (the first 32 requests, a quarter of each budget), whose
+        # trace the profiler reads in minutes; the bf16 run, and int8+int4's,
+        # which carries kernel 4
+        cut = [(dict(input_ids=p, max_new_tokens=b // 4), b // 4, None)
+               for p, b in zip(prompts[:SERVE_SLOTS], budgets[:SERVE_SLOTS])]
+        for mode, params, kw in modes[:2]:
+            run = serve_run(serving_engine(params, cfg, **kw), lambda: cut)
+            print(f"  profile of the {mode} run of the cut trace ({len(cut)} requests, budgets / "
+                  f"4: {run['steps']} decode steps, {run['groups']} admissions, unprofiled wall "
+                  f"{run['seconds']:.3f} s):")
+            eng = serving_engine(params, cfg, **kw)
+            profile_run(lambda eng=eng: serve_run(eng, lambda: cut), run["seconds"])
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["serving"] = {m: {k: v for k, v in r.items() if k != "tokens"}
+                          for m, r in dict(out, static_bf16=static).items()}
+    results["serving"]["continuous_over_static"] = ratio
+    del w8, w4
+    return {f"serving_{m.replace('+', '_')}": r["counts"] for m, r in out.items()}
+
+
+def run_serving_vqa(results, profile=False):
+    """The engine's VQA path at full width: the SigLIP flagship in bf16, 8
+    uint8 images of 384 px and QUESTIONS through ``vqa_serving_inputs``
+    (l2_bucket 64, one admission bucket) and ``submit_embeds``, 128 greedy
+    tokens, eos as eot, 8 slots."""
+    import torch
+    print(f"phase: serving_vqa (vqa_serving_inputs -> submit_embeds, SigLIP-SO400M + Qwen2.5-1.5B "
+          f"bf16, {len(QUESTIONS)} images of 384 px, {NEW_TOKENS} greedy tokens, eos as eot)")
+    pipe = flagship_pipeline(vision=True)
+    pixels = _vqa_pixels(pipe)
+    eos = pipe.prompting.eos_token_id
+    l, plens, _ = serving_vqa_shape(pipe)
+    layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
+    from unigen_tpu_torch.serving import ServingEngine
+    runs = []
+    for _ in ("cold", "warm"):
+        eng = ServingEngine(pipe.params, pipe.cfg, slots=len(QUESTIONS), max_len=l + NEW_TOKENS,
+                            buckets=(l,), chunk=SERVE_CHUNK, device="cuda",
+                            precompile=[("emb", l, pipe.cfg.llm.hidden_size)])
+        holder = {}
+
+        def requests():   # the tower and the splice, inside the counted window
+            reqs = pipe.vqa_serving_inputs(pixels, list(QUESTIONS), l2_bucket=SERVE_VQA_BUCKET)
+            holder["plens"] = [r[2] for r in reqs]
+            return [(dict(inputs_embeds=e, meta_bits=m, prompt_len=pl, max_new_tokens=NEW_TOKENS,
+                          eot_token=eos), NEW_TOKENS, eos) for e, m, pl in reqs]
+        run = serve_run(eng, requests)
+        check(holder["plens"] == plens, f"VQA prompt lengths {holder['plens']} != {plens}")
+        expect = _serve_expect(run, layers, "bf16", tower=vit)
+        check(run["counts"] == expect, f"serving_vqa launch counts {run['counts']} != {expect}")
+        runs.append(run)
+    run = runs[-1]
+    _serve_report(f"VQA warm (splice {l}, prompts {min(plens)}-{max(plens)})", run)
+    if "understand_tokens" in results:
+        ref = results["understand_tokens"]["bf16"].cpu().tolist()
+        same = sum(int(a == b) for t, r in zip(run["tokens"], ref) for a, b in zip(t, r))
+        print(f"  tokens equal to understand's bf16 batch call: {same / sum(map(len, run['tokens'])):.4f}"
+              " (batch shapes differ in bf16; not a gate)")
+    if profile:
+        eng = ServingEngine(pipe.params, pipe.cfg, slots=len(QUESTIONS), max_len=l + NEW_TOKENS,
+                            buckets=(l,), chunk=SERVE_CHUNK, device="cuda")
+        profile_run(lambda: serve_run(eng, requests), run["seconds"])
+    results["serving_vqa"] = {k: v for k, v in run.items() if k != "tokens"}
+    return run["counts"]
+
+
+def run_serving_http(results, profile=False):
+    """``ServingHTTPServer`` on port 0 over the bf16 engine (bench_serve's,
+    admitting one request at a time so that every admission has the shape of
+    a direct ``submit``) and the image engine at batch 4: /v1/generate and
+    /v1/chat/completions from client threads and one /v1/images; every reply
+    well-formed, the tokens equal to ``submit``'s for the same ids, and the
+    PNG equal to the direct call of its padded batch."""
+    import base64
+    import os
+    import threading
+    import urllib.request
+    import torch
+    from unigen_tpu_torch.evaluation.geneval import load_png
+    from unigen_tpu_torch.ops.sampling import derived_generator
+    from unigen_tpu_torch.pipeline import pixels_to_uint8
+    from unigen_tpu_torch.serving import ImageServingEngine, ServingHTTPServer
+    print("phase: serving_http (ServingHTTPServer over the bf16 engine and the image engine at "
+          f"batch {SERVING_BATCH}: 3 /v1/generate, 2 /v1/chat/completions, 1 /v1/images)")
+    pipe = flagship_pipeline()
+    base_tok = pipe.prompting.text_tokenizer
+
+    class Tok:
+        def encode(self, text):
+            return list(base_tok._encode(text))
+
+        def decode(self, ids):
+            return base_tok.decode(list(ids))
+    tok = Tok()
+    prompts, _ = serving_trace(3)
+    chats = [[{"role": "user", "content": q}] for q in QUESTIONS[:2]]
+    new = 32
+    eng = serving_engine(pipe.params, pipe.cfg, admit_cap=1)
+    replies, errors = {}, []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ImageServingEngine(pipe, batch=SERVING_BATCH) as ieng, \
+            ServingHTTPServer(eng, tokenizer=tok, image_engine=ieng) as srv:
+        url = f"http://{srv.host}:{srv.port}"
+
+        def post(key, route, body):
+            try:
+                req = urllib.request.Request(url + route, data=json.dumps(body).encode(),
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    replies[key] = json.loads(r.read())
+            except Exception as e:  # surfaced below as a failed check
+                errors.append(f"{route}: {type(e).__name__}: {e}")
+        jobs = ([(f"gen{i}", "/v1/generate", {"prompt_ids": p, "max_new_tokens": new})
+                 for i, p in enumerate(prompts)]
+                + [(f"chat{i}", "/v1/chat/completions", {"messages": m, "max_tokens": new})
+                   for i, m in enumerate(chats)]
+                + [("image", "/v1/images", {"prompt": SERVING_PROMPTS[0]})])
+        clients = [threading.Thread(target=post, args=job) for job in jobs]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        check(not any(c.is_alive() for c in clients), "serving_http: a client hung")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        check(not errors, f"serving_http: {errors}")
+        check(health["status"] == "ok" and health["stats"]["requests_completed"] == 5,
+              f"serving_http /healthz {health}")
+        # the same ids through submit, one at a time
+        for i, p in enumerate(prompts):
+            got = replies[f"gen{i}"]
+            check(len(got["tokens"]) == new and got["tokens"] == eng.submit(
+                p, max_new_tokens=new).result(timeout=600),
+                f"serving_http /v1/generate {i} differs from submit")
+        templ = "<|im_start|>user\n{}<|im_end|>\n<|im_start|>assistant\n"
+        for i, m in enumerate(chats):
+            got = replies[f"chat{i}"]
+            direct = eng.submit(tok.encode(templ.format(m[0]["content"])),
+                                max_new_tokens=new).result(timeout=600)
+            check(got["object"] == "chat.completion" and
+                  got["choices"][0]["message"] == {"role": "assistant",
+                                                   "content": tok.decode(direct)} and
+                  got["usage"]["completion_tokens"] == new,
+                  f"serving_http /v1/chat/completions {i} differs from submit: {got}")
+    eng.close()
+    img = replies["image"]
+    os.makedirs("output", exist_ok=True)
+    path = os.path.join("output", "serving_http.png")
+    with open(path, "wb") as f:
+        f.write(base64.b64decode(img["image_png"]))
+    arr = load_png(path)
+    direct = pixels_to_uint8(pipe.generate_images(
+        [SERVING_PROMPTS[0]] + [""] * (SERVING_BATCH - 1), derived_generator(0, 0, device="cuda"),
+        guidance_scale=6.0, timesteps=50, max_text_len=128))[0]
+    check(arr.shape == (img["height"], img["width"], 3) == direct.shape
+          and bool((arr == direct).all()), "serving_http /v1/images differs from the direct call")
+    print(f"  6 replies in {dt:.3f} s (the image's batch included); launches {counts}; "
+          "/v1/generate and /v1/chat/completions equal submit's tokens, the PNG equals its "
+          "padded batch's direct call")
+    check(all(counts[k] > 0 for k in ("flash_attention", "chunk_attention", "conv3x3_gn_swish",
+                                      "gn_affine")), f"serving_http launches {counts}")
+    results["serving_http"] = {"seconds": dt}
+    return counts
+
+
+def run_tiny_serving():
+    """A tiny fp32 ServingEngine on the card against the same run on the CPU,
+    token for token: staggered admissions, one eot stop, one cancellation,
+    the int8 cache and a shared prefix. And one decode chunk on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``: it reads nothing back."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.models import qwen2
+    from unigen_tpu_torch.serving import ServingEngine
+    from unigen_tpu_torch.serving import engine as TE
+    print("phase: tiny fp32 serving engine, kernels on the card vs plain versions on the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3)
+    gpu = cpu.to("cuda")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(3, 250, size=(n,)).tolist() for n in (5, 11, 3, 9, 7, 4)]
+    budgets = [12, 5, 8, 9, 16, 6]
+
+    def trace(pipe, dev, eot=None, **kw):
+        with ServingEngine(pipe.params, pipe.cfg, slots=3, max_len=64, buckets=(8, 16),
+                           chunk=(2, 4, 8), device=dev, **kw) as eng:
+            f0 = eng.submit(prompts[0], max_new_tokens=budgets[0])
+            f1 = eng.submit(prompts[1], max_new_tokens=budgets[1])
+            f1.result(timeout=300)                 # a slot frees while f0 decodes
+            doomed = eng.submit(prompts[0][::-1], max_new_tokens=40)
+            next(doomed.stream(timeout=300))
+            doomed.cancel()
+            rest = [eng.submit(p, max_new_tokens=b, eot_token=eot)
+                    for p, b in zip(prompts[2:], budgets[2:])]
+            out = [f.result(timeout=300) for f in [f0, f1] + rest]
+            try:
+                doomed.result(timeout=300)
+                cancelled = False
+            except Exception:
+                cancelled = True
+            return out, cancelled
+    eot = trace(cpu, "cpu")[0][2][1]          # the 2nd token of request 2 stops it
+    for name, kw in (("float cache", {}), ("int8 cache", dict(quantized_cache=True)),
+                     ("shared prefix", dict(prefix_ids=[17, 33, 2, 99]))):
+        _reset_counts()
+        got, cancelled = trace(gpu, "cuda", eot, **kw)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        want, _ = trace(cpu, "cpu", eot, **kw)
+        print(f"  {name}: card {'==' if got == want else '!='} CPU over {sum(map(len, want))} "
+              f"tokens; the eot request stopped at {len(got[2])}; the cancelled request failed: "
+              f"{cancelled}; launches {counts}")
+        check(got == want and cancelled, f"tiny serving ({name}): card {got} vs CPU {want}")
+        check(counts["flash_attention"] > 0 and
+              (counts["chunk_attention"] == 0) == bool(kw.get("quantized_cache")),
+              f"tiny serving ({name}) launches {counts}")
+    cfg, params = gpu.cfg, gpu.params
+    cache = qwen2.init_kv_cache(cfg.llm, 3, 16, torch.device("cuda"), per_row_index=True)
+    cache = cache._replace(index=torch.tensor([4, 0, 9], dtype=torch.int32, device="cuda"))
+    state = TE.init_slot_state(3, torch.device("cuda"))._replace(
+        active=torch.tensor([True, False, True], device="cuda"),
+        budget=torch.full((3,), 5, dtype=torch.int32, device="cuda"),
+        temp=torch.tensor([0.0, 0.0, 0.8], device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, toks = TE._decode_chunk(params, cfg, cache, state, 4, None, [(2, 5, 10)])
+    except RuntimeError as e:
+        raise Failed(f"a decode chunk synchronised with the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(toks.shape) == (3, 4), f"decode chunk tokens {tuple(toks.shape)}")
+    print("  a decode chunk (3 slots, 4 steps, one sampling row) ran under sync debug mode "
+          "'error': no host synchronisation")
+
+
 def run_tiny_slice():
     """The tiny fp32 pipeline through the kernels on the card against the
     plain versions on the CPU: the codes of ``encode_pixels``, AR tokens
@@ -2267,12 +2781,19 @@ def main(argv=None) -> int:
             path_counts["dpg"] = run_dpg(results, profile="profile" in phases)
         if "image_serving" in phases:
             path_counts["image_serving"] = run_image_serving(results)
+        if "serving" in phases:
+            path_counts.update(run_serving(results, profile="profile" in phases))
+        if "serving_vqa" in phases:
+            path_counts["serving_vqa"] = run_serving_vqa(results, profile="profile" in phases)
+        if "serving_http" in phases:
+            path_counts["serving_http"] = run_serving_http(results)
         if "tiny" in phases:
             run_tiny()
             run_tiny_understand()
             run_tiny_int8()
             run_tiny_slice()
             run_tiny_cot()
+            run_tiny_serving()
         conv_batch_sums(results)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -2350,6 +2871,23 @@ def main(argv=None) -> int:
         print(f"image_serving: {sv['images_per_s']:.4f} images/s ({sv['seconds']:.3f} s for "
               f"{len(SERVING_PROMPTS)} requests at batch {SERVING_BATCH}), submit-to-done "
               f"{min(sv['latency_s']):.3f}-{max(sv['latency_s']):.3f} s on {card}")
+    if "serving" in results:
+        sv = results["serving"]
+        for mode in ("bf16", "int8+int4", "int8+kv", "static_bf16"):
+            r = sv[mode]
+            print(f"serving {mode}: {r['tokens_per_s']:.2f} useful tokens/s, "
+                  f"{r['requests_per_s']:.4f} requests/s, TTFT p50 {r['ttft_p50_s']:.3f} s p99 "
+                  f"{r['ttft_p99_s']:.3f} s, ITL p50 {r['itl_p50_s'] * 1e3:.2f} ms, occupancy "
+                  f"{r['occupancy']:.4f}, wall {r['seconds']:.3f} s ({SERVE_REQUESTS} requests, "
+                  f"{SERVE_SLOTS} slots) on {card}")
+        print(f"serving continuous / static (bf16): {sv['continuous_over_static']:.4f}x on {card}")
+    if "serving_vqa" in results:
+        r = results["serving_vqa"]
+        print(f"serving_vqa: {r['tokens_per_s']:.2f} useful tokens/s, TTFT p50 "
+              f"{r['ttft_p50_s']:.3f} s, ITL p50 {r['itl_p50_s'] * 1e3:.2f} ms, wall "
+              f"{r['seconds']:.3f} s ({len(QUESTIONS)} requests) on {card}")
+    if "serving_http" in results:
+        print(f"serving_http: 6 replies in {results['serving_http']['seconds']:.3f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -149,8 +149,23 @@ def test_init_matches_jax_tree_layout():
         assert shapes(bridged) == shapes(fresh)
 
 
+def test_forward_default_causal_mask_matches_jax(model):
+    """Without a mask or a cache ``forward`` builds JAX's causal default
+    (tests/test_torch_serving.py holds the cached defaults)."""
+    jcfg, jparams, tcfg, tparams = model
+    ids = _prompt()
+    jh, _ = JQ.forward(jparams["llm"], jcfg.llm, input_ids=jnp.asarray(ids))
+    th, _ = TQ.forward(tparams["llm"], tcfg.llm, input_ids=torch.from_numpy(ids))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5, rtol=2e-5)
+
+
 def test_forward_without_a_mask_raises(model):
-    """No implicit mask: every caller says what each query may see."""
+    """What ``forward`` still refuses where it used to want a mask: meta bits
+    (the cache-free prefill's mask) over a cache that already holds
+    positions, whose keys the bits cannot describe."""
     _, _, tcfg, tparams = model
-    with pytest.raises(ValueError, match="mask"):
-        TQ.forward(tparams["llm"], tcfg.llm, input_ids=torch.from_numpy(_prompt()))
+    ids = _prompt()
+    cache = TQ.init_kv_cache(tcfg.llm, ids.shape[0], 16, torch.device("cpu"))._replace(index=3)
+    with pytest.raises(ValueError, match="meta_bits"):
+        TQ.forward(tparams["llm"], tcfg.llm, input_ids=torch.from_numpy(ids), cache=cache,
+                   meta_bits=torch.zeros(ids.shape, dtype=torch.int32))

@@ -24,8 +24,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import fetch_async
 from ..pipeline import UniGenPipeline, pixels_to_uint8
-from .geneval import _fetch_async, save_png, shard_for_process
+from .geneval import save_png, shard_for_process
 
 
 def make_grid_2x2(imgs: np.ndarray) -> np.ndarray:
@@ -69,7 +70,7 @@ def run_dpg(
         pixels = pipeline.generate_images(
             [item["text"]] * n_samples, generator, guidance_scale=guidance_scale,
             timesteps=timesteps, temperature=temperature, max_text_len=eval_text_len)
-        fetched = _fetch_async(pixels)
+        fetched = fetch_async(pixels.float())
         if pending is not None:
             flush(*pending)
         pending = (item, fetched)

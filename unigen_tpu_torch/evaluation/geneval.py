@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import fetch_async
 from ..pipeline import UniGenPipeline, pixels_to_uint8
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -90,21 +91,6 @@ def shard_for_process(items: Sequence, process_index: Optional[int] = None,
     return list(items)[process_index::process_count]
 
 
-def _fetch_async(pixels: torch.Tensor):
-    """Starts the copy of a batch of pixels to pinned host memory and
-    returns (host tensor, event that marks its arrival). The copy is queued
-    behind the batch's own work only, so waiting on the event does not wait
-    for work queued after it. A CPU tensor is returned as it is, with no
-    event."""
-    if pixels.device.type != "cuda":
-        return pixels, None
-    host = torch.empty(pixels.shape, dtype=torch.float32, pin_memory=True)
-    host.copy_(pixels.float(), non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
 def run_geneval(
     pipeline: UniGenPipeline,
     metadata: List[Dict],
@@ -149,7 +135,7 @@ def run_geneval(
             [md.get("prompt", md.get("text"))] * n_samples, generator,
             guidance_scale=guidance_scale, timesteps=timesteps, temperature=temperature,
             max_text_len=eval_text_len, mode=mode)
-        fetched = _fetch_async(pixels)
+        fetched = fetch_async(pixels.float())
         if pending is not None:
             flush(*pending)
         pending = (idx, md, fetched)

@@ -12,6 +12,19 @@ fills an empty cache) goes to ``ops.flash_attention``; a cached chunk with
 plain ``ops.attention.dot_product_attention``. Each kernel wrapper launches
 its CUDA kernel on a GPU tensor and runs its plain version on a CPU tensor.
 
+Without a mask, ``forward`` builds JAX's defaults: causal without a cache
+(all-zero ``meta_bits``, so the flash kernel); with a cache, key ``s`` is
+visible to query ``j`` of row ``b`` when ``s <= index[b] + j``. A one-token
+step passes that as the [B, S] ``kv_rowmask`` (the chunk kernel); a longer
+chunk as the dense [B, 1, l, S] mask.
+
+``KVCache.index`` is a Python int (every row at one position) or, from
+``init_kv_cache(per_row_index=True)``, a [B] int32 tensor on the cache's
+device: each row writes its chunk at its own position, positions default to
+``index[:, None] + arange(l)``, and ``forward`` returns ``index + l``. The
+per-row write is a gather and a scatter over [B, l] slots (``row_slots``,
+computed once a forward); nothing of it is read back to the host.
+
 The int8 KV cache (``init_kv_cache(quantize=True)``) stores K/V int8 with
 per-(slot, head) fp32 scales, quantized at write time as JAX's
 ``_kv_quantize``. Two routes differ from JAX, which reads it through
@@ -35,7 +48,7 @@ them raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +77,9 @@ class Qwen2Config:
     rope_type: str = "linear"
     tie_word_embeddings: bool = True
     dtype: Any = torch.bfloat16
+    # JAX's cache storage order; its "skbd" and "bhsd" are TPU memory layouts,
+    # and the port's attention kernels read "bskd" only
+    kv_layout: str = "bskd"
 
     @classmethod
     def tiny(cls, vocab_size: int = 512, **kw) -> "Qwen2Config":
@@ -78,15 +94,15 @@ class Qwen2Config:
 class KVCache(NamedTuple):
     """Layer-stacked bskd cache: k, v [num_layers, B, max_len, KVH, Dh].
 
-    ``index`` is the number of positions written (all rows alike). The
-    buffers are updated in place; ``forward`` returns a cache whose index has
-    advanced past the chunk it wrote. An int8 cache holds k, v in int8 and
-    their per-(slot, head) scales k_scale, v_scale [num_layers, B, max_len,
-    KVH] fp32.
+    ``index`` is the number of positions written: an int (all rows alike)
+    or a [B] int32 tensor (one a row). The buffers are updated in place;
+    ``forward`` returns a cache whose index has advanced past the chunk it
+    wrote. An int8 cache holds k, v in int8 and their per-(slot, head)
+    scales k_scale, v_scale [num_layers, B, max_len, KVH] fp32.
     """
     k: torch.Tensor
     v: torch.Tensor
-    index: int
+    index: Union[int, torch.Tensor]
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
 
@@ -96,25 +112,64 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: Qwen2Config, batch_size: int, max_len: int,
-                  device: torch.device, dtype=None, quantize: bool = False) -> KVCache:
+                  device: torch.device, dtype=None, quantize: bool = False,
+                  per_row_index: bool = False) -> KVCache:
+    if cfg.kv_layout != "bskd":
+        raise NotImplementedError(
+            f"kv_layout {cfg.kv_layout!r}: the port's cache is bskd only (ROADMAP, "
+            "'Deliberate differences')")
     shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads,
              cfg.head_dim)
+    index = (torch.zeros((batch_size,), dtype=torch.int32, device=device)
+             if per_row_index else 0)
     if quantize:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
-                       torch.zeros(shape, dtype=torch.int8, device=device), 0,
+                       torch.zeros(shape, dtype=torch.int8, device=device), index,
                        torch.zeros(shape[:-1], dtype=torch.float32, device=device),
                        torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     dtype = dtype or cfg.dtype
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+                   torch.zeros(shape, dtype=dtype, device=device), index)
 
 
-def _cache_write(buf: torch.Tensor, upd: torch.Tensor, li: int, index: int) -> None:
-    """Write the chunk [B, l, KVH, Dh] at ``index`` of layer ``li`` in place.
-    The start is clamped so the chunk fits, as JAX's dynamic_update_slice does."""
-    s, l = buf.shape[2], upd.shape[1]
-    start = min(max(index, 0), s - l)
-    buf[li, :, start:start + l] = upd.to(buf.dtype)
+class RowSlots(NamedTuple):
+    """Where a chunk of l tokens goes under a [B] index: row b's token j to
+    slot ``slot[b, j]``; ``keep`` is False for a slot past the cache, which
+    is dropped, as JAX's per-row select drops it. ``forward`` computes it
+    once for all layers."""
+    rows: torch.Tensor   # [B, l] int64
+    slot: torch.Tensor   # [B, l] int64
+    keep: torch.Tensor   # [B, l] bool
+
+
+def row_slots(index: torch.Tensor, l: int, s: int) -> RowSlots:
+    """A dropped slot p >= S is sent to p - l instead: a slot below the row's
+    index that no other write of the call touches, which gets its old value
+    back (l <= S)."""
+    pos = index.long().clamp(0, s)[:, None] + torch.arange(l, device=index.device)
+    keep = pos < s
+    slot = torch.where(keep, pos, pos - l)
+    rows = torch.arange(index.shape[0], device=index.device)[:, None].expand_as(slot)
+    return RowSlots(rows, slot, keep)
+
+
+def _cache_write(buf: torch.Tensor, upd: torch.Tensor, li: int,
+                 where: Union[int, RowSlots]) -> None:
+    """Write the chunk [B, l, ...] into layer ``li`` in place.
+
+    At an int index: one slice, its start clamped so the chunk fits, as JAX's
+    dynamic_update_slice does. At ``RowSlots`` (a [B] index): one gather of
+    the old values and one scatter of [B, l] slots, the dropped ones getting
+    their old values back."""
+    if not isinstance(where, RowSlots):
+        s, l = buf.shape[2], upd.shape[1]
+        start = min(max(where, 0), s - l)
+        buf[li, :, start:start + l] = upd.to(buf.dtype)
+        return
+    layer = buf[li]
+    keep = where.keep.view(where.keep.shape + (1,) * (upd.dim() - 2))
+    layer[where.rows, where.slot] = torch.where(keep, upd.to(buf.dtype),
+                                                layer[where.rows, where.slot])
 
 
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -208,7 +263,8 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      cos_sin: Tuple[torch.Tensor, torch.Tensor],
                      cache: Optional[KVCache], li: int,
                      meta_bits: Optional[torch.Tensor],
-                     kv_rowmask: Optional[torch.Tensor]) -> torch.Tensor:
+                     kv_rowmask: Optional[torch.Tensor],
+                     where: Union[int, RowSlots, None]) -> torch.Tensor:
     b, l, _ = x.shape
     h, kvh, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q, k, v = _dense_shared(p, ("q", "k", "v"), x)
@@ -222,7 +278,7 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
         kq, ks = _kv_quantize(k)
         vq, vs = _kv_quantize(v)
         for buf, upd in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks), (cache.v_scale, vs)):
-            _cache_write(buf, upd, li, cache.index)
+            _cache_write(buf, upd, li, where)
         if meta_bits is not None:
             # the prefill of an empty cache: the chunk's K/V as the cache holds them
             out = flash_attention(q, _kv_dequantize(kq, ks, q.dtype),
@@ -233,8 +289,8 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                                            cache.v_scale[li], mask=key_mask)
         return _dense(p, "o", out.reshape(b, l, h * dh))
     if cache is not None:
-        _cache_write(cache.k, k, li, cache.index)
-        _cache_write(cache.v, v, li, cache.index)
+        _cache_write(cache.k, k, li, where)
+        _cache_write(cache.v, v, li, where)
     if meta_bits is not None:
         # cache-free self-attention, or the prefill of an empty cache
         out = flash_attention(q, k, v, meta_bits)
@@ -274,26 +330,42 @@ def forward(
 
     Without a cache this is the prefill-style path. With a cache the chunk is
     written at ``cache.index`` and attends to the whole cache, except with
-    ``meta_bits``: then the cache must be empty and the chunk attends to
-    itself (the prefill).
+    ``meta_bits``: then the cache must be empty (an int index of 0) and the
+    chunk attends to itself (the prefill). With none of ``mask``,
+    ``meta_bits`` and ``kv_rowmask`` the mask is JAX's default (module
+    docstring).
     """
     if inputs_embeds is None:
         inputs_embeds = embed(params, input_ids)
     x = inputs_embeds.to(cfg.dtype)
     b, l, _ = x.shape
     start = cache.index if cache is not None else 0
+    per_row = isinstance(start, torch.Tensor)
+    steps = torch.arange(l, device=x.device)
     if positions is None:
-        positions = (start + torch.arange(l, device=x.device))[None].expand(b, l)
-    if meta_bits is not None and start != 0:
+        positions = start[:, None] + steps if per_row else (start + steps)[None].expand(b, l)
+    if meta_bits is not None and (per_row or start != 0):
         raise ValueError("meta_bits with a cache is the prefill of an empty cache")
     if mask is None and meta_bits is None and kv_rowmask is None:
-        raise ValueError("forward needs one of mask, meta_bits or kv_rowmask")
+        if cache is None:
+            meta_bits = torch.zeros((b, l), dtype=torch.int32, device=x.device)  # causal
+        else:
+            # key s is visible to query j of row b when s <= index[b] + j
+            s = cache.k.shape[2]
+            qpos = (start[:, None] if per_row else torch.full((b, 1), start, device=x.device)
+                    ) + steps
+            visible = torch.arange(s, device=x.device) <= qpos[:, :, None]   # [B, l, S]
+            if l == 1:
+                kv_rowmask = visible[:, 0]
+            else:
+                mask = visible[:, None]
 
     cos_sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
+    where = row_slots(start, l, cache.k.shape[2]) if per_row else start
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         x = x + _attention_block(lp, cfg, hn, mask, cos_sin, cache, li, meta_bits,
-                                 kv_rowmask)
+                                 kv_rowmask, where)
         x = x + _mlp_block(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
     new_cache = None if cache is None else cache._replace(index=start + l)

@@ -5,8 +5,10 @@ Port of ``unigen_tpu/pipeline.py::UniGenPipeline``: ``generate_images`` (modes
 ``understand_discrete`` (VQA over the tokenizer's codes), ``understand`` (VQA
 through the fixed-resolution SigLIP tower and the MM projector),
 ``score_continuation(s)`` (log-likelihoods of continuations after a VQA
-prompt), ``generate_text``, ``decode_text`` and ``pixels_to_uint8``. Host work
-is prompt assembly; everything else runs on the pipeline's device.
+prompt), ``vqa_serving_inputs`` (one request's splice for the serving
+engine's ``submit_embeds``), ``generate_text``, ``decode_text`` and
+``pixels_to_uint8``. Host work is prompt assembly; everything else runs on
+the pipeline's device.
 ``understand`` and the scoring calls take pixels as arrays or tensors (uint8
 HWC, normalized on the device in fp32, or floats already in [-1, 1]), not as
 PIL images.
@@ -19,6 +21,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .device import to_device
 from .generation import generate_text as _generate_text
 from .generation import mmu_generate, t2i_generate, t2i_generate_ar
 from .models import magvit, qwen2, siglip, unigen
@@ -71,6 +74,24 @@ def _mmu_vit_score(params, cfg, part1, part2c, img_embeds, cont_mask, valid_len)
     greedy = torch.argmax(logits, dim=-1) == part2c
     return (torch.where(cont_mask, tok_lp, 0.0).sum(dim=-1),
             torch.where(cont_mask, greedy, True).all(dim=-1))
+
+
+@torch.no_grad()
+def _mmu_vit_inputs(params, part1, part2, img_embeds, prompt_len):
+    """The spliced embeddings [B, L, D] and mmu_vit meta bits [B, L] int32 of
+    an understanding prompt, the construction ``understand`` performs before
+    ``mmu_generate``, returned for the serving engine's ``submit_embeds``.
+    JAX returns the dense [B, 1, L, L] mask; the bits are its form for the
+    flash kernel, and on every non-pad query row they are the same mask.
+    Slots at and beyond ``prompt_len`` are pad, so a bucketed part2 changes
+    no result."""
+    e1 = unigen.embed_tokens(params, part1)
+    e2 = unigen.embed_tokens(params, part2)
+    embeds = torch.cat([e1, img_embeds.to(e1.dtype), e2], dim=1)
+    b, l, _ = embeds.shape
+    meta = M.pack_meta(M.mmu_vit_attn_meta(b, l, num_tokens=img_embeds.shape[1],
+                                           prefix_length=part1.shape[1], prompt_len=prompt_len))
+    return embeds, meta
 
 
 # score_continuations pads each batch's question + continuation tails up to a
@@ -314,6 +335,32 @@ class UniGenPipeline:
         return self.score_continuations(pixels, [question], [continuation_ids],
                                         system_prompt_ids=system_prompt_ids,
                                         length_bucket=length_bucket)[0]
+
+    def vqa_serving_inputs(self, pixels, questions: Sequence[str], *,
+                           system_prompt_ids: Optional[np.ndarray] = None,
+                           l2_bucket: int = 64) -> List[tuple]:
+        """One ``(embeds [1, L, D], meta_bits [1, L], prompt_len)`` a question,
+        for ``ServingEngine.submit_embeds``: ``understand``'s splice of image i
+        and question i, the question's part right-padded to a multiple of
+        ``l2_bucket`` (one admission shape a bucket, not one a question
+        length). Embeddings and bits stay on the device, and the ids go up without
+        waiting for the queued work, so a submitter does not stall the
+        engine's decode."""
+        img_embeds = self._image_embeds(pixels)
+        _, p, _ = img_embeds.shape
+        out = []
+        for i, q in enumerate(questions):
+            part1, part2, _, _ = self.prompting((np.zeros((1, p, 1)), self._vqa_question_ids(q)[None],
+                                                 None, system_prompt_ids), "mmu_conv")
+            l2 = part2.shape[1]
+            part2p = np.full((1, -(-l2 // l2_bucket) * l2_bucket), self.prompting.pad_id, np.int64)
+            part2p[0, :l2] = part2[0]
+            plen = part1.shape[1] + p + l2
+            embeds, meta = _mmu_vit_inputs(
+                self.params, to_device(part1, self.device), to_device(part2p, self.device),
+                img_embeds[i:i + 1], to_device(np.asarray([plen]), self.device))
+            out.append((embeds, meta, plen))
+        return out
 
     # ------------------------------------------------------------- text-only --
 
