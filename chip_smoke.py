@@ -64,6 +64,15 @@ read just after:
   one cache (fp32 and bf16); then a tiny fp32 speculative engine on the card
   against the CPU and the plain engine, and a verify chunk under CUDA's sync
   debug mode;
+* ``train``: PT2 pretraining (``configs/unigen_1_5b/unigen_pt2.yaml``
+  through ``training.train.build_trainer`` and ``Trainer.train``,
+  synthetic flows, no checkpoint written): Qwen2.5-1.5B + the frozen
+  MAGViTv2, random init, bf16 parameters and AdamW state, remat and the
+  chunked CE, 8 t2i + 2 lm + 6 mmu rows of 835 tokens; 2 warm and 5
+  timed steps: s a step, samples/s, tokens/s, enqueue, peak memory, model
+  FLOPs; exact launches a step (kernel 2 28 + 28 in the remat recompute,
+  kernel 3 80 + 80 over both encodes); one step through kernel 2 against
+  the same step through the plain attention;
 * ``serve_entry``: ``python -m unigen_tpu_torch.serving.serve`` over
   ``configs/unigen_1_5b/unigen_sft.yaml`` (the flagship with the SigLIP
   tower, random init, read by the port's YAML reader) with speculation,
@@ -81,7 +90,12 @@ greedy; int8 t2i and understand with the int8 cache; the codes of
 greedy and ``score_continuations``; CoT rating tokens of both raters; a
 tiny serving engine with staggered admissions, an eot stop, a cancellation,
 the int8 cache and a shared prefix, token for token, and one of its decode
-chunks under CUDA's sync debug mode "error"). The W8A8 epilogue is
+chunks under CUDA's sync debug mode "error"; a tiny fp32 train step: losses,
+grad norm and gradients, and the card's AdamW on the CPU's gradients, then
+6 steps that lower the loss). Kernel 2's autograd function (the train
+step's attention) is held at PT2's [16, 835, 12, 128] with the step's bits:
+the forward against its plain version, dq, dk, dv bit-equal to the plain
+version's autograd, forward and backward timed beside SDPA's. The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
@@ -102,7 +116,7 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,score,geneval,cot,dpg,
-image_serving,serving,serving_vqa,serving_http,serving_spec,serve_entry,tiny) runs a
+image_serving,serving,serving_vqa,serving_http,serving_spec,serve_entry,train,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -113,6 +127,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -120,7 +135,7 @@ import time
 PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
           "understand_int8", "understand_discrete", "score", "geneval", "cot", "dpg",
           "image_serving", "serving", "serving_vqa", "serving_http", "serving_spec",
-          "serve_entry", "tiny")
+          "serve_entry", "train", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -162,6 +177,11 @@ SERVE_CONFIG = "configs/unigen_1_5b/unigen_sft.yaml"
 SERVE_ENTRY_PROMPTS = ("What is a GPU?", "Repeat after me: one two three, one two three.",
                        "Name three colours.")
 SERVE_ENTRY_NEW = 48
+# the train phase: PT2 (8 t2i + 2 lm + 6 mmu rows of 576) at the flagship width,
+# random init, synthetic flows; steps warm and timed
+TRAIN_CONFIG = "configs/unigen_1_5b/unigen_pt2.yaml"
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_OUT = "output/chip_smoke_train"
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
@@ -1101,6 +1121,118 @@ def run_kernel_phases(results):
     run_slice_kernel_phases(results)
     run_serving_kernel_phases(results)
     run_spec_kernel_phases(results)
+    results["flash_attention_train"] = phase_flash_train(gen, 10)
+    print("phase: kernels, kernel 3 at the encoder's 7 shapes at batch 6 (fp32: the train "
+          "step's mmu encode; its t2i encode is batch 8, timed above)")
+    enc6 = [phase_conv(gen, 6, hw, hw, c, cout, torch.float32, 1e-4, 10 if hw < 128 else 3, gn,
+                       part="encoder") for hw, c, cout, gn, _ in ENCODER_CONVS]
+    results["conv3x3_gn_swish"]["shapes"] += [{k: v for k, v in e.items() if k != "gn"}
+                                              for e in enc6]
+    results["gn_affine"]["shapes"] += [e["gn"] for e in enc6]
+    per_encode = {b: sum(n * row["ms"] for (*_, n), row in zip(ENCODER_CONVS, rows))
+                  for b, rows in ((8, [r for _, r, _ in results["encoder_conv_rows"]]),
+                                  (6, enc6))}
+    results["conv3x3_gn_swish"]["train_encodes_ms"] = per_encode[8] + per_encode[6]
+    print(f"kernel 3 over the train step's two encodes (launches x ms at each shape): batch 8 "
+          f"{per_encode[8]:.4f} ms + batch 6 {per_encode[6]:.4f} ms = "
+          f"{per_encode[8] + per_encode[6]:.4f} ms")
+
+
+def train_config(*extra):
+    """PT2's config with the train phase's overrides (no edit of the file)."""
+    from unigen_tpu_torch.utils.configuration import initialize_config
+    return initialize_config(TRAIN_CONFIG, ["dataset.synthetic=true", "experiment.save_every=0",
+                                            f"experiment.output_dir={TRAIN_OUT}", *extra])
+
+
+def train_bits(config, device="cuda"):
+    """The meta bits of the train step's first synthetic batch at PT2's
+    shape: the t2i, lm and mmu templates as ``Trainer.build_device_batch``
+    assembles them (the image blocks' codes never equal a pad, soi or eoi
+    id, so the templates give the step's bits)."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_prompting_from_config, load_tokenizer
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.training.train import synthetic_flows
+    pr = build_prompting_from_config(config, load_tokenizer(config))
+    flow = next(synthetic_flows(config))
+    n = config.model.unigen.num_vq_tokens
+    t2i, _, _ = pr((flow["t2i_flow"]["input_ids"],
+                    *(np.zeros((len(flow["t2i_flow"]["input_ids"]), n), np.int64),) * 2), "t2i")
+    lm, _, _ = pr((flow["lm_flow"]["input_ids"], pr.max_seq_len), "lm")
+    mmu, _, _ = pr((np.zeros((len(flow["mmu_flow"]["input_ids"]), n), np.int64),
+                    flow["mmu_flow"]["input_ids"]), "mmu")
+    soi, eoi = pr.sptids_dict["<|soi|>"], pr.sptids_dict["<|eoi|>"]
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+    return M.pack_meta(M.concat_meta(M.t2i_attn_meta(t(t2i), pr.pad_id, soi, eoi),
+                                     M.lm_attn_meta(t(lm), pr.pad_id),
+                                     M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi)))
+
+
+def phase_flash_train(gen, iters):
+    """Kernel 2 as the train step calls it: the autograd function at PT2's
+    [16, 835, 12, 128] with the step's t2i / lm / mmu bits, bf16. Forward
+    within 2^-7 of the plain version; dq, dk, dv bit-equal to the plain
+    version's autograd (the backward is its dense recompute). Times the
+    forward, forward + backward (backward = the difference) of the kernel's
+    function, the plain version and SDPA (with the dense mask); the bound
+    counts the least work of both: 4 h dh per visible pair forward, 8
+    backward (dV, dP, dQ, dK), the inputs, dO and the bits read once, the
+    output and dq, dk, dv written once."""
+    import torch
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    import torch.nn.functional as F
+    print("phase: kernels at the train step's attention (kernel 2's autograd function, bf16)")
+    bits = train_bits(train_config())
+    b, l = bits.shape
+    h, kvh, dh = 12, 2, 128
+    q, k, v = (t.requires_grad_(True) for t in _attn_inputs(gen, b, l, l, h, kvh, dh,
+                                                           torch.bfloat16))
+    g = torch.randn((b, l, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    out = flash_attention(q, k, v, bits)
+    dq = torch.autograd.grad(out, (q, k, v), g)
+    ref = flash_attention_plain(q, k, v, bits)
+    dr = torch.autograd.grad(ref, (q, k, v), g)
+    torch.cuda.synchronize()
+    err, tol = _err_tol(out.detach(), ref.detach(), 2 ** -7)
+    equal = all(torch.equal(a, r) for a, r in zip(dq, dr))
+    print(f"  flash_attention train q{list(q.shape)} t2i/lm/mmu bits: forward max_abs_err "
+          f"{err:.3e} (tol {tol:.2e}); dq, dk, dv bit-equal to the plain version's: {equal}")
+    check(err <= tol and bool(torch.isfinite(out).all()), "train flash forward disagrees")
+    check(equal, "train flash backward differs from the plain version's autograd")
+    vis = M.unpack_meta(bits).visibility()
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis, enable_gqa=True)
+
+    def both(fwd, args, grad):
+        return lambda: torch.autograd.grad(fwd(), args, grad)
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, bits), iters)
+    all_ms = time_ms(both(lambda: flash_attention(q, k, v, bits), (q, k, v), g), iters)
+    plain_fwd = time_ms(lambda: flash_attention_plain(q, k, v, bits), iters)
+    plain_all = time_ms(both(lambda: flash_attention_plain(q, k, v, bits), (q, k, v), g), iters)
+    lib_fwd = time_ms(sdpa, iters)
+    lib_all = time_ms(both(sdpa, (qt, kt, vt), gt), iters)
+    pairs = attn_flops(vis, h, kvh, dh) / 4.0
+    b_ms, by = bound(12.0 * pairs, 2 * nbytes(q, k, v, out) + nbytes(g, bits), BF16_PEAK)
+    print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}, sdpa {lib_fwd:.4f}); backward ms "
+          f"{all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f}, sdpa "
+          f"{lib_all - lib_fwd:.4f}); forward + backward ms {all_ms:.4f} (plain {plain_all:.4f}, "
+          f"sdpa {lib_all:.4f}); bound_ms {b_ms:.4f} ({by})")
+    row = _measured(err, all_ms, plain_all, lib_all, b_ms, by,
+                    f"train step q [{b},{l},{h},{dh}], t2i/lm/mmu bits, forward + backward")
+    fwd_bound = bound(4.0 * pairs, nbytes(q, k, v, out, bits), BF16_PEAK)[0]
+    row.update(forward_ms=fwd_ms, backward_ms=all_ms - fwd_ms, plain_forward_ms=plain_fwd,
+               plain_backward_ms=plain_all - plain_fwd, library_forward_ms=lib_fwd,
+               library_backward_ms=lib_all - lib_fwd, forward_bound_ms=fwd_bound,
+               backward_bit_equal=equal)
+    return row
 
 
 def run_slice_kernel_phases(results):
@@ -3208,6 +3340,308 @@ def run_tiny():
     check(perr <= 1e-4, f"tiny decode disagrees: {perr}")
 
 
+def _train_step_flops(trainer, bits):
+    """(model FLOPs, FLOPs with the recompute) of one PT2 step: the body's
+    matmuls (2 N a token forward, N the non-embedding parameters), the
+    chunked head over the label positions (2 D V a position) and masked
+    attention (4 h dh a visible pair); model = forward + backward (x3),
+    with the recompute of the layers (remat) and of the CE chunks x4."""
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    b, l = bits.shape
+    body = sum(t.numel() for p, t in named_leaves(trainer.state.params)
+               if p.startswith("llm/layers/"))
+    n = cfg.num_vq_tokens
+    head_pos = tcfg.batch_size_t2i * n + (tcfg.batch_size_lm + tcfg.batch_size_mmu) * (l - 1)
+    vis = M.unpack_meta(bits).visibility().sum().item()
+    c = cfg.llm
+    attn = 4.0 * c.num_attention_heads * c.head_dim * vis * c.num_hidden_layers
+    fwd = 2.0 * body * b * l + 2.0 * head_pos * c.hidden_size * cfg.vocab_size + attn
+    return 3 * fwd, 4 * fwd
+
+
+def _train_profile(trainer, batch, generator, warm_s):
+    """One more profiled step: device busy and idle share, time by kernel and
+    family (``profile_run``), then the device time inside the annotated
+    parts: the two encodes (``magvit.get_code``), kernel 2's forward
+    launches and its backward (the dense recompute), the chunked CE's
+    chunks (forward and recompute; their backward runs in autograd's
+    engine, outside the annotation) and the optimizer update."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from unigen_tpu_torch.models import magvit, unigen
+    from unigen_tpu_torch.ops import flash_attention as FA
+    from unigen_tpu_torch.training import train_step as TS
+
+    def annotated(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(f"train::{name}"):
+                return fn(*a, **kw)
+        return wrapped
+    patches = [(TS.magvit, "get_code", "encode"), (FA, "flash_attention_launch", "attention fwd"),
+               (unigen, "_chunk_label_logps", "chunked CE"),
+               (trainer.tx, "update", "optimizer")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    real_bwd = FA._FlashAttention.backward
+    try:
+        for obj, attr, name in patches:
+            setattr(obj, attr, annotated(name, getattr(obj, attr)))
+        FA._FlashAttention.backward = staticmethod(annotated("attention bwd", real_bwd))
+        profile_run(lambda: trainer.step_fn(trainer.state, trainer.vq_params, batch, generator),
+                    warm_s)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.step_fn(trainer.state, trainer.vq_params, batch, generator)
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+        FA._FlashAttention.backward = staticmethod(real_bwd)
+    parts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name.startswith("train::"):
+            parts[e.name[7:]] = parts.get(e.name[7:], 0.0) + e.time_range.elapsed_us() / 1e3
+    print("  device time inside the annotated parts of one step (GPU annotations): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(parts.items())))
+
+
+def run_train(results, profile=False):
+    """PT2 pretraining at the flagship width through the train entry's
+    builder (``training.train.build_trainer``) and ``Trainer.train``:
+    Qwen2.5-1.5B + the frozen MAGViTv2, random init (no
+    ``output/unigen_pt1``), bf16 parameters and AdamW state, remat and the
+    chunked CE, 8 t2i + 2 lm + 6 mmu rows of 576 tokens a step, synthetic
+    flows; TRAIN_WARM + TRAIN_TIMED steps, each followed by a
+    synchronize. Gates: exact launches a step (kernel 2: 28 forward + 28
+    in the remat recompute; kernel 3: both encodes), finite losses and grad
+    norms, a parameter moved; then one step's losses and grad norm through
+    kernel 2 against the same step through the plain attention."""
+    import os
+    import shutil
+    import statistics
+    import torch
+    from unigen_tpu_torch.models import qwen2
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.ops.flash_attention import flash_attention_plain
+    from unigen_tpu_torch.training import train as TRAIN
+    from unigen_tpu_torch.training.optimizer import global_norm, named_leaves
+    steps = TRAIN_WARM + TRAIN_TIMED
+    print(f"phase: train path ({TRAIN_CONFIG}: Qwen2.5-1.5B + MAGViTv2, random init, bf16 "
+          f"params and AdamW state, remat, chunked CE, 8 t2i + 2 lm + 6 mmu rows, "
+          f"{TRAIN_WARM} warm + {TRAIN_TIMED} timed steps)")
+    check(not os.path.exists("output/unigen_pt1"), "output/unigen_pt1 exists: the train phase "
+          "measures the random init")
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    config = train_config(f"training.max_train_steps={steps}")
+    resident = torch.cuda.memory_allocated()        # what earlier phases keep
+    t0 = time.perf_counter()
+    trainer = TRAIN.build_trainer(config)
+    torch.cuda.synchronize()
+    print(f"  build_trainer {time.perf_counter() - t0:.2f} s")
+    check(not os.path.exists("output/unigen_pt1"), "the train phase created output/unigen_pt1")
+    tcfg, cfg = trainer.tcfg, trainer.cfg
+    rows = tcfg.batch_size_t2i + tcfg.batch_size_lm + tcfg.batch_size_mmu
+    seq = trainer.prompting.max_seq_len
+    print(f"  rows of {seq} tokens (max_seq_length {config.dataset.preprocessing.max_seq_length} "
+          f"+ {cfg.num_vq_tokens} image tokens + 3), {rows * seq} a step")
+    layers = cfg.llm.num_hidden_layers
+    per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, conv3x3_gn_swish=80, gn_affine=80)
+    watched = {p: t.detach().clone() for p, t in named_leaves(trainer.state.params)
+               if p.startswith("llm/layers/0/") or p in ("llm/final_ln", "llm/embed")}
+    records = []
+    real_step = trainer.step_fn
+
+    def timed_step(state, vq_params, batch, key):
+        torch.cuda.synchronize()
+        before = _read_counts()
+        t0 = time.perf_counter()
+        out = real_step(state, vq_params, batch, key)
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _read_counts()
+        records.append(dict(seconds=dt, enqueue_s=enqueued, metrics=out[1],
+                            counts={k: after[k] - before[k] for k in after}))
+        return out
+    trainer.step_fn = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(TRAIN.synthetic_flows(config))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    trainer.step_fn = real_step
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(len(records) == steps, f"{len(records)} train steps, not {steps}")
+    check(counts == {k: steps * v for k, v in per_step.items()},
+          f"train launch counts {counts} != {steps} x {per_step}")
+    for i, r in enumerate(records):
+        m = {k: float(v) for k, v in r["metrics"].items()}
+        print(f"  step {i + 1}: {r['seconds']:.4f} s ({r['enqueue_s']:.4f} s to enqueue), "
+              f"loss {m['loss']:.6f} (t2i {m['loss_t2i']:.6f}, lm {m['loss_lm']:.6f}, mmu "
+              f"{m['loss_mmu']:.6f}), grad norm {m['grad_norm']:.6f}, masking rate "
+              f"{m['avg_masking_rate']:.4f}, launches {r['counts']}")
+        check(r["counts"] == per_step, f"step {i + 1} launches {r['counts']} != {per_step}")
+        check(all(math.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              f"step {i + 1} metrics {m}")
+    now = dict(named_leaves(trainer.state.params))
+    moved = {p: int((t != now[p]).sum()) for p, t in watched.items()}
+    print(f"  elements moved after {steps} steps (of layer 0, the embedding and the final "
+          f"norm): {moved}")
+    check(any(moved.values()), "no parameter moved")
+    timed = [r["seconds"] for r in records[TRAIN_WARM:]]
+    med = statistics.median(timed)
+    bits = train_bits(config)
+    model_flops, hw_flops = _train_step_flops(trainer, bits)
+    tokens = rows * seq
+    print(f"  timed steps: median {med:.4f} s (min {min(timed):.4f}, max {max(timed):.4f}); "
+          f"{rows / med:.4f} samples/s, {tokens / med:.1f} tokens/s; host enqueue median "
+          f"{statistics.median(r['enqueue_s'] for r in records[TRAIN_WARM:]):.4f} s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB over the {resident / 2 ** 30:.2f} GiB that earlier "
+          f"phases hold; train() wall {wall:.3f} s")
+    print(f"  model FLOPs a step {model_flops / 1e12:.2f} T ({model_flops / med / 989e12:.4f} of "
+          f"989 TFLOP/s, a diagnostic); with the recompute {hw_flops / 1e12:.2f} T "
+          f"({hw_flops / med / 989e12:.4f})")
+    results["train"] = dict(step_s=med, step_min_s=min(timed), step_max_s=max(timed),
+                            samples_per_s=rows / med, tokens_per_s=tokens / med,
+                            enqueue_s=statistics.median(r["enqueue_s"]
+                                                        for r in records[TRAIN_WARM:]),
+                            peak_gib=peak / 2 ** 30, model_tflops=model_flops / 1e12)
+
+    # one step's losses and grad norm through kernel 2 against the plain attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    batch = trainer.build_device_batch(next(TRAIN.synthetic_flows(config)))
+    draws = MK.draw_masking(gen, tcfg.batch_size_t2i, cfg.num_vq_tokens,
+                            codebook_size=cfg.codebook_size, device="cuda")
+
+    def losses():
+        grads, m = trainer.step_fn.loss_and_grads(trainer.state.params, trainer.vq_params,
+                                                  batch, draws)
+        m["grad_norm"] = global_norm(grads)
+        return {k: float(v) for k, v in m.items()}
+    got = losses()
+    real = qwen2.flash_attention
+    try:
+        qwen2.flash_attention = lambda q, k, v, bits, scale=None: flash_attention_plain(
+            q, k, v, bits, scale)
+        want = losses()
+    finally:
+        qwen2.flash_attention = real
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in got}
+    print(f"  one step through kernel 2 vs the plain attention (same batch and draws, bf16): "
+          f"kernel {got}, plain {want}, relative differences {rel} (losses need <= 1e-2, the "
+          "grad norm <= 5e-2)")
+    check(all(rel[k] <= 1e-2 for k in ("loss_t2i", "loss_lm", "loss_mmu")) and
+          rel["grad_norm"] <= 5e-2, f"the kernel step and the plain step differ: {rel}")
+    if profile:
+        _train_profile(trainer, batch, gen, med)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: v for k, v in counts.items()}
+
+
+def run_tiny_train():
+    """The tiny fp32 train step on the card against the CPU, the same
+    weights, batch and masking draws (made on the host): the losses and the
+    grad norm within 1e-4 relative, the gradients within 1e-4 of the
+    largest gradient, and the card's AdamW update of the CPU's gradients
+    within 1e-5 of each leaf's largest magnitude after the CPU's update. (The
+    card's own step is not held leaf by leaf: Adam's first step maps every
+    gradient element to about +-lr whatever its size, so rounding-level
+    differences of near-zero gradients, the k bias's is zero in exact
+    arithmetic, become lr-sized; its largest leaf difference is printed.)
+    Then 6 steps at lr 1e-3 on the card lower the loss."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.training import lr_schedules as LRS
+    from unigen_tpu_torch.training import train_step as TS
+    from unigen_tpu_torch.training.optimizer import global_norm, make_optimizer, named_leaves
+    print("phase: tiny fp32 train step, kernels on the card vs plain versions on the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3)
+    sp = cpu.prompting.sptids_dict
+    n, seq, bt, bl, bm = cpu.cfg.num_vq_tokens, 28, 2, 2, 2
+    rng = np.random.default_rng(0)
+    t2i = rng.integers(3, 100, size=(bt, seq))
+    t2i[:, -n - 2], t2i[:, -1], t2i[:, -n - 1:-1] = sp["<|soi|>"], sp["<|eoi|>"], 0
+    t2i[0, :3] = cpu.prompting.pad_id
+    mmu = rng.integers(3, 100, size=(bm, seq))
+    mmu[:, 2], mmu[:, 3 + n], mmu[:, 3:3 + n] = sp["<|soi|>"], sp["<|eoi|>"], 0
+    mmu_labels = np.where(rng.random((bm, seq)) < 0.5, rng.integers(3, 100, (bm, seq)), -100)
+    mmu_labels[:, :4 + n] = -100
+    lm = rng.integers(3, 100, size=(bl, seq))
+    res = cpu.vq_cfg.resolution
+    host = {"t2i_template": t2i, "t2i_labels": np.full((bt, seq), -100),
+            "t2i_pixels": rng.normal(size=(bt, res, res, 3)).astype(np.float32),
+            "lm_ids": lm, "lm_labels": lm.copy(), "mmu_template": mmu, "mmu_labels": mmu_labels,
+            "mmu_pixels": rng.normal(size=(bm, res, res, 3)).astype(np.float32)}
+    draws = MK.draw_masking(torch.Generator().manual_seed(0), bt, n,
+                            codebook_size=cpu.cfg.codebook_size)
+    tcfg = TS.TrainStepConfig(bt, bl, bm, max_grad_norm=1.0, pad_id=cpu.prompting.pad_id,
+                              soi_id=sp["<|soi|>"], eoi_id=sp["<|eoi|>"])
+
+    def side(device):
+        pipe = cpu if device == "cpu" else cpu.to(device)
+        tx = make_optimizer(pipe.params, 1e-3, LRS.get_scheduler("constant"), max_grad_norm=1.0)
+        step = TS.make_train_step(pipe.cfg, pipe.vq_cfg, tx, tcfg)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        dr = MK.MaskDraws(*(None if x is None else x.to(device) for x in draws))
+        return pipe, tx, step, batch, dr, TS.init_train_state(pipe.params, tx)
+    cpu_side, gpu_side = side("cpu"), side("cuda")
+    (_, _, c_step, c_batch, c_draws, c_state) = cpu_side
+    (g_pipe, g_tx, g_step, g_batch, g_draws, g_state) = gpu_side
+    c_grads, c_m = c_step.loss_and_grads(c_state.params, cpu.vq_params, c_batch, c_draws)
+    _reset_counts()
+    g_grads, g_m = g_step.loss_and_grads(g_state.params, g_pipe.vq_params, g_batch, g_draws)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    c_m["grad_norm"], g_m["grad_norm"] = global_norm(c_grads), global_norm(g_grads)
+    rel = {k: abs(float(g_m[k]) - float(c_m[k])) / max(abs(float(c_m[k])), 1e-30) for k in c_m}
+    gmax = max(g.abs().max().item() for g in c_grads)
+    gerr = max((a.cpu() - b).abs().max().item() for a, b in zip(g_grads, c_grads))
+    # the card's optimizer on the CPU's gradients against the CPU's update
+    g_leaves = [t for _, t in named_leaves(g_state.params)]
+    c_leaves = [t for _, t in named_leaves(c_state.params)]
+    c_tx = cpu_side[1]
+    c_tx.update(c_grads, c_state.opt_state, c_leaves)
+    g_tx.update([g.to("cuda") for g in c_grads], g_state.opt_state, g_leaves)
+    upd = max((a.detach().cpu() - b.detach()).abs().max().item()
+              / max(b.detach().abs().max().item(), 1e-30) for a, b in zip(g_leaves, c_leaves))
+    print(f"  launches {counts}; relative differences {rel} (need <= 1e-4); gradients max "
+          f"difference {gerr:.3e} of a largest gradient {gmax:.3e} (need <= 1e-4 of it); the "
+          f"card's AdamW on the CPU's gradients: {upd:.3e} of each leaf's largest magnitude "
+          "(need <= 1e-5)")
+    check(counts["flash_attention"] == 2 and counts["conv3x3_gn_swish"] > 0
+          and counts["gn_affine"] > 0, f"tiny train step launches {counts}")
+    check(all(v <= 1e-4 for v in rel.values()), f"tiny train step card vs CPU: {rel}")
+    check(gerr <= 1e-4 * gmax, f"tiny train gradients differ: {gerr} of {gmax}")
+    check(upd <= 1e-5, f"tiny AdamW update on the card differs: {upd}")
+    own = TS.init_train_state(g_pipe.params, g_tx)
+    c_own = TS.init_train_state(cpu.params, c_tx)
+    own, _ = g_step(own, g_pipe.vq_params, g_batch, g_draws)
+    c_own, _ = c_step(c_own, cpu.vq_params, c_batch, c_draws)
+    diff = max((a.detach().cpu() - b.detach()).abs().max().item() / max(b.abs().max().item(),
+                                                                          1e-30)
+               for (_, a), (_, b) in zip(named_leaves(own.params), named_leaves(c_own.params)))
+    print(f"  the card's own step against the CPU's (not gated): largest leaf difference "
+          f"{diff:.3e} of the leaf's largest magnitude")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TS.init_train_state(g_pipe.params, g_tx)
+    losses = []
+    for _ in range(6):
+        state, m = g_step(state, g_pipe.vq_params, g_batch, gen)
+        losses.append(float(m["loss"]))
+    print(f"  6 steps on the card at lr 1e-3: losses {[round(x, 5) for x in losses]}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"tiny training on the card did not lower the loss: {losses}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3280,7 +3714,10 @@ def main(argv=None) -> int:
             path_counts["serving_spec"] = run_serving_spec(results)
         if "serve_entry" in phases:
             path_counts["serve_entry"] = run_serve_entry(results)
+        if "train" in phases:
+            path_counts["train"] = run_train(results, profile="profile" in phases)
         if "tiny" in phases:
+            run_tiny_train()
             run_tiny()
             run_tiny_understand()
             run_tiny_int8()
@@ -3300,18 +3737,26 @@ def main(argv=None) -> int:
                 # an XLA fusion in the JAX package, not a Pallas kernel
                 "quantize_activations": "unigen_tpu/ops/quantization.py:50",
                 # the XLA fusion that ends dense_int8_prequant, not a Pallas kernel
-                "w8a8_epilogue": "unigen_tpu/ops/quantization.py:62"}
+                "w8a8_epilogue": "unigen_tpu/ops/quantization.py:62",
+                # kernel 2 under the train step: the custom_vjp (forward: the Pallas
+                # kernel; backward: _flash_bwd's XLA recompute)
+                "flash_attention_train": "unigen_tpu/ops/flash_attention.py:94"}
     sources = {"chunk_attention": "unigen_tpu_torch/csrc/attention.cu",
                "flash_attention": "unigen_tpu_torch/csrc/attention.cu",
                "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu",
                "gn_affine": "unigen_tpu_torch/csrc/fused_conv.cu",
                "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu",
                "quantize_activations": "unigen_tpu_torch/csrc/int4.cu",
-               "w8a8_epilogue": "unigen_tpu_torch/csrc/int8.cu"}
+               "w8a8_epilogue": "unigen_tpu_torch/csrc/int8.cu",
+               "flash_attention_train": "unigen_tpu_torch/csrc/attention.cu"}
     kernels = []
     for name in replaces:
-        # launches: the sum over the main paths driven in this run (warm runs)
-        by_path = {path: c.get(name, 0) for path, c in path_counts.items()}
+        # launches: the sum over the main paths driven in this run (warm runs);
+        # the training row counts kernel 2's launches on the train path
+        if name == "flash_attention_train":
+            by_path = {p: c["flash_attention"] for p, c in path_counts.items() if p == "train"}
+        else:
+            by_path = {path: c.get(name, 0) for path, c in path_counts.items()}
         row = {"name": name, "route": "cuda", "source": sources[name],
                "replaces": replaces[name],
                "launches": sum(by_path.values()) if by_path else None,
@@ -3396,6 +3841,12 @@ def main(argv=None) -> int:
         se = results["serve_entry"]
         print(f"serve_entry: healthy {se['healthy_s']:.2f} s after the start, 3 /v1/generate "
               f"{se['generate_s']:.3f} s, /v1/images {se['image_s']:.3f} s on {card}")
+    if "train" in results:
+        tr = results["train"]
+        print(f"train: {tr['step_s']:.4f} s a step (median of {TRAIN_TIMED}; {tr['step_min_s']:.4f}"
+              f"-{tr['step_max_s']:.4f}), {tr['samples_per_s']:.4f} samples/s, "
+              f"{tr['tokens_per_s']:.1f} tokens/s, enqueue {tr['enqueue_s']:.4f} s, peak "
+              f"{tr['peak_gib']:.2f} GiB (PT2 at the flagship width) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ version, on inputs with a mean of 100 against a spread of 1 too. The W8A8
 epilogue kernel must equal its plain version bit for bit (ragged rows and
 columns, a row slice of a wider product, bf16 and fp32 out, with and without
 a bias), ``torch._int_mm`` on rows padded to 32 must give the exact product,
-and the W8A8 weight layout must make the product launch no copy.
+and the W8A8 weight layout must make the product launch no copy. The
+flash kernel's autograd function (the training forward) launches the kernel
+once and gives the plain version's gradients bit for bit.
 """
 import numpy as np
 import pytest
@@ -158,6 +160,53 @@ def test_flash_kernel_matches_plain(cuda, dtype, name):
     q, k, v = _qkv(b, l, l, 12, 2, 128, 12, cuda, dtype)
     bits = M.pack_meta(_meta(name, b, l, cuda))
     _close(flash_attention(q, k, v, bits), flash_attention_plain(q, k, v, bits), TOL[dtype])
+
+
+def _train_bits(device, n=256):
+    """The unified train step's bits at PT2's shape (576 text + 256 image + 3
+    tokens a row): 8 t2i rows (left pads, the bidirectional [soi][n image][eoi]
+    block at the end), 2 lm rows (right pads), 6 mmu rows (the prefix through
+    eoi at 3 + n visible, right pads)."""
+    l = 576 + n + 3
+    ids = torch.full((16, l), 7, dtype=torch.int64)
+    for r in range(8):
+        ids[r, :10 * r] = 0
+        ids[r, l - n - 2], ids[r, l - 1] = 1, 2
+    ids[8, 300:], ids[9, 40:] = 0, 0
+    for r in range(10, 16):
+        ids[r, 2], ids[r, 3 + n] = 1, 2
+        ids[r, l - 20 * (r - 9):] = 0
+    ids = ids.to(device)
+    return M.pack_meta(M.concat_meta(M.t2i_attn_meta(ids[:8], 0, 1, 2),
+                                     M.lm_attn_meta(ids[8:10], 0),
+                                     M.mmu_train_attn_meta(ids[10:], 0, 1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["gqa_segments", "train_pt2"])
+def test_flash_autograd_matches_plain(cuda, dtype, shape):
+    """The training forward launches the kernel once (within the kernel's
+    tolerance of the plain version); its backward recomputes the plain
+    version, so dq, dk, dv equal the plain version's autograd bit for bit."""
+    if shape == "gqa_segments":
+        b, l, h, kvh, dh = 2, 64, 4, 2, 16
+        bits = M.pack_meta(_meta("omni_segments", b, l, cuda))
+    else:
+        b, l, h, kvh, dh = 16, 835, 12, 2, 128
+        bits = _train_bits(cuda)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(b, l, l, h, kvh, dh, 21, cuda, dtype))
+    g = torch.randn((b, l, h, dh), generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bits)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert flash_attention.launches == before + 1
+    ref_out = flash_attention_plain(q, k, v, bits)
+    want = torch.autograd.grad(ref_out, (q, k, v), g)
+    _close(out.detach(), ref_out.detach(), TOL[dtype])
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
 
 
 @pytest.mark.cuda

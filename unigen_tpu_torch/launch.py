@@ -125,8 +125,8 @@ def build_prompting_from_config(config, tokenizer) -> UniPrompting:
     """JAX's ``build_prompting(config, tokenizer)``: the sequence budget
     from ``dataset.preprocessing.max_seq_length`` + the image tokens + 3
     (``model.max_len_mode: text``, the default) or ``model_max_length``,
-    and ``model.task_token_first`` (default True, as JAX's; every repo
-    config sets false)."""
+    ``model.task_token_first`` (default True, as JAX's; every repo
+    config sets false) and ``training.cond_dropout_prob`` (default 0.1)."""
     model = config["model"]
     if model.get("max_len_mode", "text") == "text":
         max_seq_len = (config["dataset"]["preprocessing"]["max_seq_length"]
@@ -135,7 +135,9 @@ def build_prompting_from_config(config, tokenizer) -> UniPrompting:
         max_seq_len = model["unigen"].get("model_max_length", 32768)
     return UniPrompting(tokenizer, special_tokens=TRAIN_SPECIAL_TOKENS, max_seq_len=max_seq_len,
                         task_token_first=model.get("task_token_first", True),
-                        enable_reuse_tk=model.get("enable_reuse_tk", False))
+                        enable_reuse_tk=model.get("enable_reuse_tk", False),
+                        cond_dropout_prob=config.get("training", {}).get("cond_dropout_prob",
+                                                                         0.1))
 
 
 # ---------------------------------------------------------------------------

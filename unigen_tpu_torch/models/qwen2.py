@@ -1,4 +1,4 @@
-"""Qwen2.5 causal-LM backbone, inference only.
+"""Qwen2.5 causal-LM backbone.
 
 Port of ``unigen_tpu/models/qwen2.py``: q/k/v projections with biases, o_proj
 without; SwiGLU MLP; NeoX rotary embedding and RMSNorm in fp32 inside a
@@ -38,6 +38,13 @@ attends to what the cache holds; a cached chunk with ``kv_rowmask`` (the
 decode step) runs the plain ``ops.attention.dot_product_attention_q8`` with
 it as the key mask, never the bf16 chunk kernel on a dequantized copy.
 
+Training: ``forward`` records autograd when grad mode is on and a leaf
+requires grad (the inference callers run under ``torch.no_grad``), the
+cache-free path writes nothing in place, and ``remat=True`` wraps each
+layer in ``torch.utils.checkpoint`` (non-reentrant), JAX's ``remat``: a
+layer's activations are recomputed in the backward, its flash launch
+included.
+
 Dense projections are ``torch`` matmuls, as the JAX package leaves them to
 XLA, except in a quantized tree: a layer holds ``<name>: {'kernel_int8',
 'scale', 'bias'?}`` (W8A8, ``ops.quantization.quantize_unigen_params``) or
@@ -55,6 +62,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, dot_product_attention_q8
 from ..ops.chunk_attention import chunk_attention
@@ -317,7 +325,14 @@ def embed(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(input_ids, params["embed"])
 
 
-@torch.no_grad()
+def _layer(lp: Dict, cfg: Qwen2Config, x: torch.Tensor, mask, cos_sin, cache, li: int,
+           meta_bits, kv_rowmask, where, q_start) -> torch.Tensor:
+    hn = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+    x = x + _attention_block(lp, cfg, hn, mask, cos_sin, cache, li, meta_bits,
+                             kv_rowmask, where, q_start)
+    return x + _mlp_block(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+
+
 def forward(
     params: Dict,
     cfg: Qwen2Config,
@@ -329,6 +344,7 @@ def forward(
     positions: Optional[torch.Tensor] = None,    # [B, L]
     cache: Optional[KVCache] = None,
     kv_rowmask: Optional[torch.Tensor] = None,   # [B, S] key visibility (chunk kernel)
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (hidden states [B, L, D], advanced cache or None).
 
@@ -337,8 +353,10 @@ def forward(
     ``meta_bits``: then the cache must be empty (an int index of 0) and the
     chunk attends to itself (the prefill). With none of ``mask``,
     ``meta_bits`` and ``kv_rowmask`` the mask is JAX's default (module
-    docstring).
+    docstring). ``remat`` checkpoints each layer of a cache-free call.
     """
+    if remat and cache is not None:
+        raise ValueError("remat is for the cache-free (training) forward")
     if inputs_embeds is None:
         inputs_embeds = embed(params, input_ids)
     x = inputs_embeds.to(cfg.dtype)
@@ -373,10 +391,8 @@ def forward(
     cos_sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
     where = row_slots(start, l, cache.k.shape[2]) if per_row else start
     for li, lp in enumerate(params["layers"]):
-        hn = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
-        x = x + _attention_block(lp, cfg, hn, mask, cos_sin, cache, li, meta_bits,
-                                 kv_rowmask, where, q_start)
-        x = x + _mlp_block(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+        args = (lp, cfg, x, mask, cos_sin, cache, li, meta_bits, kv_rowmask, where, q_start)
+        x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
     new_cache = None if cache is None else cache._replace(index=start + l)
     return x, new_cache

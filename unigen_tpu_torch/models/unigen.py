@@ -1,6 +1,7 @@
-"""UniGen: Qwen2.5 backbone plus the unified image vocabulary (inference subset).
+"""UniGen: Qwen2.5 backbone plus the unified image vocabulary.
 
-Port of the parts of ``unigen_tpu/models/unigen.py`` the t2i path uses:
+Port of ``unigen_tpu/models/unigen.py`` but its init (``weights.py`` draws
+the port's parameters):
 
 * the unified vocabulary ``vocab_size = text_vocab_len + codebook_size + 1``,
   image token i at ``i + text_vocab_len``, the mask token at ``vocab_size - 1``;
@@ -8,15 +9,21 @@ Port of the parts of ``unigen_tpu/models/unigen.py`` the t2i path uses:
   tokens and a separate ``img_head``;
 * the understanding projector (``w_und_encoder``): vision-tower features
   -> LLM hidden space through ``mm_projector``, an MLP with the exact GELU
-  (the SigLIP tower itself uses the tanh GELU).
+  (the SigLIP tower itself uses the tanh GELU);
+* the three-task training forward: (logits, loss_t2i, loss_lm, loss_mmu)
+  over one fused batch, its CE dense (``_cross_entropy``) or chunked along
+  the sequence (``_chunked_ce``: 64 positions a chunk, each under
+  ``torch.utils.checkpoint``, fp32 log-softmax and sums, so the [B, L, V]
+  fp32 logits never exist at once; JAX's ``jax.checkpoint`` scan body).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import qwen2
 from .qwen2 import Qwen2Config
@@ -88,3 +95,154 @@ def mm_project(params: Dict, image_feats: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
     return qwen2.embed(params["llm"], input_ids)
+
+
+def _splice_t2i_block(embeds: torch.Tensor, img: torch.Tensor, n: int) -> torch.Tensor:
+    """``embeds`` with the trailing image block [-(n + 1):-1] of its first
+    img.shape[0] rows replaced by ``img`` (no in-place write)."""
+    bt, l = img.shape[0], embeds.shape[1]
+    rows = torch.cat([embeds[:bt, :l - n - 1], img.to(embeds.dtype), embeds[:bt, l - 1:]], dim=1)
+    return torch.cat([rows, embeds[bt:]], dim=0)
+
+
+def prepare_inputs_for_t2i(params: Dict, cfg: UniGenConfig,
+                           input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings with the trailing image block routed through the gen
+    projector when there is one."""
+    embeds = embed_tokens(params, input_ids)
+    if cfg.use_gen_projector:
+        n = cfg.num_vq_tokens
+        embeds = _splice_t2i_block(embeds, get_gen_embed(params, input_ids[:, -(n + 1):-1]), n)
+    return embeds
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_id: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored positions, fp32 (== F.cross_entropy)."""
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
+    return total / torch.clamp(valid.sum(), min=1)
+
+
+def _chunk_label_logps(h_c: torch.Tensor, w: torch.Tensor, lab_c: torch.Tensor,
+                       ignore_id: int, per_row: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = F.linear(h_c, w.to(h_c.dtype)).float()
+    valid = lab_c != ignore_id
+    safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
+    tok = torch.gather(torch.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
+    tok = torch.where(valid, tok, torch.zeros_like(tok))
+    if per_row:
+        return tok.sum(-1), valid.sum(-1, dtype=torch.int32)
+    return tok.sum(), valid.sum(dtype=torch.int32)
+
+
+def _chunked_label_logps(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
+                         ignore_id: int = -100, chunk: int = 64, per_row: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of label log-probs, valid count) projecting hidden [B, L, D]
+    through ``w`` [V, D] chunk by chunk along the sequence, each chunk
+    recomputed in the backward; scalar totals, or [B] with ``per_row``."""
+    b, l, _ = hidden.shape
+    shape = (b,) if per_row else ()
+    total = torch.zeros(shape, dtype=torch.float32, device=hidden.device)
+    count = torch.zeros(shape, dtype=torch.int32, device=hidden.device)
+    for s in range(0, l, chunk):
+        t, c = checkpoint(_chunk_label_logps, hidden[:, s:s + chunk], w,
+                          labels[:, s:s + chunk], ignore_id, per_row, use_reentrant=False)
+        total = total + t
+        count = count + c
+    return total, count
+
+
+def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                ignore_id: int = -100, chunk: int = 64) -> torch.Tensor:
+    """Mean CE over non-ignored positions, chunked (== ``_cross_entropy``)."""
+    total, count = _chunked_label_logps(hidden, w, labels, ignore_id=ignore_id, chunk=chunk)
+    return -total / torch.clamp(count, min=1)
+
+
+def forward(
+    params: Dict,
+    cfg: UniGenConfig,
+    *,
+    input_ids: Optional[torch.Tensor] = None,
+    input_embeddings: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,   # [B, 1, L, L] bool
+    meta_bits: Optional[torch.Tensor] = None,        # [B, L] int32 (flash kernel)
+    labels: Optional[torch.Tensor] = None,
+    batch_size_t2i: int = 0,
+    batch_size_lm: int = 0,
+    batch_size_mmu: int = 0,
+    t2i_mode: str = "mask",
+    remat: bool = False,
+    memory_efficient_loss: bool = False,
+    return_hidden: bool = False,
+    positions: Optional[torch.Tensor] = None,        # [B, L] RoPE positions
+):
+    """Unified forward. Without labels: the logits (the image logits when the
+    gen projector is active and the batch is t2i). With labels: (logits,
+    loss_t2i, loss_lm, loss_mmu), each loss over its slice of the batch
+    (t2i rows first, then lm, then mmu); the logits are None with
+    ``memory_efficient_loss``. ``return_hidden`` returns the final hidden
+    states."""
+    n = cfg.num_vq_tokens
+    use_gen = cfg.use_gen_projector and batch_size_t2i > 0
+    if input_embeddings is None:
+        input_embeddings = embed_tokens(params, input_ids)
+        if use_gen:
+            # only the t2i rows' image block goes through the gen projector
+            img = get_gen_embed(params, input_ids[:batch_size_t2i, -(n + 1):-1])
+            input_embeddings = _splice_t2i_block(input_embeddings, img, n)
+
+    hidden, _ = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=input_embeddings,
+                              mask=attention_mask, meta_bits=meta_bits, remat=remat,
+                              positions=positions)
+    if return_hidden:
+        return hidden
+    bt, bl, bm = batch_size_t2i, batch_size_lm, batch_size_mmu
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+
+    if memory_efficient_loss and labels is not None and not use_gen:
+        w = qwen2.lm_head_weight(params["llm"], cfg.llm)
+        loss_t2i = loss_lm = loss_mmu = zero
+        if bt > 0:
+            if t2i_mode == "mask":
+                loss_t2i = _chunked_ce(hidden[:bt, -(n + 1):-1], w, labels[:bt, -(n + 1):-1])
+            else:
+                loss_t2i = _chunked_ce(hidden[:bt, -(n + 2):-1], w, labels[:bt, -(n + 1):])
+        if bl > 0:
+            loss_lm = _chunked_ce(hidden[bt:bt + bl, :-1], w, labels[bt:bt + bl, 1:])
+        if bm > 0:
+            loss_mmu = _chunked_ce(hidden[-bm:, :-1], w, labels[-bm:, 1:])
+        return None, loss_t2i, loss_lm, loss_mmu
+
+    if use_gen:
+        img_logits = F.linear(hidden[:bt], params["img_head"].to(hidden.dtype))
+        if labels is None:
+            return img_logits
+        logits = qwen2.logits(params["llm"], cfg.llm, hidden[bt:])
+        lm_start = 0
+    else:
+        img_logits = None
+        logits = qwen2.logits(params["llm"], cfg.llm, hidden)
+        if labels is None:
+            return logits
+        lm_start = bt
+
+    loss_t2i = loss_lm = loss_mmu = zero
+    if bt > 0:
+        src = img_logits if img_logits is not None else logits[:bt]
+        if t2i_mode == "mask":
+            loss_t2i = _cross_entropy(src[:, -(n + 1):-1], labels[:bt, -(n + 1):-1])
+        elif t2i_mode == "ar":
+            loss_t2i = _cross_entropy(src[:, -(n + 2):-1], labels[:bt, -(n + 1):])
+        else:
+            raise ValueError(t2i_mode)
+    if bl > 0:
+        loss_lm = _cross_entropy(logits[lm_start:lm_start + bl, :-1], labels[bt:bt + bl, 1:])
+    if bm > 0:
+        loss_mmu = _cross_entropy(logits[-bm:, :-1], labels[-bm:, 1:])
+    return (img_logits if img_logits is not None else logits), loss_t2i, loss_lm, loss_mmu

@@ -1,8 +1,7 @@
 """Self-attention with the omni mask computed from a per-token bitfield.
 
-Port of ``unigen_tpu/ops/flash_attention.py::flash_attention`` (forward;
-the backward, which JAX recomputes through the dense path, comes with the
-training slice). ``meta_bits`` is ``ops.masks.pack_meta``'s [B, L] int32:
+Port of ``unigen_tpu/ops/flash_attention.py::flash_attention``, forward and
+backward. ``meta_bits`` is ``ops.masks.pack_meta``'s [B, L] int32:
 
     visible = ~pad[q] & ~pad[k] & (k <= q | bidir_q[q] | bidir_k[k])
               & seg[q] == seg[k]
@@ -12,6 +11,15 @@ uniform weights over all keys. On a CUDA tensor the wrapper launches the
 hand-written kernel ``csrc/attention.cu`` (``flash_attention_launch``); on a
 CPU tensor it runs ``flash_attention_plain``, the dense path JAX uses as the
 kernel's reference, which is also the kernel's reference on the card.
+
+The backward is JAX's design (its ``custom_vjp``, ``_flash_bwd``): there is
+no backward kernel; ``_FlashAttention.backward`` recomputes
+``flash_attention_plain`` from the saved q, k and v under autograd and
+returns its input gradients. So the backward never reads the kernel's
+output, and for the same upstream gradient dq, dk and dv equal those of
+``flash_attention_plain``'s own autograd bit for bit. The dense recompute
+is the backward itself, not a fallback: the forward on a CUDA tensor
+always launches the kernel.
 """
 from __future__ import annotations
 
@@ -46,12 +54,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale=scale)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward: kernel 2 (``flash_attention_launch``). Backward: the
+    gradients of ``flash_attention_plain`` recomputed from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, meta_bits, scale):
+        ctx.save_for_backward(q, k, v, meta_bits)
+        ctx.scale = scale
+        return flash_attention_launch(q, k, v, meta_bits, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, meta_bits = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(need)
+                   for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = flash_attention_plain(*qkv, meta_bits, ctx.scale)
+            wanted = [t for t in qkv if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(got) if t.requires_grad else None for t in qkv), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     meta_bits: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, L, H, Dh]; k, v: [B, L, KVH, Dh]; meta_bits: [B, L] int32.
-    Returns [B, L, H, Dh] in q.dtype."""
+    Returns [B, L, H, Dh] in q.dtype, differentiable in q, k and v."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, meta_bits, scale)
+    return _FlashAttention.apply(q, k, v, meta_bits, scale)
+
+
+def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           meta_bits: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """One launch of kernel 2 on CUDA tensors (counted on
+    ``flash_attention.launches``); no autograd."""
     b, l, h, dh = q.shape
     kvh = k.shape[2]
     if k.shape != (b, l, kvh, dh) or v.shape != k.shape or meta_bits.shape != (b, l):

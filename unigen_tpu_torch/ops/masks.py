@@ -1,7 +1,7 @@
 """Attention masks for the unified text/image token sequences.
 
 Counterpart of ``unigen_tpu/ops/masks.py`` (the parts the t2i, the discrete
-and the SigLIP understanding paths use) and
+and the SigLIP understanding paths and the unified train step use) and
 of the kernel bitfield in ``unigen_tpu/ops/flash_attention.py::pack_meta``:
 
     visible(q, k) = ~pad[q] & ~pad[k] & (k <= q | bidir_q[q] | bidir_k[k])
@@ -54,6 +54,18 @@ def lm_attn_meta(input_ids: torch.Tensor, pad_id: Optional[int]) -> AttnMeta:
     return AttnMeta(pad=pad, bidir_q=z, bidir_k=z)
 
 
+def concat_meta(*metas: AttnMeta) -> AttnMeta:
+    """Concatenate per-task metadata along the batch dim: the fused three-task
+    training batch (t2i omni + lm causal + mmu prefix) runs under one kernel."""
+    seg = None
+    if any(m.seg is not None for m in metas):
+        seg = torch.cat([m.seg if m.seg is not None else torch.zeros_like(m.pad, dtype=torch.int32)
+                         for m in metas], dim=0)
+    return AttnMeta(pad=torch.cat([m.pad for m in metas], dim=0),
+                    bidir_q=torch.cat([m.bidir_q for m in metas], dim=0),
+                    bidir_k=torch.cat([m.bidir_k for m in metas], dim=0), seg=seg)
+
+
 def t2i_attn_meta(input_ids: torch.Tensor, pad_id: int, soi_id: int,
                   eoi_id: int) -> AttnMeta:
     """Causal text, bidirectional image block."""
@@ -73,6 +85,19 @@ def mmu_attn_meta(input_ids: torch.Tensor, eoi_id: int,
     pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None]
     eoi_pos = torch.argmax((input_ids == eoi_id).to(torch.int32), dim=-1, keepdim=True)
     pad = pos >= prompt_len.to(input_ids.device)[:, None]
+    return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=(pos <= eoi_pos) & ~pad)
+
+
+def mmu_train_attn_meta(input_ids: torch.Tensor, pad_id: int, soi_id: int,
+                        eoi_id: int) -> AttnMeta:
+    """JAX's ``mmu_attn_meta`` (the train step's): causal, every column up to
+    and including each row's first ``<|eoi|>`` visible to all queries, pads
+    from ``pad_id``. ``soi_id`` is unused, as in JAX. The discrete prefill's
+    ``mmu_attn_meta`` takes its pads from the prompt length instead."""
+    del soi_id
+    pad = input_ids == pad_id
+    pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None]
+    eoi_pos = torch.argmax((input_ids == eoi_id).to(torch.int32), dim=-1, keepdim=True)
     return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=(pos <= eoi_pos) & ~pad)
 
 
@@ -148,3 +173,22 @@ def create_attention_mask_predict_next(
 
     mask = torch.where(in_img[:, :, None], mask_bi, mask_text)
     return mask[:, None]
+
+
+def create_attention_mask_for_mmu(input_ids: torch.Tensor, eoi_id: int) -> torch.Tensor:
+    """Causal + full attention onto each row's [.. first eoi] prefix: [B, 1, L, L] bool."""
+    l = input_ids.shape[1]
+    pos = torch.arange(l, device=input_ids.device)
+    causal = pos[:, None] >= pos[None, :]
+    eoi_pos = torch.argmax((input_ids == eoi_id).to(torch.int32), dim=1)
+    prefix = pos[None, None, :] <= eoi_pos[:, None, None]
+    return (causal[None] | prefix)[:, None]
+
+
+def causal_mask_from_attention(attention_1d: torch.Tensor) -> torch.Tensor:
+    """[B, L] 0/1 padding mask -> [B, 1, L, L] bool causal mask without pads."""
+    l = attention_1d.shape[-1]
+    pos = torch.arange(l, device=attention_1d.device)
+    causal = pos[:, None] >= pos[None, :]
+    keep = attention_1d.bool()
+    return (causal[None] & keep[:, None, :] & keep[:, :, None])[:, None]

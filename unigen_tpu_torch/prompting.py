@@ -1,18 +1,22 @@
 """Task-sequence assembly (numpy only).
 
 The port's own copy of ``unigen_tpu.prompting.UniPrompting``, as far as the
-``t2i_gen`` task, the discrete ``mmu`` task and the continuous (SigLIP)
-``mmu_conv`` task need it.
+training tasks ``t2i`` and ``lm``, the ``t2i_gen`` task, the discrete ``mmu``
+task and the ``mmu_conv`` task (discrete or continuous images) need it.
 Layouts (identical to the JAX package; with ``task_token_first`` the task
 token comes before ``<|im_start|>``):
 
+  t2i       the t2i_gen layout at ``max_seq_len``, with labels and the
+            conditioning dropout (an explicit ``numpy.random.Generator``)
   t2i_gen   [pad...][task/<|im_start|>user\\n][text][<|im_end|>\\n<|im_start|>assistant\\n]
             [<|soi|>][N image tokens][<|eoi|>]                         (left-pad)
+  lm        [<|im_start|>][text][<|im_end|>][pad...]                   (right-pad)
   mmu       [<|im_start|>][<|mmu|>][<|soi|>][N image tokens][<|eoi|>][text][<|im_end|>]
             [pad...]                                                   (right-pad)
   mmu_conv  part1 = [sys?][<|im_start|>][<|mmu|>][<|soi|>],
             part2 = [<|eoi|>][conversation ids without their first token];
-            the caller splices the image embeddings between the two.
+            the caller splices the image embeddings between the two (discrete
+            image ids: returned spliced).
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ class UniPrompting:
     def __init__(self, text_tokenizer,
                  special_tokens: Sequence[str] = DEFAULT_SPECIAL_TOKENS,
                  max_seq_len: Optional[int] = None, task_token_first: bool = False,
-                 enable_reuse_tk: bool = False):
+                 enable_reuse_tk: bool = False, cond_dropout_prob: float = 0.1,
+                 rng: Optional[np.random.Generator] = None):
         if enable_reuse_tk:
             raise NotImplementedError(
                 "enable_reuse_tk: reusing Qwen's vision markers is not ported yet (ROADMAP "
@@ -52,14 +57,17 @@ class UniPrompting:
         self.pad_id = int(text_tokenizer.pad_token_id)
         self.eos_token_id = int(text_tokenizer.eos_token_id)
         self.max_seq_len = max_seq_len
+        self.cond_dropout_prob = cond_dropout_prob
+        self.rng = rng or np.random.default_rng(0)
         text_tokenizer.add_tokens(list(special_tokens))
         self.sptids_dict: Dict[str, int] = {
             tok: int(text_tokenizer.convert_tokens_to_ids([tok])[0])
             for tok in (*special_tokens, "<|im_start|>", "<|im_end|>")}
         self.sptids_dict["<|pad|>"] = self.pad_id
 
-    def _tokenize(self, texts) -> List[List[int]]:
-        out = self.text_tokenizer(texts)["input_ids"]
+    def _tokenize(self, texts, truncation: bool = False) -> List[List[int]]:
+        out = self.text_tokenizer(texts, **({"truncation": True} if truncation else {}))[
+            "input_ids"]
         if isinstance(texts, str):
             return [out]
         return [list(ids) for ids in out]
@@ -77,6 +85,57 @@ class UniPrompting:
 
     def _conv_end_ids(self) -> List[int]:
         return list(self._tokenize("<|im_end|>\n<|im_start|>assistant\n")[0])
+
+    def t2i_prompt(self, texts: Sequence[str], image_ids: np.ndarray, labels: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Left-padded t2i training sequences at ``max_seq_len``: (input_ids,
+        attention_mask, labels). A row's text is dropped with probability
+        ``cond_dropout_prob`` (one draw of ``rng`` a row)."""
+        text_ids = self._tokenize(list(texts))
+        n_img = image_ids.shape[1]
+        soi, eoi = self.sptids_dict["<|soi|>"], self.sptids_dict["<|eoi|>"]
+        conv_start = self._conv_start_ids("<|t2i|>")
+        conv_end = self._conv_end_ids()
+        drop = self.rng.random(len(text_ids)) < self.cond_dropout_prob
+        seqs, masks, labs = [], [], []
+        for i in range(len(text_ids)):
+            body = conv_start + ([] if drop[i] else text_ids[i]) + conv_end
+            if self.max_seq_len >= len(body) + n_img + 2:
+                pad_n = self.max_seq_len - len(body) - n_img - 2
+                mask = [0] * pad_n + [1] * (len(body) + n_img + 2)
+                body = [self.pad_id] * pad_n + body
+            else:
+                mask = [1] * self.max_seq_len
+                body = body[: self.max_seq_len - n_img - 2]
+            lab = [IGNORE_ID] * len(body) + [soi] + list(labels[i]) + [eoi]
+            labs.append([IGNORE_ID if t == self.pad_id else t for t in lab])
+            seqs.append(body + [soi] + list(image_ids[i]) + [eoi])
+            masks.append(mask)
+        return (np.asarray(seqs, np.int64), np.asarray(masks, np.int64),
+                np.asarray(labs, np.int64))
+
+    def lm_prompt(self, texts: Sequence[str], max_seq_len: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Right-padded language-modelling sequences: (input_ids,
+        attention_mask, labels); the pads' labels are ``IGNORE_ID``."""
+        sp = self.sptids_dict
+        seqs, masks, labs = [], [], []
+        for ids in self._tokenize(list(texts), truncation=True):
+            body = [sp["<|im_start|>"]] + ids + [sp["<|im_end|>"]]
+            if max_seq_len >= len(body):
+                free = max_seq_len - len(body)
+                lab = body + [IGNORE_ID] * free
+                mask = [1] * len(body) + [0] * free
+                body = body + [self.pad_id] * free
+            else:
+                body = body[:max_seq_len]
+                lab = list(body)
+                mask = [1] * max_seq_len
+            seqs.append(body)
+            masks.append(mask)
+            labs.append(lab)
+        return (np.asarray(seqs, np.int64), np.asarray(masks, np.int64),
+                np.asarray(labs, np.int64))
 
     def t2i_gen_prompt(self, texts: Sequence[str], image_ids: np.ndarray,
                        max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -152,12 +211,12 @@ class UniPrompting:
 
     def mmu_conv(self, images: np.ndarray, input_ids: np.ndarray,
                  label_ids: Optional[np.ndarray], input_ids_system: Optional[np.ndarray]):
-        """Conversation assembly around continuous image embeddings.
+        """Conversation assembly around an image block.
 
-        ``images`` [B, N, D] gives only the image length N. Returns
-        (part1, part2, attention [B, max_seq_len] bool, labels)."""
-        if images.ndim != 3:
-            raise NotImplementedError("mmu_conv over discrete image ids is not ported yet")
+        ``images`` [B, N, D] (continuous embeddings) gives only the image
+        length N: returns (part1, part2, attention [B, max_seq_len] bool,
+        labels). ``images`` [B, N] (discrete ids, already in the unified
+        vocabulary) returns (part1 + images + part2, attention, labels)."""
         img_seq_len = images.shape[1]
         b = input_ids.shape[0]
         if label_ids is None:
@@ -174,9 +233,15 @@ class UniPrompting:
             head = [np.full_like(input_ids_system, IGNORE_ID)] + head
         labels = np.concatenate(head, axis=1)
         attn, _ = self._eos_scan(part2, part1.shape[1] + img_seq_len, self.max_seq_len)
+        if images.ndim == 2:
+            return np.concatenate([part1, images.astype(np.int64), part2], axis=1), attn, labels
         return part1, part2, attn, labels
 
     def __call__(self, inputs, task: str):
+        if task == "t2i":
+            return self.t2i_prompt(inputs[0], np.asarray(inputs[1]), np.asarray(inputs[2]))
+        if task == "lm":
+            return self.lm_prompt(inputs[0], inputs[1])
         if task == "t2i_gen":
             max_len = None if len(inputs) == 2 else inputs[2]
             return self.t2i_gen_prompt(inputs[0], np.asarray(inputs[1]), max_len)

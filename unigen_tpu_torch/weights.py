@@ -184,11 +184,12 @@ def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
             "layers": layers}
 
 
-def _map_tree(tree, fn):
+def map_tree(tree, fn):
+    """``fn`` of every leaf of a tree of dicts and lists (None leaves kept)."""
     if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
+        return {k: map_tree(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_tree(v, fn) for v in tree]
+        return [map_tree(v, fn) for v in tree]
     if tree is None:
         return None
     return fn(tree)
@@ -198,7 +199,7 @@ def magvit_from_jax(tree: Dict[str, Any], cfg: MagvitConfig, device="cpu",
                     dtype=None) -> Dict[str, Any]:
     """JAX ``magvit.init`` tree -> the port's encoder and decoder parameters (HWIO kept)."""
     dtype = dtype or cfg.dtype
-    return {part: _map_tree(tree[part], lambda a: to_tensor(a, device, dtype))
+    return {part: map_tree(tree[part], lambda a: to_tensor(a, device, dtype))
             for part in ("encoder", "decoder")}
 
 
@@ -424,6 +425,27 @@ def init_magvit(cfg: MagvitConfig, generator: torch.Generator, device,
     return {"encoder": enc, "decoder": p}
 
 
+_TOP_LEAVES = {"llm/embed": "llm/embed/weight", "llm/final_ln": "llm/final_ln/scale",
+               "llm/lm_head": "llm/lm_head/kernel", "gen_embed": "gen_embed/weight",
+               "img_head": "img_head/kernel"}
+
+
+def jax_leaf_path(path: str) -> str:
+    """A float UniGen leaf's ``/``-joined path in the port's tree (list
+    indices as numbers) -> the path of the JAX tree leaf it comes from, e.g.
+    ``llm/layers/3/q_b`` -> ``llm/layers/attn/q/bias``. The optimizer's
+    decay, freezing and lr-multiplier patterns match these paths, as JAX's
+    do."""
+    if path in _TOP_LEAVES:
+        return _TOP_LEAVES[path]
+    parts = path.split("/")
+    if len(parts) == 4 and parts[:2] == ["llm", "layers"] and parts[3] in _LAYER_LEAVES:
+        return "llm/layers/" + "/".join(_LAYER_LEAVES[parts[3]])
+    if len(parts) == 3 and parts[0] in ("gen_projector", "mm_projector") and parts[2] in ("w", "b"):
+        return f"{parts[0]}/{parts[1]}/{'kernel' if parts[2] == 'w' else 'bias'}"
+    raise KeyError(f"{path} is not a leaf of a float UniGen tree")
+
+
 def tree_to(tree, device) -> Any:
     """Move every tensor of a parameter tree to ``device``."""
-    return _map_tree(tree, lambda t: t.to(device))
+    return map_tree(tree, lambda t: t.to(device))
