@@ -73,6 +73,26 @@ read just after:
   FLOPs; exact launches a step (kernel 2 28 + 28 in the remat recompute,
   kernel 3 80 + 80 over both encodes); one step through kernel 2 against
   the same step through the plain attention;
+* ``sft``: SFT through the SFT entry's own run (``training.train_sft.SFTRun``)
+  on ``configs/unigen_1_5b/unigen_sft.yaml`` (synthetic flows, random init):
+  3 t2i + 1 lm rows of 1,603 tokens and 4 mmu rows of 3 + 729 + 64 = 796
+  through the frozen fp32 SigLIP tower, the separate mode (two backward
+  passes); 2 warm + 5 timed steps: s a step, samples/s, tokens/s, enqueue,
+  peak memory, model FLOPs; exact launches a step (kernel 2 in the tower and
+  in both calls with their remat recompute, kernel 3 in the t2i encode),
+  finite metrics, the frozen tower and VQ unchanged bit for bit, the
+  projector moved;
+* ``sft_packed``: the same config with ``max_seq_length=128`` (rows of 387
+  packed two a row into 7 rows of 796), the same prints and gates, one
+  step's losses and grad norm against the fused (left-padded) step in fp32
+  (rtol 2e-5), and a LoRA run (rank 16, all seven families) that moves only
+  the adapters and the projector, its peak memory beside full SFT's;
+* ``dpo``: DPO through the DPO entry's run on ``unigen_dpo.yaml`` (10 pairs of
+  387-token rows, the online reference, two fp32 encodes of 10), the same
+  prints; first the precomputed-reference step against the online one on 2
+  batches, bit for bit;
+* ``cotv_post_sft``: the SFT entry on ``unigen_cotv_post_sft.yaml`` (8 mmu rows
+  of 796, no remat, ``common_length`` None), the same prints and gates;
 * ``serve_entry``: ``python -m unigen_tpu_torch.serving.serve`` over
   ``configs/unigen_1_5b/unigen_sft.yaml`` (the flagship with the SigLIP
   tower, random init, read by the port's YAML reader) with speculation,
@@ -92,10 +112,15 @@ tiny serving engine with staggered admissions, an eot stop, a cancellation,
 the int8 cache and a shared prefix, token for token, and one of its decode
 chunks under CUDA's sync debug mode "error"; a tiny fp32 train step: losses,
 grad norm and gradients, and the card's AdamW on the CPU's gradients, then
-6 steps that lower the loss). Kernel 2's autograd function (the train
-step's attention) is held at PT2's [16, 835, 12, 128] with the step's bits:
-the forward against its plain version, dq, dk, dv bit-equal to the plain
-version's autograd, forward and backward timed beside SDPA's. The W8A8 epilogue is
+6 steps that lower the loss; the tiny fp32 SFT steps, separate and packed,
+and the DPO step the same way, then 6 DPO steps that learn the preference).
+Kernel 2's autograd function (the training steps' attention) is held at
+PT2's [16, 835, 12, 128] and at the post-training steps' [4, 1603], [4,
+796], [7, 796] (packed, segment bits) and [20, 387], with their bits: the
+forward against its plain version, dq, dk, dv bit-equal to the plain
+version's autograd, forward and backward timed beside SDPA's and their
+bounds; kernel 3's fp32 route is timed at the encoder's shapes at batches
+6, 3 and 10 (the PT2, SFT and DPO encodes). The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
@@ -116,7 +141,8 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,score,geneval,cot,dpg,
-image_serving,serving,serving_vqa,serving_http,serving_spec,serve_entry,train,tiny) runs a
+image_serving,serving,serving_vqa,serving_http,serving_spec,serve_entry,train,sft,
+sft_packed,dpo,cotv_post_sft,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -135,7 +161,7 @@ import time
 PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
           "understand_int8", "understand_discrete", "score", "geneval", "cot", "dpg",
           "image_serving", "serving", "serving_vqa", "serving_http", "serving_spec",
-          "serve_entry", "train", "tiny")
+          "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -182,9 +208,21 @@ SERVE_ENTRY_NEW = 48
 TRAIN_CONFIG = "configs/unigen_1_5b/unigen_pt2.yaml"
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 TRAIN_OUT = "output/chip_smoke_train"
+# the post-training phases: the stage configs at the flagship width, random
+# init, synthetic flows, no checkpoint written; steps warm and timed
+SFT_CONFIG = "configs/unigen_1_5b/unigen_sft.yaml"
+DPO_CONFIG = "configs/unigen_1_5b/unigen_dpo.yaml"
+COTV_CONFIG = "configs/unigen_1_5b/unigen_cotv_post_sft.yaml"
+PACKED_OVERRIDES = ("dataset.preprocessing.max_seq_length=128",)   # rows of 387: packed
+POST_OUT = "output/chip_smoke_post"
+STAGE_WARM, STAGE_TIMED = 2, 5
+COTV_WARM, COTV_TIMED = 1, 2
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
+
+
+TRAINING_PATHS = ("train", "sft", "sft_packed", "dpo", "cotv_post_sft")
 
 
 class Failed(Exception):
@@ -1136,6 +1174,35 @@ def run_kernel_phases(results):
     print(f"kernel 3 over the train step's two encodes (launches x ms at each shape): batch 8 "
           f"{per_encode[8]:.4f} ms + batch 6 {per_encode[6]:.4f} ms = "
           f"{per_encode[8] + per_encode[6]:.4f} ms")
+    run_post_training_kernel_phases(results, gen)
+
+
+def run_post_training_kernel_phases(results, gen):
+    """Kernel 2's autograd function at the post-training steps' shapes and
+    bits (``post_training_bits``) and kernel 3's fp32 route at the encoder's
+    7 shapes at batch 3 (the SFT step's t2i encode) and 10 (each of the DPO
+    step's two encodes), each held and timed as the PT2 rows are."""
+    import torch
+    print("phase: kernels at the post-training steps' attention (kernel 2's autograd function, "
+          "bf16)")
+    results["flash_attention_train"]["shapes"] = [
+        phase_flash_grad(gen, bits, 10 if bits.shape[1] < 1000 else 5, at)
+        for at, bits in post_training_bits().items()]
+    per_encode = {}
+    for b in (3, 10):
+        print(f"phase: kernels, kernel 3 at the encoder's 7 shapes at batch {b} (fp32: the "
+              f"{'SFT' if b == 3 else 'DPO'} step's encode)")
+        enc = [phase_conv(gen, b, hw, hw, c, cout, torch.float32, 1e-4, 10 if hw < 128 else 3,
+                          gn, part="encoder") for hw, c, cout, gn, _ in ENCODER_CONVS]
+        results["conv3x3_gn_swish"]["shapes"] += [{k: v for k, v in e.items() if k != "gn"}
+                                                  for e in enc]
+        results["gn_affine"]["shapes"] += [e["gn"] for e in enc]
+        per_encode[b] = sum(n * e["ms"] for (*_, n), e in zip(ENCODER_CONVS, enc))
+    results["conv3x3_gn_swish"].update(sft_encode_ms=per_encode[3],
+                                       dpo_encodes_ms=2 * per_encode[10])
+    print(f"kernel 3 (launches x ms at each shape) over the SFT step's encode (batch 3) "
+          f"{per_encode[3]:.4f} ms; over the DPO step's two encodes (batch 10) "
+          f"{2 * per_encode[10]:.4f} ms")
 
 
 def train_config(*extra):
@@ -1172,22 +1239,21 @@ def train_bits(config, device="cuda"):
                                      M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi)))
 
 
-def phase_flash_train(gen, iters):
-    """Kernel 2 as the train step calls it: the autograd function at PT2's
-    [16, 835, 12, 128] with the step's t2i / lm / mmu bits, bf16. Forward
-    within 2^-7 of the plain version; dq, dk, dv bit-equal to the plain
-    version's autograd (the backward is its dense recompute). Times the
-    forward, forward + backward (backward = the difference) of the kernel's
-    function, the plain version and SDPA (with the dense mask); the bound
-    counts the least work of both: 4 h dh per visible pair forward, 8
-    backward (dV, dP, dQ, dK), the inputs, dO and the bits read once, the
-    output and dq, dk, dv written once."""
+def phase_flash_grad(gen, bits, iters, at):
+    """Kernel 2 as the training steps call it: the autograd function at
+    [B, L, 12, 128] with a step's ``bits``, bf16. Forward within 2^-7 of the
+    plain version; dq, dk, dv bit-equal to the plain version's autograd (the
+    backward is its dense recompute). Times the forward, forward + backward
+    (backward = the difference) of the kernel's function, the plain version
+    and SDPA (with the dense mask); the bounds count the least work: 4 h dh
+    per visible pair forward, 8 backward (dV, dP, dQ, dK), 12 both; the
+    forward reads q, k, v and the bits and writes the output, the backward
+    reads q, k, v, dO and the bits and writes dq, dk, dv, both together
+    read and write each once."""
     import torch
     from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     import torch.nn.functional as F
-    print("phase: kernels at the train step's attention (kernel 2's autograd function, bf16)")
-    bits = train_bits(train_config())
     b, l = bits.shape
     h, kvh, dh = 12, 2, 128
     q, k, v = (t.requires_grad_(True) for t in _attn_inputs(gen, b, l, l, h, kvh, dh,
@@ -1200,10 +1266,10 @@ def phase_flash_train(gen, iters):
     torch.cuda.synchronize()
     err, tol = _err_tol(out.detach(), ref.detach(), 2 ** -7)
     equal = all(torch.equal(a, r) for a, r in zip(dq, dr))
-    print(f"  flash_attention train q{list(q.shape)} t2i/lm/mmu bits: forward max_abs_err "
-          f"{err:.3e} (tol {tol:.2e}); dq, dk, dv bit-equal to the plain version's: {equal}")
-    check(err <= tol and bool(torch.isfinite(out).all()), "train flash forward disagrees")
-    check(equal, "train flash backward differs from the plain version's autograd")
+    print(f"  flash_attention {at} q{list(q.shape)}: forward max_abs_err {err:.3e} (tol "
+          f"{tol:.2e}); dq, dk, dv bit-equal to the plain version's: {equal}")
+    check(err <= tol and bool(torch.isfinite(out).all()), f"{at} flash forward disagrees")
+    check(equal, f"{at} flash backward differs from the plain version's autograd")
     vis = M.unpack_meta(bits).visibility()
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     gt = g.transpose(1, 2)
@@ -1221,18 +1287,26 @@ def phase_flash_train(gen, iters):
     lib_all = time_ms(both(sdpa, (qt, kt, vt), gt), iters)
     pairs = attn_flops(vis, h, kvh, dh) / 4.0
     b_ms, by = bound(12.0 * pairs, 2 * nbytes(q, k, v, out) + nbytes(g, bits), BF16_PEAK)
-    print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}, sdpa {lib_fwd:.4f}); backward ms "
-          f"{all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f}, sdpa "
-          f"{lib_all - lib_fwd:.4f}); forward + backward ms {all_ms:.4f} (plain {plain_all:.4f}, "
-          f"sdpa {lib_all:.4f}); bound_ms {b_ms:.4f} ({by})")
-    row = _measured(err, all_ms, plain_all, lib_all, b_ms, by,
-                    f"train step q [{b},{l},{h},{dh}], t2i/lm/mmu bits, forward + backward")
     fwd_bound = bound(4.0 * pairs, nbytes(q, k, v, out, bits), BF16_PEAK)[0]
+    bwd_bound, bwd_by = bound(8.0 * pairs, 2 * nbytes(q, k, v) + nbytes(g, bits), BF16_PEAK)
+    print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}, sdpa {lib_fwd:.4f}, bound "
+          f"{fwd_bound:.4f}); backward ms {all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f},"
+          f" sdpa {lib_all - lib_fwd:.4f}, bound {bwd_bound:.4f} ({bwd_by})); forward + backward "
+          f"ms {all_ms:.4f} (plain {plain_all:.4f}, sdpa {lib_all:.4f}); bound_ms {b_ms:.4f} ({by})")
+    row = _measured(err, all_ms, plain_all, lib_all, b_ms, by,
+                    f"{at} q [{b},{l},{h},{dh}], forward + backward")
     row.update(forward_ms=fwd_ms, backward_ms=all_ms - fwd_ms, plain_forward_ms=plain_fwd,
                plain_backward_ms=plain_all - plain_fwd, library_forward_ms=lib_fwd,
                library_backward_ms=lib_all - lib_fwd, forward_bound_ms=fwd_bound,
-               backward_bit_equal=equal)
+               backward_bound_ms=bwd_bound, backward_bound_by=bwd_by, backward_bit_equal=equal)
     return row
+
+
+def phase_flash_train(gen, iters):
+    """Kernel 2's autograd function at PT2's [16, 835, 12, 128] with the
+    step's t2i / lm / mmu bits (``phase_flash_grad``)."""
+    print("phase: kernels at the train step's attention (kernel 2's autograd function, bf16)")
+    return phase_flash_grad(gen, train_bits(train_config()), iters, "train step, t2i/lm/mmu bits")
 
 
 def run_slice_kernel_phases(results):
@@ -3361,38 +3435,37 @@ def _train_step_flops(trainer, bits):
     return 3 * fwd, 4 * fwd
 
 
-def _train_profile(trainer, batch, generator, warm_s):
-    """One more profiled step: device busy and idle share, time by kernel and
-    family (``profile_run``), then the device time inside the annotated
-    parts: the two encodes (``magvit.get_code``), kernel 2's forward
-    launches and its backward (the dense recompute), the chunked CE's
-    chunks (forward and recompute; their backward runs in autograd's
-    engine, outside the annotation) and the optimizer update."""
+def _train_profile(step_once, tx, warm_s):
+    """One more profiled training step (``step_once()``): device busy and idle
+    share, time by kernel and family (``profile_run``), then the device time
+    inside the annotated parts: the encodes (``magvit.get_code``), the SigLIP
+    tower, kernel 2's forward launches and its backward (the dense
+    recompute), the chunked CE's chunks (forward and recompute; their
+    backward runs in autograd's engine, outside the annotation) and the
+    optimizer update."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from unigen_tpu_torch.models import magvit, unigen
+    from unigen_tpu_torch.models import magvit, siglip, unigen
     from unigen_tpu_torch.ops import flash_attention as FA
-    from unigen_tpu_torch.training import train_step as TS
 
     def annotated(name, fn):
         def wrapped(*a, **kw):
             with record_function(f"train::{name}"):
                 return fn(*a, **kw)
         return wrapped
-    patches = [(TS.magvit, "get_code", "encode"), (FA, "flash_attention_launch", "attention fwd"),
-               (unigen, "_chunk_label_logps", "chunked CE"),
-               (trainer.tx, "update", "optimizer")]
+    patches = [(magvit, "get_code", "encode"), (siglip, "forward", "tower"),
+               (FA, "flash_attention_launch", "attention fwd"),
+               (unigen, "_chunk_label_logps", "chunked CE"), (tx, "update", "optimizer")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
     real_bwd = FA._FlashAttention.backward
     try:
         for obj, attr, name in patches:
             setattr(obj, attr, annotated(name, getattr(obj, attr)))
         FA._FlashAttention.backward = staticmethod(annotated("attention bwd", real_bwd))
-        profile_run(lambda: trainer.step_fn(trainer.state, trainer.vq_params, batch, generator),
-                    warm_s)
+        profile_run(step_once, warm_s)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.step_fn(trainer.state, trainer.vq_params, batch, generator)
+            step_once()
             torch.cuda.synchronize()
     finally:
         for obj, attr, fn in saved:
@@ -3538,7 +3611,8 @@ def run_train(results, profile=False):
     check(all(rel[k] <= 1e-2 for k in ("loss_t2i", "loss_lm", "loss_mmu")) and
           rel["grad_norm"] <= 5e-2, f"the kernel step and the plain step differ: {rel}")
     if profile:
-        _train_profile(trainer, batch, gen, med)
+        _train_profile(lambda: trainer.step_fn(trainer.state, trainer.vq_params, batch, gen),
+                       trainer.tx, med)
     del trainer
     torch.cuda.empty_cache()
     return {k: v for k, v in counts.items()}
@@ -3642,6 +3716,559 @@ def run_tiny_train():
           f"tiny training on the card did not lower the loss: {losses}")
 
 
+# ---------------------------------------------------------------------------
+# post-training: SFT, packed SFT, DPO, CoT-V post-SFT
+# ---------------------------------------------------------------------------
+
+def stage_config(path, *extra):
+    """A post-training stage's config with the phases' overrides (no edit of
+    the file): synthetic flows, no checkpoint, its own output directory."""
+    from unigen_tpu_torch.utils.configuration import initialize_config
+    return initialize_config(path, ["dataset.synthetic=true", "experiment.save_every=0",
+                                    f"experiment.output_dir={POST_OUT}", *extra])
+
+
+def sft_forward_bits(step, batch):
+    """[(bits, head positions)] of each backbone call of one SFT step in its
+    mode, from the batch's templates (the image blocks' codes never equal a
+    pad, soi or eoi id, so the templates give the step's bits): separate, the
+    t2i + lm call and the mmu call; packed, one call over the packed rows."""
+    from unigen_tpu_torch.ops import masks as M
+    tc, n = step.tcfg, step.cfg.num_vq_tokens
+    bt, bl, bm = tc.batch_size_t2i, tc.batch_size_lm, tc.batch_size_mmu
+    p_tokens = (step.vision_cfg.image_size // step.vision_cfg.patch_size) ** 2
+    lm_len = batch["mmu_labels"].shape[1]
+    mmu = M.mmu_vit_attn_meta(bm, lm_len, num_tokens=p_tokens,
+                              prefix_length=batch["mmu_part1"].shape[1],
+                              prompt_len=batch["mmu_prompt_len"]) if bm else None
+
+    def t2i_meta(ids):
+        return M.t2i_attn_meta(ids, tc.pad_id, tc.soi_id, tc.eoi_id)
+
+    def lm_meta(ids):
+        return M.lm_attn_meta(ids, tc.pad_id)
+    if step.mode == "packed":
+        metas, head, rows = [], 0, 0
+        for rows_, key, fn in ((bt, "t2i", t2i_meta), (bl, "lm", lm_meta)):
+            if rows_:
+                ids = batch["t2i_template" if key == "t2i" else "lm_ids"]
+                labels = batch["t2i_labels" if key == "t2i" else "lm_labels"]
+                ids_p, _, meta_p, _ = step._pack(ids, labels, fn)
+                metas.append(meta_p)
+                head += ids_p.shape[0] * (lm_len if key == "t2i" else lm_len - 1)
+        return [(M.pack_meta(M.concat_meta(*metas, mmu)), head + bm * (lm_len - 1))]
+    calls = []
+    if bt or bl:
+        tl = [fn(batch[k]) for rows_, k, fn in ((bt, "t2i_template", t2i_meta),
+                                                (bl, "lm_ids", lm_meta)) if rows_]
+        length = (batch["t2i_template"] if bt else batch["lm_ids"]).shape[1]
+        calls.append((M.pack_meta(M.concat_meta(*tl)), bt * n + bl * (length - 1)))
+    if bm:
+        calls.append((M.pack_meta(mmu), bm * (lm_len - 1)))
+    return calls
+
+
+def _sft_step_for(config):
+    """The SFT entry's host batch and step for ``config``'s first synthetic
+    batch, without weights (the configs only): for the kernel phases' bits."""
+    import dataclasses as dc
+    import torch
+    from unigen_tpu_torch.launch import (build_prompting_from_config, build_unigen_config,
+                                         load_tokenizer, vision_tower_config)
+    from unigen_tpu_torch.models.magvit import MagvitConfig
+    from unigen_tpu_torch.training import sft as SFT
+    from unigen_tpu_torch.training.train_sft import host_batch, synthetic_batches
+    pr = build_prompting_from_config(config, load_tokenizer(config))
+    vs = vision_tower_config(config)
+    tr = config.training
+    host = host_batch(pr, config.model.unigen.num_vq_tokens, vs, 0,
+                      next(synthetic_batches(config, pr, vs)))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    common = batch["mmu_labels"].shape[1]
+    common = common if common >= max(batch["t2i_template"].shape[1],
+                                     batch["lm_ids"].shape[1]) else None
+    tcfg = SFT.SFTStepConfig(tr.batch_size_t2i, tr.batch_size_lm, tr.batch_size_mmu,
+                             pad_id=pr.pad_id, soi_id=pr.sptids_dict["<|soi|>"],
+                             eoi_id=pr.sptids_dict["<|eoi|>"], common_length=common)
+    step = SFT.SFTStep(build_unigen_config(config, pr), MagvitConfig(), vs, None, tcfg)
+    return step, batch
+
+
+def post_training_bits():
+    """The kernel-2 bits of the post-training steps, from the entries' own
+    host assembly of their first synthetic batch: the SFT step's t2i + lm
+    call [4, 1603] and its mmu call [4, 796] (mmu_vit bits; two rows here
+    with a shorter prompt_len than the path's 796, for their pads), the
+    packed SFT step's [7, 796] (``max_seq_length=128``: 2 t2i segments a
+    row, segment ids in bits 3 and up; the lm row; the 4 mmu rows) and the
+    DPO step's [20, 387] (the 10 pairs' t2i bits)."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_prompting_from_config, load_tokenizer
+    from unigen_tpu_torch.ops import masks as M
+    step, batch = _sft_step_for(stage_config(SFT_CONFIG))
+    (tl, _), (mmu, _) = sft_forward_bits(step, batch)
+    plen = batch["mmu_prompt_len"].clone()
+    plen[-2:] -= torch.tensor([36, 55], device="cuda")
+    short = M.pack_meta(M.mmu_vit_attn_meta(plen.shape[0], mmu.shape[1],
+                                            num_tokens=step.vision_cfg.num_patches,
+                                            prefix_length=3, prompt_len=plen))
+    packed_step, packed_batch = _sft_step_for(stage_config(SFT_CONFIG, *PACKED_OVERRIDES))
+    check(packed_step.mode == "packed", f"packed SFT runs {packed_step.mode}")
+    ((packed, _),) = sft_forward_bits(packed_step, packed_batch)
+    config = stage_config(DPO_CONFIG)
+    pr = build_prompting_from_config(config, load_tokenizer(config))
+    b = config.training.batch_size_t2i
+    zeros = np.zeros((b, config.model.unigen.num_vq_tokens), np.int64)
+    ids, _, _ = pr((["a red cat"] * b, zeros, zeros), "t2i")
+    ids = torch.as_tensor(np.concatenate([ids, ids]), device="cuda")
+    dpo = M.pack_meta(M.t2i_attn_meta(ids, pr.pad_id, pr.sptids_dict["<|soi|>"],
+                                      pr.sptids_dict["<|eoi|>"]))
+    return {"SFT step t2i/lm bits": tl, "SFT step mmu_vit bits, prompt_len "
+            f"{plen.tolist()}": short, "packed SFT step, segment bits": packed,
+            "DPO step t2i bits": dpo}
+
+
+def _stage_flops(params, cfg, calls):
+    """Forward FLOPs of ``calls`` ([(bits, head positions)] backbone calls):
+    2 N a token (N the non-embedding parameters), 2 D V a head position and
+    4 h dh a visible (query, key) pair in each layer."""
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    body = sum(t.numel() for p, t in named_leaves(params) if p.startswith("llm/layers/"))
+    c = cfg.llm
+    total = 0.0
+    for bits, head in calls:
+        vis = M.unpack_meta(bits).visibility().sum().item()
+        total += (2.0 * body * bits.numel() + 2.0 * head * c.hidden_size * cfg.vocab_size
+                  + 4.0 * c.num_attention_heads * c.head_dim * vis * c.num_hidden_layers)
+    return total
+
+
+def _timed_steps(run):
+    """``run.step`` wrapped: each call synchronised before and after, its
+    wall, enqueue time, metrics and launch counts recorded."""
+    import torch
+    records, real = [], run.step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        before = _read_counts()
+        t0 = time.perf_counter()
+        out = real(*args)
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _read_counts()
+        records.append(dict(seconds=dt, enqueue_s=enqueued, metrics=out[1],
+                            counts={k: after[k] - before[k] for k in after}))
+        return out
+    run.step = timed
+    return records, real
+
+
+def _snapshot(tree, keep=lambda p: True):
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    return {p: t.detach().clone() for p, t in named_leaves(tree) if keep(p)}
+
+
+def _moved(before, tree):
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    now = dict(named_leaves(tree))
+    return {p: int((now[p].detach() != t).sum()) for p, t in before.items()}
+
+
+def run_stage(results, name, run, warm, timed, per_step, tokens, flops, resident,
+              projector=True, profile_step=None):
+    """Drives ``run.train`` (the entry's loop) for warm + timed steps, each
+    synchronised and timed, with the launch counts set to 0 just before and
+    read just after. Gates: launches exact a step, finite losses and grad
+    norms, the frozen tower and VQ unchanged bit for bit, with ``projector``
+    the projector moved (its zero-initialised biases: in bf16 a warm-up's
+    first updates are below half an ulp of its weights). Prints s a step,
+    samples/s, tokens/s, enqueue, peak memory, model FLOPs a step."""
+    import statistics
+    import torch
+    steps = warm + timed
+    frozen = {"vq": _snapshot(run.vq_params)}
+    if getattr(run, "vs_params", None) is not None:
+        frozen["tower"] = _snapshot(run.vs_params)
+    proj = _snapshot(run.state.params, lambda p: p.startswith("mm_projector"))
+    records, real = _timed_steps(run)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    run.step = real
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(len(records) == steps, f"{name}: {len(records)} steps, not {steps}")
+    check(counts == {k: steps * v for k, v in per_step.items()},
+          f"{name} launch counts {counts} != {steps} x {per_step}")
+    for i, r in enumerate(records):
+        m = {k: float(v) for k, v in r["metrics"].items()}
+        print(f"  step {i + 1}: {r['seconds']:.4f} s ({r['enqueue_s']:.4f} s to enqueue), "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        check(r["counts"] == per_step, f"{name} step {i + 1} launches {r['counts']} != {per_step}")
+        check(all(math.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              f"{name} step {i + 1} metrics {m}")
+    for part, before in frozen.items():
+        changed = {p: n for p, n in _moved(before, getattr(
+            run, "vq_params" if part == "vq" else "vs_params")).items() if n}
+        check(not changed, f"{name}: the frozen {part} changed: {changed}")
+    moved = _moved(proj, run.state.params)
+    print(f"  the frozen tower and VQ unchanged bit for bit; mm_projector elements moved: {moved}")
+    check(not projector or any(moved.values()), f"{name}: the projector did not move: {moved}")
+    times = [r["seconds"] for r in records[warm:]]
+    med = statistics.median(times)
+    rows = sum(run.config.training.get(k, 0) for k in ("batch_size_t2i", "batch_size_lm",
+                                                       "batch_size_mmu"))
+    enq = statistics.median(r["enqueue_s"] for r in records[warm:])
+    print(f"  timed steps: median {med:.4f} s (min {min(times):.4f}, max {max(times):.4f}); "
+          f"{rows / med:.4f} samples/s, {tokens / med:.1f} tokens/s ({tokens} backbone tokens a "
+          f"step); host enqueue median {enq:.4f} s; peak memory {peak / 2 ** 30:.2f} GiB over the "
+          f"{resident / 2 ** 30:.2f} GiB that earlier phases hold; train() wall {wall:.3f} s")
+    print(f"  model FLOPs a step {flops / 1e12:.2f} T ({flops / med / 989e12:.4f} of 989 TFLOP/s, "
+          f"a diagnostic); per step launches {per_step}")
+    results[name] = dict(step_s=med, step_min_s=min(times), step_max_s=max(times),
+                         samples_per_s=rows / med, tokens_per_s=tokens / med, enqueue_s=enq,
+                         peak_gib=peak / 2 ** 30, model_tflops=flops / 1e12)
+    if profile_step is not None:
+        _train_profile(profile_step, run.tx, med)
+    return counts
+
+
+def _sft_run(*extra, config_path=None):
+    """The SFT entry's run (``train_sft.SFTRun``) of a stage config, its step
+    resolved from the first synthetic batch as the entry does."""
+    import torch
+    from unigen_tpu_torch.training.train_sft import SFTRun
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run = SFTRun(stage_config(config_path or SFT_CONFIG, *extra))
+    batch = run.device_batch(next(run.batches()))
+    run.resolve_step(batch)
+    torch.cuda.synchronize()
+    print(f"  SFTRun {time.perf_counter() - t0:.2f} s; mode {run.step.mode}, common_length "
+          f"{run.common_length}, rows {[tuple(batch[k].shape) for k in ('t2i_template', 'lm_ids', 'mmu_labels')]}")
+    return run, batch, resident
+
+
+def _sft_per_step(run):
+    """Exact launches of one SFT step, from the code: kernel 2 in the tower
+    (one a layer, forward only), in the backbone (one a layer a call, twice
+    with remat: the recompute); kernel 3 and its statistics 40 each a t2i
+    encode (ENCODER_CONVS)."""
+    tc, layers = run.tcfg, run.cfg.llm.num_hidden_layers
+    calls = 1 if run.step.mode != "separate" else (
+        (tc.batch_size_t2i > 0 or tc.batch_size_lm > 0) + (tc.batch_size_mmu > 0))
+    recompute = calls * layers if tc.remat else 0
+    tower = run.vs_cfg.num_layers_used if tc.batch_size_mmu else 0
+    convs = sum(n for *_, n in ENCODER_CONVS) if tc.batch_size_t2i else 0
+    print(f"  launches a step from the code: kernel 2 {calls * layers} forward ({calls} backbone "
+          f"call(s) x {layers} layers) + {recompute} remat recompute + {tower} SigLIP; kernel 3 and "
+          f"its statistics {convs} each (the t2i encode)")
+    return dict(NO_LAUNCHES, flash_attention=calls * layers + recompute + tower,
+                conv3x3_gn_swish=convs, gn_affine=convs)
+
+
+def _sft_stage(results, name, warm, timed, *extra, config_path=None, profile=False):
+    run, batch, resident = _sft_run(f"training.max_train_steps={warm + timed}", *extra,
+                                    config_path=config_path)
+    calls = sft_forward_bits(run.step, batch)
+    flops = 3 * _stage_flops(run.state.params, run.cfg, calls)
+    tokens = sum(bits.numel() for bits, _ in calls)
+
+    def one_step():
+        run.state, _ = run.step(run.state, run.vq_params, run.vs_params, batch, run.generator)
+    counts = run_stage(results, name, run, warm, timed, _sft_per_step(run), tokens, flops,
+                       resident, profile_step=one_step if profile else None)
+    return run, batch, counts
+
+
+def run_sft(results, profile=False):
+    """SFT at the flagship width through the SFT entry (``unigen_sft.yaml``:
+    3 t2i + 1 lm rows of 1,603 tokens, 4 mmu rows of 3 + 729 + 64 = 796;
+    ``common_length`` None: the separate mode, two backward passes a step)."""
+    import torch
+    print(f"phase: sft ({SFT_CONFIG}: Qwen2.5-1.5B + the frozen SigLIP-SO400M and MAGViTv2, "
+          f"random init, bf16 params and AdamW state, remat; {STAGE_WARM} warm + {STAGE_TIMED} "
+          "timed steps)")
+    run, _, counts = _sft_stage(results, "sft", STAGE_WARM, STAGE_TIMED, profile=profile)
+    check(run.step.mode == "separate", f"sft runs {run.step.mode}")
+    del run
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_sft_packed(results, profile=False):
+    """SFT with ``max_seq_length=128``: t2i and lm rows of 387, packed 2 a
+    row into the mmu length 796 (``loss_packed``: 7 rows). Gates beside
+    ``run_stage``'s: one step's losses and grad norm against ``loss_fused``
+    on the same batch and draws, in fp32 at rtol 2e-5 (JAX's
+    test_sft_common_length_matches_separate) and printed in bf16; a LoRA
+    step (rank 16 on all seven families), where only the adapters' a and b
+    and the projector move."""
+    import dataclasses as dc
+    import torch
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.training import sft as SFT
+    from unigen_tpu_torch.training.optimizer import global_norm
+    from unigen_tpu_torch.weights import map_tree
+    print(f"phase: sft_packed ({SFT_CONFIG} with {', '.join(PACKED_OVERRIDES)}; "
+          f"{STAGE_WARM} warm + {STAGE_TIMED} timed steps)")
+    run, batch, counts = _sft_stage(results, "sft_packed", STAGE_WARM, STAGE_TIMED,
+                                    *PACKED_OVERRIDES, profile=profile)
+    check(run.step.mode == "packed", f"sft_packed runs {run.step.mode}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    draws = MK.draw_masking(gen, run.tcfg.batch_size_t2i, run.cfg.num_vq_tokens,
+                            codebook_size=run.cfg.codebook_size, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dc.replace(run.cfg, llm=dc.replace(run.cfg.llm, dtype=dtype))
+        params = map_tree(run.state.params, lambda t: t.detach().to(dtype).requires_grad_(True))
+        got = {}
+        for pack in (True, False):
+            step = SFT.SFTStep(cfg, run.vq_cfg, run.vs_cfg, run.tx,
+                               dc.replace(run.step.tcfg, pack_rows=pack))
+            grads, m = step.loss_and_grads(params, run.vq_params, run.vs_params, batch, draws)
+            m["grad_norm"] = global_norm([g for g in grads if g is not None])
+            got[step.mode] = {k: float(v) for k, v in m.items()}
+            del grads
+        rel = {k: abs(got["packed"][k] - got["fused"][k]) / max(abs(got["fused"][k]), 1e-30)
+               for k in got["fused"]}
+        print(f"  one step, {dtype}: packed {got['packed']}, fused {got['fused']}; relative "
+              f"differences {rel}" + (" (need <= 2e-5)" if dtype == torch.float32 else
+                                      " (not gated)"))
+        if dtype == torch.float32:
+            check(all(v <= 2e-5 for v in rel.values()), f"packed vs fused in fp32: {rel}")
+        del params
+        torch.cuda.empty_cache()
+    full_peak = results["sft_packed"]["peak_gib"]
+    del run
+    torch.cuda.empty_cache()
+    print("phase: sft_packed, a LoRA step (model.lora.rank=16, all seven families, "
+          "1 warm + 2 timed steps)")
+    lora, lbatch, resident = _sft_run(f"training.max_train_steps=3", "model.lora.rank=16",
+                                      *PACKED_OVERRIDES)
+    before = _snapshot(lora.state.params)
+    calls = sft_forward_bits(lora.step, lbatch)
+    lora_counts = run_stage(results, "sft_lora", lora, 1, 2, _sft_per_step(lora),
+                            sum(b.numel() for b, _ in calls),
+                            3 * _stage_flops(lora.state.params, lora.cfg, calls), resident)
+    moved = {p: n for p, n in _moved(before, lora.state.params).items() if n}
+    allowed = [p for p in moved if not (p.endswith(("_lora_a", "_lora_b"))
+                                        or p.startswith("mm_projector"))]
+    print(f"  LoRA: {len(moved)} leaves moved, {sum(p.endswith('_lora_b') for p in moved)} of "
+          f"them lora_b, {sum(p.endswith('_lora_a') for p in moved)} lora_a; peak "
+          f"{results['sft_lora']['peak_gib']:.2f} GiB against full SFT's {full_peak:.2f} GiB")
+    check(not allowed and any(p.endswith("_lora_b") for p in moved),
+          f"LoRA moved leaves it does not train: {allowed[:5]}")
+    del lora
+    torch.cuda.empty_cache()
+    return {k: counts[k] + lora_counts[k] for k in counts}
+
+
+def run_cotv_post_sft(results, profile=False):
+    """CoT-V post-SFT (``unigen_cotv_post_sft.yaml``: 8 mmu rows of 796, no
+    remat, ``common_length`` None) through the SFT entry."""
+    import torch
+    print(f"phase: cotv_post_sft ({COTV_CONFIG}; {COTV_WARM} warm + {COTV_TIMED} timed steps)")
+    run, _, counts = _sft_stage(results, "cotv_post_sft", COTV_WARM, COTV_TIMED,
+                                config_path=COTV_CONFIG, profile=profile)
+    check(run.step.mode == "separate" and run.common_length is None,
+          f"cotv_post_sft runs {run.step.mode}")
+    del run
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_dpo(results, profile=False):
+    """DPO through the DPO entry (``unigen_dpo.yaml``: 10 pairs, rows of
+    387, the online reference, remat). First a gate on 2 batches: the
+    ``precomputed_ref`` step (the references from ``make_ref_logps_fn``)
+    against the online step, losses and updated parameters bit for bit
+    (within 1e-6 where not, which is printed); then the timed run."""
+    import dataclasses as dc
+    import torch
+    from unigen_tpu_torch.training import dpo as D
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    from unigen_tpu_torch.training.sft import init_sft_state
+    from unigen_tpu_torch.training.train_dpo import DPORun
+    print(f"phase: dpo ({DPO_CONFIG}: 10 pairs of 387-token rows, the online reference, remat; "
+          f"{STAGE_WARM} warm + {STAGE_TIMED} timed steps)")
+    resident = torch.cuda.memory_allocated()
+    run = DPORun(stage_config(DPO_CONFIG, f"training.max_train_steps={STAGE_WARM + STAGE_TIMED}"))
+    two = list(itertools.islice(run.step_schedule(), 2))
+    online, online_m = run.state, []
+    for batch, draws in two:
+        online, m = run.step(online, run.ref_params, run.vq_params, batch, draws)
+        online_m.append(m)
+    dcfg = dc.replace(run.dcfg, precomputed_ref=True)
+    ref_fn = D.make_ref_logps_fn(run.cfg, run.vq_cfg, dcfg)
+    refs = [ref_fn(run.ref_params, run.vq_params, b, d) for b, d in two]
+    pre_step = D.make_dpo_step(run.cfg, run.vq_cfg, run.tx, dcfg)
+    pre = init_sft_state(run.ref_params, run.tx)
+    pre_m = []
+    for (batch, draws), r in zip(two, refs):
+        pre, m = pre_step(pre, None, run.vq_params, {**batch, **r}, draws)
+        pre_m.append(m)
+    diff = max(max(abs(float(a[k]) - float(b[k])) for k in a) for a, b in zip(pre_m, online_m))
+    pdiff = max((x.detach().float() - y.detach().float()).abs().max().item()
+                for (_, x), (_, y) in zip(named_leaves(pre.params), named_leaves(online.params)))
+    equal = diff == 0 and pdiff == 0
+    print(f"  precomputed reference vs online on 2 batches: metrics max difference {diff:.3e}, "
+          f"parameters {pdiff:.3e} (bit-equal: {equal}; else need <= 1e-6)")
+    check(diff <= 1e-6 and pdiff <= 1e-6, f"precomputed vs online DPO: {diff}, {pdiff}")
+    del pre, online, refs
+    run.state = init_sft_state(run.ref_params, run.tx)
+    torch.cuda.empty_cache()
+    b, n = run.config.training.batch_size_t2i, run.cfg.num_vq_tokens
+    bits = two[0][0]["template"]
+    from unigen_tpu_torch.ops import masks as M
+    bits = M.pack_meta(M.t2i_attn_meta(torch.cat([bits, bits]), run.dcfg.pad_id,
+                                       run.dcfg.soi_id, run.dcfg.eoi_id))
+    fwd = _stage_flops(run.state.params, run.cfg, [(bits, 2 * b * n)])
+    layers = run.cfg.llm.num_hidden_layers
+    convs = 2 * sum(k for *_, k in ENCODER_CONVS)
+    recompute = layers if run.dcfg.remat else 0
+    print(f"  launches a step from the code: kernel 2 {layers} reference forward + {layers} policy "
+          f"forward + {recompute} remat recompute; kernel 3 and its statistics {convs} each (the "
+          "chosen and the rejected encode)")
+    per_step = dict(NO_LAUNCHES, flash_attention=2 * layers + recompute,
+                    conv3x3_gn_swish=convs, gn_affine=convs)
+    profile_batch = two[0]
+
+    def one_step():
+        run.state, _ = run.step(run.state, run.ref_params, run.vq_params, *profile_batch)
+    counts = run_stage(results, "dpo", run, STAGE_WARM, STAGE_TIMED, per_step, bits.numel(),
+                       4 * fwd, resident, projector=False,
+                       profile_step=one_step if profile else None)
+    del run
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_tiny_post_training():
+    """The tiny fp32 SFT (separate and packed) and DPO steps on the card
+    against the CPU, the same weights, batch and masking draws: losses,
+    the grad norm and the gradients within 1e-4 (relative; of the largest
+    gradient), the card's AdamW on the CPU's gradients within 1e-5 of each
+    leaf's largest magnitude (Adam's first step is not held across devices:
+    ``run_tiny_train``). Then 6 tiny DPO steps on the card raise the reward
+    accuracy or lower the loss."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.training import dpo as D
+    from unigen_tpu_torch.training import lr_schedules as LRS
+    from unigen_tpu_torch.training import sft as SFT
+    from unigen_tpu_torch.training.optimizer import global_norm, make_optimizer, named_leaves
+    print("phase: tiny fp32 SFT (separate, packed) and DPO steps, the card vs the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision=True)
+    gpu = cpu.to("cuda")
+    sp, n = cpu.prompting.sptids_dict, cpu.cfg.num_vq_tokens
+    pad, soi, eoi = cpu.prompting.pad_id, sp["<|soi|>"], sp["<|eoi|>"]
+    rng = np.random.default_rng(0)
+    length, bt, bl, bm = 28, 2, 1, 2
+    p_tokens = cpu.vision_cfg.num_patches
+    mmu_len = 3 + p_tokens + 50
+    t2i = rng.integers(3, 100, size=(bt, length))
+    t2i[:, -n - 2], t2i[:, -1], t2i[:, -n - 1:-1] = soi, eoi, 0
+    t2i[1, :2] = pad
+    mmu_labels = np.full((bm, mmu_len), -100)
+    mmu_labels[:, -6:] = rng.integers(3, 100, size=(bm, 6))
+    res, vres = cpu.vq_cfg.resolution, cpu.vision_cfg.image_size
+    host = {"t2i_template": t2i, "t2i_labels": np.full((bt, length), -100),
+            "t2i_pixels": rng.normal(size=(bt, res, res, 3)).astype(np.float32),
+            "lm_ids": rng.integers(3, 100, size=(bl, length)),
+            "lm_labels": rng.integers(3, 100, size=(bl, length)),
+            "mmu_part1": rng.integers(3, 100, size=(bm, 3)),
+            "mmu_part2": rng.integers(3, 100, size=(bm, 50)), "mmu_labels": mmu_labels,
+            "mmu_pixels": rng.normal(size=(bm, vres, vres, 3)).astype(np.float32),
+            "mmu_prompt_len": np.array([mmu_len, mmu_len - 2])}
+    draws = MK.draw_masking(torch.Generator().manual_seed(0), bt, n,
+                            codebook_size=cpu.cfg.codebook_size)
+
+    def on(device, tree):
+        return {k: torch.as_tensor(v, device=device) for k, v in tree.items()}
+
+    def compare(name, make, run_grads):
+        sides = {}
+        for device, pipe in (("cpu", cpu), ("cuda", gpu)):
+            tx = make_optimizer(pipe.params, 1e-3, LRS.get_scheduler("constant"),
+                                max_grad_norm=1.0)
+            state = SFT.init_sft_state(pipe.params, tx)
+            _reset_counts()
+            grads, m = run_grads(make(pipe, tx), state, pipe, device)
+            m["grad_norm"] = global_norm([g for g in grads if g is not None])
+            sides[device] = (tx, state, grads, {k: float(v) for k, v in m.items()},
+                             dict(_read_counts()))
+        (c_tx, c_state, c_g, c_m, _), (g_tx, g_state, g_g, g_m, counts) = \
+            sides["cpu"], sides["cuda"]
+        rel = {k: abs(g_m[k] - c_m[k]) / max(abs(c_m[k]), 1e-30) for k in c_m}
+        gmax = max(g.abs().max().item() for g in c_g if g is not None)
+        gerr = max((a.cpu() - b).abs().max().item() for a, b in zip(g_g, c_g) if b is not None)
+        c_leaves = [t for _, t in named_leaves(c_state.params)]
+        g_leaves = [t for _, t in named_leaves(g_state.params)]
+        c_tx.update(c_g, c_state.opt_state, c_leaves)
+        g_tx.update([None if g is None else g.to("cuda") for g in c_g], g_state.opt_state,
+                    g_leaves)
+        upd = max((a.detach().cpu() - b.detach()).abs().max().item()
+                  / max(b.detach().abs().max().item(), 1e-30) for a, b in zip(g_leaves, c_leaves))
+        print(f"  {name}: launches {counts}; relative differences {rel} (need <= 1e-4); "
+              f"gradients {gerr:.3e} of a largest {gmax:.3e} (need <= 1e-4 of it); the card's "
+              f"AdamW on the CPU's gradients {upd:.3e} of each leaf's largest magnitude "
+              "(need <= 1e-5)")
+        check(counts["flash_attention"] > 0 and counts["conv3x3_gn_swish"] > 0,
+              f"tiny {name} skipped a kernel: {counts}")
+        check(all(v <= 1e-4 for v in rel.values()), f"tiny {name} card vs CPU: {rel}")
+        check(gerr <= 1e-4 * gmax, f"tiny {name} gradients differ: {gerr} of {gmax}")
+        check(upd <= 1e-5, f"tiny {name} AdamW on the card differs: {upd}")
+
+    for common in (None, mmu_len):
+        def make(pipe, tx, common=common):
+            tcfg = SFT.SFTStepConfig(bt, bl, bm, max_grad_norm=1.0, pad_id=pad, soi_id=soi,
+                                     eoi_id=eoi, common_length=common)
+            return SFT.SFTStep(pipe.cfg, pipe.vq_cfg, pipe.vision_cfg, tx, tcfg)
+
+        def sft_grads(step, state, pipe, device):
+            dr = MK.MaskDraws(*(None if x is None else x.to(device) for x in draws))
+            return step.loss_and_grads(state.params, pipe.vq_params, pipe.vision_params,
+                                       on(device, host), dr)
+        compare(f"SFT step ({'packed' if common else 'separate'})", make, sft_grads)
+
+    dpo_host = {"template": t2i, "labels": np.full((bt, length), -100),
+                "chosen_pixels": host["t2i_pixels"],
+                "rejected_pixels": rng.normal(size=(bt, res, res, 3)).astype(np.float32)}
+    pair = (draws, MK.draw_masking(torch.Generator().manual_seed(1), bt, n,
+                                   codebook_size=cpu.cfg.codebook_size))
+    dcfg = D.DPOConfig(beta=0.1, max_grad_norm=1.0, pad_id=pad, soi_id=soi, eoi_id=eoi)
+
+    def dpo_grads(step, state, pipe, device):
+        dr = tuple(MK.MaskDraws(*(None if x is None else x.to(device) for x in d)) for d in pair)
+        return step.loss_and_grads(state.params, pipe.params, pipe.vq_params,
+                                   on(device, dpo_host), dr)
+    compare("DPO step", lambda pipe, tx: D.make_dpo_step(pipe.cfg, pipe.vq_cfg, tx, dcfg),
+            dpo_grads)
+    tx = make_optimizer(gpu.params, 5e-4, LRS.get_scheduler("constant"), max_grad_norm=1.0)
+    step = D.make_dpo_step(gpu.cfg, gpu.vq_cfg, tx, dcfg)
+    state = SFT.init_sft_state(gpu.params, tx)
+    dr = tuple(MK.MaskDraws(*(None if x is None else x.to("cuda") for x in d)) for d in pair)
+    hist = []
+    for _ in range(6):
+        state, m = step(state, gpu.params, gpu.vq_params, on("cuda", dpo_host), dr)
+        hist.append((float(m["loss"]), float(m["reward_accuracy"])))
+    print(f"  6 tiny DPO steps on the card (loss, reward accuracy): {hist}")
+    check(all(math.isfinite(x) for x, _ in hist)
+          and (hist[-1][0] < hist[0][0] or hist[-1][1] > hist[0][1]),
+          f"tiny DPO did not learn the preference: {hist}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3716,8 +4343,13 @@ def main(argv=None) -> int:
             path_counts["serve_entry"] = run_serve_entry(results)
         if "train" in phases:
             path_counts["train"] = run_train(results, profile="profile" in phases)
+        for name, fn in (("sft", run_sft), ("sft_packed", run_sft_packed), ("dpo", run_dpo),
+                         ("cotv_post_sft", run_cotv_post_sft)):
+            if name in phases:
+                path_counts[name] = fn(results, profile="profile" in phases)
         if "tiny" in phases:
             run_tiny_train()
+            run_tiny_post_training()
             run_tiny()
             run_tiny_understand()
             run_tiny_int8()
@@ -3754,7 +4386,8 @@ def main(argv=None) -> int:
         # launches: the sum over the main paths driven in this run (warm runs);
         # the training row counts kernel 2's launches on the train path
         if name == "flash_attention_train":
-            by_path = {p: c["flash_attention"] for p, c in path_counts.items() if p == "train"}
+            by_path = {p: c["flash_attention"] for p, c in path_counts.items()
+                       if p in TRAINING_PATHS}
         else:
             by_path = {path: c.get(name, 0) for path, c in path_counts.items()}
         row = {"name": name, "route": "cuda", "source": sources[name],
@@ -3841,12 +4474,14 @@ def main(argv=None) -> int:
         se = results["serve_entry"]
         print(f"serve_entry: healthy {se['healthy_s']:.2f} s after the start, 3 /v1/generate "
               f"{se['generate_s']:.3f} s, /v1/images {se['image_s']:.3f} s on {card}")
-    if "train" in results:
-        tr = results["train"]
-        print(f"train: {tr['step_s']:.4f} s a step (median of {TRAIN_TIMED}; {tr['step_min_s']:.4f}"
-              f"-{tr['step_max_s']:.4f}), {tr['samples_per_s']:.4f} samples/s, "
-              f"{tr['tokens_per_s']:.1f} tokens/s, enqueue {tr['enqueue_s']:.4f} s, peak "
-              f"{tr['peak_gib']:.2f} GiB (PT2 at the flagship width) on {card}")
+    for name in TRAINING_PATHS + ("sft_lora",):
+        if name in results:
+            tr = results[name]
+            print(f"{name}: {tr['step_s']:.4f} s a step (median; {tr['step_min_s']:.4f}"
+                  f"-{tr['step_max_s']:.4f}), {tr['samples_per_s']:.4f} samples/s, "
+                  f"{tr['tokens_per_s']:.1f} tokens/s, enqueue {tr['enqueue_s']:.4f} s, peak "
+                  f"{tr['peak_gib']:.2f} GiB, model FLOPs {tr['model_tflops']:.2f} T a step "
+                  f"(flagship width) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -182,19 +182,67 @@ def _train_bits(device, n=256):
                                      M.mmu_train_attn_meta(ids[10:], 0, 1, 2)))
 
 
+def _t2i_ids(rows, l, n=256, pad=0):
+    """t2i rows of length l: left pads (10 a row more each), 7s, then
+    [soi][n image tokens][eoi] at the end (ids 1, 7, 2; pad 0)."""
+    ids = torch.full((rows, l), 7, dtype=torch.int64)
+    for r in range(rows):
+        ids[r, :10 * r] = pad
+        ids[r, l - n - 2], ids[r, l - 1] = 1, 2
+    return ids
+
+
+def _post_training_bits(shape, device):
+    """The post-training steps' bits at their shapes: the SFT step's t2i +
+    lm call [4, 1603] (3 t2i rows, 1 lm row with right pads), its mmu call
+    [4, 796] (mmu_vit bits, two rows with a shorter prompt_len), the packed
+    SFT step [7, 796] (2 rows of two 387-token t2i segments, one of one, one
+    lm segment, 4 mmu rows; segment ids in bits 3 and up) and the DPO step
+    [20, 387] (t2i bits)."""
+    if shape == "sft_t2i_lm":
+        ids = torch.cat([_t2i_ids(3, 1603), torch.full((1, 1603), 7, dtype=torch.int64)])
+        ids[3, 1500:] = 0
+        ids = ids.to(device)
+        return M.pack_meta(M.concat_meta(M.t2i_attn_meta(ids[:3], 0, 1, 2),
+                                         M.lm_attn_meta(ids[3:], 0)))
+    mmu = M.mmu_vit_attn_meta(4, 796, num_tokens=729, prefix_length=3,
+                              prompt_len=torch.tensor([796, 796, 760, 741], device=device))
+    if shape == "sft_mmu_vit":
+        return M.pack_meta(mmu)
+    if shape == "dpo":
+        ids = _t2i_ids(10, 387).to(device)
+        return M.pack_meta(M.t2i_attn_meta(torch.cat([ids, ids]), 0, 1, 2))
+    seg_rows = _t2i_ids(3, 387)
+    ids = torch.zeros((3, 796), dtype=torch.int64)
+    seg = torch.zeros((3, 796), dtype=torch.int32)
+    for i in range(3):
+        r, slot = divmod(i, 2)
+        ids[r, 387 * slot:387 * (slot + 1)] = seg_rows[i]
+        seg[r, 387 * slot:387 * (slot + 1)] = slot
+    ids[2, :387] = 7
+    ids, seg = ids.to(device), seg.to(device)
+    return M.pack_meta(M.concat_meta(M.t2i_attn_meta(ids[:2], 0, 1, 2)._replace(seg=seg[:2]),
+                                     M.lm_attn_meta(ids[2:], 0)._replace(seg=seg[2:]), mmu))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ["gqa_segments", "train_pt2"])
+@pytest.mark.parametrize("shape", ["gqa_segments", "train_pt2", "sft_t2i_lm", "sft_mmu_vit",
+                                   "sft_packed", "dpo"])
 def test_flash_autograd_matches_plain(cuda, dtype, shape):
     """The training forward launches the kernel once (within the kernel's
     tolerance of the plain version); its backward recomputes the plain
-    version, so dq, dk, dv equal the plain version's autograd bit for bit."""
+    version, so dq, dk, dv equal the plain version's autograd bit for bit.
+    At the small GQA shape, PT2's and the post-training steps'."""
+    h, kvh, dh = 12, 2, 128
     if shape == "gqa_segments":
         b, l, h, kvh, dh = 2, 64, 4, 2, 16
         bits = M.pack_meta(_meta("omni_segments", b, l, cuda))
-    else:
-        b, l, h, kvh, dh = 16, 835, 12, 2, 128
+    elif shape == "train_pt2":
         bits = _train_bits(cuda)
+    else:
+        bits = _post_training_bits(shape, cuda)
+    b, l = bits.shape
     q, k, v = (t.requires_grad_(True) for t in _qkv(b, l, l, h, kvh, dh, 21, cuda, dtype))
     g = torch.randn((b, l, h, dh), generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
     before = flash_attention.launches

@@ -259,24 +259,31 @@ def build_vq(config, dtype=None, device: DeviceLike = None) -> Tuple[Any, Magvit
     return init_magvit(cfg, _generator(1, device), device, cfg.dtype), cfg
 
 
-def build_vision_tower(config, dtype=None, device: DeviceLike = None):
-    """The tower named by ``model.vision_tower.name`` with its size
-    overrides, from its checkpoint when the path exists, else random (seed
-    2); (None, None) without one. The tower keeps its own dtype (fp32)
-    unless ``dtype`` is given, as in JAX."""
+def vision_tower_config(config, dtype=None):
+    """The config of the tower named by ``model.vision_tower.name`` with its
+    size overrides (None without one); its own dtype (fp32) unless ``dtype``."""
     vt = config["model"].get("vision_tower", {})
-    name = vt.get("name")
-    if not name:
-        return None, None
-    device = resolve_device(device)
-    _, cfg = get_vision_tower_config(name)
+    if not vt.get("name"):
+        return None
+    _, cfg = get_vision_tower_config(vt["name"])
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     overrides = {k: int(vt[k]) for k in ("hidden_size", "intermediate_size", "num_hidden_layers",
                                          "num_attention_heads", "image_size", "patch_size")
                  if vt.get(k) is not None}
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def build_vision_tower(config, dtype=None, device: DeviceLike = None):
+    """The tower named by ``model.vision_tower.name`` with its size
+    overrides, from its checkpoint when the path exists, else random (seed
+    2); (None, None) without one. The tower keeps its own dtype (fp32)
+    unless ``dtype`` is given, as in JAX."""
+    cfg = vision_tower_config(config, dtype)
+    if cfg is None:
+        return None, None
+    device = resolve_device(device)
+    name = config["model"]["vision_tower"]["name"]
     path = real_checkpoint(name, config["model"].get("ckpt_base_path", ""))
     if os.path.isdir(path):
         logger.info(f"loading vision tower weights from {path}")

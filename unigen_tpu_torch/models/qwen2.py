@@ -52,8 +52,16 @@ XLA, except in a quantized tree: a layer holds ``<name>: {'kernel_int8',
 ``ops.int4.quantize_unigen_params_int4``) in place of ``<name>_w`` /
 ``<name>_b``, and the projection goes through ``dense_int8`` or
 ``dense_int4`` (q/k/v share one activation quantization, and so do
-gate/up). The JAX package's LoRA leaves are not ported: a tree that holds
-them raises.
+gate/up).
+
+LoRA (``training/lora.py``): a layer may hold ``<name>_lora_a [in, r]``,
+``<name>_lora_b [r, out]`` and ``<name>_lora_scale []`` beside a projection;
+``((x @ a) @ b) * scale`` in x's dtype is added after the base projection,
+float or quantized, as JAX's ``_lora_delta`` (qwen2.py:271-277) does. Over a
+W8A8 or W4A8 base (QLoRA) the adapters ride the forward, but a backward
+through the quantized product raises ``NotImplementedError``: JAX's
+autodiff differentiates through its ``round`` (zero) and ``act_scale``, and
+matching that is open (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -232,28 +240,72 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta, scaling_factor))
 
 
+_QUANT_LEAF_SIZE = 3   # {kernel_int8, scale, bias?} or {kernel_int4, scale4, bias}
+LORA_SUFFIXES = ("lora_a", "lora_b", "lora_scale")   # a layer's <name>_lora_* leaves
+
+
 def _check_leaf(p: Dict, name: str) -> None:
-    """Raise on the JAX package's leaves that the port does not compute."""
+    """Raise on leaves the port does not compute: a projection that is
+    neither ``<name>_w`` nor a W8A8 / W4A8 leaf, a quantized leaf with more
+    in it (JAX's layout puts adapters inside the node; the port's beside
+    it), or adapters without all three of their leaves."""
     leaf = p.get(name)
-    if isinstance(leaf, dict) and "lora_a" in leaf:
+    quantized = is_quantized(leaf) or is_quantized_int4(leaf)
+    if isinstance(leaf, dict) and (not quantized or len(leaf) > _QUANT_LEAF_SIZE):
         raise NotImplementedError(
-            f"{name}: LoRA layers are not ported; W8A8 (kernel_int8), W4A8 "
-            "(kernel_int4) and float layers are")
-    if f"{name}_w" not in p and not (is_quantized(leaf) or is_quantized_int4(leaf)):
+            f"{name}: leaves {sorted(leaf)}; the port computes float, W8A8 (kernel_int8) and "
+            f"W4A8 (kernel_int4) projections, with adapters as {name}_lora_* leaves of the layer")
+    if f"{name}_w" not in p and not quantized:
         raise KeyError(f"layer has neither {name}_w nor a quantized {name}")
+    if f"{name}_lora_a" in p and not all(f"{name}_{s}" in p for s in LORA_SUFFIXES):
+        raise KeyError(f"{name}: LoRA needs {', '.join(f'{name}_{s}' for s in LORA_SUFFIXES)}")
+
+
+class _RefuseQuantizedBackward(torch.autograd.Function):
+    """The identity on a W8A8 / W4A8 product whose backward would be taken;
+    that backward raises instead of returning gradients through the int8
+    rounding (which autograd would drop, leaving the act_scale path only)."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        return y.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the backward through a W8A8 / W4A8 projection (QLoRA training) is not ported "
+            "(ROADMAP Queue 1 item 17); train LoRA over a float base")
+
+
+def _quantized_out(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RefuseQuantizedBackward.apply(y, x)
+    return y
+
+
+def _lora(p: Dict, name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y`` plus the low-rank path of projection ``name`` when the layer
+    holds one: ``((x @ a) @ b) * scale`` in x's dtype."""
+    a = p.get(f"{name}_lora_a")
+    if a is None:
+        return y
+    d = (x @ a.to(x.dtype)) @ p[f"{name}_lora_b"].to(x.dtype)
+    return y + d * p[f"{name}_lora_scale"].to(x.dtype)
 
 
 def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     """The projection ``name`` of layer ``p``: W8A8 or W4A8 when it holds
     ``kernel_int8`` or ``kernel_int4``, else ``F.linear`` with ``<name>_w``
-    and ``<name>_b``."""
+    and ``<name>_b``; plus its adapters."""
     _check_leaf(p, name)
     leaf = p.get(name)
     if is_quantized(leaf):
-        return dense_int8(leaf, x)
-    if is_quantized_int4(leaf):
-        return dense_int4(leaf, x)
-    return F.linear(x, p[f"{name}_w"], p.get(f"{name}_b"))
+        y = _quantized_out(dense_int8(leaf, x), x)
+    elif is_quantized_int4(leaf):
+        y = _quantized_out(dense_int4(leaf, x), x)
+    else:
+        y = F.linear(x, p[f"{name}_w"], p.get(f"{name}_b"))
+    return _lora(p, name, x, y)
 
 
 def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
@@ -264,9 +316,11 @@ def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
     first = p.get(names[0])
     if is_quantized(first) or is_quantized_int4(first):
         x8, xs = quantize_activations(x)
-        return [(dense_int8_prequant if is_quantized(p[n]) else dense_int4_prequant)(
-            p[n], x8, xs, x.dtype) for n in names]
-    return [F.linear(x, p[f"{n}_w"], p.get(f"{n}_b")) for n in names]
+        ys = [_quantized_out((dense_int8_prequant if is_quantized(p[n]) else dense_int4_prequant)(
+            p[n], x8, xs, x.dtype), x) for n in names]
+    else:
+        ys = [F.linear(x, p[f"{n}_w"], p.get(f"{n}_b")) for n in names]
+    return [_lora(p, n, x, y) for n, y in zip(names, ys)]
 
 
 def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,

@@ -1,1 +1,2 @@
-"""The unified pretraining path: schedules, AdamW, EMA, the train step and the Trainer."""
+"""Training: schedules, AdamW, EMA, the pretraining step and Trainer, SFT, DPO, LoRA and
+their entry points."""

@@ -19,7 +19,11 @@ them into the port's layout:
   become the port's ``[Npad, K]`` (``ops.quantization``): transposed, rows
   padded with zeros to a multiple of 8; scale and bias unchanged. So do an
   int8 ``lm_head_q`` and the int8 image head ``img_head_q``;
-* the SigLIP tower keeps its HWIO patch kernel (``models.siglip``).
+* the SigLIP tower keeps its HWIO patch kernel (``models.siglip``);
+* LoRA adapters (``training/lora.py``: JAX's stacked ``lora_a [L, in, r]``,
+  ``lora_b [L, r, out]`` and ``lora_scale [L]`` inside a dense node, float
+  or quantized) become the layer's ``<name>_lora_a``, ``<name>_lora_b`` and
+  ``<name>_lora_scale`` leaves, in their own dtype, and go back the same way.
 
 The ``*_from_jax`` functions also take trees whose leaves are tensors
 (``utils.persistence.from_pretrained``); ``unigen_to_jax``, ``siglip_to_jax``
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from .models.magvit import MagvitConfig
+from .models.qwen2 import LORA_SUFFIXES
 from .models.siglip import SiglipConfig
 from .models.unigen import UniGenConfig
 from .ops.quantization import int8_leaf
@@ -54,7 +59,8 @@ def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
     cast to ``dtype``."""
     if isinstance(a, torch.Tensor):
         return a.contiguous().to(device=device, dtype=dtype or a.dtype)
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)     # a 0-d array stays 0-d
     if not a.flags.writeable:           # torch.from_numpy wants writable memory
         a = a.copy()
     if a.dtype.name == "bfloat16":
@@ -78,6 +84,10 @@ _LAYER_LEAVES = {
     "gate_w": ("mlp", "gate", "kernel"), "up_w": ("mlp", "up", "kernel"),
     "down_w": ("mlp", "down", "kernel"),
 }
+
+
+# the layer's projections and their JAX nodes; LoRA adapters ride beside them
+_PROJECTIONS = {name[:-2]: path[:-1] for name, path in _LAYER_LEAVES.items() if name.endswith("_w")}
 
 
 def _get(tree, path):
@@ -135,6 +145,11 @@ def unigen_from_jax(tree: Dict[str, Any], cfg: UniGenConfig, device="cpu",
             leaf = _arr(_get(stacked, path))[i]
             lp[name] = (_linear_w(leaf, device, dtype) if name.endswith("_w")
                         else to_tensor(leaf, device, dtype))
+        for name, path in _PROJECTIONS.items():
+            dense = _get(stacked, path)
+            if "lora_a" in dense:
+                lp.update({f"{name}_{k}": to_tensor(_arr(dense[k])[i], device)
+                           for k in LORA_SUFFIXES})
         layers.append(lp)
     out: Dict[str, Any] = {"llm": {"embed": to_tensor(llm["embed"]["weight"], device, dtype),
                                    "layers": layers,
@@ -232,6 +247,10 @@ def unigen_to_jax(params: Dict[str, Any], cfg: UniGenConfig) -> Dict[str, Any]:
     for name, path in _LAYER_LEAVES.items():
         leaves = [_float_leaf(name, lp.get(name, lp.get(name[:-2]))) for lp in llm["layers"]]
         _set(stacked, path, torch.stack([t.t() if name.endswith("_w") else t for t in leaves]))
+    for name, path in _PROJECTIONS.items():
+        if f"{name}_lora_a" in llm["layers"][0]:
+            for k in LORA_SUFFIXES:
+                _set(stacked, path + (k,), torch.stack([lp[f"{name}_{k}"] for lp in llm["layers"]]))
     out: Dict[str, Any] = {"llm": {"embed": {"weight": llm["embed"]}, "layers": stacked,
                                    "final_ln": {"scale": llm["final_ln"]}}}
     if "lm_head" in llm:
@@ -433,7 +452,8 @@ _TOP_LEAVES = {"llm/embed": "llm/embed/weight", "llm/final_ln": "llm/final_ln/sc
 def jax_leaf_path(path: str) -> str:
     """A float UniGen leaf's ``/``-joined path in the port's tree (list
     indices as numbers) -> the path of the JAX tree leaf it comes from, e.g.
-    ``llm/layers/3/q_b`` -> ``llm/layers/attn/q/bias``. The optimizer's
+    ``llm/layers/3/q_b`` -> ``llm/layers/attn/q/bias``,
+    ``llm/layers/3/q_lora_a`` -> ``llm/layers/attn/q/lora_a``. The optimizer's
     decay, freezing and lr-multiplier patterns match these paths, as JAX's
     do."""
     if path in _TOP_LEAVES:
@@ -441,6 +461,10 @@ def jax_leaf_path(path: str) -> str:
     parts = path.split("/")
     if len(parts) == 4 and parts[:2] == ["llm", "layers"] and parts[3] in _LAYER_LEAVES:
         return "llm/layers/" + "/".join(_LAYER_LEAVES[parts[3]])
+    if len(parts) == 4 and parts[:2] == ["llm", "layers"] and "_lora_" in parts[3]:
+        name, kind = parts[3].split("_lora_")
+        if name in _PROJECTIONS and f"lora_{kind}" in LORA_SUFFIXES:
+            return "llm/layers/" + "/".join(_PROJECTIONS[name]) + f"/lora_{kind}"
     if len(parts) == 3 and parts[0] in ("gen_projector", "mm_projector") and parts[2] in ("w", "b"):
         return f"{parts[0]}/{parts[1]}/{'kernel' if parts[2] == 'w' else 'bias'}"
     raise KeyError(f"{path} is not a leaf of a float UniGen tree")
