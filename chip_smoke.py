@@ -29,8 +29,20 @@ read just after:
 * ``understand_discrete``: VQA over the tokenizer's codes, 8 fp32 images of
   256 px through the MAGViTv2 encoder (kernel 3 at its 7 shapes in fp32,
   counted by shape), the mmu prompt right-padded to 1,603, 128 greedy tokens;
+* ``understand_naflex``: VQA through the SigLIP2-NaFlex tower
+  (``build_pipeline(vision="naflex")``: google/siglip2-so400m-patch16-naflex's
+  shape, 26 layers whose attention is kernel 1 with a key mask a row), bf16,
+  8 images of 256 px (16 x 16 patches), 128 greedy tokens: tokens/s and the
+  tower's share of the call; then a tiny fp32 NaFlex run with ragged images
+  in one batch, the card against the CPU;
 * ``score``: ``score_continuations`` of 8 (image, question, continuation)
   requests, one cache-free forward;
+* ``lmms``: the lmms-eval adapter over the NaFlex flagship on 24 uint8
+  requests of 384 x 384, 256 x 512 and 640 x 256 (H x W) with budgets of
+  16-128 tokens, stops and two 'concat' requests: ``generate_until`` static
+  (batch 8) and served (16 slots, chunk 8) and ``loglikelihood`` batched
+  and single, in bf16 with their rates and exact launches; in fp32 static =
+  served strings and batched = single scores;
 * ``geneval``: ``evaluation.geneval.run_geneval`` over 2 prompts x 4
   samples, every PNG read back against its batch's pixels;
 * ``cot``: ``evaluation.cot.run_cot`` (CoT-V Best-of-N) on one two-colour
@@ -93,6 +105,10 @@ read just after:
   batches, bit for bit;
 * ``cotv_post_sft``: the SFT entry on ``unigen_cotv_post_sft.yaml`` (8 mmu rows
   of 796, no remat, ``common_length`` None), the same prints and gates;
+* ``sft_naflex``: the SFT entry on ``unigen_sft.yaml`` with the SigLIP2-NaFlex
+  tower (mmu rows of 3 + 256 + 64 over images of three aspects, padded
+  patches), 1 warm + 2 timed steps, the same prints and gates; then a tiny
+  fp32 NaFlex SFT step on the card against the CPU;
 * ``serve_entry``: ``python -m unigen_tpu_torch.serving.serve`` over
   ``configs/unigen_1_5b/unigen_sft.yaml`` (the flagship with the SigLIP
   tower, random init, read by the port's YAML reader) with speculation,
@@ -120,7 +136,11 @@ PT2's [16, 835, 12, 128] and at the post-training steps' [4, 1603], [4,
 forward against its plain version, dq, dk, dv bit-equal to the plain
 version's autograd, forward and backward timed beside SDPA's and their
 bounds; kernel 3's fp32 route is timed at the encoder's shapes at batches
-6, 3 and 10 (the PT2, SFT and DPO encodes). The W8A8 epilogue is
+6, 3 and 10 (the PT2, SFT and DPO encodes). Kernel 1 is held at the
+SigLIP2-NaFlex tower's [8, 256, 16, 72 -> 80] in fp32 and bf16 with
+all-valid and ragged key masks, pad query rows included, and timed beside
+SDPA with a boolean key mask; kernel 3's autograd function gives the plain
+version's gradients bit for bit at two decoder shapes in fp32. The W8A8 epilogue is
 held to its plain version bit for bit at every shape of the int8 paths and
 timed with the whole layer against bf16 ``F.linear``. Kernel 4 (the
 W4A8 product, its epilogue fused) and the per-token quantization are held
@@ -140,9 +160,9 @@ nonzero and prints no result. Kernel times (``ms``, ``plain_ms``,
 computed from each phase's inputs against the H100 SXM's published peaks.
 
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
-understand,understand_int8,understand_discrete,score,geneval,cot,dpg,
-image_serving,serving,serving_vqa,serving_http,serving_spec,serve_entry,train,sft,
-sft_packed,dpo,cotv_post_sft,tiny) runs a
+understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
+geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
+serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,tiny) runs a
 subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -159,9 +179,10 @@ import sys
 import time
 
 PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "understand",
-          "understand_int8", "understand_discrete", "score", "geneval", "cot", "dpg",
-          "image_serving", "serving", "serving_vqa", "serving_http", "serving_spec",
-          "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft", "tiny")
+          "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
+          "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
+          "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
+          "sft_naflex", "tiny")
 OPTIONAL_PHASES = ("profile",)
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -217,12 +238,22 @@ PACKED_OVERRIDES = ("dataset.preprocessing.max_seq_length=128",)   # rows of 387
 POST_OUT = "output/chip_smoke_post"
 STAGE_WARM, STAGE_TIMED = 2, 5
 COTV_WARM, COTV_TIMED = 1, 2
+# the NaFlex paths: SigLIP2-NaFlex at google/siglip2-so400m-patch16-naflex's shape, a
+# budget of 256 patches of 16 px; understand_naflex's images are 256 px (16 x 16 patches)
+NAFLEX_PATCHES, NAFLEX_PX = 256, 256
+# the lmms phase: uint8 requests of three aspects (H, W), budgets in turn, the static
+# route's batch, the served route's slots and chunk
+LMMS_SIZES = ((384, 384), (256, 512), (640, 256))
+LMMS_BUDGETS = (16, 32, 64, 128)
+LMMS_REQUESTS, LMMS_BATCH, LMMS_SLOTS, LMMS_CHUNK = 24, 8, 16, 8
+SFT_NAFLEX_OVERRIDES = ("model.vision_tower.name=siglip2-so400m-patch16-naflex",)
+SFT_NAFLEX_WARM, SFT_NAFLEX_TIMED = 1, 2
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
 
 
-TRAINING_PATHS = ("train", "sft", "sft_packed", "dpo", "cotv_post_sft")
+TRAINING_PATHS = ("train", "sft", "sft_packed", "dpo", "cotv_post_sft", "sft_naflex")
 
 
 class Failed(Exception):
@@ -1175,6 +1206,7 @@ def run_kernel_phases(results):
           f"{per_encode[8]:.4f} ms + batch 6 {per_encode[6]:.4f} ms = "
           f"{per_encode[8] + per_encode[6]:.4f} ms")
     run_post_training_kernel_phases(results, gen)
+    run_naflex_kernel_phases(results)
 
 
 def run_post_training_kernel_phases(results, gen):
@@ -1203,6 +1235,129 @@ def run_post_training_kernel_phases(results, gen):
     print(f"kernel 3 (launches x ms at each shape) over the SFT step's encode (batch 3) "
           f"{per_encode[3]:.4f} ms; over the DPO step's two encodes (batch 10) "
           f"{2 * per_encode[10]:.4f} ms")
+
+
+def phase_chunk_naflex(gen, dtype, ragged, rtol, iters):
+    """Kernel 1 as the SigLIP2-NaFlex tower calls it: q = k = v's sequence
+    [8, 256, 16, 72] zero-padded to the kernel's head dim 80, scale 72^-1/2,
+    a key mask a row: all valid, or ``ragged`` (valid counts 6-256 a row, as
+    ``naflex_preprocess`` pads: a full row, a 6-patch row, the rest drawn).
+    Every row, pad query rows too, against the plain version; the unsplit
+    route. Timed beside SDPA with the boolean key mask (head dim 72); the
+    bound counts 4 h dh a visible (query, key) pair at dh 72 and reads q, k,
+    v and the mask and writes the output once, unpadded; fp32 against the
+    card's fp32 peak, bf16 against its tensor cores'."""
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops import chunk_attention as CA
+    from unigen_tpu_torch.ops.flash_attention import kernel_head_dim
+    b, n, h, dh = len(QUESTIONS), NAFLEX_PATCHES, 16, 72
+    q, k, v = _attn_inputs(gen, b, n, n, h, h, dh, dtype)
+    pad = kernel_head_dim(dh) - dh
+    qp, kp, vp = (F.pad(t, (0, pad)) for t in (q, k, v))
+    counts = torch.full((b,), n, device="cuda")
+    if ragged:
+        counts = torch.randint(6, n + 1, (b,), generator=gen, device="cuda")
+        counts[0], counts[-1] = n, 6
+    kvalid = torch.arange(n, device="cuda")[None] < counts[:, None]
+    check(CA.kv_splits(b, n, n, h, h) == 1, "the NaFlex tower's attention takes the split route")
+    scale = dh ** -0.5
+    got = CA.chunk_attention(qp, kp, vp, kvalid, scale=scale)
+    ref = CA.chunk_attention_plain(qp, kp, vp, kvalid, scale=scale)
+    torch.cuda.synchronize()
+    err, tol = _err_tol(got[..., :dh], ref[..., :dh], rtol)
+    at = (f"NaFlex tower q/k/v [{b},{n},{h},{dh}->{dh + pad}] {dtype}, "
+          + (f"ragged key mask (valid {counts.tolist()})" if ragged else "all keys valid"))
+    check(bool(torch.isfinite(got).all()) and bool((got[..., dh:] == 0).all()),
+          f"chunk_attention at the {at}: output not finite or its padding not zero")
+    print(f"  chunk_attention {at}: max_abs_err {err:.3e} (tol {tol:.2e}), pad query rows "
+          "included")
+    check(err <= tol, f"chunk_attention at the {at} disagrees with its plain version")
+    ms = time_ms(lambda: CA.chunk_attention(qp, kp, vp, kvalid, scale=scale), iters)
+    plain_ms = time_ms(lambda: CA.chunk_attention_plain(qp, kp, vp, kvalid, scale=scale), 3)
+    lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
+    pairs = n * kvalid.sum().item()
+    b_ms, by = bound(4.0 * h * dh * pairs, nbytes(q, k, v, kvalid, got[..., :dh]),
+                     BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa, dh 72, bool key mask) "
+          f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, at)
+
+
+def phase_conv_grad(gen, b, hw, c, cout, iters):
+    """Kernel 3's autograd function (``ops.fused_conv._ConvGnSwish``) at a
+    decoder shape with GroupNorm, fp32: on inputs that require grad the
+    output carries a grad_fn; for one upstream gradient, dx and the conv
+    kernel, bias and GroupNorm scale and bias gradients equal the plain
+    version's autograd bit for bit (cuDNN's deterministic algorithms on both
+    sides for this check; the backward is the plain recompute, as JAX's
+    ``_bwd``). Times forward + backward beside the plain version's (cuDNN's
+    default algorithms); the bound counts the three convolutions' operations
+    (forward, dx, dW) on fp32 CUDA cores and every tensor read or written once."""
+    import torch
+    from unigen_tpu_torch.ops import fused_conv as FC
+    f32 = torch.float32
+    x, conv_p, gn_p = _conv_inputs(gen, b, hw, hw, c, cout, f32, True)
+    leaves = [x, conv_p["kernel"], conv_p["bias"], gn_p["scale"], gn_p["bias"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.randn((b, hw, hw, cout), generator=gen, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = FC.conv3x3_gn_swish.launches
+        out = FC.conv3x3_gn_swish(conv_p, gn_p, x)
+        has_fn = out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, g)
+        launched = FC.conv3x3_gn_swish.launches - before
+        ref = FC.conv3x3_gn_swish_plain(conv_p, gn_p, x)
+        want = torch.autograd.grad(ref, leaves, g)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err, tol = _err_tol(out.detach(), ref.detach(), 1e-4)
+    equal = all(torch.equal(a, r) for a, r in zip(got, want))
+    at = f"MAGViT decoder [{b},{hw},{hw},{c}]->{cout} fp32, forward + backward"
+    print(f"  conv3x3_gn_swish autograd {at}: grad_fn {type(out.grad_fn).__name__}, "
+          f"{launched} conv launch; forward max_abs_err {err:.3e} (tol {tol:.2e}); dx, dW, db, "
+          f"dscale, dbias bit-equal to the plain version's autograd: {equal}")
+    check(has_fn and launched == 1, f"kernel 3 on the card gave no gradient path at {at}")
+    check(err <= tol and bool(torch.isfinite(out).all()), f"kernel 3 forward disagrees at {at}")
+    check(equal, f"kernel 3's gradients differ from the plain version's autograd at {at}")
+
+    def both(fwd):
+        return lambda: torch.autograd.grad(fwd(), leaves, g)
+    fwd_ms = time_ms(lambda: FC.conv3x3_gn_swish(conv_p, gn_p, x), iters)
+    all_ms = time_ms(both(lambda: FC.conv3x3_gn_swish(conv_p, gn_p, x)), iters)
+    plain_fwd = time_ms(lambda: FC.conv3x3_gn_swish_plain(conv_p, gn_p, x), iters)
+    plain_all = time_ms(both(lambda: FC.conv3x3_gn_swish_plain(conv_p, gn_p, x)), iters)
+    b_ms, by = bound(3 * 2.0 * b * hw * hw * 9 * c * cout,
+                     nbytes(*leaves, out, g) + nbytes(*got), FP32_PEAK)
+    print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}); backward ms "
+          f"{all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f}); forward + backward ms "
+          f"{all_ms:.4f} (plain {plain_all:.4f}); bound_ms {b_ms:.4f} ({by}); no library call")
+    row = _measured(err, all_ms, plain_all, None, b_ms, by, at)
+    row.update(forward_ms=fwd_ms, backward_ms=all_ms - fwd_ms, plain_forward_ms=plain_fwd,
+               plain_backward_ms=plain_all - plain_fwd, backward_bit_equal=equal)
+    return row
+
+
+def run_naflex_kernel_phases(results):
+    """Kernel 1 at the SigLIP2-NaFlex tower's shape (fp32, the tower's own
+    dtype, and bf16, the flagship pipelines'; all-valid and ragged key
+    masks), and kernel 3's gradient through its autograd function at two
+    decoder shapes in fp32."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    print("phase: kernels at the SigLIP2-NaFlex tower's attention (kernel 1, key-masked)")
+    results["chunk_attention"]["shapes"] += [
+        phase_chunk_naflex(gen, dtype, ragged, rtol, 20)
+        for dtype, rtol in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -7))
+        for ragged in (False, True)]
+    print("phase: kernels, kernel 3's gradient on the card (its autograd function, fp32)")
+    results["conv3x3_gn_swish"]["grad_shapes"] = [phase_conv_grad(gen, 2, 16, 512, 512, 10),
+                                                  phase_conv_grad(gen, 2, 32, 256, 256, 10)]
 
 
 def train_config(*extra):
@@ -1990,6 +2145,277 @@ def run_understand_int8(results, profile=False):
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     results["understand_int8"] = out
     return counts
+
+
+def _naflex_tiny_images(n, seed):
+    """``n`` uint8 images for the tiny NaFlex tower (patch 4, 16 patches), in
+    four aspects: 16 x 16, 8 x 32, 12 x 20 (15 patches) and 20 x 12."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = ((16, 16), (8, 32), (12, 20), (20, 12))
+    return [rng.integers(0, 256, sizes[i % 4] + (3,), dtype=np.uint8) for i in range(n)]
+
+
+def run_tiny_naflex_understand():
+    """The tiny fp32 NaFlex pipeline (``build_pipeline("tiny", vision="naflex")``)
+    through the kernels on the card against the plain versions on the CPU,
+    greedy: 8 images of four aspects in one batch (ragged patch counts, so
+    pad rows and key masks), token agreement >= 0.99 as every tiny check."""
+    import torch
+    from unigen_tpu_torch.launch import build_pipeline
+    print("phase: tiny fp32 NaFlex understand (ragged images in one batch), kernels on the card "
+          "vs plain versions on the CPU, greedy")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision="naflex")
+    gpu = cpu.to("cuda")
+    images = _naflex_tiny_images(len(QUESTIONS), 6)
+    _reset_counts()
+    toks_gpu = gpu.understand(images, list(QUESTIONS), None, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    toks_cpu = cpu.understand(images, list(QUESTIONS), None, max_new_tokens=32)
+    agree = (toks_gpu.cpu() == toks_cpu).float().mean().item()
+    vit, layers = cpu.vision_cfg.num_layers_used, cpu.cfg.llm.num_hidden_layers
+    print(f"  token agreement {agree:.4f} (need >= 0.99), launches {counts}")
+    check(counts == dict(NO_LAUNCHES, flash_attention=layers,
+                         chunk_attention=vit + layers * 31),
+          f"tiny NaFlex understand launches {counts}")
+    check(agree >= 0.99, f"tiny NaFlex understand token agreement {agree}")
+
+
+def run_understand_naflex(results, profile=False):
+    """VQA through the SigLIP2-NaFlex tower at full width: bf16, 8 uint8
+    images of 256 px (16 x 16 patches, the budget of 256), the 8 questions,
+    128 greedy tokens, warm; kernel 1 in the tower (26 launches, key-masked)
+    and at every decode step, kernel 2 in the prefill (28). Prints tokens/s
+    and the tower's share of the call (the tower and projector alone, warm,
+    over the call's wall); then the tiny fp32 run against the CPU."""
+    import statistics
+    import torch
+    print("phase: understand_naflex path (SigLIP2-NaFlex so400m-patch16 + projector + "
+          f"Qwen2.5-1.5B, random init, bf16, {len(QUESTIONS)} images of {NAFLEX_PX} px, "
+          f"{NEW_TOKENS} new tokens, greedy)")
+    pipe = flagship_pipeline(vision="naflex")
+    b = len(QUESTIONS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    pixels = torch.randint(0, 256, (b, NAFLEX_PX, NAFLEX_PX, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
+    expect = dict(NO_LAUNCHES, flash_attention=layers,
+                  chunk_attention=vit + layers * (NEW_TOKENS - 1))
+
+    def run_once():
+        return pipe.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
+    toks, dt, enqueued, counts = _timed_runs(
+        "understand_naflex", run_once, expect,
+        validate=_token_checker("understand_naflex", pipe.cfg.llm.vocab_size),
+        work=(b * NEW_TOKENS, "tokens"))
+    tower = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = pipe._image_embeds(pixels)
+        torch.cuda.synchronize()
+        tower.append(time.perf_counter() - t0)
+    tower_s = statistics.median(tower)
+    check(tuple(feats.shape) == (b, NAFLEX_PATCHES, pipe.cfg.llm.hidden_size)
+          and bool(torch.isfinite(feats).all()), f"NaFlex image embeddings {tuple(feats.shape)}")
+    print(f"  the tower + projector alone (warm, median of 3): {tower_s * 1e3:.2f} ms, "
+          f"{tower_s / dt:.4f} of the call's {dt:.3f} s")
+    if "understand" in results:
+        u = results["understand"]["bf16"]
+        print(f"  beside this call's SigLIP understand (bf16, 729 image tokens of 384 px): "
+              f"{u['tokens_per_s']:.2f} tokens/s ({u['seconds']:.3f} s)")
+    if profile:
+        profile_run(run_once, dt)
+    print(f"  prompt: 3 + {NAFLEX_PATCHES} image tokens + the question; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    results["understand_naflex"] = {"seconds": dt, "enqueue_s": enqueued,
+                                    "tokens_per_s": b * NEW_TOKENS / dt, "tower_s": tower_s,
+                                    "tower_share": tower_s / dt}
+    run_tiny_naflex_understand()
+    return counts
+
+
+def lmms_requests(pipe):
+    """LMMS_REQUESTS synthetic lmms-eval requests on ``pipe``'s device: uint8
+    images from numpy seed 11, a third each of LMMS_SIZES (H, W); questions
+    QUESTIONS made unique by their index; budgets LMMS_BUDGETS in turn (a
+    request's budget changes every third request, so each (aspect, budget)
+    pair holds two); an ``until`` stop on every fifth; two 'concat'
+    requests of two images whose canvas has one of the aspects."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(LMMS_REQUESTS):
+        h, w = LMMS_SIZES[i % 3]
+        if i in (4, 17):                          # two images side by side: h x 2w' = h x w
+            images = [rng.integers(0, 256, (h, w // 2, 3), dtype=np.uint8) for _ in range(2)]
+        else:
+            images = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        kw = {"max_new_tokens": LMMS_BUDGETS[(i // 3) % len(LMMS_BUDGETS)]}
+        if i % 5 == 0:
+            kw["until"] = ["\n", "."]
+        out.append((f"{QUESTIONS[i % len(QUESTIONS)]} (#{i})", kw, images))
+    return out
+
+
+@contextlib.contextmanager
+def lmms_token_census(pipe, record):
+    """While open, records the tokens each request generated (up to and
+    including its first eos, within its budget) into ``record`` {context:
+    count}: from ``pipe.understand``'s rows (the static route; a padded
+    row repeats a request) and from the serving engine's futures."""
+    from unigen_tpu_torch.serving import engine as TE
+    eos = pipe.prompting.eos_token_id
+    real_understand, real_submit = type(pipe).understand, TE.ServingEngine.submit_embeds
+    contexts = {}
+
+    def understand(self, pixels, questions, *a, **kw):
+        toks = real_understand(self, pixels, questions, *a, **kw).cpu()
+        for q, row in zip(questions, toks.tolist()):
+            record[q] = row.index(eos) + 1 if eos in row else len(row)
+        return toks
+
+    def submit_embeds(self, *a, **kw):
+        fut = real_submit(self, *a, **kw)
+        contexts[fut] = None
+        return fut
+    type(pipe).understand, TE.ServingEngine.submit_embeds = understand, submit_embeds
+    try:
+        yield contexts
+    finally:
+        type(pipe).understand, TE.ServingEngine.submit_embeds = real_understand, real_submit
+
+
+def run_lmms(results, profile=False):
+    """The lmms-eval adapter (``evaluation.lmms_adapter.UniGenLmmsAdapter``)
+    at the flagship width over the NaFlex pipeline: LMMS_REQUESTS uint8
+    requests in three aspects (``lmms_requests``), mixed budgets, stops and
+    two 'concat' requests, greedy, the Qwen system prompt. ``generate_until``
+    static (batch 8) and served (16 slots, chunk 8) in bf16: requests/s and
+    useful tokens/s (tokens up to each request's eos), exact launch counts
+    from the routes' calls; ``loglikelihood`` batched and one request at a
+    time. Gates in fp32 on the same seed's weights, where greedy choices do
+    not hang on a batch shape's rounding: static = served strings, batched =
+    single log-likelihoods (rtol 1e-5, JAX's adapter test) and greedy flags."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.evaluation.lmms_adapter import UniGenLmmsAdapter
+    from unigen_tpu_torch.launch import build_pipeline
+    print(f"phase: lmms (the lmms-eval adapter over SigLIP2-NaFlex + Qwen2.5-1.5B, random init, "
+          f"{LMMS_REQUESTS} requests of {', '.join(f'{h}x{w}' for h, w in LMMS_SIZES)} (H x W), "
+          f"budgets {LMMS_BUDGETS}, greedy)")
+    pipe = flagship_pipeline(vision="naflex")
+    reqs = lmms_requests(pipe)
+    layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
+    conts = [CONTINUATIONS[i % len(CONTINUATIONS)] for i in range(LMMS_REQUESTS)]
+    ll_reqs = [(q, c, img) for (q, _, img), c in zip(reqs, conts)]
+
+    def adapter(p, batch_size=LMMS_BATCH, **kw):
+        return UniGenLmmsAdapter(p, batch_size=batch_size, serving_slots=LMMS_SLOTS,
+                                 serving_chunk=LMMS_CHUNK, **kw)
+
+    def static_calls(a):
+        """(understand calls, their decode steps) of the static route: the
+        adapter's groups by budget and prepared shape, in batches of 8."""
+        groups = {}
+        for q, kw, img in reqs:
+            groups.setdefault((kw["max_new_tokens"], a._prepared_shape(img)), []).append(q)
+        calls = [(budget, -(-len(qs) // LMMS_BATCH)) for (budget, _), qs in groups.items()]
+        return sum(n for _, n in calls), sum(n * (budget - 1) for budget, n in calls)
+
+    def tower_calls(a, rows):
+        shapes = {}
+        for img in rows:
+            shapes[a._prepared_shape(img)] = shapes.get(a._prepared_shape(img), 0) + 1
+        return sum(-(-n // LMMS_BATCH) for n in shapes.values())
+
+    out, strings, warm_counts = {}, {}, {}
+    for name, serving in (("static", False), ("served", True)):
+        a = adapter(pipe, serving=serving)
+        record, sizes = {}, []
+        for run in ("cold", "warm"):
+            record.clear()
+            sizes.clear()
+            _reset_counts()
+            torch.cuda.synchronize()
+            with lmms_token_census(pipe, record) as futs, admission_census(sizes):
+                t0 = time.perf_counter()
+                texts = a.generate_until(reqs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            counts = _read_counts()
+            if serving:
+                useful = sum(len(f.result(timeout=0)) for f in futs)
+                steps = sum(st.slot_steps for st in a.last_stats) // LMMS_SLOTS
+                expect = dict(NO_LAUNCHES, flash_attention=layers * len(sizes),
+                              chunk_attention=vit * tower_calls(a, [r[2] for r in reqs])
+                              + layers * steps)
+            else:
+                useful = sum(record.values())
+                n_calls, steps = static_calls(a)
+                expect = dict(NO_LAUNCHES, flash_attention=layers * n_calls,
+                              chunk_attention=vit * n_calls + layers * steps)
+            print(f"  generate_until {name} {run}: {dt:.3f} s, {LMMS_REQUESTS / dt:.4f} "
+                  f"requests/s, {useful} useful tokens, {useful / dt:.2f} useful tokens/s; "
+                  f"launches {counts}")
+            check(counts == expect, f"lmms {name} launch counts {counts} != {expect}")
+            check(len(texts) == LMMS_REQUESTS and all(isinstance(t, str) for t in texts),
+                  f"lmms {name} returned {texts!r}")
+        warm_counts[name] = counts
+        out[name] = {"seconds": dt, "requests_per_s": LMMS_REQUESTS / dt,
+                     "useful_tokens": useful, "tokens_per_s": useful / dt}
+        if serving:
+            out[name]["latency"] = a.last_latency
+        strings[name] = texts
+    same = np.mean([x == y for x, y in zip(strings["static"], strings["served"])])
+    print(f"  bf16 static and served strings equal on {same:.4f} of the requests (batch shapes "
+          "round differently in bf16; the gate is the fp32 run below)")
+    a = adapter(pipe)
+    for name, fn in (("batched", lambda: a.loglikelihood(ll_reqs)),
+                     ("single", lambda: [adapter(pipe, batch_size=1).loglikelihood([r])[0]
+                                         for r in ll_reqs])):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        calls = tower_calls(a, [r[2] for r in ll_reqs]) if name == "batched" else LMMS_REQUESTS
+        check(counts == dict(NO_LAUNCHES, flash_attention=layers * calls,
+                             chunk_attention=vit * calls),
+              f"lmms loglikelihood {name} launches {counts}")
+        check(all(np.isfinite(lp) and lp <= 0 for lp, _ in scores), f"scores {scores}")
+        print(f"  loglikelihood {name}: {dt:.3f} s, {LMMS_REQUESTS / dt:.4f} requests/s "
+              f"({calls} forwards); launches {counts}")
+        out[f"loglikelihood_{name}"] = {"seconds": dt, "requests_per_s": LMMS_REQUESTS / dt}
+    print("  fp32 gates: the same seed's flagship in fp32")
+    t0 = time.perf_counter()
+    fpipe = build_pipeline("flagship", dtype=torch.float32, device="cuda", seed=0,
+                           vision="naflex")
+    torch.cuda.synchronize()
+    print(f"  build_pipeline('flagship', fp32, vision='naflex') {time.perf_counter() - t0:.2f} s")
+    static = adapter(fpipe).generate_until(reqs)
+    served = adapter(fpipe, serving=True).generate_until(reqs)
+    diff = [i for i, (x, y) in enumerate(zip(static, served)) if x != y]
+    print(f"  fp32 generate_until: static and served strings equal on "
+          f"{LMMS_REQUESTS - len(diff)} of {LMMS_REQUESTS} requests")
+    check(not diff, f"fp32 static and served strings differ at requests {diff}: "
+          f"{[(static[i], served[i]) for i in diff]}")
+    batched = adapter(fpipe).loglikelihood(ll_reqs)
+    single = [adapter(fpipe, batch_size=1).loglikelihood([r])[0] for r in ll_reqs]
+    rel = max(abs(x - y) / max(abs(y), 1e-30) for (x, _), (y, _) in zip(batched, single))
+    flags = all(gx == gy for (_, gx), (_, gy) in zip(batched, single))
+    print(f"  fp32 loglikelihood batched vs single: max relative difference {rel:.3e} (need "
+          f"<= 1e-5), greedy flags equal: {flags}")
+    check(rel <= 1e-5 and flags, f"fp32 loglikelihood batched vs single: {rel}, flags {flags}")
+    del fpipe
+    torch.cuda.empty_cache()
+    results["lmms"] = out
+    # the warm static and served generate_until runs
+    return {k: warm_counts["static"][k] + warm_counts["served"][k] for k in NO_LAUNCHES}
 
 
 def run_flagship_ar(results, profile=False):
@@ -3439,14 +3865,14 @@ def _train_profile(step_once, tx, warm_s):
     """One more profiled training step (``step_once()``): device busy and idle
     share, time by kernel and family (``profile_run``), then the device time
     inside the annotated parts: the encodes (``magvit.get_code``), the SigLIP
-    tower, kernel 2's forward launches and its backward (the dense
+    or NaFlex tower, kernel 2's forward launches and its backward (the dense
     recompute), the chunked CE's chunks (forward and recompute; their
     backward runs in autograd's engine, outside the annotation) and the
     optimizer update."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from unigen_tpu_torch.models import magvit, siglip, unigen
+    from unigen_tpu_torch.models import magvit, siglip, siglip2, unigen
     from unigen_tpu_torch.ops import flash_attention as FA
 
     def annotated(name, fn):
@@ -3455,6 +3881,7 @@ def _train_profile(step_once, tx, warm_s):
                 return fn(*a, **kw)
         return wrapped
     patches = [(magvit, "get_code", "encode"), (siglip, "forward", "tower"),
+               (siglip2, "forward_with_pos", "tower"),
                (FA, "flash_attention_launch", "attention fwd"),
                (unigen, "_chunk_label_logps", "chunked CE"), (tx, "update", "optimizer")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
@@ -3736,7 +4163,8 @@ def sft_forward_bits(step, batch):
     from unigen_tpu_torch.ops import masks as M
     tc, n = step.tcfg, step.cfg.num_vq_tokens
     bt, bl, bm = tc.batch_size_t2i, tc.batch_size_lm, tc.batch_size_mmu
-    p_tokens = (step.vision_cfg.image_size // step.vision_cfg.patch_size) ** 2
+    p_tokens = batch["mmu_spatial_shapes"] if step.naflex else \
+        (step.vision_cfg.image_size // step.vision_cfg.patch_size) ** 2
     lm_len = batch["mmu_labels"].shape[1]
     mmu = M.mmu_vit_attn_meta(bm, lm_len, num_tokens=p_tokens,
                               prefix_length=batch["mmu_part1"].shape[1],
@@ -3958,21 +4386,23 @@ def _sft_run(*extra, config_path=None):
 
 
 def _sft_per_step(run):
-    """Exact launches of one SFT step, from the code: kernel 2 in the tower
-    (one a layer, forward only), in the backbone (one a layer a call, twice
-    with remat: the recompute); kernel 3 and its statistics 40 each a t2i
-    encode (ENCODER_CONVS)."""
+    """Exact launches of one SFT step, from the code: kernel 2 in the SigLIP
+    tower or kernel 1 in the NaFlex tower (one a layer, forward only), kernel
+    2 in the backbone (one a layer a call, twice with remat: the recompute);
+    kernel 3 and its statistics 40 each a t2i encode (ENCODER_CONVS)."""
     tc, layers = run.tcfg, run.cfg.llm.num_hidden_layers
     calls = 1 if run.step.mode != "separate" else (
         (tc.batch_size_t2i > 0 or tc.batch_size_lm > 0) + (tc.batch_size_mmu > 0))
     recompute = calls * layers if tc.remat else 0
     tower = run.vs_cfg.num_layers_used if tc.batch_size_mmu else 0
     convs = sum(n for *_, n in ENCODER_CONVS) if tc.batch_size_t2i else 0
+    naflex = run.step.naflex
     print(f"  launches a step from the code: kernel 2 {calls * layers} forward ({calls} backbone "
-          f"call(s) x {layers} layers) + {recompute} remat recompute + {tower} SigLIP; kernel 3 and "
-          f"its statistics {convs} each (the t2i encode)")
-    return dict(NO_LAUNCHES, flash_attention=calls * layers + recompute + tower,
-                conv3x3_gn_swish=convs, gn_affine=convs)
+          f"call(s) x {layers} layers) + {recompute} remat recompute"
+          + (f"; kernel 1 {tower} in the NaFlex tower" if naflex else f" + {tower} SigLIP")
+          + f"; kernel 3 and its statistics {convs} each (the t2i encode)")
+    return dict(NO_LAUNCHES, flash_attention=calls * layers + recompute + (0 if naflex else tower),
+                chunk_attention=tower if naflex else 0, conv3x3_gn_swish=convs, gn_affine=convs)
 
 
 def _sft_stage(results, name, warm, timed, *extra, config_path=None, profile=False):
@@ -4083,6 +4513,96 @@ def run_cotv_post_sft(results, profile=False):
           f"cotv_post_sft runs {run.step.mode}")
     del run
     torch.cuda.empty_cache()
+    return counts
+
+
+def run_tiny_sft_naflex():
+    """The tiny fp32 SFT step with the NaFlex tower (separate mode: 2 t2i, 1
+    lm, 3 mmu rows of 15-16 patches padded to 16) on the card against the
+    CPU, the same weights, batch and masking draws: losses, the grad norm
+    and the gradients within 1e-4 (relative; of the largest gradient)."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.data.transform import naflex_preprocess
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.models import siglip2
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.training import lr_schedules as LRS
+    from unigen_tpu_torch.training import sft as SFT
+    from unigen_tpu_torch.training.optimizer import global_norm, make_optimizer
+    print("phase: tiny fp32 NaFlex SFT step, the card vs the CPU")
+    cpu = build_pipeline("tiny", dtype=torch.float32, device="cpu", seed=3, vision="naflex")
+    gpu = cpu.to("cuda")
+    sp, n, vs = cpu.prompting.sptids_dict, cpu.cfg.num_vq_tokens, cpu.vision_cfg
+    rng = np.random.default_rng(0)
+    length, bt, bl, bm = 28, 2, 1, 3
+    mmu_len = 3 + vs.num_patches + 20
+    t2i = rng.integers(3, 100, size=(bt, length))
+    t2i[:, -n - 2], t2i[:, -1], t2i[:, -n - 1:-1] = sp["<|soi|>"], sp["<|eoi|>"], 0
+    mmu_labels = np.full((bm, mmu_len), -100)
+    mmu_labels[:, -6:] = rng.integers(3, 100, size=(bm, 6))
+    # 8 x 32, 12 x 20 and 20 x 12: 16, 15 and 15 patches
+    patches = [naflex_preprocess(img, vs.patch_size, vs.num_patches)
+               for img in _naflex_tiny_images(bm + 1, 8)[1:]]
+    host = {"t2i_template": t2i, "t2i_labels": np.full((bt, length), -100),
+            "t2i_pixels": rng.normal(size=(bt, 8, 8, 3)).astype(np.float32),
+            "lm_ids": rng.integers(3, 100, size=(bl, length)),
+            "lm_labels": rng.integers(3, 100, size=(bl, length)),
+            "mmu_part1": rng.integers(3, 100, size=(bm, 3)),
+            "mmu_part2": rng.integers(3, 100, size=(bm, 20)), "mmu_labels": mmu_labels,
+            "mmu_prompt_len": np.array([mmu_len, mmu_len - 2, mmu_len - 5]),
+            "mmu_pixel_values": np.stack([p["pixel_values"] for p in patches]),
+            "mmu_pixel_attention_mask": np.stack([p["pixel_attention_mask"] for p in patches]),
+            "mmu_spatial_shapes": np.stack([p["spatial_shapes"] for p in patches])}
+    draws = MK.draw_masking(torch.Generator().manual_seed(0), bt, n,
+                            codebook_size=cpu.cfg.codebook_size)
+    sides = {}
+    for device, pipe in (("cpu", cpu), ("cuda", gpu)):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        batch["mmu_pos_embeds"] = siglip2.resize_positional_embeddings(
+            pipe.vision_params["pos_embed"], host["mmu_spatial_shapes"], vs.num_patches)
+        tx = make_optimizer(pipe.params, 1e-3, LRS.get_scheduler("constant"), max_grad_norm=1.0)
+        step = SFT.SFTStep(pipe.cfg, pipe.vq_cfg, vs, tx, SFT.SFTStepConfig(
+            bt, bl, bm, max_grad_norm=1.0, pad_id=pipe.prompting.pad_id, soi_id=sp["<|soi|>"],
+            eoi_id=sp["<|eoi|>"]))
+        _reset_counts()
+        grads, m = step.loss_and_grads(
+            SFT.init_sft_state(pipe.params, tx).params, pipe.vq_params, pipe.vision_params, batch,
+            MK.MaskDraws(*(None if x is None else x.to(device) for x in draws)))
+        m["grad_norm"] = global_norm([g for g in grads if g is not None])
+        sides[device] = (grads, {k: float(v) for k, v in m.items()}, _read_counts())
+    (c_g, c_m, _), (g_g, g_m, counts) = sides["cpu"], sides["cuda"]
+    rel = {k: abs(g_m[k] - c_m[k]) / max(abs(c_m[k]), 1e-30) for k in c_m}
+    gmax = max(g.abs().max().item() for g in c_g if g is not None)
+    gerr = max((a.cpu() - b).abs().max().item() for a, b in zip(g_g, c_g) if b is not None)
+    print(f"  launches {counts}; relative differences {rel} (need <= 1e-4); gradients "
+          f"{gerr:.3e} of a largest {gmax:.3e} (need <= 1e-4 of it)")
+    check(counts["chunk_attention"] == vs.num_layers_used and counts["flash_attention"] > 0
+          and counts["conv3x3_gn_swish"] > 0, f"tiny NaFlex SFT launches {counts}")
+    check(all(v <= 1e-4 for v in rel.values()), f"tiny NaFlex SFT card vs CPU: {rel}")
+    check(gerr <= 1e-4 * gmax, f"tiny NaFlex SFT gradients differ: {gerr} of {gmax}")
+
+
+def run_sft_naflex(results, profile=False):
+    """SFT through the SFT entry with the SigLIP2-NaFlex tower
+    (``unigen_sft.yaml`` with ``model.vision_tower.name`` the NaFlex one:
+    3 t2i + 1 lm rows of 1,603 tokens, 4 mmu rows of 3 + 256 + 64 = 323 over
+    images of 384 x 384, 256 x 512 and 640 x 256 (256, 253 and 250 patches,
+    padded to 256), the separate mode); SFT_NAFLEX_WARM warm +
+    SFT_NAFLEX_TIMED timed steps, the sft phase's prints and gates; then the
+    tiny fp32 step on the card against the CPU."""
+    print(f"phase: sft_naflex ({SFT_CONFIG} with the SigLIP2-NaFlex tower: Qwen2.5-1.5B + the "
+          f"frozen tower and MAGViTv2, random init, bf16 params and AdamW state, remat; "
+          f"{SFT_NAFLEX_WARM} warm + {SFT_NAFLEX_TIMED} timed steps)")
+    run, batch, counts = _sft_stage(results, "sft_naflex", SFT_NAFLEX_WARM, SFT_NAFLEX_TIMED,
+                                    *SFT_NAFLEX_OVERRIDES, profile=profile)
+    check(run.step.naflex and run.step.mode == "separate",
+          f"sft_naflex ran {run.step.mode} without the NaFlex branch")
+    mask = batch["mmu_pixel_attention_mask"]
+    print(f"  NaFlex rows: spatial shapes {batch['mmu_spatial_shapes'].tolist()}, valid patches "
+          f"{mask.sum(1).tolist()} of {mask.shape[1]}")
+    run_tiny_sft_naflex()
+    del run
     return counts
 
 
@@ -4320,8 +4840,13 @@ def main(argv=None) -> int:
         if "understand_discrete" in phases:
             path_counts["understand_discrete"] = run_understand_discrete(
                 results, profile="profile" in phases)
+        if "understand_naflex" in phases:
+            path_counts["understand_naflex"] = run_understand_naflex(
+                results, profile="profile" in phases)
         if "score" in phases:
             path_counts["score"] = run_score(results, profile="profile" in phases)
+        if "lmms" in phases:
+            path_counts["lmms"] = run_lmms(results)
         if "geneval" in phases:
             path_counts["geneval"] = run_geneval(results, profile="profile" in phases)
         if "cot" in phases:
@@ -4344,7 +4869,7 @@ def main(argv=None) -> int:
         if "train" in phases:
             path_counts["train"] = run_train(results, profile="profile" in phases)
         for name, fn in (("sft", run_sft), ("sft_packed", run_sft_packed), ("dpo", run_dpo),
-                         ("cotv_post_sft", run_cotv_post_sft)):
+                         ("cotv_post_sft", run_cotv_post_sft), ("sft_naflex", run_sft_naflex)):
             if name in phases:
                 path_counts[name] = fn(results, profile="profile" in phases)
         if "tiny" in phases:
@@ -4420,6 +4945,22 @@ def main(argv=None) -> int:
         ud = results["understand_discrete"]
         print(f"understand_discrete: {ud['tokens_per_s']:.2f} tokens/s ({ud['seconds']:.3f} s, "
               f"batch {len(QUESTIONS)} x {NEW_TOKENS} tokens) on {card}")
+    if "understand_naflex" in results:
+        un = results["understand_naflex"]
+        print(f"understand_naflex: {un['tokens_per_s']:.2f} tokens/s ({un['seconds']:.3f} s, "
+              f"batch {len(QUESTIONS)} x {NEW_TOKENS} tokens, {NAFLEX_PX} px), the tower "
+              f"{un['tower_share']:.4f} of the call, on {card}")
+    if "lmms" in results:
+        lm = results["lmms"]
+        for route in ("static", "served"):
+            r = lm[route]
+            print(f"lmms generate_until {route}: {r['requests_per_s']:.4f} requests/s, "
+                  f"{r['tokens_per_s']:.2f} useful tokens/s ({r['seconds']:.3f} s for "
+                  f"{LMMS_REQUESTS} requests) on {card}")
+        for route in ("batched", "single"):
+            r = lm[f"loglikelihood_{route}"]
+            print(f"lmms loglikelihood {route}: {r['requests_per_s']:.4f} requests/s "
+                  f"({r['seconds']:.3f} s) on {card}")
     if "score" in results:
         sc = results["score"]
         print(f"score: {sc['requests_per_s']:.3f} requests/s ({sc['seconds']:.3f} s for "

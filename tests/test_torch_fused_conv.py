@@ -93,6 +93,33 @@ def test_conv_plain_matches_jax_kernel(name):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["c_gt_cout", "ragged_upsample"])
+def test_conv_gradients_match_jax(name):
+    """The wrapper on CPU tensors (the plain version, which its autograd
+    function's backward recomputes on the card) gives ``jax.grad`` of JAX's
+    ``conv3x3_gn_swish`` (its custom_vjp, Pallas in interpret mode) for x
+    and every parameter, at the JAX fused-conv gradient test's tolerance."""
+    import jax
+    h, w, c, cout, gn = CONV_CASES[name]
+    x, conv_p, gn_p = _conv_inputs(h, w, c, cout, gn, 43)
+    jt = (lambda p: None if p is None else {k: jnp.asarray(v) for k, v in p.items()})
+    want = jax.grad(lambda cp, gp, xx: (JFC.conv3x3_gn_swish(cp, gp, xx, 16, interpret=True)
+                                        ** 2).mean(), argnums=(0, 1, 2))(
+        jt(conv_p), jt(gn_p), jnp.asarray(x))
+    tt = (lambda p: None if p is None else
+          {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()})
+    tc, tg, tx = tt(conv_p), tt(gn_p), torch.from_numpy(x).requires_grad_(True)
+    before = TFC.conv3x3_gn_swish.launches
+    out = TFC.conv3x3_gn_swish(tc, tg, tx, 16)
+    assert out.grad_fn is not None and TFC.conv3x3_gn_swish.launches == before
+    (out ** 2).mean().backward()
+    pairs = [(tx.grad, want[2])] + [(tc[k].grad, want[0][k]) for k in ("kernel", "bias")]
+    if gn:
+        pairs += [(tg[k].grad, want[1][k]) for k in ("scale", "bias")]
+    for got, ref in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-3)
+
+
 def _meta_conv(**over):
     """A GN conv's arguments on the meta device (x [2, 8, 8, 64] bf16 -> 32)."""
     m = torch.device("meta")

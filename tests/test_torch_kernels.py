@@ -372,6 +372,73 @@ def test_fused_conv_counts_one_launch_each(cuda, gn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 19, 37, 64, 80), (1, 16, 16, 512, 512),
+                                   (1, 32, 32, 256, 256)])
+def test_fused_conv_autograd_matches_plain(cuda, shape, dtype, gn):
+    """On a CUDA tensor that requires grad, kernel 3's output carries a
+    grad_fn; the forward is the counted launches, the backward recomputes the
+    plain version, so dx and the conv and GroupNorm parameters' gradients
+    equal the plain version's autograd bit for bit (cuDNN's deterministic
+    algorithms on both sides; the recompute launches nothing)."""
+    b, h, w, c, cout = shape
+    x, conv_p, gn_p = _conv_case(b, h, w, c, cout, gn, dtype, cuda, seed=c + h)
+    leaves = [x] + list(conv_p.values()) + (list(gn_p.values()) if gn else [])
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.randn((b, h, w, cout), generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = (FC.conv3x3_gn_swish.launches, FC.gn_affine.launches)
+        out = FC.conv3x3_gn_swish(conv_p, gn_p, x)
+        assert out.grad_fn is not None and out.requires_grad
+        got = torch.autograd.grad(out, leaves, g)
+        assert (FC.conv3x3_gn_swish.launches, FC.gn_affine.launches) == (before[0] + 1,
+                                                                          before[1] + int(gn))
+        ref = FC.conv3x3_gn_swish_plain(conv_p, gn_p, x)
+        want = torch.autograd.grad(ref, leaves, g)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _close(out.detach(), ref.detach(), 1e-4 if dtype == torch.float32 else 2 ** -6)
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    with torch.no_grad():
+        assert FC.conv3x3_gn_swish(conv_p, gn_p, x).grad_fn is None
+
+
+def _naflex_kvalid(b, n, device, seed=31):
+    """Per-row key masks as ``naflex_preprocess`` pads: the first 6..n patches
+    valid (a full row, a 6-patch row, ragged counts between)."""
+    counts = np.random.default_rng(seed).integers(6, n + 1, size=b)
+    counts[0], counts[-1] = n, 6
+    return torch.arange(n, device=device)[None] < torch.as_tensor(counts, device=device)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_chunk_kernel_at_the_naflex_tower_shape(cuda, dtype, ragged):
+    """Kernel 1 as the SigLIP2-NaFlex tower calls it: q = k = v's sequence
+    [8, 256, 16, 72] zero-padded to 80, scale 72^-1/2, a key mask a row;
+    every row, pad query rows too, against the plain version; the unsplit
+    route, one counted launch."""
+    import torch.nn.functional as F
+    b, n, h, dh = 8, 256, 16, 72
+    q, k, v = (F.pad(t, (0, 8)) for t in _qkv(b, n, n, h, h, dh, 32, cuda, dtype))
+    kvalid = _naflex_kvalid(b, n, cuda) if ragged else torch.ones((b, n), dtype=torch.bool,
+                                                                   device=cuda)
+    assert CA.kv_splits(b, n, n, h, h) == 1
+    before = chunk_attention.launches
+    got = chunk_attention(q, k, v, kvalid, scale=dh ** -0.5)
+    assert chunk_attention.launches == before + 1
+    ref = chunk_attention_plain(q, k, v, kvalid, scale=dh ** -0.5)
+    _close(got[..., :dh], ref[..., :dh], TOL[dtype])
+    assert (got[..., dh:] == 0).all()
+
+
+@pytest.mark.cuda
 def test_wrappers_count_launches_only_on_the_card(cuda):
     q, k, v = _qkv(1, 4, 8, 4, 2, 16, 14, cuda, torch.float32)
     before = chunk_attention.launches

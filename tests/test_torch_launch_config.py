@@ -14,8 +14,9 @@
   configs over native checkpoints that JAX wrote in the test gives JAX's
   parameters exactly, t2i codes exact under shared noise and ``understand``
   tokens exact, also with ``model.quantization=int8``;
-* ``models/builder.py``, ``models/registry.py`` and the refusals (NaFlex,
-  a non-native checkpoint, ``enable_reuse_tk``); ``task_token_first``.
+* ``models/builder.py`` (the NaFlex name dispatching to ``models.siglip2``),
+  ``models/registry.py`` and the refusals (a non-native checkpoint,
+  ``enable_reuse_tk``); ``task_token_first``.
 """
 import dataclasses
 import glob
@@ -329,8 +330,8 @@ def test_random_init_and_refusals(tmp_path, caplog):
     conf = TC.initialize_config(path, [f"model.unigen.pretrained_model_path={torch_dir}"])
     with pytest.raises(NotImplementedError, match="item 16"):
         TL.build_pipeline(conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TB.get_vision_tower_config("siglip2-so400m-patch16-naflex")
+    assert TB.get_vision_tower_config("siglip2-so400m-patch16-naflex")[0].__name__ == \
+        "unigen_tpu_torch.models.siglip2"
     with pytest.raises(NotImplementedError, match="item 10"):
         TL.build_prompting_from_config(
             TC.initialize_config(path, ["model.enable_reuse_tk=true"]), TL.FallbackTokenizer())

@@ -9,8 +9,6 @@ losses, the grad norm and the updated parameters. Weights are the JAX tiny
 inits with perturbed biases and norm scales; the shapes are those of
 tests/test_hf_import.py's SFT fixture.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +18,7 @@ import torch
 from test_torch_training import _jax_draws, _leaf_errors, _perturb
 from unigen_tpu import launch as JL
 from unigen_tpu.data import llava as JD
+from unigen_tpu.data import transform as JT_
 from unigen_tpu.models import magvit as JMV
 from unigen_tpu.models import siglip as JSG
 from unigen_tpu.models import unigen as JU
@@ -32,6 +31,7 @@ from unigen_tpu_torch import weights as W
 from unigen_tpu_torch.data import llava as TD
 from unigen_tpu_torch.models import magvit as TMV
 from unigen_tpu_torch.models import siglip as TSG
+from unigen_tpu_torch.models import siglip2 as TS2
 from unigen_tpu_torch.models import unigen as TU
 from unigen_tpu_torch.ops import masks as TM
 from unigen_tpu_torch.training import lr_schedules as TLRS
@@ -88,8 +88,16 @@ def test_preprocess_and_collate_match_jax():
         assert sorted(j) == sorted(t)
         for k in j:
             np.testing.assert_array_equal(t[k], j[k])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TD.collate_batch([dict(samples[0], image={"pixel_values": 0})], 0, 8)
+    # NaFlex samples (dict images from naflex_preprocess) stack their patches,
+    # masks and spatial shapes as JAX's collate does
+    naflex = [dict(s, image=JT_.naflex_preprocess(
+        rng.integers(0, 256, size=(8 + 8 * i, 16, 3), dtype=np.uint8), 8, 8))
+        for i, s in enumerate(samples)]
+    j, t = JD.collate_batch(naflex, 0, 48), TD.collate_batch(naflex, 0, 48)
+    assert sorted(j) == sorted(t) == ["images", "input_ids", "labels", "pixel_attention_mask",
+                                      "spatial_shapes"]
+    for k in j:
+        np.testing.assert_array_equal(t[k], j[k])
 
 
 # ---------------------------------------------------------------------------
@@ -334,12 +342,11 @@ def test_packed_rows_bits():
 
 
 def test_naflex_tower_raises(models):
+    """The NaFlex tower takes no n_grid tiling, as in JAX (its step is held
+    to JAX's in tests/test_torch_naflex.py)."""
     _, t = models
-
-    @dataclasses.dataclass(frozen=True)
-    class Siglip2Config:
-        image_size: int = 28
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TSFT.make_sft_train_step(t["cfg"], t["vq_cfg"], Siglip2Config(), None,
-                                 TSFT.SFTStepConfig(0, 0, 1))
+    with pytest.raises(ValueError, match="n_grid"):
+        TSFT.make_sft_train_step(t["cfg"], t["vq_cfg"], TS2.Siglip2Config.tiny(), None,
+                                 TSFT.SFTStepConfig(0, 0, 1, n_grid=2))
+    assert TSFT.make_sft_train_step(t["cfg"], t["vq_cfg"], TS2.Siglip2Config.tiny(), None,
+                                    TSFT.SFTStepConfig(0, 0, 1)).naflex

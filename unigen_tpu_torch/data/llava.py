@@ -9,12 +9,12 @@ JAX package):
 * ``preprocess_plain``: the caption-pretraining form, one ``<caption><sep>``
   a conversation with the emptied user turn masked;
 * ``preprocess``: the prompt-type dispatch;
-* ``collate_batch``: ids and labels padded to ``max_length``, images stacked,
-  the optional system-prompt stream.
+* ``collate_batch``: ids and labels padded to ``max_length``, images stacked
+  (NaFlex samples with their patch masks and spatial shapes), the optional
+  system-prompt stream.
 
 Not ported yet: ``LlavaDataset`` (JSON files and an image folder, PIL
-decoding), with the other loaders (ROADMAP Queue 1 item 12), and the NaFlex
-samples of ``collate_batch`` (dict images), with the SigLIP2 tower (item 8).
+decoding), with the other loaders (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -93,12 +93,10 @@ def preprocess(sources, tokenizer, prompt_type: str = "qwen",
 def collate_batch(samples: List[Dict], pad_id: int, max_length: int,
                   with_system: bool = False) -> Dict[str, np.ndarray]:
     """ids / labels padded (or cut) to ``max_length`` with ``pad_id`` /
-    ``IGNORE_INDEX``, images stacked; with ``with_system`` the system-prompt
-    ids padded to the longest."""
-    if isinstance(samples[0]["image"], dict):
-        raise NotImplementedError(
-            "NaFlex samples (dict images) come with the SigLIP2 tower, not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    ``IGNORE_INDEX``, images stacked; NaFlex samples (dict images, from
+    ``data.transform.naflex_preprocess``) also stack ``pixel_attention_mask``
+    and ``spatial_shapes``; with ``with_system`` the system-prompt ids padded
+    to the longest."""
     b = len(samples)
     ids = np.full((b, max_length), pad_id, np.int64)
     labels = np.full((b, max_length), IGNORE_INDEX, np.int64)
@@ -107,8 +105,14 @@ def collate_batch(samples: List[Dict], pad_id: int, max_length: int,
         ids[i, :len(seq)] = seq
         lab = s["labels"][:max_length]
         labels[i, :len(lab)] = lab
-    out = {"input_ids": ids, "labels": labels,
-           "images": np.stack([s["image"] for s in samples])}
+    out = {"input_ids": ids, "labels": labels}
+    if isinstance(samples[0]["image"], dict):       # NaFlex patchified images
+        out["images"] = np.stack([s["image"]["pixel_values"] for s in samples])
+        out["pixel_attention_mask"] = np.stack(
+            [s["image"]["pixel_attention_mask"] for s in samples])
+        out["spatial_shapes"] = np.stack([s["image"]["spatial_shapes"] for s in samples])
+    else:
+        out["images"] = np.stack([s["image"] for s in samples])
     if with_system:
         sys_len = max(len(s["input_ids_system"]) for s in samples)
         sys_ids = np.full((b, sys_len), pad_id, np.int64)

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.transform import naflex_resize
+from ..models.siglip2 import Siglip2Config
 from ..ops.sampling import derived_generator
 from ..pipeline import UniGenPipeline, pixels_to_uint8
 from .geneval import load_metadata_jsonl, save_png, shard_for_process
@@ -215,10 +217,16 @@ def rate_candidates(
     n = pixels_256.shape[0]
     rows: List[Dict] = []
     if use_vision_tower:
-        # resize once for all questions, to the fixed-resolution SigLIP tower's
-        # size. JAX's rater also has a NaFlex (SigLIP2) branch, a patch-budget
-        # resize; it comes with SigLIP2 (ROADMAP Queue 1 item 8)
-        px = resize_bilinear(pixels_256, pipeline.vision_cfg.image_size)
+        # resize once for all questions: to the fixed-resolution SigLIP tower's
+        # size, or for a NaFlex tower the processor's aspect-preserving
+        # patch-budget resize of the uint8 candidates (the lmms adapter's path;
+        # equal 256 px inputs land on one size, so the batch stays rectangular)
+        vcfg = pipeline.vision_cfg
+        if isinstance(vcfg, Siglip2Config):
+            px = np.stack([naflex_resize(img, vcfg.patch_size, vcfg.num_patches)
+                           for img in pixels_to_uint8(pixels_256)])
+        else:
+            px = resize_bilinear(pixels_256, vcfg.image_size)
         # the reference conditions the w_und_encoder rating path on the Qwen
         # system prompt (inference_unigen_cot.py:343-353)
         sys_ids = np.asarray([pipeline.prompting._tokenize(QWEN_SYSTEM_PROMPT)[0]])

@@ -30,6 +30,7 @@ from .models.builder import get_vision_tower_config
 from .models.magvit import MagvitConfig
 from .models.qwen2 import Qwen2Config
 from .models.siglip import SiglipConfig
+from .models.siglip2 import Siglip2Config
 from .models.unigen import UniGenConfig
 from .ops.int4 import quantize_unigen_params_int4
 from .ops.quantization import quantize_siglip_params, quantize_unigen_params
@@ -37,7 +38,7 @@ from .pipeline import UniGenPipeline
 from .prompting import UniPrompting
 from .utils.checkpoint_registry import real_checkpoint
 from .utils.persistence import from_pretrained, tensor_names
-from .weights import init_magvit, init_siglip, init_unigen
+from .weights import init_magvit, init_siglip, init_siglip2, init_unigen
 
 logger = logging.getLogger(__name__)
 
@@ -268,9 +269,10 @@ def vision_tower_config(config, dtype=None):
     _, cfg = get_vision_tower_config(vt["name"])
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    # a size a tower's config lacks (image_size of the NaFlex tower) is skipped, as in JAX
     overrides = {k: int(vt[k]) for k in ("hidden_size", "intermediate_size", "num_hidden_layers",
                                          "num_attention_heads", "image_size", "patch_size")
-                 if vt.get(k) is not None}
+                 if vt.get(k) is not None and hasattr(cfg, k)}
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
@@ -278,22 +280,25 @@ def build_vision_tower(config, dtype=None, device: DeviceLike = None):
     """The tower named by ``model.vision_tower.name`` with its size
     overrides, from its checkpoint when the path exists, else random (seed
     2); (None, None) without one. The tower keeps its own dtype (fp32)
-    unless ``dtype`` is given, as in JAX."""
+    unless ``dtype`` is given, as in JAX. A SigLIP2-NaFlex name builds
+    ``models.siglip2``'s tower."""
     cfg = vision_tower_config(config, dtype)
     if cfg is None:
         return None, None
     device = resolve_device(device)
+    init, to_jax, from_jax = ((init_siglip2, W.siglip2_to_jax, W.siglip2_from_jax)
+                              if isinstance(cfg, Siglip2Config) else
+                              (init_siglip, W.siglip_to_jax, W.siglip_from_jax))
     name = config["model"]["vision_tower"]["name"]
     path = real_checkpoint(name, config["model"].get("ckpt_base_path", ""))
     if os.path.isdir(path):
         logger.info(f"loading vision tower weights from {path}")
         if not _is_native_checkpoint(path):
             raise _non_native("vision tower", path)
-        template = W.siglip_to_jax(init_siglip(cfg, None, "meta", cfg.dtype), cfg)
-        return _load_native(path, template, lambda t: W.siglip_from_jax(
-            t, cfg, device, cfg.dtype)), cfg
+        template = to_jax(init(cfg, None, "meta", cfg.dtype), cfg)
+        return _load_native(path, template, lambda t: from_jax(t, cfg, device, cfg.dtype)), cfg
     logger.warning(f"vision tower checkpoint missing at {path}; random init")
-    return init_siglip(cfg, _generator(2, device), device, cfg.dtype), cfg
+    return init(cfg, _generator(2, device), device, cfg.dtype), cfg
 
 
 def _pipeline_from_config(config, dtype=None, device: DeviceLike = None) -> UniGenPipeline:
@@ -304,7 +309,7 @@ def _pipeline_from_config(config, dtype=None, device: DeviceLike = None) -> UniG
     vs_params, vs_cfg = build_vision_tower(config, dtype, device)
     if str(config["model"].get("quantization", "")).lower() == "int8":
         params = quantize_unigen_params(params, cfg, lm_head=True)
-        if vs_params is not None:
+        if vs_params is not None and isinstance(vs_cfg, SiglipConfig):
             vs_params = quantize_siglip_params(vs_params)
             logger.info("backbone + heads + SigLIP tower quantized to int8 W8A8")
         else:
@@ -320,7 +325,7 @@ def _pipeline_from_config(config, dtype=None, device: DeviceLike = None) -> UniG
 def build_pipeline(model: Union[str, Mapping] = "flagship", *,
                    dtype: Optional[torch.dtype] = None,
                    device: DeviceLike = None, seed: Optional[int] = None,
-                   vision: Optional[bool] = None, quantization: Optional[str] = None,
+                   vision: Union[bool, str, None] = None, quantization: Optional[str] = None,
                    quantized_cache: Optional[bool] = None) -> UniGenPipeline:
     """A pipeline from a run's config (``model`` a mapping of
     ``initialize_config``; module docstring), or one of the code-built
@@ -336,11 +341,15 @@ def build_pipeline(model: Union[str, Mapping] = "flagship", *,
     narrow layers, an 8 px tokenizer with 16 tokens and a 32-entry codebook,
     with ``vision`` a 3-layer 32-wide tower over 28 px images (4 patches),
     fp32 by default, with the byte tokenizer's special ids moved down to 256
-    so they fit the tiny vocabulary.
+    so they fit the tiny vocabulary. ``vision="naflex"`` takes the
+    SigLIP2-NaFlex tower instead (``models.siglip2``: at the flagship
+    ``google/siglip2-so400m-patch16-naflex``'s shape, patch 16, a budget of
+    256 patches, 26 of 27 layers; tiny: 3 layers 32 wide, patch 4, 16 patches).
 
     ``quantization="int8"`` (JAX's ``model.quantization=int8``) puts the
     backbone, the image and text heads and, with ``vision``, the SigLIP
-    tower on W8A8 (``ops.quantization``); ``"int4"`` puts the backbone and
+    tower on W8A8 (``ops.quantization``; the NaFlex tower stays float, as in
+    JAX); ``"int4"`` puts the backbone and
     the text head on W4A8 (``ops.int4``, group 256; 32 at the tiny width). ``quantized_cache``
     gives ``understand`` and ``generate_text`` an int8 KV cache.
     """
@@ -352,6 +361,9 @@ def build_pipeline(model: Union[str, Mapping] = "flagship", *,
             raise ValueError(f"build_pipeline(config) takes its settings from the config, not "
                              f"{sorted(given)} (model.quantization=int8 quantizes)")
         return _pipeline_from_config(model, dtype, device)
+    if vision not in (None, False, True, "siglip", "naflex"):
+        raise ValueError(f"vision must be a bool, 'siglip' or 'naflex', got {vision!r}")
+    naflex = vision == "naflex"
     seed, vision, quantized_cache = seed or 0, bool(vision), bool(quantized_cache)
     if quantization not in (None, "int8", "int4"):
         raise ValueError(f"quantization must be None, 'int8' or 'int4', got {quantization!r}")
@@ -362,7 +374,8 @@ def build_pipeline(model: Union[str, Mapping] = "flagship", *,
         prompting = build_prompting(tokenizer)
         text_vocab_len = len(tokenizer)
         vocab = text_vocab_len + 8192 + 1
-        vision_cfg = SiglipConfig.so400m(dtype=dtype) if vision else None
+        vision_cfg = None if not vision else Siglip2Config.naflex(dtype=dtype) if naflex else \
+            SiglipConfig.so400m(dtype=dtype)
         cfg = UniGenConfig.for_qwen25_15b(text_vocab_len=text_vocab_len,
                                           llm=Qwen2Config(vocab_size=vocab, dtype=dtype),
                                           w_und_encoder=vision, mm_input_dim=1152,
@@ -373,7 +386,8 @@ def build_pipeline(model: Union[str, Mapping] = "flagship", *,
         tokenizer = FallbackTokenizer(special_base=256)
         prompting = build_prompting(tokenizer, max_seq_len=64 + 16 + 3)
         text_vocab_len = len(tokenizer)
-        vision_cfg = SiglipConfig.tiny(dtype=dtype) if vision else None
+        vision_cfg = None if not vision else Siglip2Config.tiny(dtype=dtype) if naflex else \
+            SiglipConfig.tiny(dtype=dtype)
         cfg = UniGenConfig.tiny(text_vocab_len=text_vocab_len,
                                 llm=Qwen2Config.tiny(vocab_size=text_vocab_len + 32 + 1,
                                                      dtype=dtype),
@@ -385,10 +399,11 @@ def build_pipeline(model: Union[str, Mapping] = "flagship", *,
     gen.manual_seed(seed)
     params = init_unigen(cfg, gen, device, dtype)
     vq_params = init_magvit(vq_cfg, gen, device, dtype)
-    vision_params = init_siglip(vision_cfg, gen, device, dtype) if vision else None
+    vision_params = None if not vision else (init_siglip2 if naflex else init_siglip)(
+        vision_cfg, gen, device, dtype)
     if quantization == "int8":
         params = quantize_unigen_params(params, cfg, lm_head=True)
-        if vision:
+        if vision and not naflex:
             vision_params = quantize_siglip_params(vision_params)
     elif quantization == "int4":
         params = quantize_unigen_params_int4(params, cfg, group=256 if model == "flagship" else 32)

@@ -94,7 +94,10 @@ def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p[f"{name}_w"], p[f"{name}_b"])
 
 
-def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
+                   attend=_bidir_attention) -> torch.Tensor:
+    """One pre-LN layer; ``attend(q, k, v, scale)`` on [B, L, H, dh] is its
+    attention (SigLIP2-NaFlex passes its key-masked one)."""
     b, l, d = x.shape
     h = cfg.num_attention_heads
     dh = d // h
@@ -107,7 +110,7 @@ def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor) -> torch.Tensor:
                    for n in ("q", "k", "v"))
     else:
         q, k, v = (_dense(p, n, x).view(b, l, h, dh) for n in ("q", "k", "v"))
-    attn = _bidir_attention(q, k, v, dh ** -0.5).reshape(b, l, d)
+    attn = attend(q, k, v, dh ** -0.5).reshape(b, l, d)
     x = res + _dense(p, "o", attn)
     res = x
     x = layer_norm(p["ln2"], x, cfg.layer_norm_eps)

@@ -37,12 +37,14 @@ _SPLIT_TARGET_BLOCKS = 128
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, kvalid: torch.Tensor,
-            q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+            q_start: Optional[torch.Tensor] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
     """fp32 logits [B, KVH, G, Lq, S] plus the 0 / -1e30 bias."""
     b, lq, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, lq, kvh, h // kvh, dh)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.to(q.dtype).float()) * dh ** -0.5
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.to(q.dtype).float()) * (
+        dh ** -0.5 if scale is None else scale)
     if q_start is None:
         bias = torch.where(kvalid, 0.0, -1e30).to(torch.float32)
         return logits + bias[:, None, None, None, :]
@@ -53,14 +55,15 @@ def _logits(q: torch.Tensor, k: torch.Tensor, kvalid: torch.Tensor,
 
 def chunk_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kvalid: torch.Tensor,
-                          q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """fp32 logits plus a 0 / -1e30 bias, max-shifted fp32 softmax, P cast
-    to q.dtype, P.V accumulated in fp32. q: [B, Lq, H, Dh]; k, v:
-    [B, S, KVH, Dh]; kvalid: [B, S] bool; q_start: None or [B] int (key s
-    visible to query j of row b only while ``s <= q_start[b] + j``).
-    Returns [B, Lq, H, Dh] in q.dtype."""
+                          q_start: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """fp32 logits (times ``scale``, ``Dh ** -0.5`` by default) plus a 0 /
+    -1e30 bias, max-shifted fp32 softmax, P cast to q.dtype, P.V accumulated
+    in fp32. q: [B, Lq, H, Dh]; k, v: [B, S, KVH, Dh]; kvalid: [B, S] bool;
+    q_start: None or [B] int (key s visible to query j of row b only while
+    ``s <= q_start[b] + j``). Returns [B, Lq, H, Dh] in q.dtype."""
     b, lq, h, dh = q.shape
-    logits = _logits(q, k, kvalid, q_start)
+    logits = _logits(q, k, kvalid, q_start, scale)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype).float(), v.to(q.dtype).float())
@@ -76,7 +79,8 @@ def keys_per_split(s: int, nsplit: int, granule: int = SPLIT_GRANULE) -> int:
 def chunk_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 kvalid: torch.Tensor, nsplit: int,
                                 granule: int = SPLIT_GRANULE,
-                                q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                q_start: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None) -> torch.Tensor:
     """The split route's arithmetic: per key range i the max m_i, the sum
     l_i of exp(logit - m_i) and the unnormalised o_i = P_i . V_i (P_i cast to
     q.dtype); then ``sum_i w_i o_i / sum_i w_i l_i`` with
@@ -85,7 +89,7 @@ def chunk_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     and a row with no visible key gets equal weights over all S keys."""
     b, lq, h, dh = q.shape
     s = k.shape[1]
-    logits = _logits(q, k, kvalid, q_start)
+    logits = _logits(q, k, kvalid, q_start, scale)
     vf = v.to(q.dtype).float()
     per = keys_per_split(s, nsplit, granule)
     ms, ls, os_ = [], [], []
@@ -119,11 +123,12 @@ def kv_splits(b: int, lq: int, s: int, h: int, kvh: int) -> int:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kvalid: torch.Tensor,
-            nsplit: int, q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+            nsplit: int, q_start: Optional[torch.Tensor] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
     """Launch ``csrc/attention.cu`` on checked, contiguous CUDA inputs of one
     type: unsplit for ``nsplit <= 1``, else split over at most ``nsplit`` key
     ranges (one call queues the partials' kernel and the combine); ``q_start``
-    None or a contiguous [B] int32 tensor."""
+    None or a contiguous [B] int32 tensor; ``scale`` ``Dh ** -0.5`` by default."""
     b, lq, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -137,19 +142,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kvalid: torch.Ten
         _cuda.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kvalid.data_ptr(), None if q_start is None else q_start.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        b, lq, s, h, kvh, dh, nsplit, dh ** -0.5, _cuda.stream_of(q))
+        b, lq, s, h, kvh, dh, nsplit, dh ** -0.5 if scale is None else scale,
+        _cuda.stream_of(q))
     _cuda.check(rc, "chunk_attention_launch")
     return out
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kvalid: torch.Tensor, q_start: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    kvalid: torch.Tensor, q_start: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, Lq, H, Dh]; k, v: [B, S, KVH, Dh]; kvalid: [B, S] bool;
-    q_start: None or [B] int32, the per-row causal offset (module docstring).
-    Returns [B, Lq, H, Dh] in q.dtype."""
+    q_start: None or [B] int32, the per-row causal offset (module docstring);
+    scale: the logits' factor, ``Dh ** -0.5`` by default (a caller that
+    zero-pads the head dim passes the real one's). Returns [B, Lq, H, Dh]
+    in q.dtype."""
     if q.device.type == "cpu":
-        return chunk_attention_plain(q, k, v, kvalid, q_start)
+        return chunk_attention_plain(q, k, v, kvalid, q_start, scale)
     b, lq, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if k.shape != (b, s, kvh, dh) or v.shape != k.shape or kvalid.shape != (b, s):
@@ -167,7 +175,7 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"chunk_attention inputs on {q.device} and {t.device}")
     out = _launch(q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
                   kvalid.contiguous(), kv_splits(b, lq, s, h, kvh),
-                  None if q_start is None else q_start.contiguous())
+                  None if q_start is None else q_start.contiguous(), scale)
     chunk_attention.launches += 1
     return out
 

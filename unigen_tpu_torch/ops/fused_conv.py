@@ -9,6 +9,13 @@ swish on its tile, zeroes the SAME padding after the activation, and runs the
 upsample conv). On a CPU tensor the wrappers run ``gn_affine_plain`` and
 ``conv3x3_gn_swish_plain``, the unfused compositions, which are also the
 kernels' references on the card.
+
+The gradient is JAX's design (its ``custom_vjp``, ``_bwd``): there is no
+backward kernel. On a CUDA tensor ``conv3x3_gn_swish`` runs through
+``_ConvGnSwish``, whose forward is the two launches above and whose backward
+recomputes ``conv3x3_gn_swish_plain`` from the saved input and parameters
+under autograd, so for one upstream gradient the input, conv and GroupNorm
+gradients are those of the plain version's own autograd.
 """
 from __future__ import annotations
 
@@ -139,14 +146,11 @@ def conv3x3_gn_swish_plain(conv_p: Dict, gn_p: Optional[Dict], x: torch.Tensor,
     return conv2d(conv_p, x)
 
 
-def conv3x3_gn_swish(conv_p: Dict, gn_p: Optional[Dict], x: torch.Tensor,
-                     num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
-    """``conv3x3(swish(group_norm(x)))``, or a plain conv3x3 when ``gn_p`` is None.
-
-    x: [B, H, W, C]; conv_p: {"kernel": [3, 3, C, Cout], "bias": [Cout]}.
-    Returns [B, H, W, Cout] in x.dtype."""
-    if x.device.type == "cpu":
-        return conv3x3_gn_swish_plain(conv_p, gn_p, x, num_groups, eps)
+def conv3x3_gn_swish_launch(conv_p: Dict, gn_p: Optional[Dict], x: torch.Tensor,
+                            num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """The forward on the card: ``gn_affine`` (when ``gn_p`` is given) and
+    ``csrc/fused_conv.cu``'s conv on checked CUDA inputs, each counted; the
+    output carries no gradient."""
     if x.dim() != 4:
         raise ValueError(f"conv3x3 input {tuple(x.shape)}: expected [B, H, W, C]")
     dtype = _cuda.dtype_code(x.dtype)
@@ -173,6 +177,50 @@ def conv3x3_gn_swish(conv_p: Dict, gn_p: Optional[Dict], x: torch.Tensor,
     _cuda.check(rc, "conv3x3_gn_swish_launch")
     conv3x3_gn_swish.launches += 1
     return out
+
+
+def _params(kernel, bias, gn_scale, gn_bias):
+    gn_p = None if gn_scale is None else {"scale": gn_scale, "bias": gn_bias}
+    return {"kernel": kernel, "bias": bias}, gn_p
+
+
+class _ConvGnSwish(torch.autograd.Function):
+    """Forward: ``conv3x3_gn_swish_launch``. Backward: the gradients of
+    ``conv3x3_gn_swish_plain`` recomputed from x and the parameters."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, gn_scale, gn_bias, num_groups, eps):
+        ctx.save_for_backward(x, kernel, bias, gn_scale, gn_bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return conv3x3_gn_swish_launch(*_params(kernel, bias, gn_scale, gn_bias), x,
+                                       num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[:5])]
+            x, kernel, bias, gn_scale, gn_bias = inputs
+            out = conv3x3_gn_swish_plain(*_params(kernel, bias, gn_scale, gn_bias), x,
+                                         ctx.num_groups, ctx.eps)
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(got) if t is not None and t.requires_grad else None for t in inputs),
+                None, None)
+
+
+def conv3x3_gn_swish(conv_p: Dict, gn_p: Optional[Dict], x: torch.Tensor,
+                     num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """``conv3x3(swish(group_norm(x)))``, or a plain conv3x3 when ``gn_p`` is None.
+
+    x: [B, H, W, C]; conv_p: {"kernel": [3, 3, C, Cout], "bias": [Cout]}.
+    Returns [B, H, W, Cout] in x.dtype, differentiable in x and every
+    parameter on both devices."""
+    if x.device.type == "cpu":
+        return conv3x3_gn_swish_plain(conv_p, gn_p, x, num_groups, eps)
+    gn = (None, None) if gn_p is None else (gn_p["scale"], gn_p["bias"])
+    return _ConvGnSwish.apply(x, conv_p["kernel"], conv_p["bias"], *gn, num_groups, eps)
 
 
 conv3x3_gn_swish.launches = 0

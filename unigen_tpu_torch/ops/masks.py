@@ -11,6 +11,7 @@ Boolean masks are True where visible.
 """
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple, Optional
 
 import torch
@@ -101,19 +102,27 @@ def mmu_train_attn_meta(input_ids: torch.Tensor, pad_id: int, soi_id: int,
     return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=(pos <= eoi_pos) & ~pad)
 
 
-def mmu_vit_attn_meta(batch_size: int, seq_len: int, *, num_tokens: int,
+def mmu_vit_attn_meta(batch_size: int, seq_len: int, *, num_tokens,
                       prefix_length: int, prompt_len: Optional[torch.Tensor] = None,
                       device=None) -> AttnMeta:
     """Metadata form of the JAX package's ``create_attention_mask_for_mmu_vit``
-    (int ``num_tokens``) and the prompt-length keep mask: bidir_k on the continuous-image block
-    [prefix_length, prefix_length + num_tokens), pad at and beyond each row's
-    ``prompt_len``. On every non-pad query row it equals the dense
-    ``(causal | block) & keep_q & keep_k``; pad query rows see nothing here
-    (they are never visible to a real query)."""
+    and the prompt-length keep mask: bidir_k on the continuous-image block
+    [prefix_length, prefix_length + img_len), pad at and beyond each row's
+    ``prompt_len``. ``num_tokens`` is an int, or the NaFlex tower's [B, 2]
+    spatial shapes (tensor or array), each row's img_len then h * w: the
+    row's pad-patch slots after its image stay causal keys, as in JAX. On
+    every non-pad query row it equals the dense ``(causal | block) & keep_q
+    & keep_k``; pad query rows see nothing here (they are never visible to
+    a real query)."""
     if prompt_len is not None:
         device = prompt_len.device
     pos = torch.arange(seq_len, device=device)[None].expand(batch_size, seq_len)
-    block = (pos >= prefix_length) & (pos < prefix_length + num_tokens)
+    if isinstance(num_tokens, numbers.Integral):
+        end = prefix_length + int(num_tokens)
+    else:
+        shapes = torch.as_tensor(num_tokens, device=device)
+        end = prefix_length + (shapes[:, 0] * shapes[:, 1])[:, None]
+    block = (pos >= prefix_length) & (pos < end)
     pad = (pos >= prompt_len[:, None]) if prompt_len is not None else torch.zeros_like(block)
     return AttnMeta(pad=pad, bidir_q=torch.zeros_like(pad), bidir_k=block & ~pad)
 

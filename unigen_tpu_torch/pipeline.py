@@ -11,7 +11,10 @@ engine's ``submit_embeds``), ``generate_text``, ``decode_text`` and
 the pipeline's device.
 ``understand`` and the scoring calls take pixels as arrays or tensors (uint8
 HWC, normalized on the device in fp32, or floats already in [-1, 1]), not as
-PIL images.
+PIL images. With the SigLIP2-NaFlex tower (``models.siglip2``) each image is
+patchified at its own size, the batch padded to its longest and masked, as
+JAX's NaFlex branch does; ``pixels`` may then also be a list of [H, W, 3]
+images of several sizes, and the image tokens are the padded patch count.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from .device import to_device
 from .generation import generate_text as _generate_text
 from .generation import mmu_generate, t2i_generate, t2i_generate_ar
-from .models import magvit, qwen2, siglip, unigen
+from .models import magvit, qwen2, siglip, siglip2, unigen
 from .ops import masks as M
 from .ops import sampling as S
 from .prompting import UniPrompting
@@ -108,7 +111,7 @@ class UniGenPipeline:
     prompting: UniPrompting
     device: torch.device
     vision_params: Optional[Any] = None
-    vision_cfg: Optional[siglip.SiglipConfig] = None
+    vision_cfg: Optional[Any] = None     # SiglipConfig or siglip2.Siglip2Config
     quantized_cache: bool = False   # int8 KV cache for understand and generate_text
 
     def to(self, device) -> "UniGenPipeline":
@@ -235,16 +238,45 @@ class UniGenPipeline:
                                              None, system_prompt_ids), "mmu_conv")
         return part1, part2, np.asarray([len(q) for q in q_ids])
 
+    def _pixels(self, pixels) -> torch.Tensor:
+        """Pixels on the device; uint8 normalized, ``(x / 255 - 0.5) / 0.5`` in fp32."""
+        x = torch.as_tensor(pixels, device=self.device)
+        return (x.float() / 255.0 - 0.5) / 0.5 if not torch.is_floating_point(x) else x
+
+    def _naflex_inputs(self, pixels):
+        """The NaFlex tower's inputs of a batch of [H, W, 3] images: patches
+        [B, N, 3 p p] fp32 (N the batch's longest, zeros after each image),
+        ``pixel_attention_mask`` [B, N] int32 and ``spatial_shapes`` [B, 2]
+        (numpy, h and w in patches)."""
+        p = self.vision_cfg.patch_size
+        patches, shapes = [], []
+        for img in pixels:
+            x = self._pixels(img).float()
+            h, w = x.shape[0] // p, x.shape[1] // p
+            x = x[:h * p, :w * p].reshape(h, p, w, p, -1).permute(0, 2, 1, 3, 4)
+            patches.append(x.reshape(h * w, -1))
+            shapes.append((h, w))
+        n = max(t.shape[0] for t in patches)
+        pix = torch.zeros((len(patches), n, patches[0].shape[1]), dtype=torch.float32,
+                          device=self.device)
+        att = torch.zeros((len(patches), n), dtype=torch.int32, device=self.device)
+        for i, t in enumerate(patches):
+            pix[i, :t.shape[0]] = t
+            att[i, :t.shape[0]] = 1
+        return pix, att, np.asarray(shapes, np.int64)
+
     @torch.no_grad()
     def _image_embeds(self, pixels) -> torch.Tensor:
-        """SigLIP tower + MM projector: [B, H, W, 3] -> [B, P, hidden]. uint8
-        pixels are normalized on the device, ``(x / 255 - 0.5) / 0.5`` in fp32."""
+        """Vision tower + MM projector: [B, H, W, 3] -> [B, P, hidden] (the
+        NaFlex tower: P the batch's longest patch count). uint8 pixels are
+        normalized on the device, ``(x / 255 - 0.5) / 0.5`` in fp32."""
         if self.vision_params is None:
             raise ValueError("the pipeline was built without a vision tower")
-        x = torch.as_tensor(pixels, device=self.device)
-        if not torch.is_floating_point(x):
-            x = (x.float() / 255.0 - 0.5) / 0.5
-        feats = siglip.forward(self.vision_params, self.vision_cfg, x)
+        if isinstance(self.vision_cfg, siglip2.Siglip2Config):
+            feats = siglip2.forward(self.vision_params, self.vision_cfg,
+                                    *self._naflex_inputs(pixels))
+        else:
+            feats = siglip.forward(self.vision_params, self.vision_cfg, self._pixels(pixels))
         return unigen.mm_project(self.params, feats)
 
     @torch.no_grad()
@@ -364,13 +396,15 @@ class UniGenPipeline:
         return out
 
     def vqa_lookup_ids(self, questions: Sequence[str], *,
-                       system_prompt_ids: Optional[np.ndarray] = None) -> List[np.ndarray]:
+                       system_prompt_ids: Optional[np.ndarray] = None,
+                       num_patches: Optional[int] = None) -> List[np.ndarray]:
         """JAX's fourth element of ``vqa_serving_inputs``, a question at a
         time: the splice's known ids (part1, zeros over the image's
-        ``vision_cfg.num_patches`` tokens, part2 unpadded) [prompt_len]
-        int64, which only the speculative draft reads
-        (``ServingEngine.submit_embeds(lookup_ids=)``)."""
-        p = self.vision_cfg.num_patches
+        ``num_patches`` tokens, part2 unpadded) [prompt_len] int64, which only
+        the speculative draft reads (``ServingEngine.submit_embeds(lookup_ids=)``).
+        ``num_patches`` is ``vision_cfg.num_patches`` by default; a NaFlex
+        batch passes its own (``vqa_serving_inputs``' image tokens)."""
+        p = self.vision_cfg.num_patches if num_patches is None else num_patches
         out = []
         for q in questions:
             part1, part2, _, _ = self.prompting((np.zeros((1, p, 1)), self._vqa_question_ids(q)[None],

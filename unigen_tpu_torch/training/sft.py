@@ -34,8 +34,13 @@ so a LoRA step computes no base-weight gradients. The ``grad_norm`` metric
 covers the trained leaves' gradients; JAX's covers every leaf's, the frozen
 ones too (the same tree when every leaf trains, as in full SFT).
 
-The SigLIP2 / NaFlex tower (JAX's ``Siglip2Config`` branch, sft.py:88-112)
-is not ported yet and raises (ROADMAP Queue 1 item 8).
+With the SigLIP2-NaFlex tower (``vision_cfg`` a ``Siglip2Config``) the mmu
+rows carry patches instead of pixels: ``mmu_pixel_values`` [Bm, P, 3 p p],
+``mmu_pixel_attention_mask`` [Bm, P], ``mmu_spatial_shapes`` [Bm, 2] and
+``mmu_pos_embeds`` [Bm, P, D] (``models.siglip2.resize_positional_embeddings``
+once a batch); the image block's bidirectional keys are each row's own
+patches (``mmu_vit_attn_meta`` with the spatial shapes). ``n_grid`` tiling is
+a fixed-resolution feature and raises with it, as in JAX.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import magvit, qwen2, siglip, unigen
+from ..models import magvit, qwen2, siglip, siglip2, unigen
 from ..models.magvit import MagvitConfig
 from ..models.unigen import UniGenConfig, _chunked_ce
 from ..ops import masking as MK
@@ -109,26 +114,34 @@ class SFTStep:
     ``batch`` fields (beyond PT2's ``t2i_*`` and ``lm_*``):
       mmu_part1 [Bm, L1], mmu_part2 [Bm, L2] int: the prompt head and
       ``<|eoi|>`` + conversation ids; mmu_labels [Bm, L1 + P + L2];
-      mmu_prompt_len [Bm]: each row's valid length; mmu_pixels [Bm, S, S, 3].
+      mmu_prompt_len [Bm]: each row's valid length; mmu_pixels [Bm, S, S, 3],
+      or with the NaFlex tower mmu_pixel_values, mmu_pixel_attention_mask,
+      mmu_spatial_shapes and mmu_pos_embeds (module docstring).
     The state's tensors are updated in place and returned in a new
     ``TrainState``; the vision tower's parameters are frozen.
     """
 
     def __init__(self, cfg: UniGenConfig, vq_cfg: MagvitConfig, vision_cfg, tx: AdamW,
                  tcfg: SFTStepConfig):
-        if not isinstance(vision_cfg, siglip.SiglipConfig):
-            raise NotImplementedError(
-                f"SFT with a {type(vision_cfg).__name__} tower: the SigLIP2 / NaFlex branch is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
+        self.naflex = isinstance(vision_cfg, siglip2.Siglip2Config)
+        if self.naflex and tcfg.n_grid > 0:
+            # NaFlex already sees native-resolution patch grids; training without
+            # the configured tiling would be a different model
+            raise ValueError("n_grid tiling is a fixed-res SigLIP feature; disable n_grid (or "
+                             "use SiglipConfig) with NaFlex")
         self.cfg, self.vq_cfg, self.vision_cfg, self.tx, self.tcfg = cfg, vq_cfg, vision_cfg, \
             tx, tcfg
         self.schedule = S.get_mask_schedule(tcfg.mask_schedule)
-        self.tile = vision_cfg.image_size
+        self.tile = None if self.naflex else vision_cfg.image_size
 
     # ------------------------------------------------------------- inputs --
 
     def vision_features(self, vision_params, batch) -> torch.Tensor:
         """The frozen tower's features [Bm, P, D] (tiles concatenated along P)."""
+        if self.naflex:
+            return siglip2.forward_with_pos(
+                vision_params, self.vision_cfg, batch["mmu_pixel_values"],
+                batch["mmu_pixel_attention_mask"], batch["mmu_pos_embeds"])
         pixels = batch["mmu_pixels"]
         if self.tcfg.n_grid > 0:
             tiles = grid_tiles(pixels, self.tcfg.n_grid, self.tile)
@@ -190,14 +203,16 @@ class SFTStep:
 
     def build_mmu_inputs(self, params, vision_params, batch):
         """([part1 | projected image | part2] embeddings, mmu_vit meta with
-        each row's prompt_len, labels)."""
+        each row's prompt_len, labels). With the NaFlex tower each row's
+        bidirectional block is its own patches."""
         feats = self.vision_features(vision_params, batch)
         img = unigen.mm_project(params, feats)
         e1 = unigen.embed_tokens(params, batch["mmu_part1"])
         e2 = unigen.embed_tokens(params, batch["mmu_part2"])
         embeds = torch.cat([e1, img.to(e1.dtype), e2], dim=1)
         b, l, _ = embeds.shape
-        meta = M.mmu_vit_attn_meta(b, l, num_tokens=img.shape[1],
+        num_tokens = batch["mmu_spatial_shapes"] if self.naflex else img.shape[1]
+        meta = M.mmu_vit_attn_meta(b, l, num_tokens=num_tokens,
                                    prefix_length=batch["mmu_part1"].shape[1],
                                    prompt_len=batch["mmu_prompt_len"])
         return embeds, meta, batch["mmu_labels"]

@@ -23,6 +23,14 @@ conversation), the mmu labels and ``prompt_len`` (scripts/train_sft.py:
 length when it covers the t2i / lm rows (one backbone call, packed rows),
 else None (separate calls), and logged as JAX logs it.
 
+With a SigLIP2-NaFlex tower (``model.vision_tower.name`` naming siglip2 and
+naflex), which JAX's entry does not take, the synthetic conversations carry
+uint8 images of three aspects (384 x 384, 256 x 512, 640 x 256) through
+``data.transform.naflex_preprocess`` (patches padded to the tower's budget)
+and the batch their patches, masks, spatial shapes and the resized position
+embeddings (``SFTRun.device_batch``), the fields of ``SFTStep``'s NaFlex
+branch.
+
 ``model.lora.{rank, alpha, targets, extra_tunable, merge_on_save, seed}``
 puts adapters on the backbone (``training/lora.py``), trains them and
 ``extra_tunable`` (the projector by default), and with ``merge_on_save``
@@ -44,9 +52,11 @@ import torch
 
 from .. import weights as W
 from ..data.llava import collate_batch, preprocess_qwen
+from ..data.transform import naflex_preprocess
 from ..device import resolve_device, to_device
 from ..launch import (build_prompting_from_config, build_unigen, build_vision_tower, build_vq,
                       load_tokenizer)
+from ..models import siglip2
 from ..utils import checkpoint as CK
 from ..utils.configuration import initialize_config
 from ..utils.logging import MetricLogger, get_logger
@@ -64,6 +74,10 @@ def real_batches(config):
         "item 12); run with dataset.synthetic=true")
 
 
+# (H, W) of the NaFlex synthetic conversations' images, a row each in turn
+NAFLEX_SYNTHETIC_SIZES = ((384, 384), (256, 512), (640, 256))
+
+
 def synthetic_batches(config, prompting, vs_cfg) -> Iterator[Dict]:
     """JAX's synthetic SFT flows (the same numpy draws): captions, one
     document and a one-turn conversation a row, random pixels; the
@@ -71,15 +85,22 @@ def synthetic_batches(config, prompting, vs_cfg) -> Iterator[Dict]:
     rng = np.random.default_rng(0)
     tr, res = config.training, config.dataset.preprocessing.resolution
     n_grid = tr.get("n_grid", 0)
-    vres = vs_cfg.image_size * (n_grid if n_grid else 1)
+    naflex = isinstance(vs_cfg, siglip2.Siglip2Config)
+    vres = None if naflex else vs_cfg.image_size * (n_grid if n_grid else 1)
     bt, bl, bm = tr.batch_size_t2i, tr.batch_size_lm, tr.batch_size_mmu
     tok = prompting.text_tokenizer
+
+    def image(i):
+        if not naflex:
+            return rng.normal(size=(vres, vres, 3)).astype(np.float32)
+        h, w = NAFLEX_SYNTHETIC_SIZES[i % len(NAFLEX_SYNTHETIC_SIZES)]
+        return naflex_preprocess(rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8),
+                                 vs_cfg.patch_size, vs_cfg.num_patches)
     while True:
         conv = [{"from": "human", "value": "what is this?"}, {"from": "gpt", "value": "a cat"}]
         proc = preprocess_qwen([conv] * bm, tok)
         samples = [{"input_ids": proc["input_ids"][i], "labels": proc["labels"][i],
-                    "image": rng.normal(size=(vres, vres, 3)).astype(np.float32)}
-                   for i in range(bm)]
+                    "image": image(i)} for i in range(bm)]
         mmu = collate_batch(samples, prompting.pad_id, max_length=64)
         yield {"t2i": {"images": rng.normal(size=(bt, res, res, 3)).astype(np.float32),
                        "texts": ["a red cat"] * bt},
@@ -92,7 +113,10 @@ def host_batch(prompting, num_vq_tokens: int, vs_cfg, n_grid: int,
     """One flow batch -> the step's host arrays: the t2i / lm templates,
     the mmu part1 (the prompt head), part2 (``<|eoi|>`` + the conversation
     after its first token), labels (-100 up to and including ``<|eoi|>``)
-    and prompt_len (scripts/train_sft.py:183-206)."""
+    and prompt_len (scripts/train_sft.py:183-206); NaFlex conversations
+    give their patches, masks and spatial shapes (``mmu_pixel_values``,
+    ``mmu_pixel_attention_mask``, ``mmu_spatial_shapes``) and as many image
+    tokens as patch slots."""
     pr, n = prompting, num_vq_tokens
     placeholder = np.zeros((len(fb["t2i"]["texts"]), n), np.int64)
     ids, _, labels = pr((fb["t2i"]["texts"], placeholder, placeholder), "t2i")
@@ -105,15 +129,22 @@ def host_batch(prompting, num_vq_tokens: int, vs_cfg, n_grid: int,
     part1 = np.tile(np.asarray(head, np.int64), (b, 1))
     part2 = np.concatenate([np.full((b, 1), pr.sptids_dict["<|eoi|>"]),
                             mmu["input_ids"][:, 1:]], axis=1)
-    p_tokens = (vs_cfg.image_size // vs_cfg.patch_size) ** 2
+    naflex = "spatial_shapes" in mmu
+    p_tokens = mmu["images"].shape[1] if naflex else (vs_cfg.image_size // vs_cfg.patch_size) ** 2
     if n_grid:
         p_tokens *= 1 + n_grid ** 2
     mmu_labels = np.concatenate([np.full((b, 3 + p_tokens + 1), -100),
                                  mmu["labels"][:, 1:]], axis=1)
     prompt_len = np.full((b,), part1.shape[1] + p_tokens + part2.shape[1])
-    return {"t2i_template": ids, "t2i_labels": labels, "t2i_pixels": fb["t2i"]["images"],
-            "lm_ids": lm_ids, "lm_labels": lm_labels, "mmu_part1": part1, "mmu_part2": part2,
-            "mmu_labels": mmu_labels, "mmu_pixels": mmu["images"], "mmu_prompt_len": prompt_len}
+    out = {"t2i_template": ids, "t2i_labels": labels, "t2i_pixels": fb["t2i"]["images"],
+           "lm_ids": lm_ids, "lm_labels": lm_labels, "mmu_part1": part1, "mmu_part2": part2,
+           "mmu_labels": mmu_labels, "mmu_prompt_len": prompt_len}
+    if naflex:
+        out.update(mmu_pixel_values=mmu["images"], mmu_spatial_shapes=mmu["spatial_shapes"],
+                   mmu_pixel_attention_mask=mmu["pixel_attention_mask"])
+    else:
+        out["mmu_pixels"] = mmu["images"]
+    return out
 
 
 class SFTRun:
@@ -207,10 +238,16 @@ class SFTRun:
         return synthetic_batches(self.config, self.prompting, self.vs_cfg)
 
     def device_batch(self, fb: Dict) -> Dict[str, torch.Tensor]:
-        """One flow batch -> the step's tensors on the device."""
+        """One flow batch -> the step's tensors on the device (NaFlex rows
+        with their position embeddings resized to each image's grid)."""
         host = host_batch(self.prompting, self.cfg.num_vq_tokens, self.vs_cfg,
                           self.tcfg.n_grid, fb)
-        return {k: to_device(v, self.device) for k, v in host.items()}
+        batch = {k: to_device(v, self.device) for k, v in host.items()}
+        if "mmu_spatial_shapes" in host:
+            batch["mmu_pos_embeds"] = siglip2.resize_positional_embeddings(
+                self.vs_params["pos_embed"], host["mmu_spatial_shapes"],
+                host["mmu_pixel_values"].shape[1])
+        return batch
 
     def resolve_step(self, batch: Dict[str, torch.Tensor]) -> SFTStep:
         """The step for the first batch's lengths: ``common_length`` is the

@@ -19,18 +19,20 @@ them into the port's layout:
   become the port's ``[Npad, K]`` (``ops.quantization``): transposed, rows
   padded with zeros to a multiple of 8; scale and bias unchanged. So do an
   int8 ``lm_head_q`` and the int8 image head ``img_head_q``;
-* the SigLIP tower keeps its HWIO patch kernel (``models.siglip``);
+* the SigLIP tower keeps its HWIO patch kernel (``models.siglip``); the
+  SigLIP2-NaFlex tower's patch embedding is a dense ``w`` [D, 3 p p] and
+  ``b`` (``models.siglip2``); both keep one dict per encoder layer;
 * LoRA adapters (``training/lora.py``: JAX's stacked ``lora_a [L, in, r]``,
   ``lora_b [L, r, out]`` and ``lora_scale [L]`` inside a dense node, float
   or quantized) become the layer's ``<name>_lora_a``, ``<name>_lora_b`` and
   ``<name>_lora_scale`` leaves, in their own dtype, and go back the same way.
 
 The ``*_from_jax`` functions also take trees whose leaves are tensors
-(``utils.persistence.from_pretrained``); ``unigen_to_jax``, ``siglip_to_jax``
-and ``magvit_to_jax`` are the way back, from the same key tables, for
+(``utils.persistence.from_pretrained``); ``unigen_to_jax``, ``siglip_to_jax``,
+``siglip2_to_jax`` and ``magvit_to_jax`` are the way back, from the same key tables, for
 ``utils.persistence.save_pretrained`` (float trees).
 
-``init_unigen`` / ``init_magvit`` / ``init_siglip`` build the same layout
+``init_unigen`` / ``init_magvit`` / ``init_siglip`` / ``init_siglip2`` build the same layout
 from a ``torch.Generator`` on the target device, with the JAX inits' scales
 (dense: normal * fan_in^-1/2, embeddings: normal * 0.02, conv: normal *
 (kh*kw*cin)^-1/2, biases zero, norm scales one).
@@ -45,6 +47,7 @@ import torch
 from .models.magvit import MagvitConfig
 from .models.qwen2 import LORA_SUFFIXES
 from .models.siglip import SiglipConfig
+from .models.siglip2 import Siglip2Config
 from .models.unigen import UniGenConfig
 from .ops.quantization import int8_leaf
 
@@ -173,15 +176,11 @@ _SIGLIP_DENSE = {"q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"),
                  "o": ("attn", "o"), "fc1": ("mlp", "fc1"), "fc2": ("mlp", "fc2")}
 
 
-def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
-                    dtype=None) -> Dict[str, Any]:
-    """JAX ``siglip.init`` tree -> the port's tower (HWIO patch kernel kept,
-    one dict per layer, [N, K] linear weights; a tower quantized by JAX's
-    ``quantize_siglip_params`` keeps its W8A8 leaves)."""
-    dtype = dtype or cfg.dtype
-    stacked = tree["layers"]
+def _siglip_layers_from_jax(stacked: Dict[str, Any], n: int, device, dtype) -> List[Dict]:
+    """JAX's stacked encoder layers -> ``n`` per-layer dicts ([N, K] linear
+    weights; W8A8 leaves kept)."""
     layers = []
-    for i in range(cfg.num_layers_used):
+    for i in range(n):
         lp: Dict[str, Any] = {
             ln: {k: to_tensor(_arr(stacked[ln][k])[i], device, dtype)
                  for k in ("scale", "bias")} for ln in ("ln1", "ln2")}
@@ -193,10 +192,33 @@ def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
             lp[f"{name}_w"] = _linear_w(_arr(p["kernel"])[i], device, dtype)
             lp[f"{name}_b"] = to_tensor(_arr(p["bias"])[i], device, dtype)
         layers.append(lp)
+    return layers
+
+
+def siglip_from_jax(tree: Dict[str, Any], cfg: SiglipConfig, device="cpu",
+                    dtype=None) -> Dict[str, Any]:
+    """JAX ``siglip.init`` tree -> the port's tower (HWIO patch kernel kept,
+    one dict per layer, [N, K] linear weights; a tower quantized by JAX's
+    ``quantize_siglip_params`` keeps its W8A8 leaves)."""
+    dtype = dtype or cfg.dtype
     return {"patch_embed": {k: to_tensor(tree["patch_embed"][k], device, dtype)
                             for k in ("kernel", "bias")},
             "pos_embed": to_tensor(tree["pos_embed"]["weight"], device, dtype),
-            "layers": layers}
+            "layers": _siglip_layers_from_jax(tree["layers"], cfg.num_layers_used, device,
+                                              dtype)}
+
+
+def siglip2_from_jax(tree: Dict[str, Any], cfg: Siglip2Config, device="cpu",
+                     dtype=None) -> Dict[str, Any]:
+    """JAX ``siglip2.init`` tree -> the port's NaFlex tower: the patch
+    embedding as [D, 3 p p] ``w`` and ``b``, the position grid [N, D], one
+    dict per layer as ``siglip_from_jax``'s."""
+    dtype = dtype or cfg.dtype
+    return {"patch_embed": {"w": _linear_w(_arr(tree["patch_embed"]["kernel"]), device, dtype),
+                            "b": to_tensor(tree["patch_embed"]["bias"], device, dtype)},
+            "pos_embed": to_tensor(tree["pos_embed"]["weight"], device, dtype),
+            "layers": _siglip_layers_from_jax(tree["layers"], cfg.num_layers_used, device,
+                                              dtype)}
 
 
 def map_tree(tree, fn):
@@ -264,18 +286,31 @@ def unigen_to_jax(params: Dict[str, Any], cfg: UniGenConfig) -> Dict[str, Any]:
     return out
 
 
-def siglip_to_jax(params: Dict[str, Any], cfg: SiglipConfig) -> Dict[str, Any]:
-    """The port's float SigLIP tower -> JAX ``siglip.init``'s tree, the
-    inverse of ``siglip_from_jax``."""
-    layers = params["layers"]
+def _siglip_layers_to_jax(layers) -> Dict[str, Any]:
     stacked: Dict[str, Any] = {ln: {k: torch.stack([lp[ln][k] for lp in layers])
                                     for k in ("scale", "bias")} for ln in ("ln1", "ln2")}
     for name, path in _SIGLIP_DENSE.items():
         ws = [_float_leaf(name, lp.get(f"{name}_w", lp.get(name))) for lp in layers]
         _set(stacked, path + ("kernel",), torch.stack([w.t() for w in ws]))
         _set(stacked, path + ("bias",), torch.stack([lp[f"{name}_b"] for lp in layers]))
+    return stacked
+
+
+def siglip_to_jax(params: Dict[str, Any], cfg: SiglipConfig) -> Dict[str, Any]:
+    """The port's float SigLIP tower -> JAX ``siglip.init``'s tree, the
+    inverse of ``siglip_from_jax``."""
     return {"patch_embed": dict(params["patch_embed"]),
-            "pos_embed": {"weight": params["pos_embed"]}, "layers": stacked}
+            "pos_embed": {"weight": params["pos_embed"]},
+            "layers": _siglip_layers_to_jax(params["layers"])}
+
+
+def siglip2_to_jax(params: Dict[str, Any], cfg: Siglip2Config) -> Dict[str, Any]:
+    """The port's float NaFlex tower -> JAX ``siglip2.init``'s tree, the
+    inverse of ``siglip2_from_jax``."""
+    return {"patch_embed": {"kernel": params["patch_embed"]["w"].t(),
+                            "bias": params["patch_embed"]["b"]},
+            "pos_embed": {"weight": params["pos_embed"]},
+            "layers": _siglip_layers_to_jax(params["layers"])}
 
 
 def magvit_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -337,11 +372,8 @@ def init_unigen(cfg: UniGenConfig, generator: torch.Generator, device,
     return out
 
 
-def init_siglip(cfg: SiglipConfig, generator: torch.Generator, device,
-                dtype=None) -> Dict[str, Any]:
-    """Random SigLIP tower parameters in the port's layout."""
-    dtype = dtype or cfg.dtype
-    d, inter, p, c = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size, cfg.num_channels
+def _siglip_layers_init(cfg, generator, device, dtype) -> List[Dict]:
+    d, inter = cfg.hidden_size, cfg.intermediate_size
 
     def ln():
         return {"scale": torch.ones(d, device=device, dtype=dtype),
@@ -359,9 +391,32 @@ def init_siglip(cfg: SiglipConfig, generator: torch.Generator, device,
         lp.update(dense("fc1", d, inter))
         lp.update(dense("fc2", inter, d))
         layers.append(lp)
+    return layers
+
+
+def init_siglip(cfg: SiglipConfig, generator: torch.Generator, device,
+                dtype=None) -> Dict[str, Any]:
+    """Random SigLIP tower parameters in the port's layout."""
+    dtype = dtype or cfg.dtype
+    d, p, c = cfg.hidden_size, cfg.patch_size, cfg.num_channels
+    layers = _siglip_layers_init(cfg, generator, device, dtype)
     return {"patch_embed": {"kernel": _normal(generator, (p, p, c, d), (p * p * c) ** -0.5,
                                               device, dtype),
                             "bias": torch.zeros(d, device=device, dtype=dtype)},
+            "pos_embed": _normal(generator, (cfg.num_patches, d), 0.02, device, dtype),
+            "layers": layers}
+
+
+def init_siglip2(cfg: Siglip2Config, generator: torch.Generator, device,
+                 dtype=None) -> Dict[str, Any]:
+    """Random SigLIP2-NaFlex tower parameters in the port's layout (JAX's
+    scales: the patch embedding normal * (3 p p)^-1/2, the grid normal * 0.02)."""
+    dtype = dtype or cfg.dtype
+    d = cfg.hidden_size
+    layers = _siglip_layers_init(cfg, generator, device, dtype)
+    return {"patch_embed": {"w": _normal(generator, (d, cfg.patch_dim), cfg.patch_dim ** -0.5,
+                                         device, dtype),
+                            "b": torch.zeros(d, device=device, dtype=dtype)},
             "pos_embed": _normal(generator, (cfg.num_patches, d), 0.02, device, dtype),
             "layers": layers}
 
