@@ -109,6 +109,25 @@ read just after:
   tower (mmu rows of 3 + 256 + 64 over images of three aspects, padded
   patches), 1 warm + 2 timed steps, the same prints and gates; then a tiny
   fp32 NaFlex SFT step on the card against the CPU;
+* ``sft_real``: the SFT entry on files read from disk (``unigen_sft.yaml``,
+  ``dataset.synthetic`` off): t2i from 4 tar shards of 64 PNG samples of
+  five sizes (every PNG filter, json and txt captions, one corrupt sample a
+  shard) through the native streamer, the conversations from a LLaVA
+  ``.jsonl`` over PNGs at the SigLIP tower's 384 px (mmu rows of 3 + 729 +
+  512); the PNGs decoded without PIL (``data/decode.py``); 1 warm + 2 timed
+  steps with the sft phase's gates, the loader's seconds a batch (Python
+  and native readers, LLaVA, the entry's flows) and the loop a step beside
+  the step and the sft phase; the decoder held to the encoded pixels for
+  every filter, the native stream to the Python reader on a pass, each
+  step's pixels to the loader's (fingerprints);
+* ``pt2_real`` (not in the default run): PT2 through the train entry's
+  ``task_flows`` on 8 such shards (t2i 5, mmu 3, native), the lm rows the
+  entry's synthetic lm texts (no pyarrow on the card), the train phase's
+  gates and the same prints beside it;
+* ``dpo_real`` (not in the default run): the DPO entry on 21 pairs of PNGs
+  (one corrupt), ``training.num_epoch=2``, its reference precompute pass
+  (exact launches) and its check that both passes see the same batches,
+  1 warm + 2 timed steps with the dpo phase's gates;
 * ``serve_entry``: ``python -m unigen_tpu_torch.serving.serve`` over
   ``configs/unigen_1_5b/unigen_sft.yaml`` (the flagship with the SigLIP
   tower, random init, read by the port's YAML reader) with speculation,
@@ -162,8 +181,9 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
-serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,tiny) runs a
-subset, for quick checks; adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
+serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,tiny) runs
+a subset, for quick checks; ``pt2_real`` and ``dpo_real`` run only when named;
+adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
 """
@@ -182,8 +202,8 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
-          "sft_naflex", "tiny")
-OPTIONAL_PHASES = ("profile",)
+          "sft_naflex", "sft_real", "tiny")
+OPTIONAL_PHASES = ("pt2_real", "dpo_real", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 (non-tensor) FLOP/s
@@ -248,12 +268,22 @@ LMMS_BUDGETS = (16, 32, 64, 128)
 LMMS_REQUESTS, LMMS_BATCH, LMMS_SLOTS, LMMS_CHUNK = 24, 8, 16, 8
 SFT_NAFLEX_OVERRIDES = ("model.vision_tower.name=siglip2-so400m-patch16-naflex",)
 SFT_NAFLEX_WARM, SFT_NAFLEX_TIMED = 1, 2
+# the real-data phases: files written under a temporary directory from numpy seed 0;
+# image sizes (H, W) in turn, the PNG filter sets in turn (all five in turn last)
+REAL_SIZES = ((256, 256), (256, 320), (320, 256), (288, 384), (240, 300))
+REAL_FILTERS = ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4))
+REAL_SHARDS, REAL_SFT_SHARDS, REAL_PER_SHARD = 8, 4, 64
+REAL_LLAVA_IMAGES, REAL_LLAVA_SIZES = 16, ((384, 384), (360, 480), (400, 300))
+REAL_DPO_PAIRS = 21          # one with a corrupt image: 2 batches of 10 an epoch
+# free-running: more steps than the prefetch thread holds (data/prefetch.DEPTH + 1)
+REAL_WARM, REAL_TIMED, REAL_LOADER_BATCHES, REAL_FREE_STEPS = 1, 2, 3, 10
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
 
 
-TRAINING_PATHS = ("train", "sft", "sft_packed", "dpo", "cotv_post_sft", "sft_naflex")
+TRAINING_PATHS = ("train", "sft", "sft_packed", "dpo", "cotv_post_sft", "sft_naflex",
+                  "pt2_real", "sft_real", "dpo_real")
 
 
 class Failed(Exception):
@@ -1293,8 +1323,11 @@ def phase_conv_grad(gen, b, hw, c, cout, iters):
     sides for this check; the backward is the plain recompute, as JAX's
     ``_bwd``). Times forward + backward beside the plain version's (cuDNN's
     default algorithms); the bound counts the three convolutions' operations
-    (forward, dx, dW) on fp32 CUDA cores and every tensor read or written once."""
+    (forward, dx, dW) on fp32 CUDA cores and every tensor read or written once.
+    The library time is ``group_norm + silu + conv2d`` forward and backward
+    through autograd on the same tensors."""
     import torch
+    import torch.nn.functional as F
     from unigen_tpu_torch.ops import fused_conv as FC
     f32 = torch.float32
     x, conv_p, gn_p = _conv_inputs(gen, b, hw, hw, c, cout, f32, True)
@@ -1327,16 +1360,26 @@ def phase_conv_grad(gen, b, hw, c, cout, iters):
 
     def both(fwd):
         return lambda: torch.autograd.grad(fwd(), leaves, g)
+    # the library composition of the other kernel-3 rows, NCHW views of the same
+    # tensors, forward and backward through autograd
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.silu(F.group_norm(xc, min(32, c), gn_p["scale"], gn_p["bias"], 1e-6))
+        o = F.conv2d(y, conv_p["kernel"].permute(3, 2, 0, 1), conv_p["bias"], padding=1)
+        return torch.autograd.grad(o, leaves, gc)
     fwd_ms = time_ms(lambda: FC.conv3x3_gn_swish(conv_p, gn_p, x), iters)
     all_ms = time_ms(both(lambda: FC.conv3x3_gn_swish(conv_p, gn_p, x)), iters)
     plain_fwd = time_ms(lambda: FC.conv3x3_gn_swish_plain(conv_p, gn_p, x), iters)
     plain_all = time_ms(both(lambda: FC.conv3x3_gn_swish_plain(conv_p, gn_p, x)), iters)
+    lib_ms = time_ms(library, iters)
     b_ms, by = bound(3 * 2.0 * b * hw * hw * 9 * c * cout,
                      nbytes(*leaves, out, g) + nbytes(*got), FP32_PEAK)
     print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}); backward ms "
           f"{all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f}); forward + backward ms "
-          f"{all_ms:.4f} (plain {plain_all:.4f}); bound_ms {b_ms:.4f} ({by}); no library call")
-    row = _measured(err, all_ms, plain_all, None, b_ms, by, at)
+          f"{all_ms:.4f} (plain {plain_all:.4f}); bound_ms {b_ms:.4f} ({by}); library_ms "
+          f"(group_norm+silu+conv2d, forward + backward through autograd) {lib_ms:.4f}")
+    row = _measured(err, all_ms, plain_all, lib_ms, b_ms, by, at)
     row.update(forward_ms=fwd_ms, backward_ms=all_ms - fwd_ms, plain_forward_ms=plain_fwd,
                plain_backward_ms=plain_all - plain_fwd, backward_bit_equal=equal)
     return row
@@ -1766,9 +1809,11 @@ FAMILIES = (("kernel 4 (w4a8_*)", ("w4a8_",)), ("quantization kernel", ("quantiz
 def profile_run(run_once, warm_s: float, top: int = 12) -> None:
     """Device time by kernel over one more warm run of a path. Busy time is the
     union of the device intervals (GPU annotations overlap their kernels and
-    are not counted twice); the idle share is taken against the unprofiled
-    warm run's wall time. The port's kernels are printed by name wherever they
-    rank, and every kernel is summed into a family (``FAMILIES``)."""
+    are not counted twice); the idle share is taken against the profiled
+    run's own wall (the unprofiled warm run's is printed beside it), and is
+    printed as unresolved where the busy time exceeds that wall. The port's
+    kernels are printed by name wherever they rank, and every kernel is
+    summed into a family (``FAMILIES``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1787,10 +1832,11 @@ def profile_run(run_once, warm_s: float, top: int = 12) -> None:
         if not e.is_user_annotation:
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    busy = busy_us / 1e3
+    busy, wall = busy_us / 1e3, prof_s * 1e3
+    idle = f"{1 - busy / wall:.3f}" if busy <= wall else "unresolved (busy exceeds the wall)"
     print(f"  profile: device busy {busy:.1f} ms (union of device intervals) in a profiled "
-          f"wall of {prof_s * 1e3:.1f} ms; unprofiled warm wall {warm_s * 1e3:.1f} ms; "
-          f"idle share {max(0.0, 1 - busy / (warm_s * 1e3)):.3f}")
+          f"wall of {wall:.1f} ms; unprofiled warm wall {warm_s * 1e3:.1f} ms; "
+          f"idle share (of the profiled wall) {idle}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (ms, count)) in enumerate(ranked):
         if rank < top or any(k in name for k in PORT_KERNELS):
@@ -4273,11 +4319,15 @@ def _stage_flops(params, cfg, calls):
     return total
 
 
-def _timed_steps(run):
-    """``run.step`` wrapped: each call synchronised before and after, its
-    wall, enqueue time, metrics and launch counts recorded."""
+def _timed_steps(run, attr="step", fp_keys=()):
+    """``run.<attr>`` (the step) wrapped: each call synchronised before and
+    after, its wall, enqueue time, metrics, launch counts and end time
+    recorded, and with ``fp_keys`` the fingerprint of those tensors of the
+    batch it consumed (``train_dpo.batch_fingerprint``, taken after the
+    timing)."""
     import torch
-    records, real = [], run.step
+    from unigen_tpu_torch.training.train_dpo import batch_fingerprint
+    records, real = [], getattr(run, attr)
 
     def timed(*args):
         torch.cuda.synchronize()
@@ -4286,13 +4336,24 @@ def _timed_steps(run):
         out = real(*args)
         enqueued = time.perf_counter() - t0
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        t_end = time.perf_counter()
         after = _read_counts()
-        records.append(dict(seconds=dt, enqueue_s=enqueued, metrics=out[1],
-                            counts={k: after[k] - before[k] for k in after}))
+        rec = dict(seconds=t_end - t0, enqueue_s=enqueued, metrics=out[1], t_end=t_end,
+                   counts={k: after[k] - before[k] for k in after})
+        if fp_keys:
+            batch = next(a for a in args if isinstance(a, dict) and fp_keys[0] in a)
+            rec["fp"] = batch_fingerprint(batch, fp_keys)
+        records.append(rec)
         return out
-    run.step = timed
+    setattr(run, attr, timed)
     return records, real
+
+
+def _loop_walls(records, warm):
+    """Seconds from the end of one step to the end of the next over the
+    timed steps: the loader's next batch, the host assembly and the step."""
+    return [records[i]["t_end"] - records[i - 1]["t_end"]
+            for i in range(max(warm, 1), len(records))]
 
 
 def _snapshot(tree, keep=lambda p: True):
@@ -4307,14 +4368,18 @@ def _moved(before, tree):
 
 
 def run_stage(results, name, run, warm, timed, per_step, tokens, flops, resident,
-              projector=True, profile_step=None):
+              projector=True, profile_step=None, fp_keys=(), records_out=None):
     """Drives ``run.train`` (the entry's loop) for warm + timed steps, each
     synchronised and timed, with the launch counts set to 0 just before and
     read just after. Gates: launches exact a step, finite losses and grad
     norms, the frozen tower and VQ unchanged bit for bit, with ``projector``
     the projector moved (its zero-initialised biases: in bf16 a warm-up's
     first updates are below half an ulp of its weights). Prints s a step,
-    samples/s, tokens/s, enqueue, peak memory, model FLOPs a step."""
+    samples/s, tokens/s, enqueue, peak memory, model FLOPs a step. With
+    ``fp_keys`` each step's fingerprint of those batch tensors is recorded
+    and the records appended to ``records_out``; the loop's wall a step (the
+    loader's next batch included) is printed, and the profile's idle share
+    is taken against it."""
     import statistics
     import torch
     steps = warm + timed
@@ -4322,7 +4387,7 @@ def run_stage(results, name, run, warm, timed, per_step, tokens, flops, resident
     if getattr(run, "vs_params", None) is not None:
         frozen["tower"] = _snapshot(run.vs_params)
     proj = _snapshot(run.state.params, lambda p: p.startswith("mm_projector"))
-    records, real = _timed_steps(run)
+    records, real = _timed_steps(run, fp_keys=fp_keys)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     torch.cuda.synchronize()
@@ -4364,8 +4429,16 @@ def run_stage(results, name, run, warm, timed, per_step, tokens, flops, resident
     results[name] = dict(step_s=med, step_min_s=min(times), step_max_s=max(times),
                          samples_per_s=rows / med, tokens_per_s=tokens / med, enqueue_s=enq,
                          peak_gib=peak / 2 ** 30, model_tflops=flops / 1e12)
+    loop = _loop_walls(records, warm)
+    if fp_keys:
+        results[name]["loop_s"] = statistics.median(loop)
+        print(f"  the loop a step (the loader's next batch, the host assembly, the step): "
+              f"{', '.join(f'{x:.4f}' for x in loop)} s; median {statistics.median(loop):.4f}")
+    if records_out is not None:
+        records_out.extend(records)
     if profile_step is not None:
-        _train_profile(profile_step, run.tx, med)
+        _train_profile(profile_step, run.tx,
+                       results[name]["loop_s"] if fp_keys else med)
     return counts
 
 
@@ -4672,6 +4745,532 @@ def run_dpo(results, profile=False):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the real-data phases: the training entries on files read from disk
+# ---------------------------------------------------------------------------
+
+def real_image(rng, h, w):
+    """A uint8 [h, w, 3] image with a natural image's structure: a random
+    colour ramp plus noise (PNG compresses it about 3x)."""
+    import numpy as np
+    y, x = np.mgrid[0:h, 0:w]
+    base = rng.integers(0, 256, size=3)
+    fx, fy = rng.uniform(0.2, 1.5, size=2)
+    img = base + fx * x[..., None] + fy * y[..., None] + rng.integers(0, 24, size=(h, w, 3))
+    return (img % 256).astype(np.uint8)
+
+
+def png_bytes(arr, filters):
+    """uint8 [H, W, 3] -> PNG bytes (8-bit RGB), row y written with the
+    filter ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth); ``zlib`` level 1. The card's machine has no PIL."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w, _ = arr.shape
+    rows = arr.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), rows[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), rows[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = (0, left, up, (left + up) >> 1, paeth)
+    ft = np.asarray([filters[y % len(filters)] for y in range(h)], np.uint8)
+    out = np.zeros((h, w * 3 + 1), np.uint8)
+    out[:, 0] = ft
+    for f in set(filters):
+        sel = ft == f
+        out[sel, 1:] = ((rows[sel] - (preds[f][sel] if f else 0)) & 255).astype(np.uint8)
+
+    def chunk(t, body):
+        return struct.pack(">I", len(body)) + t + body + struct.pack(">I", zlib.crc32(t + body))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(out.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def _tar_add(tf, name, data):
+    import io
+    import tarfile
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    tf.addfile(info, io.BytesIO(data))
+
+
+def write_real_shards(root, prefix, n_shards, per_shard, rng, keep=0):
+    """``n_shards`` tar shards of ``per_shard`` samples: PNGs of REAL_SIZES
+    in turn, each written with one filter of REAL_FILTERS in turn; captions
+    in ``.json`` (a short and a long one, or a long one with ``<person>``
+    and a prefix to strip) or ``.txt``; one corrupt image a shard. Returns
+    the shard paths and the pixels of the first ``keep`` shards by key."""
+    import json
+    import os
+    import tarfile
+    paths, kept = [], {}
+    for s in range(n_shards):
+        path = os.path.join(root, f"{prefix}-{s:04d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for j in range(per_shard):
+                key = f"{s:04d}{j:05d}"
+                arr = real_image(rng, *REAL_SIZES[j % len(REAL_SIZES)])
+                if s < keep:
+                    kept[key] = (arr, REAL_FILTERS[j % len(REAL_FILTERS)])
+                _tar_add(tf, f"{key}.png", png_bytes(arr, REAL_FILTERS[j % len(REAL_FILTERS)]))
+                if j % 3 == 2:
+                    _tar_add(tf, f"{key}.txt", f"a photo of object {key} on a table".encode())
+                    continue
+                meta = ({"prompt": f"The image shows a detailed scene number {key} with a red "
+                                   "cup beside a window", "short_caption": f"a red cup {key}"}
+                        if j % 3 == 0 else
+                        {"caption": f"In this image, a <person> holds item {key}"})
+                _tar_add(tf, f"{key}.json", json.dumps(meta).encode())
+            _tar_add(tf, f"{s:04d}99999.png", b"\x89PNG\r\n\x1a\n truncated")
+            _tar_add(tf, f"{s:04d}99999.txt", b"the caption of a corrupt image")
+        paths.append(path)
+    return paths, kept
+
+
+def check_real_reading(shards, kept):
+    """The PNG decoder returns exactly the encoded pixels for every filter
+    set of REAL_FILTERS, and the corrupt sample is a ``CorruptImage``; one
+    pass over each unresampled shard gives the same samples through the
+    native streamer and the Python reader."""
+    import numpy as np
+    from unigen_tpu_torch.data.decode import CorruptImage, decode_image
+    from unigen_tpu_torch.data.native import NativeTarStream
+    from unigen_tpu_torch.data.text2image import iterate_tar_samples
+    filters, corrupt, decoded = set(), 0, 0
+    for shard in shards:
+        py = list(iterate_tar_samples(shard))
+        native = NativeTarStream([shard], seed=0, resample=False)
+        nat = list(native)
+        native.close()
+        check(nat == py and len(py) == REAL_PER_SHARD + 1,
+              f"{shard}: the native streamer's pass ({len(nat)} samples) differs from the "
+              f"Python reader's ({len(py)})")
+        for sample in py:
+            if sample["__key__"] not in kept:
+                continue
+            arr, fl = kept[sample["__key__"]]
+            check(np.array_equal(decode_image(sample[".png"]), arr),
+                  f"the decoder's pixels differ for {sample['__key__']} (filters {fl})")
+            filters.add(tuple(fl))
+            decoded += 1
+        try:
+            decode_image(py[-1][".png"])
+            corrupt = -1
+        except CorruptImage:
+            corrupt += 1
+    print(f"  decoder: {decoded} PNGs equal to their pixels, filter sets {sorted(filters)}; "
+          f"the {corrupt} corrupt samples raise CorruptImage; the native streamer's pass = the "
+          f"Python reader's on all {len(shards)} shards")
+    check(len(filters) == len(REAL_FILTERS) and corrupt == len(shards),
+          f"decoder checks: filter sets {filters}, corrupt {corrupt}")
+
+
+def loader_s(make, n=REAL_LOADER_BATCHES):
+    """Seconds a batch of the iterator ``make()`` gives, over ``n`` batches
+    after its first, the device idle."""
+    it = iter(make())
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t0) / n
+
+
+def _tap(flow, record):
+    """``flow``'s batches, each also appended to ``record``."""
+    for fb in flow:
+        record.append(fb)
+        yield fb
+
+
+def check_fingerprints(name, records, taken, host):
+    """The batch each step consumed has the fingerprint of the batch the
+    loader yielded: ``host(flow batch)`` gives the loader's arrays of the
+    fingerprinted keys, copied to the card as they are."""
+    import torch
+    from unigen_tpu_torch.training.train_dpo import batch_fingerprint
+    check(len(taken) >= len(records), f"{name}: {len(taken)} loader batches, {len(records)} steps")
+    for i, r in enumerate(records):
+        want = batch_fingerprint({k: torch.as_tensor(v).to("cuda")
+                                  for k, v in host(taken[i]).items()})
+        check(r["fp"] == want, f"{name} step {i + 1}: consumed {r['fp']}, the loader gave {want}")
+    print(f"  each of the {len(records)} steps consumed the loader's batch (fingerprints "
+          f"{[r['fp'] for r in records]})")
+
+
+def real_report(results, name, synthetic, loader):
+    """Prints the phase's loader seconds a batch beside its step, and the
+    synthetic phase of the same stage in this call."""
+    r = results[name]
+    r.update(loader)
+    line = ", ".join(f"{k} {v:.4f} s" for k, v in loader.items())
+    print(f"  {name}: loader a batch (alone, the device idle): {line}; step {r['step_s']:.4f} s, "
+          f"loop {r['loop_s']:.4f} s, free-running {r['free_step_s']:.4f} s a step "
+          f"(the loader in the loop {r['free_inline_step_s']:.4f}), "
+          f"{r['samples_per_s']:.4f} samples/s, enqueue {r['enqueue_s']:.4f} s, peak "
+          f"{r['peak_gib']:.2f} GiB")
+    if synthetic in results:
+        sy = results[synthetic]
+        print(f"  beside {synthetic} (synthetic flows, this call): step {sy['step_s']:.4f} s, "
+              f"{sy['samples_per_s']:.4f} samples/s, enqueue {sy['enqueue_s']:.4f} s, peak "
+              f"{sy['peak_gib']:.2f} GiB; real / synthetic step {r['step_s'] / sy['step_s']:.4f}")
+
+
+def free_running(results, name, make_loop, profile):
+    """``make_loop(prefetch)()`` runs the entry's own loop (the loader's
+    next batch, the host assembly, the step) with no synchronize between
+    steps, as the entries run, with the entry's prefetch thread
+    (``data/prefetch.py``) or with the loader read in the loop, and returns
+    its number of steps. Each run opens its loader inside the timed window,
+    so every batch it consumes is read there (the prefetch thread starts
+    with nothing buffered). The two run in turns (without, with, with,
+    without); the mean wall a step of each is the entry's seconds a step on
+    files, and with ``profile`` one more prefetching run is profiled
+    (``profile_run``: the idle share of its own wall)."""
+    import statistics
+    import torch
+    loops = {False: make_loop(False), True: make_loop(True)}
+    walls, steps = {False: [], True: []}, set()
+    for pf in (False, True, True, False):
+        t0 = time.perf_counter()
+        n = loops[pf]()
+        torch.cuda.synchronize()
+        walls[pf].append((time.perf_counter() - t0) / n)
+        steps.add(n)
+    free, inline = statistics.mean(walls[True]), statistics.mean(walls[False])
+    results[name].update(free_step_s=free, free_inline_step_s=inline)
+    print(f"  the entry's loop free-running ({'/'.join(map(str, sorted(steps)))} steps, no "
+          f"synchronize between them, the loader opened in the window), s a step: with the "
+          f"prefetch thread {walls[True][0]:.4f}, {walls[True][1]:.4f}; the loader in the loop "
+          f"{walls[False][0]:.4f}, {walls[False][1]:.4f}")
+    if profile:
+        print("  profile of the free-running loop with the prefetch thread:")
+        profile_run(loops[True], free * max(steps))
+
+
+def run_pt2_real(results, profile=False):
+    """PT2 through the train entry on files read from disk: t2i from 5 and
+    mmu (with the caption prompt) from 3 of REAL_SHARDS tar shards of
+    REAL_PER_SHARD PNG samples (several sizes, every filter, one corrupt
+    sample a shard) through ``training.train.task_flows`` (the native
+    streamer) and ``combined_loader``; the lm rows the entry's synthetic lm
+    texts (the card has no pyarrow; the parquet reader is held against JAX
+    on the CPU only). REAL_WARM + REAL_TIMED steps; run_train's gates, the
+    frozen VQ bit for bit, and each step's pixels the loader's."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.data.combined import combined_loader
+    from unigen_tpu_torch.data.prefetch import prefetch
+    from unigen_tpu_torch.data.text2image import Text2ImageDataset
+    from unigen_tpu_torch.training import train as TRAIN
+    steps = REAL_WARM + REAL_TIMED
+    print(f"phase: pt2_real ({TRAIN_CONFIG} on {REAL_SHARDS} tar shards of {REAL_PER_SHARD} PNG "
+          f"samples, native streamer; lm rows from the entry's synthetic lm texts: no pyarrow on "
+          f"the card; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_pt2_")
+    try:
+        t0 = time.perf_counter()
+        shards, kept = write_real_shards(root, "pt2", REAL_SHARDS, REAL_PER_SHARD,
+                                         np.random.default_rng(0), keep=1)
+        mib = sum(os.path.getsize(p) for p in shards) / 2 ** 20
+        print(f"  wrote {len(shards)} shards ({mib:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
+        check_real_reading(shards, kept)
+        t2i, mmu = (os.path.join(root, f"pt2-{{{a}..{b}}}.tar") for a, b in
+                    (("0000", "0004"), ("0005", "0007")))
+        shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+        config = train_config(f"training.max_train_steps={steps}", "dataset.synthetic=false",
+                              f"dataset.params.train_t2i_shards_path_or_url={t2i}",
+                              f"dataset.params.train_mmu_shards_path_or_url={mmu}",
+                              "dataset.params.train_lm_shards_path_or_url=[no-pyarrow.parquet]")
+        tr, res = config.training, config.dataset.preprocessing.resolution
+
+        def flows():
+            """The entry's real_flows before its prefetch thread, the lm flow
+            ``synthetic_flows``' lm texts (without its random images)."""
+            f = TRAIN.task_flows(config)
+            check(f["t2i_flow"].use_native and f["mmu_flow"].use_native,
+                  "pt2_real: the entry's flows do not use the native streamer")
+            f["lm_flow"] = ({"input_ids": [f"document {i}-{j} text"
+                                           for j in range(tr.batch_size_lm)]}
+                            for i in itertools.count())
+            return combined_loader(f)
+        loader = {f"t2i python ({tr.batch_size_t2i} rows)": loader_s(
+                      lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=False)),
+                  f"t2i native ({tr.batch_size_t2i} rows)": loader_s(
+                      lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=True)),
+                  "the entry's flows a step": loader_s(flows)}
+        resident = torch.cuda.memory_allocated()
+        trainer = TRAIN.build_trainer(config)
+        layers = trainer.cfg.llm.num_hidden_layers
+        per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, conv3x3_gn_swish=80, gn_affine=80)
+        vq = _snapshot(trainer.vq_params)
+        keys = ("mmu_pixels", "t2i_pixels")
+        records, real_step = _timed_steps(trainer, "step_fn", keys)
+        taken = []
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        torch.cuda.synchronize()
+        trainer.train(_tap(prefetch(flows()), taken))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        trainer.step_fn = real_step
+        peak = torch.cuda.max_memory_allocated() - resident
+        check(len(records) == steps, f"pt2_real: {len(records)} steps, not {steps}")
+        check(counts == {k: steps * v for k, v in per_step.items()},
+              f"pt2_real launch counts {counts} != {steps} x {per_step}")
+        for i, r in enumerate(records):
+            m = {k: float(v) for k, v in r["metrics"].items()}
+            print(f"  step {i + 1}: {r['seconds']:.4f} s ({r['enqueue_s']:.4f} s to enqueue), "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+            check(r["counts"] == per_step, f"pt2_real step {i + 1} launches {r['counts']}")
+            check(all(math.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+                  f"pt2_real step {i + 1} metrics {m}")
+        changed = {p: n for p, n in _moved(vq, trainer.vq_params).items() if n}
+        check(not changed, f"pt2_real: the frozen VQ changed: {changed}")
+        check_fingerprints("pt2_real", records, taken, lambda fb: {
+            "t2i_pixels": fb["t2i_flow"]["images"], "mmu_pixels": fb["mmu_flow"]["images"]})
+        captions = [c for fb in taken for c in fb["mmu_flow"]["input_ids"]]
+        print(f"  an mmu caption: {captions[0]!r}; t2i: {taken[0]['t2i_flow']['input_ids'][:2]}")
+        times = [r["seconds"] for r in records[REAL_WARM:]]
+        loop = _loop_walls(records, REAL_WARM)
+        rows = tr.batch_size_t2i + tr.batch_size_lm + tr.batch_size_mmu
+        med = statistics.median(times)
+        results["pt2_real"] = dict(
+            step_s=med, step_min_s=min(times), step_max_s=max(times), samples_per_s=rows / med,
+            tokens_per_s=rows * trainer.prompting.max_seq_len / med,
+            enqueue_s=statistics.median(r["enqueue_s"] for r in records[REAL_WARM:]),
+            peak_gib=peak / 2 ** 30, loop_s=statistics.median(loop),
+            model_tflops=_train_step_flops(trainer, train_bits(config))[0] / 1e12)
+        print(f"  the loop a step (the loader's next batch, the host assembly, the step): "
+              f"{', '.join(f'{x:.4f}' for x in loop)} s")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+
+        def make_loop(pf):
+            def loop():
+                it = prefetch(flows()) if pf else flows()
+                for _ in range(REAL_FREE_STEPS):
+                    trainer.step_fn(trainer.state, trainer.vq_params,
+                                    trainer.build_device_batch(next(it)), gen)
+                it.close()
+                return REAL_FREE_STEPS
+            return loop
+        free_running(results, "pt2_real", make_loop, profile)
+        real_report(results, "pt2_real", "train", loader)
+        del trainer
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def write_llava(root, rng):
+    """LLaVA conversations (``.jsonl``, one to three turns, some without an
+    image key, one whose image is corrupt) over PNGs of REAL_LLAVA_SIZES,
+    each written with one filter set of REAL_FILTERS."""
+    import json
+    import os
+    images = os.path.join(root, "llava_images")
+    os.makedirs(images)
+    for i in range(REAL_LLAVA_IMAGES):
+        with open(os.path.join(images, f"img{i:03d}.png"), "wb") as f:
+            f.write(png_bytes(real_image(rng, *REAL_LLAVA_SIZES[i % len(REAL_LLAVA_SIZES)]),
+                              REAL_FILTERS[i % len(REAL_FILTERS)]))
+    with open(os.path.join(images, "corrupt.png"), "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n truncated")
+    path = os.path.join(root, "llava.jsonl")
+    with open(path, "w") as f:
+        for i in range(3 * REAL_LLAVA_IMAGES):
+            turns = []
+            for t in range(1 + i % 3):
+                turns += [{"from": "human", "value": ("<image>\n" if t == 0 else "")
+                           + f"Question {t} about picture {i}: what is on the left side?"},
+                          {"from": "gpt", "value": f"On the left there is object {i}-{t}, a "
+                           "wooden chair beside a small table with a lamp."}]
+            item = {"id": str(i), "conversations": turns}
+            if i % 7 != 6:
+                item["image"] = "corrupt.png" if i == 4 else f"img{i % REAL_LLAVA_IMAGES:03d}.png"
+            f.write(json.dumps(item) + "\n")
+    return path, images
+
+
+def run_sft_real(results, profile=False):
+    """SFT through the SFT entry on files read from disk (``unigen_sft.yaml``):
+    t2i from REAL_SFT_SHARDS tar shards (native streamer), the conversations
+    from a LLaVA ``.jsonl`` and an image folder at the SigLIP tower's 384 px
+    (``LlavaDataset``, collated to 512 tokens: mmu rows of 3 + 729 + 512);
+    REAL_WARM + REAL_TIMED steps, ``run_stage``'s prints and gates, each
+    step's pixels the loader's."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.data.llava import LlavaDataset
+    from unigen_tpu_torch.data.text2image import Text2ImageDataset
+    from unigen_tpu_torch.training import train_sft as SFT
+    print(f"phase: sft_real ({SFT_CONFIG} on {REAL_SFT_SHARDS} tar shards and a LLaVA .jsonl over "
+          f"{REAL_LLAVA_IMAGES} PNGs; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    try:
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        shards, kept = write_real_shards(root, "sft", REAL_SFT_SHARDS, REAL_PER_SHARD, rng, keep=1)
+        llava, images = write_llava(root, rng)
+        print(f"  wrote the shards and the conversations in {time.perf_counter() - t0:.2f} s")
+        check_real_reading(shards, kept)
+        t2i = os.path.join(root, f"sft-{{0000..{REAL_SFT_SHARDS - 1:04d}}}.tar")
+        data = ("dataset.synthetic=false", f"dataset.params.train_t2i_shards_path_or_url={t2i}",
+                f"dataset.params.llava_data_paths=[{llava}]",
+                f"dataset.params.llava_image_root={images}")
+        run, batch, resident = _sft_run(f"training.max_train_steps={REAL_WARM + REAL_TIMED}",
+                                        *data)
+        tr, res = run.config.training, run.config.dataset.preprocessing.resolution
+        loader = {f"t2i python ({tr.batch_size_t2i} rows)": loader_s(
+                      lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=False)),
+                  f"t2i native ({tr.batch_size_t2i} rows)": loader_s(
+                      lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=True)),
+                  f"llava ({tr.batch_size_mmu} conversations)": loader_s(
+                      lambda: LlavaDataset([llava], images, run.prompting.text_tokenizer,
+                                           tr.batch_size_mmu, visual_mode="siglip")),
+                  "the entry's flows a step": loader_s(
+                      lambda: SFT.real_batches(run.config, run.prompting, run.vs_cfg))}
+        calls = sft_forward_bits(run.step, batch)
+        flops = 3 * _stage_flops(run.state.params, run.cfg, calls)
+        taken, records = [], []
+        entry_batches = run.batches
+        run.batches = lambda: _tap(entry_batches(), taken)
+        counts = run_stage(results, "sft_real", run, REAL_WARM, REAL_TIMED, _sft_per_step(run),
+                           sum(b.numel() for b, _ in calls), flops, resident,
+                           fp_keys=("mmu_pixels", "t2i_pixels"), records_out=records)
+        check_fingerprints("sft_real", records, taken, lambda fb: {
+            "t2i_pixels": fb["t2i"]["images"], "mmu_pixels": fb["mmu"]["images"]})
+        print(f"  mode {run.step.mode}, mmu rows {tuple(batch['mmu_labels'].shape)}, "
+              f"conversation tokens {[int((l != -100).sum()) for l in taken[0]['mmu']['labels']]}")
+        def make_loop(pf):
+            def loop():
+                it = (entry_batches() if pf else
+                      SFT.real_batches(run.config, run.prompting, run.vs_cfg))
+                for _ in range(REAL_FREE_STEPS):
+                    run.state, _ = run.step(run.state, run.vq_params, run.vs_params,
+                                            run.device_batch(next(it)), run.generator)
+                it.close()
+                return REAL_FREE_STEPS
+            return loop
+        free_running(results, "sft_real", make_loop, profile)
+        real_report(results, "sft_real", "sft", loader)
+        del run
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_dpo_real(results, profile=False):
+    """DPO through the DPO entry on files read from disk (``unigen_dpo.yaml``:
+    REAL_DPO_PAIRS pairs in a ``.jsonl``, PNGs of several sizes, one pair
+    with a corrupt image; 10 pairs a step, ``training.num_epoch=2``, so the
+    third step reads the second, reshuffled epoch). The entry's reference
+    precompute pass first (its launches exact), then REAL_WARM +
+    REAL_TIMED training steps with ``run_stage``'s gates; the entry's own
+    check holds both passes to the same batches, and each step's pixels are
+    the loader's."""
+    import json
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.data.dpo_data import DPODataset
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.training.train_dpo import DPORun, real_pairs
+    steps = REAL_WARM + REAL_TIMED
+    print(f"phase: dpo_real ({DPO_CONFIG} on {REAL_DPO_PAIRS} pairs of PNGs, num_epoch 2, the "
+          f"precomputed reference; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dpo_")
+    try:
+        rng = np.random.default_rng(0)
+        images = os.path.join(root, "dpo_images")
+        os.makedirs(images)
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "pairs.jsonl"), "w") as f:
+            for i in range(REAL_DPO_PAIRS):
+                for side in ("c", "r"):
+                    with open(os.path.join(images, f"{side}{i:03d}.png"), "wb") as img:
+                        img.write(b"\x89PNG\r\n\x1a\n truncated" if (i, side) == (7, "r") else
+                                  png_bytes(real_image(rng, *REAL_SIZES[(2 * i + (side == "r"))
+                                                                        % len(REAL_SIZES)]),
+                                            REAL_FILTERS[i % len(REAL_FILTERS)]))
+                f.write(json.dumps({"prompt": f"a photo of a red cup number {i} on a table",
+                                    "chosen": f"c{i:03d}.png", "rejected": f"r{i:03d}.png"}) + "\n")
+        print(f"  wrote {2 * REAL_DPO_PAIRS} PNGs in {time.perf_counter() - t0:.2f} s")
+        data = ("dataset.synthetic=false", f"dataset.params.dpo_data_path={root}/pairs.jsonl",
+                f"dataset.params.dpo_image_root={images}", "training.num_epoch=2")
+        resident = torch.cuda.memory_allocated()
+        run = DPORun(stage_config(DPO_CONFIG, f"training.max_train_steps={steps}", *data))
+        check(run.use_precomputed, "dpo_real does not precompute the reference")
+        b = run.config.training.batch_size_t2i
+        loader = {f"pairs ({b} pairs, {2 * b} images)": loader_s(
+            lambda: (fb for ds in [DPODataset([f"{root}/pairs.jsonl"], images, b, 256)]
+                     for _ in range(8) for fb in ds))}
+        layers = run.cfg.llm.num_hidden_layers
+        convs = 2 * sum(k for *_, k in ENCODER_CONVS)
+        _reset_counts()
+        t0 = time.perf_counter()
+        run.precompute()
+        torch.cuda.synchronize()
+        pre = _read_counts()
+        print(f"  reference precompute pass: {len(run.ref_cache)} steps in "
+              f"{time.perf_counter() - t0:.2f} s; launches {pre}")
+        check(pre == {k: steps * v for k, v in dict(NO_LAUNCHES, flash_attention=layers,
+                                                    conv3x3_gn_swish=convs,
+                                                    gn_affine=convs).items()},
+              f"dpo_real precompute launches {pre}")
+        recompute = layers if run.dcfg.remat else 0
+        per_step = dict(NO_LAUNCHES, flash_attention=layers + recompute,
+                        conv3x3_gn_swish=convs, gn_affine=convs)
+        first = next(run.step_schedule())[0]
+        bits = M.pack_meta(M.t2i_attn_meta(torch.cat([first["template"]] * 2), run.dcfg.pad_id,
+                                           run.dcfg.soi_id, run.dcfg.eoi_id))
+        flops = 3 * _stage_flops(run.state.params, run.cfg, [(bits, 2 * b * run.cfg.num_vq_tokens)])
+        taken, records = [], []
+        entry_pairs = run.pairs
+        run.pairs = lambda: _tap(entry_pairs(), taken)
+        counts = run_stage(results, "dpo_real", run, REAL_WARM, REAL_TIMED, per_step, bits.numel(),
+                           flops, resident, projector=False,
+                           fp_keys=("chosen_pixels", "rejected_pixels"), records_out=records)
+        check_fingerprints("dpo_real", records, taken, lambda fb: {
+            "chosen_pixels": fb["batch_chosen_image"],
+            "rejected_pixels": fb["batch_rejected_image"]})
+        epochs = [fb["batch_prompt_list"][0] for fb in taken]
+        print(f"  first prompts of the steps' batches: {epochs}")
+
+        def make_loop(pf):
+            def loop():
+                # the schedule from its start, as far as the precomputed references go
+                sched = run.step_schedule(entry_pairs() if pf else real_pairs(run.config))
+                for (batch, draws), (_, refs) in zip(sched, run.ref_cache):
+                    run.state, _ = run.step(run.state, None, run.vq_params, {**batch, **refs},
+                                            draws)
+                sched.close()
+                return len(run.ref_cache)
+            return loop
+        free_running(results, "dpo_real", make_loop, profile)
+        real_report(results, "dpo_real", "dpo", loader)
+        del run
+        torch.cuda.empty_cache()
+        return {k: counts[k] + pre[k] for k in counts}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_tiny_post_training():
     """The tiny fp32 SFT (separate and packed) and DPO steps on the card
     against the CPU, the same weights, batch and masking draws: losses,
@@ -4869,7 +5468,9 @@ def main(argv=None) -> int:
         if "train" in phases:
             path_counts["train"] = run_train(results, profile="profile" in phases)
         for name, fn in (("sft", run_sft), ("sft_packed", run_sft_packed), ("dpo", run_dpo),
-                         ("cotv_post_sft", run_cotv_post_sft), ("sft_naflex", run_sft_naflex)):
+                         ("cotv_post_sft", run_cotv_post_sft), ("sft_naflex", run_sft_naflex),
+                         ("pt2_real", run_pt2_real), ("sft_real", run_sft_real),
+                         ("dpo_real", run_dpo_real)):
             if name in phases:
                 path_counts[name] = fn(results, profile="profile" in phases)
         if "tiny" in phases:
@@ -5018,11 +5619,14 @@ def main(argv=None) -> int:
     for name in TRAINING_PATHS + ("sft_lora",):
         if name in results:
             tr = results[name]
+            real = "".join(f", {k} {v:.4f} s" for k, v in tr.items()
+                           if k in ("loop_s", "free_step_s", "free_inline_step_s")
+                           or k.startswith(("t2i ", "llava ", "pairs ", "the ")))
             print(f"{name}: {tr['step_s']:.4f} s a step (median; {tr['step_min_s']:.4f}"
                   f"-{tr['step_max_s']:.4f}), {tr['samples_per_s']:.4f} samples/s, "
                   f"{tr['tokens_per_s']:.1f} tokens/s, enqueue {tr['enqueue_s']:.4f} s, peak "
                   f"{tr['peak_gib']:.2f} GiB, model FLOPs {tr['model_tflops']:.2f} T a step "
-                  f"(flagship width) on {card}")
+                  f"(flagship width){real} on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -183,5 +183,189 @@ def test_entries_need_a_card_or_device_cpu(tmp_path):
         assert r.returncode != 0 and "no CUDA device" in r.stderr, module
     assert not os.listdir(tmp_path)
     for main, name in ((SFT.main, "sft"), (DPO.main, "dpo")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="dataset.params"):
             main(_args(name, str(tmp_path), "dataset.synthetic=false"))
+
+
+# ------------------------------------------------------ the real-data flows --
+
+def _write_data(root, res=8, siglip=384, n_shards=2, per_shard=5, pairs=5):
+    """Tar shards (PNG at ``res``, json / txt captions, a broken sample a
+    shard), a parquet file, LLaVA conversations with PNGs at ``siglip`` px
+    and DPO pairs (a broken rejected image); the images at their target
+    size, so the port's and JAX's pixels are equal."""
+    import tarfile
+    from test_torch_data import _add, _image, _pil_png
+    os.makedirs(root, exist_ok=True)
+    shards = {}
+    for flow in ("t2i", "mmu"):
+        shards[flow] = []
+        for s in range(n_shards):
+            path = os.path.join(root, f"{flow}-{s}.tar")
+            with tarfile.open(path, "w") as tf:
+                for i in range(per_shard):
+                    key, idx = f"{s}{i:04d}", 10 * s + i
+                    _add(tf, f"{key}.png", _pil_png(_image(res, res, idx)))
+                    meta = {"prompt": f"The image shows a cat {idx}", "short_caption": f"cat {idx}"}
+                    _add(tf, f"{key}.json", json.dumps(meta).encode())
+                _add(tf, f"{s}9999.png", b"broken")
+                _add(tf, f"{s}9999.txt", b"the broken sample's caption")
+            shards[flow].append(path)
+    files = {"shards": shards}
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        files["parquet"] = os.path.join(root, "lm.parquet")
+        pq.write_table(pa.table({"content": [f"document {i} " * (i + 1) for i in range(9)]}),
+                       files["parquet"])
+    except ImportError:
+        pass
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+    for i in range(3):
+        with open(os.path.join(images, f"v{i}.png"), "wb") as f:
+            f.write(_pil_png(_image(siglip, siglip, 50 + i)))
+    with open(os.path.join(root, "llava.jsonl"), "w") as f:
+        for i in range(4):
+            f.write(json.dumps({"image": f"v{i % 3}.png", "conversations": [
+                {"from": "human", "value": f"<image>\nWhat is {i}?"},
+                {"from": "gpt", "value": f"Thing {i}."}]}) + "\n")
+    for i in range(pairs):
+        for side in ("c", "r"):
+            with open(os.path.join(images, f"{side}{i}.png"), "wb") as f:
+                f.write(b"broken" if (i, side) == (2, "r") else
+                        _pil_png(_image(res, res, 70 + 2 * i + (side == "r"))))
+    with open(os.path.join(root, "pairs.jsonl"), "w") as f:
+        for i in range(pairs):
+            f.write(json.dumps({"prompt": f"prompt {i}", "chosen": f"c{i}.png",
+                                "rejected": f"r{i}.png"}) + "\n")
+    files.update(llava=os.path.join(root, "llava.jsonl"), images=images,
+                 pairs=os.path.join(root, "pairs.jsonl"))
+    return files
+
+
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    from test_torch_data import build_jax_native
+    return build_jax_native(tmp_path_factory.mktemp("jax_native"))
+
+
+def _same(got, want):
+    assert type(got) is type(want)
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _same(got[k], want[k])
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+
+
+def test_pt2_entry_reads_files(tmp_path, monkeypatch, jax_native_lib):
+    """``training/train.py``'s real flow on the tiny PT2 config gives the
+    batches of ``scripts/train.py::real_flows`` (its own function, JAX's
+    loaders), then the entry takes 2 steps on them."""
+    pytest.importorskip("pyarrow")
+    import importlib.util
+    from test_torch_data import use_jax_native
+    use_jax_native(monkeypatch, jax_native_lib)
+    files = _write_data(str(tmp_path / "data"))
+    data = (f"dataset.params.train_t2i_shards_path_or_url=[{','.join(files['shards']['t2i'])}]",
+            f"dataset.params.train_mmu_shards_path_or_url=[{','.join(files['shards']['mmu'])}]",
+            f"dataset.params.train_lm_shards_path_or_url=[{files['parquet']}]",
+            "dataset.params.add_caption_prompt=true", "dataset.synthetic=false")
+    out = str(tmp_path / "pt2")
+    config = _config("pt2", out, *data)
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_script", os.path.join(REPO, "scripts", "train.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    want, got = script.real_flows(config, None), PT2.real_flows(config)
+    for _ in range(5):
+        _same(next(got), next(want))
+    assert PT2.main(_args("pt2", out, *data)) == 0
+    assert [e["step"] for e in _logs(out)] == [1, 2]
+    assert all(np.isfinite(e["loss"]) for e in _logs(out))
+
+
+def test_sft_entry_reads_files(tmp_path, monkeypatch, jax_native_lib):
+    """``train_sft.real_batches`` on the tiny SFT config (its tower at JAX's
+    384 px) gives the batches of the objects scripts/train_sft.py:155-171
+    builds. With the config's own 28 px tower the port resizes to 28 px
+    (JAX's entry would hand that tower 384 px), and the entry takes 2 steps
+    on those batches; with the NaFlex tower it patchifies; the mmu-only
+    CoT-V shape builds no t2i flow."""
+    from unigen_tpu.data.combined import combined_loader
+    from unigen_tpu.data.llava import LlavaDataset
+    from unigen_tpu.data.text2image import Text2ImageDataset
+    from unigen_tpu_torch.launch import (build_prompting_from_config, load_tokenizer,
+                                         vision_tower_config)
+    from test_torch_data import use_jax_native
+    use_jax_native(monkeypatch, jax_native_lib)
+    files = _write_data(str(tmp_path / "data"))
+    data = (f"dataset.params.train_t2i_shards_path_or_url=[{','.join(files['shards']['t2i'])}]",
+            f"dataset.params.llava_data_paths=[{files['llava']}]",
+            f"dataset.params.llava_image_root={files['images']}", "dataset.synthetic=false")
+    out = str(tmp_path / "sft")
+    config = _config("sft", out, *data, "model.vision_tower.image_size=384")
+    prompting = build_prompting_from_config(config, load_tokenizer(config))
+    tr, tok = config.training, prompting.text_tokenizer
+
+    def jax_batches():
+        flows = {"t2i": ({"images": b["images"], "texts": b["input_ids"]}
+                         for b in Text2ImageDataset(files["shards"]["t2i"],
+                                                    per_device_batch_size=tr.batch_size_t2i,
+                                                    resolution=8)),
+                 "mmu": iter(LlavaDataset([files["llava"]], files["images"], tok,
+                                          per_device_batch_size=tr.batch_size_mmu,
+                                          visual_mode="siglip"))}
+        for b in combined_loader(flows):
+            yield {"t2i": b["t2i"], "mmu": b["mmu"], "lm": {"texts": [""] * tr.batch_size_lm}}
+    got = SFT.real_batches(config, prompting, vision_tower_config(config))
+    want = jax_batches()
+    for _ in range(4):
+        _same(next(got), next(want))
+    small = _config("sft", out, *data)
+    assert next(SFT.real_batches(small, prompting, vision_tower_config(small)))[
+        "mmu"]["images"].shape == (tr.batch_size_mmu, 28, 28, 3)
+    assert SFT.main(_args("sft", out, *data)) == 0
+    assert [e["step"] for e in _logs(out)] == [1, 2]
+    assert all(np.isfinite(e["loss"]) for e in _logs(out))
+    naflex = _config("sft", out, *data, "model.vision_tower.name=siglip2-naflex-smoke",
+                     "model.vision_tower.patch_size=4")
+    mmu = next(SFT.real_batches(naflex, prompting, vision_tower_config(naflex)))["mmu"]
+    vs = vision_tower_config(naflex)
+    assert mmu["images"].shape == (tr.batch_size_mmu, vs.num_patches, 3 * 16)
+    assert mmu["spatial_shapes"].tolist() == [[16, 16]] * tr.batch_size_mmu
+    cotv = _config("sft", out, *data[1:], "training.batch_size_t2i=0",
+                   "training.batch_size_lm=0", "model.vision_tower.image_size=384")
+    fb = next(SFT.real_batches(cotv, prompting, vision_tower_config(cotv)))
+    assert fb["t2i"]["images"].shape == (0, 8, 8, 3) and fb["t2i"]["texts"] == []
+
+
+def test_dpo_entry_reads_files(tmp_path):
+    """``train_dpo.real_pairs`` over 2 epochs gives JAX's ``DPODataset``
+    batches built as scripts/train_dpo.py:100-107 builds it (the pair with
+    a broken image skipped, the second epoch reshuffled); the entry then
+    precomputes the reference and trains 3 steps on them, the two passes
+    held to the same batches."""
+    from unigen_tpu.data.dpo_data import DPODataset
+    files = _write_data(str(tmp_path / "data"))
+    data = (f"dataset.params.dpo_data_path={files['pairs']}",
+            f"dataset.params.dpo_image_root={files['images']}", "dataset.synthetic=false",
+            "training.num_epoch=2")
+    out = str(tmp_path / "dpo")
+    config = _config("dpo", out, *data)
+    ds = DPODataset([files["pairs"]], files["images"],
+                    per_device_batch_size=config.training.batch_size_t2i, resolution=8)
+    want = [b for _ in range(2) for b in ds]
+    got = list(DPO.real_pairs(config))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert got[0]["batch_prompt_list"] != got[2]["batch_prompt_list"]
+    assert DPO.main(_args("dpo", out, *data, "training.precompute_ref=true",
+                          "training.max_train_steps=3")) == 0
+    assert [e["step"] for e in _logs(out)] == [1, 2, 3]
+    assert all(np.isfinite(e["loss"]) for e in _logs(out))

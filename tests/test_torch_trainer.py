@@ -240,6 +240,6 @@ def test_train_entry_needs_a_card_or_device_cpu(tmp_path):
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
     assert not os.listdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="dataset.params"):
         TRAIN.main([f"config={SMOKE}", f"experiment.output_dir={tmp_path}", "device=cpu",
                     "dataset.synthetic=false"])

@@ -1,1 +1,2 @@
-"""Host-side data preparation (numpy): the LLaVA conversation preprocessing."""
+"""Host-side data (numpy): the image decoder and transforms, the native tar
+streamer, and the loaders of the training entries."""

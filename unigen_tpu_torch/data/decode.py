@@ -1,0 +1,207 @@
+"""Image bytes -> uint8 [H, W, 3] RGB, PNG without PIL.
+
+The JAX loaders open every image with PIL and convert it to RGB; the card's
+machine has no PIL and the port imports none. ``decode_image`` reads PNG
+itself: the chunks with
+``struct``, the IDAT stream with ``zlib``, the five row filters reversed by
+the port's native library (``native.png_unfilter``; ``png_unfilter_numpy``
+is the same arithmetic in numpy, the tests' reference), then 8-bit grey,
+grey + alpha, RGB, RGBA and palette pixels (grey and palette also at 1, 2
+and 4 bits) to RGB as PIL's ``convert("RGB")`` does: alpha dropped, grey
+repeated, low bit depths scaled to 0-255.
+
+Two kinds of failure, kept apart:
+
+* ``CorruptImage`` (a ``ValueError``): the bytes are no image, or a broken
+  one (truncated, a bad chunk CRC before the pixels, an inflate error, a
+  filter type outside 0-4). The loaders skip such a sample where JAX's skip
+  it.
+* ``UnsupportedImageFormat`` (a ``RuntimeError``): an image the port does
+  not decode: JPEG, WebP, GIF, BMP and TIFF, and interlaced or 16-bit PNG.
+  It names the format, and the loaders let it through: a shard of JPEGs
+  must stop a run, not be skipped sample by sample. So do they let
+  ``native.NativeLibraryError`` through (the unfilter's library could not
+  be built or loaded); both are ``NOT_A_BAD_SAMPLE``.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from .native import NativeLibraryError, png_unfilter
+
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+class CorruptImage(ValueError):
+    """Bytes that are no image, or a broken one: a bad sample."""
+
+
+class UnsupportedImageFormat(RuntimeError):
+    """An image format the port does not decode."""
+
+
+# what the loaders raise where they skip a bad sample: no sample is at fault
+NOT_A_BAD_SAMPLE = (UnsupportedImageFormat, NativeLibraryError)
+
+
+def sniff(data: bytes) -> Optional[str]:
+    """The format named by the file's magic bytes, or None."""
+    if data.startswith(PNG_MAGIC):
+        return "png"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "webp"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if data[:2] == b"BM":
+        return "bmp"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "tiff"
+    return None
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes -> uint8 [H, W, 3] RGB. Raises ``CorruptImage`` for a bad
+    image and ``UnsupportedImageFormat`` for one the port does not read."""
+    fmt = sniff(data)
+    if fmt is None:
+        raise CorruptImage("unrecognised image bytes")
+    if fmt != "png":
+        _unsupported(fmt)
+    return decode_png(data)
+
+
+def _unsupported(fmt: str):
+    raise UnsupportedImageFormat(f"{fmt} image: the port reads 8-bit non-interlaced PNG only "
+                                 "(it imports no PIL; its card's machine has none)")
+
+
+def _chunks(data: bytes):
+    """(type, body) of each chunk; the CRCs of the chunks before the first
+    IDAT are checked, as PIL checks them."""
+    pos, seen_idat = len(PNG_MAGIC), False
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack_from(">I4s", data, pos)
+        end = pos + 12 + length
+        if end > len(data):
+            raise CorruptImage("truncated PNG chunk")
+        body = data[pos + 8:pos + 8 + length]
+        seen_idat = seen_idat or ctype == b"IDAT"
+        if not seen_idat:
+            (crc,) = struct.unpack_from(">I", data, pos + 8 + length)
+            if zlib.crc32(ctype + body) != crc:
+                raise CorruptImage(f"bad CRC in PNG chunk {ctype!r}")
+        yield ctype, body
+        if ctype == b"IEND":
+            return
+        pos = end
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] RGB (see the module's docstring)."""
+    if not data.startswith(PNG_MAGIC):
+        raise CorruptImage("not a PNG")
+    header, palette, idat = None, None, []
+    for ctype, body in _chunks(data):
+        if ctype == b"IHDR":
+            if len(body) != 13:
+                raise CorruptImage("bad IHDR")
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+    if header is None or not idat:
+        raise CorruptImage("PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _CHANNELS or w == 0 or h == 0:
+        raise CorruptImage(f"bad PNG header {header}")
+    if interlace:
+        _unsupported("interlaced PNG")
+    if depth == 16:
+        _unsupported("16-bit PNG")
+    if depth not in (1, 2, 4, 8) or (depth != 8 and color not in (0, 3)):
+        raise CorruptImage(f"bad PNG bit depth {depth} for colour type {color}")
+    channels = _CHANNELS[color]
+    stride = (w * channels * depth + 7) // 8
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise CorruptImage(f"PNG inflate: {e}") from e
+    if len(raw) < h * (stride + 1):
+        raise CorruptImage("truncated PNG pixels")
+    try:
+        rows = png_unfilter(raw, h, stride, max(1, channels * depth // 8))
+    except ValueError as e:
+        raise CorruptImage(str(e)) from e
+    return _to_rgb(rows, w, depth, color, palette)
+
+
+def _to_rgb(rows: np.ndarray, w: int, depth: int, color: int,
+            palette: Optional[np.ndarray]) -> np.ndarray:
+    """Unfiltered rows [H, stride] -> uint8 [H, W, 3] as PIL's convert("RGB")."""
+    h = rows.shape[0]
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        px = (bits * weights).sum(axis=2).astype(np.uint8)
+        if color == 0:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    else:
+        px = rows[:, :w * _CHANNELS[color]].reshape(h, w, _CHANNELS[color])
+    if color == 3:
+        if palette is None:
+            raise CorruptImage("palette PNG without PLTE")
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette[:256]
+        return full[px.reshape(h, w)]
+    if color in (0, 4):
+        grey = px.reshape(h, w, -1)[:, :, 0]
+        return np.repeat(grey[:, :, None], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
+
+
+def png_unfilter_numpy(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The filter reversal in numpy and Python, byte by byte for Average and
+    Paeth: the reference of ``native.png_unfilter`` in the tests."""
+    src = np.frombuffer(raw, np.uint8)[:height * (stride + 1)].reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    for y in range(height):
+        ft, line = int(src[y, 0]), src[y, 1:].astype(np.int64)
+        cur = np.zeros(stride, np.int64)
+        if ft == 0:
+            cur = line
+        elif ft == 2:
+            cur = (line + prev) & 255
+        elif ft in (1, 3, 4):
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                if ft == 1:
+                    pred = a
+                elif ft == 3:
+                    pred = (a + prev[i]) >> 1
+                else:
+                    b, c = prev[i], prev[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (line[i] + pred) & 255
+        else:
+            raise ValueError(f"PNG row {y}: filter type {ft}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image file at ``path`` as uint8 [H, W, 3] RGB (``decode_image``)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read())

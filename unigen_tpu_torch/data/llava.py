@@ -1,8 +1,7 @@
-"""LLaVA-style instruction data: ChatML preprocessing and batch collation.
+"""LLaVA-style instruction data: JSON conversations + images.
 
-Port of the host functions of ``unigen_tpu/data/llava.py`` (lines 28-131),
-numpy only, kept as a copy of their own (the port imports nothing of the
-JAX package):
+The port's copy of ``unigen_tpu/data/llava.py``, numpy only (the port
+imports nothing of the JAX package):
 
 * ``preprocess_qwen``: ChatML per-turn tokenization, labels masked on the
   user and system turns (the system message is not repeated per turn);
@@ -11,16 +10,30 @@ JAX package):
 * ``preprocess``: the prompt-type dispatch;
 * ``collate_batch``: ids and labels padded to ``max_length``, images stacked
   (NaFlex samples with their patch masks and spatial shapes), the optional
-  system-prompt stream.
-
-Not ported yet: ``LlavaDataset`` (JSON files and an image folder, PIL
-decoding), with the other loaders (ROADMAP Queue 1 item 12).
+  system-prompt stream;
+* ``LlavaDataset``: conversations + images -> collated batches, the files
+  mixed by per-file weights; the images read by ``data/decode.py`` (PNG
+  without PIL) in the ``vq`` (±1 pixels), ``siglip`` (384 px) or ``naflex``
+  (patches) mode; ``siglip_image_size`` (384, JAX's fixed size, by
+  default) lets a tower of another size take the ``siglip`` mode. An
+  unreadable image becomes the zero image, as in JAX;
+  an image format the port does not decode (not PNG), or a native library
+  that cannot be built, raises (``decode.NOT_A_BAD_SAMPLE``). The same files and
+  seed give JAX's samples: the ``random.Random(seed)`` calls come in JAX's
+  order.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import json
+import os
+import random
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from .decode import NOT_A_BAD_SAMPLE, read_image
+from .transform import image_transform, naflex_preprocess, siglip_preprocess
 
 IGNORE_INDEX = -100
 DEFAULT_IMAGE_TOKEN = "<image>"
@@ -120,3 +133,73 @@ def collate_batch(samples: List[Dict], pad_id: int, max_length: int,
             sys_ids[i, :len(s["input_ids_system"])] = s["input_ids_system"]
         out["input_ids_system"] = sys_ids
     return out
+
+
+@dataclass
+class LlavaDataset:
+    """JSON conversation files + image folder -> infinite batch stream."""
+
+    data_paths: Sequence[str]            # json/jsonl files
+    image_root: str
+    tokenizer: object
+    per_device_batch_size: int
+    max_length: int = 512
+    resolution: int = 256
+    visual_mode: str = "vq"              # 'vq' (±1 px) | 'siglip' (384px) | 'naflex'
+    prompt_type: str = "qwen"            # 'qwen' (ChatML) | 'plain' (caption pretrain)
+    sampling_ratios: Optional[Sequence[float]] = None  # per-file mixing weights
+    system_message: str = SYSTEM_MESSAGE
+    with_system: bool = False
+    naflex_patch_size: int = 16
+    naflex_max_patches: int = 256
+    seed: int = 0
+    siglip_image_size: int = 384         # JAX's is always 384 (the flagship tower's)
+
+    def __post_init__(self):
+        self._datasets: List[List[Dict]] = []
+        for path in self.data_paths:
+            with open(path) as f:
+                if path.endswith(".jsonl"):
+                    items = [json.loads(l) for l in f if l.strip()]
+                else:
+                    items = json.load(f)
+            self._datasets.append(items)
+        self._rng = random.Random(self.seed)
+        if self.sampling_ratios is None:
+            total = sum(len(d) for d in self._datasets)
+            self.sampling_ratios = [len(d) / total for d in self._datasets]
+
+    def _load_image(self, item: Dict):
+        path = os.path.join(self.image_root, item.get("image", ""))
+        try:
+            img = read_image(path)
+            if self.visual_mode == "naflex":
+                return naflex_preprocess(img, self.naflex_patch_size, self.naflex_max_patches)
+            if self.visual_mode == "siglip":
+                return siglip_preprocess(img, self.siglip_image_size)
+            return image_transform(img, self.resolution)
+        except NOT_A_BAD_SAMPLE:
+            raise
+        except Exception:
+            # the dummy-image fallback (reference :258-261)
+            if self.visual_mode == "naflex":
+                side = int(self.naflex_max_patches ** 0.5) * self.naflex_patch_size
+                return naflex_preprocess(np.zeros((side, side, 3), np.uint8),
+                                         self.naflex_patch_size, self.naflex_max_patches)
+            size = self.siglip_image_size if self.visual_mode == "siglip" else self.resolution
+            return np.zeros((size, size, 3), np.float32)
+
+    def _sample(self) -> Dict:
+        ds = self._rng.choices(self._datasets, weights=self.sampling_ratios)[0]
+        item = self._rng.choice(ds)
+        proc = preprocess([item["conversations"]], self.tokenizer,
+                          self.prompt_type, self.system_message)
+        return {"input_ids": proc["input_ids"][0], "labels": proc["labels"][0],
+                "input_ids_system": proc["input_ids_system"][0],
+                "image": self._load_image(item)}
+
+    def __iter__(self) -> Iterator[Dict]:
+        while True:
+            samples = [self._sample() for _ in range(self.per_device_batch_size)]
+            yield collate_batch(samples, self.tokenizer.pad_token_id,
+                                self.max_length, self.with_system)

@@ -1,9 +1,11 @@
-"""Image preprocessing of the SigLIP and SigLIP2-NaFlex towers, without PIL.
+"""Image preprocessing, without PIL.
 
-The port's copy of what the understanding paths take from
-``unigen_tpu/data/transform.py``: ``naflex_target_dims`` (arithmetic, as it
-is), ``naflex_resize``, ``naflex_preprocess`` and ``siglip_preprocess``.
-JAX's versions resize with PIL's ``BICUBIC``; the card's machine has no PIL,
+The port's copy of ``unigen_tpu/data/transform.py``: ``image_transform``
+(the loaders' short-side resize, centre crop and [-1, 1] scaling),
+``pad_image``, ``naflex_target_dims`` (arithmetic, as it is),
+``naflex_resize``, ``naflex_preprocess`` and ``siglip_preprocess``, with
+JAX's rounding of every size and offset. JAX's versions resize with PIL's
+``BICUBIC``; the card's machine has no PIL,
 so these resize uint8 pixels on the host with ``F.interpolate(mode="bicubic",
 antialias=True)``, which follows PIL's a = -0.5 kernel and rounding: on the
 images of tests/test_torch_naflex.py the two differ by at most 2 levels on
@@ -58,11 +60,45 @@ def resize_bicubic_uint8(arr: np.ndarray, height: int, width: int) -> np.ndarray
     x = torch.from_numpy(np.require(arr, requirements=["C", "W"])).permute(2, 0, 1)[None]
     y = F.interpolate(x, size=(height, width), mode="bicubic", align_corners=False,
                       antialias=True)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+    # the copy to HWC by numpy: torch's threaded copy of this strided uint8
+    # view costs tens of times more on a host of several cores
+    return np.ascontiguousarray(y[0].numpy().transpose(1, 2, 0))
 
 
 def _normalize(arr: np.ndarray) -> np.ndarray:
     return (arr.astype(np.float32) / 255.0 - 0.5) / 0.5
+
+
+def image_transform(image, resolution: int = 256, normalize: bool = True) -> np.ndarray:
+    """Bicubic resize of the short side to ``resolution`` (the long side
+    ``max(resolution, round(side * scale))``), centre crop at
+    ``(size - resolution) // 2``, then ``x / 255`` and with ``normalize``
+    ``(x - 0.5) / 0.5``: [resolution, resolution, 3] float32."""
+    arr = to_rgb_uint8(image)
+    h, w = arr.shape[:2]
+    scale = resolution / min(w, h)
+    nw, nh = max(resolution, round(w * scale)), max(resolution, round(h * scale))
+    arr = resize_bicubic_uint8(arr, nh, nw)
+    left, top = (nw - resolution) // 2, (nh - resolution) // 2
+    x = arr[top:top + resolution, left:left + resolution].astype(np.float32) / 255.0
+    if normalize:
+        x = (x - 0.5) / 0.5
+    return x
+
+
+def pad_image(image, target_resolution: Tuple[int, int]) -> np.ndarray:
+    """Aspect-preserving bicubic resize into ``target_resolution`` = (width,
+    height), sizes ``int(side * scale)``, centred on zeros: uint8 [height,
+    width, 3]."""
+    arr = to_rgb_uint8(image)
+    h, w = arr.shape[:2]
+    tw, th = target_resolution
+    scale = min(tw / w, th / h)
+    nw, nh = int(w * scale), int(h * scale)
+    canvas = np.zeros((th, tw, 3), np.uint8)
+    top, left = (th - nh) // 2, (tw - nw) // 2
+    canvas[top:top + nh, left:left + nw] = resize_bicubic_uint8(arr, nh, nw)
+    return canvas
 
 
 def naflex_target_dims(w: int, h: int, patch_size: int = 16,

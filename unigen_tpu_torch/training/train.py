@@ -10,16 +10,23 @@ The config is read by ``utils/configuration.py`` and the models built by
 checkpoint is on disk, logged). It runs on ``cuda``; ``device=cpu`` is the
 only way onto the CPU, and without a card the entry raises.
 ``dataset.synthetic=true`` draws the three task flows as
-``scripts/train.py::synthetic_flows`` does (the same numpy draws); the real
-webdataset / parquet flows (``data/*``) are not ported yet and raise,
-naming ROADMAP Queue 1 item 12.
+``scripts/train.py::synthetic_flows`` does (the same numpy draws). Else the
+flows are read from disk as ``scripts/train.py::real_flows`` reads them
+(``real_flows``): t2i and mmu from the tar shards of
+``dataset.params.train_{t2i,mmu}_shards_path_or_url`` (``data/text2image.py``,
+the native streamer), lm from the parquet files of
+``dataset.params.train_lm_shards_path_or_url`` (``data/lm_data.py``, which
+needs pyarrow), joined by ``data/combined.py::combined_loader`` and read two
+batches ahead on a background thread (``data/prefetch.py``), so that the
+decode overlaps the step, as the reference's DataLoader workers do.
 """
 from __future__ import annotations
 
 import sys
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..launch import build_prompting_from_config, build_unigen, build_vq, load_tokenizer
@@ -57,10 +64,56 @@ def synthetic_flows(config, n_batches: Optional[int] = None) -> Iterator[dict]:
         i += 1
 
 
-def real_flows(config):
-    raise NotImplementedError(
-        "the webdataset / parquet task flows (data/*) are not ported yet (ROADMAP Queue 1 "
-        "item 12); run with dataset.synthetic=true")
+def data_files(config, key: str) -> List[str]:
+    """``dataset.params.<key>`` as a list of paths (a string is one path);
+    raises naming the key when it names none."""
+    value = (config.dataset.get("params") or {}).get(key)
+    files = [value] if isinstance(value, str) else list(value or [])
+    if not files:
+        raise ValueError(f"dataset.synthetic is not set and dataset.params.{key} names no "
+                         "files: give the data's paths, or run with dataset.synthetic=true")
+    return files
+
+
+def task_flows(config) -> Dict[str, object]:
+    """The datasets of ``scripts/train.py::real_flows``, one a task whose
+    batch size is above 0: ``Text2ImageDataset`` for t2i and mmu (the mmu
+    captions with the caption prompt when ``add_caption_prompt``),
+    ``ParquetTextDataset`` for lm, its rows sharded by the rank and world
+    size of ``torch.distributed`` when it is initialised."""
+    from ..data.lm_data import ParquetTextDataset
+    from ..data.text2image import Text2ImageDataset
+    params, tr = config.dataset.get("params") or {}, config.training
+    res = config.dataset.preprocessing.resolution
+    flows = {}
+    if tr.batch_size_t2i:
+        flows["t2i_flow"] = Text2ImageDataset(
+            data_files(config, "train_t2i_shards_path_or_url"),
+            per_device_batch_size=tr.batch_size_t2i, resolution=res,
+            short_caption_ratio=params.get("t2i_short_caption_ratio", 0.5))
+    if tr.batch_size_lm:
+        dist = torch.distributed.is_available() and torch.distributed.is_initialized()
+        flows["lm_flow"] = ParquetTextDataset(
+            data_files(config, "train_lm_shards_path_or_url"),
+            per_device_batch_size=tr.batch_size_lm,
+            process_index=torch.distributed.get_rank() if dist else 0,
+            process_count=torch.distributed.get_world_size() if dist else 1)
+    if tr.batch_size_mmu:
+        flows["mmu_flow"] = Text2ImageDataset(
+            data_files(config, "train_mmu_shards_path_or_url"),
+            per_device_batch_size=tr.batch_size_mmu, resolution=res,
+            add_caption_prompt=params.get("add_caption_prompt", False))
+    return flows
+
+
+def real_flows(config, prompting=None) -> Iterator[dict]:
+    """The task flows read from disk (``task_flows``), joined by
+    ``combined_loader``: ``scripts/train.py::real_flows`` (whose
+    ``prompting`` argument is unused there too), read ahead on a background
+    thread (``data/prefetch.py``)."""
+    from ..data.combined import combined_loader
+    from ..data.prefetch import prefetch
+    return prefetch(combined_loader(task_flows(config)))
 
 
 def build_trainer(config, dtype=None) -> Trainer:
@@ -114,9 +167,10 @@ def main(argv=None) -> int:
     overrides = sys.argv[1:] if argv is None else list(argv)
     cfg_path = next((o.split("=", 1)[1] for o in overrides if o.startswith("config=")), None)
     config = initialize_config(cfg_path, overrides)
-    if not config.dataset.get("synthetic", False):
-        real_flows(config)
-    build_trainer(config).train(synthetic_flows(config))
+    synthetic = config.dataset.get("synthetic", False)
+    flows = None if synthetic else real_flows(config)
+    trainer = build_trainer(config)
+    trainer.train(synthetic_flows(config) if synthetic else flows)
     return 0
 
 

@@ -8,8 +8,12 @@ Counterpart of ``scripts/train_dpo.py``. Usage::
 Models from ``launch.build_unigen`` / ``build_vq`` (the SFT stage's
 ``checkpoint-N`` through ``model.unigen.pretrained_model_path`` when it
 exists, else random); ``cuda`` unless ``device=cpu``, raising without a
-card. ``dataset.synthetic=true`` draws JAX's synthetic pairs; the real
-``DPODataset`` is not ported yet and raises (ROADMAP Queue 1 item 12).
+card. ``dataset.synthetic=true`` draws JAX's synthetic pairs; else the
+pairs are read from disk as ``scripts/train_dpo.py:100-107`` reads them
+(``real_pairs``: ``data/dpo_data.py::DPODataset`` over
+``dataset.params.dpo_data_path`` and the images under
+``dataset.params.dpo_image_root``, ``training.num_epoch`` passes, each
+reshuffled, read two batches ahead on a background thread).
 
 The reference: with ``training.precompute_ref`` on a deterministic flow
 (not the synthetic one, as in JAX) a forward-only pass over the whole
@@ -28,12 +32,13 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import weights as W
+from ..data.prefetch import prefetch
 from ..device import resolve_device, to_device
 from ..launch import build_prompting_from_config, build_unigen, build_vq, load_tokenizer
 from ..ops import masking as MK
@@ -49,17 +54,32 @@ from .sft import init_sft_state
 logger = get_logger("train_dpo")
 
 
-def real_pairs(config):
-    raise NotImplementedError(
-        "the preference-pair loader (data/dpo_data.py) is not ported yet (ROADMAP Queue 1 "
-        "item 12); run with dataset.synthetic=true")
+def real_pairs(config) -> Iterator[Dict]:
+    """Pair batches read from disk, ``training.num_epoch`` passes over one
+    ``DPODataset`` (each pass reshuffled by the dataset's RNG)."""
+    from ..data.dpo_data import DPODataset
+    from .train import data_files
+    params, tr = config.dataset.get("params") or {}, config.training
+    ds = DPODataset(data_files(config, "dpo_data_path"), params.get("dpo_image_root", ""),
+                    per_device_batch_size=tr.batch_size_t2i,
+                    resolution=config.dataset.preprocessing.resolution)
+    for _ in range(tr.get("num_epoch", 1)):
+        yield from iter(ds)
 
 
-def batch_fingerprint(batch: Dict[str, torch.Tensor]) -> Tuple[int, float, float]:
+def batch_fingerprint(batch: Dict, keys: Optional[Sequence[str]] = None) -> Tuple:
     """A cheap content check that a pass sees the other pass's batch k at
-    step k (a loader that skips an unreadable image shifts every later batch)."""
-    return (int(batch["template"].sum()), float(batch["chosen_pixels"].float().sum()),
-            float(batch["rejected_pixels"].float().sum()))
+    step k (a loader that skips an unreadable image shifts every later
+    batch): for each of ``keys`` (default every key, sorted), the sum of an
+    integer tensor or the float64 sum of a float one, on its own device.
+    Arrays are taken as tensors, so a host batch and its copy on the CPU
+    give the same fingerprint."""
+    out = []
+    for k in sorted(keys if keys is not None else batch):
+        t = batch[k]
+        t = t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+        out.append(float(t.double().sum()) if t.is_floating_point() else int(t.sum()))
+    return tuple(out)
 
 
 class DPORun:
@@ -108,9 +128,14 @@ class DPORun:
         self.ref_cache: Optional[List] = None
 
     def pairs(self) -> Iterator[Dict]:
-        """The flow of pair batches: JAX's synthetic ones (real ones raise)."""
+        """The flow of pair batches: JAX's synthetic ones with
+        ``dataset.synthetic``, else the files' (``real_pairs``, read ahead on
+        a background thread), from the start at each call."""
         if not self.config.dataset.get("synthetic", False):
-            real_pairs(self.config)
+            return prefetch(real_pairs(self.config))
+        return self._synthetic_pairs()
+
+    def _synthetic_pairs(self) -> Iterator[Dict]:
         rng = np.random.default_rng(0)
         res, b = self.config.dataset.preprocessing.resolution, self.config.training.batch_size_t2i
         while True:
@@ -210,8 +235,6 @@ def main(argv=None) -> int:
     overrides = sys.argv[1:] if argv is None else list(argv)
     cfg_path = next((o.split("=", 1)[1] for o in overrides if o.startswith("config=")), None)
     config = initialize_config(cfg_path, overrides)
-    if not config.dataset.get("synthetic", False):
-        real_pairs(config)
     DPORun(config).train()
     return 0
 

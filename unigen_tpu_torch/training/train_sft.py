@@ -12,9 +12,21 @@ models come from ``launch.build_unigen`` / ``build_vq`` /
 stage's ``checkpoint-N``, when it exists, else random from a seed). It runs
 on ``cuda``; ``device=cpu`` is the only way onto the CPU, and without a card
 it raises. ``dataset.synthetic=true`` draws JAX's synthetic batches (the
-same numpy draws, the conversations through ``data/llava.py``); the real
-LLaVA and t2i loaders are not ported yet and raise (ROADMAP Queue 1 item
-12).
+same numpy draws, the conversations through ``data/llava.py``). Else
+``real_batches`` reads the flows from disk as ``scripts/train_sft.py:155-171``
+does: t2i from the tar shards of ``dataset.params.train_t2i_shards_path_or_url``
+(``data/text2image.py``), the conversations from the JSON files of
+``dataset.params.llava_data_paths`` and the images under
+``dataset.params.llava_image_root`` (``data/llava.py::LlavaDataset``, collated
+to 512 tokens), the lm rows empty strings. Two differences from JAX's entry:
+the conversations' images go through the NaFlex processor when the tower is
+SigLIP2-NaFlex and are resized to the SigLIP tower's own size otherwise
+(JAX's always take the SigLIP processor at 384 px, the flagship tower's
+size), and only the flows whose
+batch size is above 0 are built (JAX's builds the t2i flow at
+``batch_size_t2i: 0`` too, which never yields; the CoT-V post-SFT stage has
+no t2i shards). The files' batches are read two ahead on a background
+thread (``data/prefetch.py``).
 
 Per step the host assembles the t2i / lm templates and the mmu ``part1``
 (``[<|im_start|>, <|mmu|>, <|soi|>]``), ``part2`` (``<|eoi|>`` + the
@@ -52,6 +64,7 @@ import torch
 
 from .. import weights as W
 from ..data.llava import collate_batch, preprocess_qwen
+from ..data.prefetch import prefetch
 from ..data.transform import naflex_preprocess
 from ..device import resolve_device, to_device
 from ..launch import (build_prompting_from_config, build_unigen, build_vision_tower, build_vq,
@@ -68,10 +81,38 @@ from .sft import SFTStep, SFTStepConfig, init_sft_state, make_sft_train_step
 logger = get_logger("train_sft")
 
 
-def real_batches(config):
-    raise NotImplementedError(
-        "the LLaVA conversation and t2i loaders (data/*) are not ported yet (ROADMAP Queue 1 "
-        "item 12); run with dataset.synthetic=true")
+def real_batches(config, prompting, vs_cfg) -> Iterator[Dict]:
+    """The SFT flows read from disk (scripts/train_sft.py:155-171): t2i
+    batches from ``Text2ImageDataset``, conversations from
+    ``LlavaDataset`` (``siglip`` mode at the tower's image size, or
+    ``naflex`` with the tower's patch size and budget), joined by
+    ``combined_loader``; lm rows of empty strings. A task of batch size 0
+    gets an empty batch and no dataset."""
+    from ..data.combined import combined_loader
+    from ..data.llava import LlavaDataset
+    from ..data.text2image import Text2ImageDataset
+    from .train import data_files
+    params, tr = config.dataset.get("params") or {}, config.training
+    res = config.dataset.preprocessing.resolution
+    if not tr.batch_size_mmu:
+        raise ValueError("SFT needs training.batch_size_mmu > 0")
+    if isinstance(vs_cfg, siglip2.Siglip2Config):
+        visual = dict(visual_mode="naflex", naflex_patch_size=vs_cfg.patch_size,
+                      naflex_max_patches=vs_cfg.num_patches)
+    else:
+        visual = dict(visual_mode="siglip", siglip_image_size=vs_cfg.image_size)
+    flows = {"mmu": iter(LlavaDataset(
+        data_files(config, "llava_data_paths"), params.get("llava_image_root", ""),
+        prompting.text_tokenizer, per_device_batch_size=tr.batch_size_mmu, **visual))}
+    if tr.batch_size_t2i:
+        flows["t2i"] = ({"images": b["images"], "texts": b["input_ids"]}
+                        for b in Text2ImageDataset(
+                            data_files(config, "train_t2i_shards_path_or_url"),
+                            per_device_batch_size=tr.batch_size_t2i, resolution=res))
+    no_t2i = {"images": np.zeros((0, res, res, 3), np.float32), "texts": []}
+    for b in combined_loader(flows):
+        yield {"t2i": b.get("t2i", no_t2i), "mmu": b["mmu"],
+               "lm": {"texts": [""] * tr.batch_size_lm}}
 
 
 # (H, W) of the NaFlex synthetic conversations' images, a row each in turn
@@ -232,10 +273,12 @@ class SFTRun:
     # ------------------------------------------------------------- batches --
 
     def batches(self) -> Iterator[Dict]:
-        """The flows: JAX's synthetic batches (real ones raise)."""
-        if not self.config.dataset.get("synthetic", False):
-            real_batches(self.config)
-        return synthetic_batches(self.config, self.prompting, self.vs_cfg)
+        """The flows: JAX's synthetic batches with ``dataset.synthetic``,
+        else the files' (``real_batches``), read ahead on a background
+        thread."""
+        if self.config.dataset.get("synthetic", False):
+            return synthetic_batches(self.config, self.prompting, self.vs_cfg)
+        return prefetch(real_batches(self.config, self.prompting, self.vs_cfg))
 
     def device_batch(self, fb: Dict) -> Dict[str, torch.Tensor]:
         """One flow batch -> the step's tensors on the device (NaFlex rows
@@ -304,8 +347,6 @@ def main(argv=None) -> int:
     overrides = sys.argv[1:] if argv is None else list(argv)
     cfg_path = next((o.split("=", 1)[1] for o in overrides if o.startswith("config=")), None)
     config = initialize_config(cfg_path, overrides)
-    if not config.dataset.get("synthetic", False):
-        real_batches(config)
     SFTRun(config).train()
     return 0
 
