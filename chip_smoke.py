@@ -128,6 +128,24 @@ read just after:
   (one corrupt), ``training.num_epoch=2``, its reference precompute pass
   (exact launches) and its check that both passes see the same batches,
   1 warm + 2 timed steps with the dpo phase's gates;
+* ``checkpoints``: the seed-0 flagship with the SigLIP tower written in the
+  reference layouts (UniGen bf16 in 3 safetensors shards with an index,
+  ``llm.model.*`` and ``mm_projector.*`` at the unified vocabulary of
+  159,867; MAGViTv2 fp32 as ``pytorch_model.bin``; SigLIP-SO400M fp32 in
+  HF's layout with its 27th layer, ``post_layernorm`` and head), natively,
+  and by ``utils.import_weights.convert`` from the reference files, in a
+  temporary directory; ``build_pipeline(config)`` of ``unigen_sft.yaml``
+  from each, every leaf bit for bit the seed tree as the pipeline holds it
+  (contiguous, on the card); t2i (batch 4) and understand (8 x 128) on the
+  reference and the native loads with exact launches and equal codes and
+  tokens; ``import_qwen2`` growing Qwen2.5-1.5B's 151,936 rows to 159,867
+  (new rows the mean row within one bf16 step); a Qwen2 ``tokenizer.json``
+  (byte symbols, up to 4,000 merges counted over the phase texts and
+  3,000 seeded pseudo-word texts, Qwen2.5's added tokens) read by
+  ``load_tokenizer`` without ``transformers``, every text round-tripping,
+  its encode rate with a cold word cache over 2,000 distinct held-out texts
+  and over their distinct words, each once; seconds and the host's peak RSS of each
+  write, load and conversion;
 * ``serve_entry``: ``python -m unigen_tpu_torch.serving.serve`` over
   ``configs/unigen_1_5b/unigen_sft.yaml`` (the flagship with the SigLIP
   tower, random init, read by the port's YAML reader) with speculation,
@@ -181,7 +199,7 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
-serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,tiny) runs
+serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,tiny) runs
 a subset, for quick checks; ``pt2_real`` and ``dpo_real`` run only when named;
 adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
@@ -202,7 +220,7 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
-          "sft_naflex", "sft_real", "tiny")
+          "sft_naflex", "sft_real", "checkpoints", "tiny")
 OPTIONAL_PHASES = ("pt2_real", "dpo_real", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -730,11 +748,13 @@ def phase_flash_siglip(gen, b, dtype, rtol, iters):
     ms = time_ms(lambda: flash_attention(qp, kp, vp, bits, scale=dh ** -0.5), iters)
     plain_ms = time_ms(lambda: flash_attention_plain(qp, kp, vp, bits, scale=dh ** -0.5), 3)
     lib_ms = sdpa_ms(q, k, v, None, iters)
-    b_ms, by = bound(4.0 * b * h * dh * l * l, nbytes(q, k, v, bits, got), BF16_PEAK)
+    b_ms, by = bound(4.0 * b * h * dh * l * l, nbytes(q, k, v, bits, got),
+                     BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa, dh 72) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
     return _measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                     f"SigLIP q/k/v [{b},{l},{h},{dh}->{dh + pad}], all bidirectional")
+                     f"SigLIP q/k/v [{b},{l},{h},{dh}->{dh + pad}], all bidirectional"
+                     f"{'' if dtype == torch.bfloat16 else f', {dtype}'}")
 
 
 def phase_flash_mmu(gen, b, l, prompt_len, dtype, rtol, iters):
@@ -1159,7 +1179,10 @@ def run_kernel_phases(results):
         phase_chunk_decode(gen, 3, 61, [61, 40, 7], 4, dtype, rtol, 0, False, new_tokens=5)
         phase_chunk_decode(gen, 2, 0, [0, 0], 0, dtype, rtol, 0, False, new_tokens=1)
     phase_chunk_decode(gen, b, l, plen, 64, f32, 2e-5, 0, False)
+    # the fp32 row: the towers of unigen_sft.yaml (the checkpoints, SFT and
+    # serve_entry phases) keep their fp32 weights, so kernel 2 runs there in fp32
     results["flash_attention"]["shapes"] = [phase_flash_siglip(gen, b, bf16, 2 ** -7, 20),
+                                            phase_flash_siglip(gen, b, f32, 2e-5, 20),
                                             phase_flash_mmu(gen, b, l, plen, bf16, 2 ** -7, 20)]
     phase_flash_mmu(gen, 3, 800, [800, 741, 733], f32, 2e-5, 1)
 
@@ -5388,6 +5411,555 @@ def run_tiny_post_training():
           f"tiny DPO did not learn the preference: {hist}")
 
 
+# ---------------------------------------------------------------------------
+# the checkpoints phase: reference / HF layouts, written from the port's trees
+# ---------------------------------------------------------------------------
+
+# HF's names of a Qwen2 layer's tensors and a SigLIP encoder layer's, by the
+# port's leaf: the inverse of the converters, written out here on its own
+HF_QWEN2_LAYER = (("input_ln", "input_layernorm.weight"),
+                  ("post_ln", "post_attention_layernorm.weight"),
+                  ("q_w", "self_attn.q_proj.weight"), ("q_b", "self_attn.q_proj.bias"),
+                  ("k_w", "self_attn.k_proj.weight"), ("k_b", "self_attn.k_proj.bias"),
+                  ("v_w", "self_attn.v_proj.weight"), ("v_b", "self_attn.v_proj.bias"),
+                  ("o_w", "self_attn.o_proj.weight"), ("gate_w", "mlp.gate_proj.weight"),
+                  ("up_w", "mlp.up_proj.weight"), ("down_w", "mlp.down_proj.weight"))
+HF_SIGLIP_LAYER = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                   ("v", "self_attn.v_proj"), ("o", "self_attn.out_proj"),
+                   ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+# the checkpoints phase: UniGen in bf16 shards, the shard count; Qwen2.5-1.5B's own
+# vocabulary, which import_qwen2 grows to the unified one
+CKPT_UNIGEN_SHARDS = 3
+TOK_TRAIN_TEXTS = 3000      # seeded texts the checkpoints phase's BPE merges are counted over
+TOK_RATE_TEXTS = 2000       # distinct held-out texts its encode rate is timed over
+QWEN25_VOCAB = 151936
+QWEN25_ADDED = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+                "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+                "<|image_pad|>", "<|video_pad|>", "<tool_call>", "</tool_call>",
+                "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+                "<|repo_name|>", "<|file_sep|>")
+QWEN25_SPECIAL = 14          # the first 14 are special (skipped on decode)
+
+
+def hf_unigen_state_dict(params, prefix="llm."):
+    """The port's float UniGen tree -> the reference's ``unwrapped_model``
+    state dict: ``llm.model.*``, ``llm.lm_head`` when untied, ``gen_embed`` /
+    ``gen_projector`` / ``img_head`` and ``mm_projector`` (Sequential
+    indices 0, 2, ...). Linear weights are [out, in] in both."""
+    llm = params["llm"]
+    sd = {f"{prefix}model.embed_tokens.weight": llm["embed"],
+          f"{prefix}model.norm.weight": llm["final_ln"]}
+    for i, lp in enumerate(llm["layers"]):
+        for leaf, key in HF_QWEN2_LAYER:
+            sd[f"{prefix}model.layers.{i}.{key}"] = lp[leaf]
+    if "lm_head" in llm:
+        sd[f"{prefix}lm_head.weight"] = llm["lm_head"]
+    if "gen_embed" in params:
+        sd["gen_embed.weight"] = params["gen_embed"]
+        sd["img_head.weight"] = params["img_head"]
+    for name in ("gen_projector", "mm_projector"):
+        for j, p in enumerate(params.get(name, [])):
+            sd[f"{name}.{2 * j}.weight"], sd[f"{name}.{2 * j}.bias"] = p["w"], p["b"]
+    return sd
+
+
+def hf_siglip_state_dict(params, extra_layer_gen=None, prefix="vision_model.", naflex=False):
+    """The port's SigLIP (or, with ``naflex``, SigLIP2) tower -> HF's vision
+    model state dict: the patch convolution HWIO -> OIHW (NaFlex: the linear
+    patch embedding as it is), the layers; with ``extra_layer_gen`` also the
+    layer HF has after them (drawn from that generator), ``post_layernorm``
+    and the pooling head's ``head.*``, which the converters do not read."""
+    import torch
+    pe = params["patch_embed"]
+    sd = ({f"{prefix}embeddings.patch_embedding.weight": pe["w"],
+           f"{prefix}embeddings.patch_embedding.bias": pe["b"]} if naflex else
+          {f"{prefix}embeddings.patch_embedding.weight": pe["kernel"].permute(3, 2, 0, 1),
+           f"{prefix}embeddings.patch_embedding.bias": pe["bias"]})
+    sd[f"{prefix}embeddings.position_embedding.weight"] = params["pos_embed"]
+    layers = list(params["layers"])
+    if extra_layer_gen is not None:
+        last = layers[-1]
+
+        def draw(t):
+            return torch.randn(t.shape, generator=extra_layer_gen, device=t.device).to(t.dtype)
+        layers.append({k: ({kk: draw(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                           else draw(v)) for k, v in last.items()})
+        d = last["ln1"]["scale"]
+        sd.update({f"{prefix}post_layernorm.weight": draw(d), f"{prefix}post_layernorm.bias":
+                   draw(d), f"{prefix}head.probe": draw(d).reshape(1, 1, -1),
+                   f"{prefix}head.layernorm.weight": draw(d)})
+    for i, lp in enumerate(layers):
+        at = f"{prefix}encoder.layers.{i}."
+        for ln, n in (("ln1", 1), ("ln2", 2)):
+            sd[f"{at}layer_norm{n}.weight"], sd[f"{at}layer_norm{n}.bias"] = \
+                lp[ln]["scale"], lp[ln]["bias"]
+        for leaf, module in HF_SIGLIP_LAYER:
+            sd[f"{at}{module}.weight"], sd[f"{at}{module}.bias"] = lp[f"{leaf}_w"], lp[f"{leaf}_b"]
+    return sd
+
+
+def torch_magvit_state_dict(params):
+    """The port's MAGViTv2 tree -> the reference's torch state dict: the
+    tree's paths joined by ``.``, a conv's HWIO kernel as its OIHW
+    ``weight``, a GroupNorm's ``scale`` as its ``weight``."""
+    sd = {}
+
+    def walk(node, name):
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{name}.{i}")
+        elif "kernel" in node:
+            sd[name + ".weight"] = node["kernel"].permute(3, 2, 0, 1)
+            sd[name + ".bias"] = node["bias"]
+        elif "scale" in node:
+            sd[name + ".weight"], sd[name + ".bias"] = node["scale"], node["bias"]
+        else:
+            for k, v in node.items():
+                walk(v, f"{name}.{k}" if name else k)
+    walk({"encoder": params["encoder"], "decoder": params["decoder"]}, "")
+    return sd
+
+
+def write_sharded(sd, root, n_shards, dtype=None):
+    """``sd`` as ``n_shards`` safetensors files with
+    ``model.safetensors.index.json`` (one ``model.safetensors`` when 1), in
+    ``dtype`` when given (cast where the tensors lie), by the port's writer:
+    the host holds one tensor's bytes at a time. Returns the bytes written."""
+    import os
+    from unigen_tpu_torch.utils.persistence import save_file
+    os.makedirs(root, exist_ok=True)
+    keys, size, weight_map = list(sd), 0, {}
+    per = -(-len(keys) // n_shards)
+    for i in range(n_shards):
+        name = ("model.safetensors" if n_shards == 1
+                else f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors")
+        shard = {k: sd[k] if dtype is None else sd[k].to(dtype)
+                 for k in keys[i * per:(i + 1) * per]}
+        save_file(shard, os.path.join(root, name))
+        size += sum(t.numel() * t.element_size() for t in shard.values())
+        weight_map.update(dict.fromkeys(shard, name))
+    if n_shards > 1:
+        with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": size}, "weight_map": weight_map}, f)
+    return size
+
+
+def tokenizer_corpus(n_texts, seed):
+    """``n_texts`` distinct seeded texts of 8-40 pseudo-words each: a
+    lexicon of 30,000 words of 1-4 syllables drawn by Zipf's law (exponent
+    1.1, as word counts of running text fall off), capitals, digits,
+    punctuation, newlines and a few accented, CJK and emoji words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    onsets = ["", "b", "c", "d", "f", "g", "h", "j", "k", "l", "m", "n", "p", "r", "s", "t",
+              "v", "w", "st", "tr", "pl", "ch", "sh", "th", "br", "gr"]
+    vowels = ["a", "e", "i", "o", "u", "ai", "ea", "ou", "oo", "y"]
+    codas = ["", "n", "r", "s", "t", "l", "nd", "st", "ng", "ck"]
+    odd = ["café", "naïve", "Zürich", "日本語", "東京", "😀", "Привет", "x86_64", "e-mail"]
+    seps = [" "] * 12 + [", ", ". ", "\n", "  ", "'s "]
+    syl = rng.integers(0, [len(onsets), len(vowels), len(codas)], size=(200000, 3))
+    syl = [onsets[a] + vowels[b] + codas[c] for a, b, c in syl.tolist()]
+    lens = rng.integers(1, 5, size=50000).tolist()
+    lex, at = [], 0
+    for n in lens:
+        lex.append("".join(syl[at:at + n]))
+        at += n
+    lex = list(dict.fromkeys(lex))[:30000]
+    p = 1.0 / np.arange(1, len(lex) + 1) ** 1.1
+    out = set()
+    while len(out) < n_texts:
+        n = n_texts - len(out)
+        sizes = rng.integers(8, 41, size=n)
+        total = int(sizes.sum())
+        picks = rng.choice(len(lex), total, p=p / p.sum()).tolist()
+        kinds = rng.random(total).tolist()
+        nums = rng.integers(0, 100000, size=total).tolist()
+        odds = rng.integers(0, len(odd), size=total).tolist()
+        gaps = rng.integers(0, len(seps), size=total).tolist()
+        ends = rng.integers(0, 3, size=n).tolist()
+        at = 0
+        for t, size in enumerate(sizes.tolist()):
+            words = []
+            for j in range(at, at + size):
+                w = (odd[odds[j]] if kinds[j] < 0.02 else str(nums[j]) if kinds[j] < 0.05
+                     else lex[picks[j]].capitalize() if kinds[j] < 0.10 or j == at
+                     else lex[picks[j]])
+                words.append(w + (seps[gaps[j]] if j < at + size - 1 else ""))
+            at += size
+            out.add("".join(words) + (".", "?", "!\n")[ends[t]])
+    return sorted(out)
+
+
+def write_qwen_tokenizer(root, texts, n_merges=4000):
+    """A tokenizer directory of Qwen2's structure (``tokenizer.json`` and
+    ``tokenizer_config.json``) without ``tokenizers``: the 256 byte
+    symbols, then up to ``n_merges`` BPE merges counted over ``texts`` (the
+    most frequent pair first, ties to the smaller pair, pairs seen at least
+    twice; pair counts kept up to date word by word, so thousands of merges
+    take seconds), then Qwen2.5's 22 added tokens. Returns the merges'
+    count."""
+    import collections
+    import heapq
+    import os
+    import unicodedata
+    from unigen_tpu_torch.utils.qwen_tokenizer import QWEN2_PATTERN, bytes_to_unicode, split_words
+    byte_chars = bytes_to_unicode()
+    vocab = {byte_chars[b]: b for b in range(256)}
+    counted = collections.Counter()
+    for t in texts:
+        for w in split_words(unicodedata.normalize("NFC", t)):
+            counted[tuple(byte_chars[b] for b in w.encode("utf-8"))] += 1
+    words, counts = [list(w) for w in counted], list(counted.values())
+    pairs, where = collections.Counter(), collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for p in zip(w, w[1:]):
+            pairs[p] += counts[i]
+            where[p].add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while len(merges) < n_merges and heap:
+        c, best = heapq.heappop(heap)
+        if -c != pairs[best]:
+            continue                        # a stale count: the current one is queued
+        if -c < 2:
+            break
+        merges.append(best)
+        joined = best[0] + best[1]
+        vocab.setdefault(joined, len(vocab))
+        changed = set()
+        for i in where.pop(best):
+            w = words[i]
+            for p in zip(w, w[1:]):
+                pairs[p] -= counts[i]
+                changed.add(p)
+            out, j = [], 0
+            while j < len(w):
+                if (w[j], w[j + 1] if j + 1 < len(w) else None) == best:
+                    out.append(joined)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            words[i] = out
+            for p in zip(out, out[1:]):
+                pairs[p] += counts[i]
+                where[p].add(i)
+                changed.add(p)
+        for p in changed:
+            if pairs[p] > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": len(vocab) + i, "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False, "normalized": False,
+                              "special": i < QWEN25_SPECIAL} for i, t in enumerate(QWEN25_ADDED)],
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+                 "invert": False}, byte_level]},
+            "post_processor": byte_level, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+                      "merges": [" ".join(m) for m in merges]}}
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "Qwen2Tokenizer", "eos_token": "<|im_end|>",
+                   "pad_token": "<|endoftext|>", "model_max_length": 131072,
+                   "clean_up_tokenization_spaces": False}, f)
+    return len(merges)
+
+
+def _rss_gib(field="VmRSS"):
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+@contextlib.contextmanager
+def _step(what, record):
+    """Times a step (ending in a synchronize) into ``record`` with the host's
+    peak RSS over it, sampled every 5 ms by a thread (the peak of the whole
+    process, ``VmHWM``, covers the phases before this one)."""
+    import threading
+    import torch
+    before = _rss_gib()
+    peak, stop = [before], threading.Event()
+
+    def sample():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], _rss_gib())
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        yield
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    record[what] = {"s": time.perf_counter() - t0, "rss_before_gib": before,
+                    "peak_rss_gib": max(peak[0], _rss_gib())}
+    r = record[what]
+    print(f"  {what}: {r['s']:.2f} s, host RSS {before:.2f} GiB before, peak "
+          f"{r['peak_rss_gib']:.2f} GiB")
+
+
+@contextlib.contextmanager
+def _timed_builders(record, label):
+    """Times each model's load and conversion inside ``build_pipeline(config)``."""
+    import torch
+    from unigen_tpu_torch import launch
+    names = ("build_unigen", "build_vq", "build_vision_tower")
+    real = {n: getattr(launch, n) for n in names}
+
+    def timed(n):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[n](*a, **kw)
+            torch.cuda.synchronize()
+            record[f"{label} {n}"] = time.perf_counter() - t0
+            return out
+        return call
+    for n in names:
+        setattr(launch, n, timed(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(launch, n, real[n])
+
+
+def _leaves_equal(what, got, want, dtype):
+    """Every leaf of ``got`` on the card, in ``dtype``, contiguous, and bit
+    for bit ``want``'s leaf cast to ``dtype``; the same paths."""
+    import torch
+    from unigen_tpu_torch.utils.persistence import _leaves
+    a, b = list(_leaves(got)), list(_leaves(want))
+    check([p for p, _ in a] == [p for p, _ in b], f"{what}: the tree's paths differ")
+    for (p, x), (_, y) in zip(a, b):
+        check(x.device.type == "cuda" and x.dtype == dtype and x.is_contiguous()
+              and tuple(x.shape) == tuple(y.shape), f"{what} {p}: {x.device} {x.dtype} "
+              f"{tuple(x.shape)} strides {x.stride()}")
+        check(torch.equal(x, y.to(dtype)), f"{what} {p}: not the seed-0 leaf bit for bit")
+    return len(a)
+
+
+def ckpt_config(base, unigen_dir):
+    from unigen_tpu_torch.utils.configuration import initialize_config
+    return initialize_config(SFT_CONFIG, [f"model.ckpt_base_path={base}",
+                                          f"model.unigen.pretrained_model_path={unigen_dir}"])
+
+
+def run_checkpoints(results, profile=False):
+    """Reference and HF checkpoints through ``build_pipeline(config)`` at full
+    width: the seed-0 flagship (with the SigLIP tower) written in the
+    reference layouts (UniGen bf16 in 3 shards with an index; MAGViTv2 fp32
+    as a ``pytorch_model.bin``; SigLIP-SO400M fp32 with its 27th layer,
+    ``post_layernorm`` and head), natively, and by ``import_weights.convert``;
+    ``unigen_sft.yaml`` built from each, every leaf held to the seed tree;
+    t2i and understand on the reference and native loads, equal codes and
+    tokens, exact launches; ``import_qwen2``'s resize of Qwen2.5's 151,936
+    rows; a Qwen2 tokenizer directory read without ``transformers``."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from unigen_tpu_torch import launch
+    from unigen_tpu_torch import weights as W
+    from unigen_tpu_torch.utils import import_weights
+    from unigen_tpu_torch.utils.hf_import import import_qwen2
+    from unigen_tpu_torch.utils.persistence import _leaves, save_pretrained
+    from unigen_tpu_torch.utils.qwen_tokenizer import QwenTokenizer
+    print(f"phase: checkpoints (flagship + SigLIP seed 0 written in the reference layouts, "
+          f"natively and by import_weights; {SFT_CONFIG} built from each)")
+    seed = flagship_pipeline(vision=True)
+    conf = ckpt_config("", "")
+    prompting = launch.build_prompting_from_config(conf, launch.load_tokenizer(conf))
+    cfg = launch.build_unigen_config(conf, prompting)
+    shapes = [tuple(t.shape) for _, t in _leaves(W.init_unigen(cfg, None, "meta"))]
+    check(shapes == [tuple(t.shape) for _, t in _leaves(seed.params)] and
+          cfg.llm.vocab_size == seed.cfg.llm.vocab_size == 159867,
+          "unigen_sft.yaml's UniGen shapes are not the flagship's")
+    vs_cfg, vq_cfg = launch.vision_tower_config(conf), launch.vq_config(conf, torch.bfloat16)
+    check(dataclasses.replace(vs_cfg, dtype=torch.bfloat16) == seed.vision_cfg and
+          vq_cfg == seed.vq_cfg, "unigen_sft.yaml's tower or tokenizer is not the flagship's")
+    tower = conf["model"]["vision_tower"]["name"]
+    rec, times = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ref, nat, conv = (os.path.join(tmp, d) for d in ("ref", "native", "converted"))
+    try:
+        free = shutil.disk_usage(tmp).free / 2 ** 30
+        print(f"  {tmp}: {free:.1f} GiB free")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        with _step("write the reference layouts", rec):
+            sizes = {"unigen": write_sharded(hf_unigen_state_dict(seed.params),
+                                             os.path.join(ref, "unigen", "unwrapped_model"),
+                                             CKPT_UNIGEN_SHARDS, torch.bfloat16)}
+            mv = {k: v.detach().to("cpu", torch.float32).contiguous()
+                  for k, v in torch_magvit_state_dict(seed.vq_params).items()}
+            os.makedirs(os.path.join(ref, "magvitv2"))
+            torch.save(mv, os.path.join(ref, "magvitv2", "pytorch_model.bin"))
+            sizes["magvitv2"] = sum(t.numel() * 4 for t in mv.values())
+            del mv
+            sizes["tower"] = write_sharded(hf_siglip_state_dict(seed.vision_params, gen),
+                                           os.path.join(ref, tower), 1, torch.float32)
+        print("  reference layouts: " + ", ".join(f"{k} {v / 2 ** 30:.3f} GiB"
+                                                  for k, v in sizes.items()))
+        with _step("write the native checkpoints", rec):
+            save_pretrained(W.unigen_to_jax(seed.params, seed.cfg), os.path.join(nat, "unigen"),
+                            config=seed.cfg)
+            save_pretrained(W.magvit_to_jax(seed.vq_params), os.path.join(nat, "magvitv2"),
+                            config=seed.vq_cfg)
+            save_pretrained(W.siglip_to_jax(seed.vision_params, seed.vision_cfg),
+                            os.path.join(nat, tower), config=seed.vision_cfg)
+        with _step("import_weights.convert", rec):
+            written = import_weights.convert(
+                ckpt_config(ref, ""), unigen_src=os.path.join(ref, "unigen"),
+                magvit_src=os.path.join(ref, "magvitv2"), vision_src=os.path.join(ref, tower),
+                out=conv)
+        check(sorted(written) == sorted(["unigen", "magvitv2", tower]),
+              f"import_weights wrote {written}")
+        outs = {}
+        for label, base in (("reference", ref), ("native", nat), ("converted", conv)):
+            with _step(f"build_pipeline(config) from the {label} checkpoints", rec), \
+                    _timed_builders(times, label):
+                pipe = launch.build_pipeline(ckpt_config(base, os.path.join(base, "unigen")),
+                                             device="cuda")
+            print("    " + ", ".join(f"{n} {times[f'{label} {n}']:.2f} s" for n in
+                                      ("build_unigen", "build_vq", "build_vision_tower")))
+            n = sum(_leaves_equal(f"{label} {part}", got, want, dt) for part, got, want, dt in (
+                ("UniGen", pipe.params, seed.params, torch.bfloat16),
+                ("MAGViTv2", pipe.vq_params, seed.vq_params, torch.bfloat16),
+                ("SigLIP", pipe.vision_params, seed.vision_params, torch.float32)))
+            print(f"  {label}: {n} leaves bit for bit the seed-0 tree (UniGen and MAGViTv2 "
+                  "bf16, the tower fp32), contiguous, on the card")
+            if label == "converted":
+                break
+            if label == "reference":
+                lp, _ = t2i_prefix_layout(pipe, mode="mask")
+                lu, _, _ = understand_prompt_shape(pipe)
+                print(f"  {SFT_CONFIG}'s prompting: t2i prefix {lp}, cache "
+                      f"{lp + pipe.cfg.num_vq_tokens + 2} (text budget 128); understand prompt "
+                      f"{lu}, cache {lu + NEW_TOKENS}")
+            layers = pipe.cfg.llm.num_hidden_layers
+            out = {}
+            (out["codes"], _), out["t2i_s"], _, out["t2i_counts"] = _timed_runs(
+                f"checkpoints {label} t2i", _t2i_run(pipe, timesteps=50),
+                dict(NO_LAUNCHES, **_t2i_launches(layers)), runs=("run",),
+                validate=_t2i_checker(f"checkpoints {label} t2i", pipe),
+                work=(len(PROMPTS), "images"))
+            pixels = _vqa_pixels(pipe)
+            out["tokens"], out["understand_s"], _, out["understand_counts"] = _timed_runs(
+                f"checkpoints {label} understand",
+                lambda p=pipe: p.understand(pixels, list(QUESTIONS), None,
+                                            max_new_tokens=NEW_TOKENS),
+                dict(NO_LAUNCHES, flash_attention=pipe.vision_cfg.num_layers_used + layers,
+                     chunk_attention=layers * (NEW_TOKENS - 1)), runs=("run",),
+                validate=_token_checker(f"checkpoints {label} understand",
+                                        pipe.cfg.llm.vocab_size),
+                work=(len(QUESTIONS) * NEW_TOKENS, "tokens"))
+            outs[label] = out
+            del pipe
+        del pipe
+        torch.cuda.empty_cache()
+        check(torch.equal(outs["reference"]["codes"], outs["native"]["codes"]),
+              "t2i codes of the reference-layout load != the native load's")
+        check(torch.equal(outs["reference"]["tokens"], outs["native"]["tokens"]),
+              "understand tokens of the reference-layout load != the native load's")
+        print("  codes and tokens equal between the reference-layout and the native load")
+
+        # Qwen2.5-1.5B's own vocabulary grown to the unified one on load
+        embed = seed.params["llm"]["embed"]
+        sd = {"model." + k[len("llm.model."):]: v
+              for k, v in hf_unigen_state_dict(seed.params).items() if k.startswith("llm.model.")}
+        sd["model.embed_tokens.weight"] = embed[:QWEN25_VOCAB]
+        with _step(f"import_qwen2 resize {QWEN25_VOCAB} -> {seed.cfg.llm.vocab_size} rows", rec):
+            grown = import_qwen2(sd, seed.cfg.llm, device="cuda")["embed"]
+        mean = embed[:QWEN25_VOCAB].float().mean(0)
+        step = torch.exp2(torch.floor(torch.log2(mean.abs().clamp_min(2.0 ** -126))) - 7)
+        err = (grown[QWEN25_VOCAB:].float() - mean).abs()
+        check(tuple(grown.shape) == tuple(embed.shape) and
+              torch.equal(grown[:QWEN25_VOCAB], embed[:QWEN25_VOCAB]) and
+              bool((err <= step).all()) and
+              bool((grown[QWEN25_VOCAB:] == grown[QWEN25_VOCAB]).all()),
+              "the resized embedding's new rows are not the mean row within one bf16 step")
+        print(f"  resize: rows {QWEN25_VOCAB}..{grown.shape[0] - 1} the mean row, max |err| "
+              f"{err.max().item():.3e} (within one bf16 step of the card's fp32 mean)")
+        del grown, sd
+
+        # a Qwen2 tokenizer directory, read without transformers
+        texts = list(PROMPTS) + list(QUESTIONS)
+        tok_dir = os.path.join(tmp, "tok", conf["model"]["unigen"]["llm_model_path"])
+        t0 = time.perf_counter()
+        n_merges = write_qwen_tokenizer(tok_dir, texts + tokenizer_corpus(TOK_TRAIN_TEXTS, 0))
+        train_s = time.perf_counter() - t0
+        tconf = ckpt_config(os.path.join(tmp, "tok"), "")
+        t0 = time.perf_counter()
+        tok = launch.load_tokenizer(tconf)
+        load_s = time.perf_counter() - t0
+        check(isinstance(tok, QwenTokenizer) and "transformers" not in sys.modules,
+              f"load_tokenizer gave {type(tok).__name__}")
+        import importlib.util
+        print("  this machine has " + ", ".join(
+            f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+            for m in ("transformers", "tokenizers", "regex", "safetensors", "yaml", "PIL",
+                      "pyarrow")))
+        chat = [f"<|im_start|>user\n{q}<|im_end|>\n<|im_start|>assistant\n" for q in QUESTIONS]
+        for t in texts + chat:
+            ids = tok(t)["input_ids"]
+            check(tok.decode(ids) == t, f"tokenizer round trip of {t!r}")
+        check(tok.decode(tok(chat[0])["input_ids"], skip_special_tokens=True) ==
+              f"user\n{QUESTIONS[0]}\nassistant\n", "skip_special_tokens")
+        # encode rates of a fresh reader (its word cache empty): over distinct
+        # texts whose words repeat by Zipf's law, and over the distinct words
+        # of those texts, each once, so that every word is a cache miss
+        rates = {}
+        held_out = tokenizer_corpus(TOK_RATE_TEXTS, 1)
+        unseen = list(dict.fromkeys(w for t in held_out for w in t.split()))
+        unseen = [" ".join(unseen[i:i + 24]) for i in range(0, len(unseen), 24)]
+        for kind, batch in (("zipf", held_out), ("all_miss", unseen)):
+            fresh = QwenTokenizer.from_pretrained(tok_dir)
+            t0 = time.perf_counter()
+            ids = fresh(batch)["input_ids"]
+            enc_s = time.perf_counter() - t0
+            n_tok = sum(map(len, ids))
+            rates[kind] = dict(tokens_per_s=n_tok / enc_s, texts=len(batch), tokens=n_tok,
+                               seconds=enc_s, bytes=sum(len(t.encode()) for t in batch),
+                               cached_words=len(fresh._cache))
+            check(all(fresh.decode(i) == t for i, t in zip(ids, batch)),
+                  f"tokenizer round trip of the {kind} texts")
+        pro = launch.build_prompting_from_config(tconf, tok)
+        check(len(tok) == tok.vocab_size + len(QWEN25_ADDED) + 9 and pro.pad_id ==
+              tok.vocab_size and pro.sptids_dict["<|soi|>"] == tok.vocab_size + len(QWEN25_ADDED),
+              "the prompting's ids over the tokenizer directory")
+        print(f"  tokenizer: {n_merges} merges (trained in {train_s:.2f} s over "
+              f"{len(texts) + TOK_TRAIN_TEXTS} texts) + 256 bytes + {len(QWEN25_ADDED)} added, "
+              f"len {len(tok)} with the 9 task tokens, read in {load_s * 1e3:.1f} ms; "
+              f"{len(texts) + len(chat)} phase texts and every timed text round-trip")
+        for kind, r in rates.items():
+            print(f"  encode, a fresh reader, {kind}: {r['tokens_per_s']:.0f} tokens/s "
+                  f"({r['texts']} distinct texts, {r['bytes']} bytes, {r['tokens']} tokens, "
+                  f"{r['seconds']:.3f} s, {r['cached_words']} words cached at the end)")
+        results["checkpoints"] = {"steps": rec, "builders_s": times, "sizes_bytes": sizes,
+                                  "tokenizer_merges": n_merges, "encode": rates,
+                                  "t2i_s": {k: v["t2i_s"] for k, v in outs.items()},
+                                  "understand_s": {k: v["understand_s"] for k, v in outs.items()}}
+        return {"checkpoints_t2i": outs["reference"]["t2i_counts"],
+                "checkpoints_understand": outs["reference"]["understand_counts"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5473,6 +6045,11 @@ def main(argv=None) -> int:
                          ("dpo_real", run_dpo_real)):
             if name in phases:
                 path_counts[name] = fn(results, profile="profile" in phases)
+        if "checkpoints" in phases:
+            t0 = time.perf_counter()
+            path_counts.update(run_checkpoints(results))
+            results["checkpoints"]["phase_s"] = time.perf_counter() - t0
+            print(f"  the checkpoints phase: {results['checkpoints']['phase_s']:.1f} s")
         if "tiny" in phases:
             run_tiny_train()
             run_tiny_post_training()
@@ -5616,6 +6193,15 @@ def main(argv=None) -> int:
         se = results["serve_entry"]
         print(f"serve_entry: healthy {se['healthy_s']:.2f} s after the start, 3 /v1/generate "
               f"{se['generate_s']:.3f} s, /v1/images {se['image_s']:.3f} s on {card}")
+    if "checkpoints" in results:
+        ck = results["checkpoints"]
+        st = ck["steps"]
+        print("checkpoints: " + "; ".join(
+            f"{k} {v['s']:.2f} s (peak RSS {v['peak_rss_gib']:.2f} GiB)" for k, v in st.items())
+              + "; " + ", ".join(f"{k} {v:.2f} s" for k, v in ck["builders_s"].items())
+              + "; encode, a fresh reader, " + ", ".join(
+                  f"{k} {v['tokens_per_s']:.0f} tokens/s" for k, v in ck["encode"].items())
+              + f" ({ck['tokenizer_merges']} merges) on {card}")
     for name in TRAINING_PATHS + ("sft_lora",):
         if name in results:
             tr = results[name]

@@ -4,20 +4,22 @@ Counterpart of ``unigen_tpu/launch.py``. ``build_pipeline(config)`` takes a
 config of ``utils.configuration.initialize_config`` (a YAML file of
 ``configs/`` plus overrides), as every JAX entry point does: it sizes the
 unified vocabulary from the tokenizer, applies the configs' size overrides,
-loads each model from a native checkpoint (``utils/persistence.py``'s
-format, as JAX's ``save_pretrained`` writes it) when its path exists and
-draws it at random from a fixed seed when not (logged), and quantizes with
-``model.quantization=int8``. ``build_pipeline("flagship" | "tiny")`` builds
-the two code-built configurations with random weights from a seed. Without
-a tokenizer on disk the tokenizer is the byte-level ``FallbackTokenizer``
-(the port's own copy of the JAX package's). Checkpoints in the HF or torch
-layout are not read yet (ROADMAP Queue 1 item 16).
+loads each model when its path exists and draws it at random from a fixed
+seed when not (logged), and quantizes with ``model.quantization=int8``. A
+checkpoint is read in either format, told apart by its tensor names: the
+native one (``utils/persistence.py``'s, as JAX's ``save_pretrained`` and
+``utils/import_weights.py`` write it) or the reference / HF torch layout
+(single or sharded safetensors, or ``pytorch_model*.bin``), converted on
+load by ``utils/hf_import.py``. ``build_pipeline("flagship" | "tiny")``
+builds the two code-built configurations with random weights from a seed.
+A Qwen2 tokenizer directory is read by ``utils/qwen_tokenizer.py``, without
+``transformers``; without one on disk the tokenizer is the byte-level
+``FallbackTokenizer`` (the port's own copy of the JAX package's).
 """
 from __future__ import annotations
 
 import dataclasses
 import glob
-import importlib
 import logging
 import os
 from typing import Any, Mapping, Optional, Tuple, Union
@@ -26,6 +28,7 @@ import torch
 
 from . import weights as W
 from .device import DeviceLike, resolve_device
+from .models import siglip, siglip2
 from .models.builder import get_vision_tower_config
 from .models.magvit import MagvitConfig
 from .models.qwen2 import Qwen2Config
@@ -37,7 +40,9 @@ from .ops.quantization import quantize_siglip_params, quantize_unigen_params
 from .pipeline import UniGenPipeline
 from .prompting import UniPrompting
 from .utils.checkpoint_registry import real_checkpoint
-from .utils.persistence import from_pretrained, tensor_names
+from .utils.hf_import import import_magvit, import_unigen
+from .utils.persistence import from_pretrained, load_state_dict, tensor_names
+from .utils.qwen_tokenizer import QwenTokenizer
 from .weights import init_magvit, init_siglip, init_siglip2, init_unigen
 
 logger = logging.getLogger(__name__)
@@ -148,16 +153,13 @@ def build_prompting_from_config(config, tokenizer) -> UniPrompting:
 def load_tokenizer(config):
     """The Qwen tokenizer under ``model.unigen.llm_model_path`` (through the
     checkpoint registry and ``model.ckpt_base_path``) when that directory
-    exists, read by ``transformers``; else the byte-level fallback.
-    ``transformers`` is looked up only then, by name: the machine with the
-    card has none, and no module of the port imports it."""
+    exists, read by ``utils.qwen_tokenizer`` (the port depends on no
+    ``transformers``); else the byte-level fallback."""
     path = real_checkpoint(config["model"]["unigen"]["llm_model_path"],
                            config["model"].get("ckpt_base_path", ""))
     if os.path.isdir(path):
-        auto_tokenizer = importlib.import_module("transformers").AutoTokenizer
-        return auto_tokenizer.from_pretrained(
-            path, model_max_length=config["model"]["unigen"].get("model_max_length", 32768),
-            padding_side="right")
+        return QwenTokenizer.from_pretrained(
+            path, model_max_length=config["model"]["unigen"].get("model_max_length", 32768))
     logger.warning(f"tokenizer not found at {path}; using byte-level fallback")
     return FallbackTokenizer()
 
@@ -176,12 +178,6 @@ def _load_native(path: str, template_jax, from_jax):
     port's own init on the ``meta`` device (no memory spent on it), then
     through ``weights.py``'s bridge."""
     return from_jax(from_pretrained(path, template_jax)[0])
-
-
-def _non_native(what: str, path: str):
-    return NotImplementedError(
-        f"{what} checkpoint at {path} is not in the native format (utils/persistence.py); "
-        "HF and torch layouts are not read yet (ROADMAP Queue 1 item 16)")
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -227,7 +223,7 @@ def build_unigen(config, prompting: UniPrompting, dtype=None, device: DeviceLike
         if os.path.isdir(resolved):
             logger.info(f"loading UniGen weights from {resolved}")
             if not _is_native_checkpoint(resolved):
-                raise _non_native("UniGen", resolved)
+                return import_unigen(resolved, cfg, device), cfg
             template = W.unigen_to_jax(init_unigen(cfg, None, "meta", cfg.llm.dtype), cfg)
             return _load_native(resolved, template, lambda t: W.unigen_from_jax(
                 t, cfg, device, cfg.llm.dtype)), cfg
@@ -235,10 +231,8 @@ def build_unigen(config, prompting: UniPrompting, dtype=None, device: DeviceLike
     return init_unigen(cfg, _generator(0, device), device, cfg.llm.dtype), cfg
 
 
-def build_vq(config, dtype=None, device: DeviceLike = None) -> Tuple[Any, MagvitConfig]:
-    """MAGViTv2 with ``model.vq_model``'s size overrides, from its checkpoint
-    when the path exists, else random (seed 1)."""
-    device = resolve_device(device)
+def vq_config(config, dtype) -> MagvitConfig:
+    """MAGViTv2's config with ``model.vq_model``'s size overrides."""
     vcfg = config["model"].get("vq_model", {})
     kw = {}
     for k in ("ch", "enc_ch_mult", "enc_num_res_blocks", "dec_ch_mult", "dec_num_res_blocks",
@@ -246,13 +240,20 @@ def build_vq(config, dtype=None, device: DeviceLike = None) -> Tuple[Any, Magvit
         v = vcfg.get(k)
         if v is not None:
             kw[k] = tuple(v) if isinstance(v, (list, tuple)) else int(v)
-    cfg = MagvitConfig(dtype=dtype or torch.bfloat16, **kw)
-    path = real_checkpoint(vcfg.get("vq_model_name", "magvitv2"),
+    return MagvitConfig(dtype=dtype, **kw)
+
+
+def build_vq(config, dtype=None, device: DeviceLike = None) -> Tuple[Any, MagvitConfig]:
+    """MAGViTv2 with ``model.vq_model``'s size overrides, from its checkpoint
+    when the path exists, else random (seed 1)."""
+    device = resolve_device(device)
+    cfg = vq_config(config, dtype or torch.bfloat16)
+    path = real_checkpoint(config["model"].get("vq_model", {}).get("vq_model_name", "magvitv2"),
                            config["model"].get("ckpt_base_path", ""))
     if os.path.isdir(path):
         logger.info(f"loading MAGViTv2 weights from {path}")
         if not _is_native_checkpoint(path):
-            raise _non_native("MAGViTv2", path)
+            return import_magvit(path, cfg, device), cfg
         template = W.magvit_to_jax(init_magvit(cfg, None, "meta", cfg.dtype))
         return _load_native(path, template, lambda t: W.magvit_from_jax(
             t, cfg, device, cfg.dtype)), cfg
@@ -276,6 +277,15 @@ def vision_tower_config(config, dtype=None):
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+def tower_codec(cfg):
+    """(init, to_jax, from_jax, convert_hf_state_dict) of the tower that
+    ``cfg`` configures: ``models.siglip2``'s for a SigLIP2-NaFlex config,
+    else ``models.siglip``'s."""
+    if isinstance(cfg, Siglip2Config):
+        return init_siglip2, W.siglip2_to_jax, W.siglip2_from_jax, siglip2.convert_hf_state_dict
+    return init_siglip, W.siglip_to_jax, W.siglip_from_jax, siglip.convert_hf_state_dict
+
+
 def build_vision_tower(config, dtype=None, device: DeviceLike = None):
     """The tower named by ``model.vision_tower.name`` with its size
     overrides, from its checkpoint when the path exists, else random (seed
@@ -286,15 +296,13 @@ def build_vision_tower(config, dtype=None, device: DeviceLike = None):
     if cfg is None:
         return None, None
     device = resolve_device(device)
-    init, to_jax, from_jax = ((init_siglip2, W.siglip2_to_jax, W.siglip2_from_jax)
-                              if isinstance(cfg, Siglip2Config) else
-                              (init_siglip, W.siglip_to_jax, W.siglip_from_jax))
+    init, to_jax, from_jax, convert = tower_codec(cfg)
     name = config["model"]["vision_tower"]["name"]
     path = real_checkpoint(name, config["model"].get("ckpt_base_path", ""))
     if os.path.isdir(path):
         logger.info(f"loading vision tower weights from {path}")
         if not _is_native_checkpoint(path):
-            raise _non_native("vision tower", path)
+            return convert(load_state_dict(path), cfg, device=device), cfg
         template = to_jax(init(cfg, None, "meta", cfg.dtype), cfg)
         return _load_native(path, template, lambda t: from_jax(t, cfg, device, cfg.dtype)), cfg
     logger.warning(f"vision tower checkpoint missing at {path}; random init")

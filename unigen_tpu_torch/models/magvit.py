@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused_conv import conv2d, conv3x3_gn_swish, group_norm, swish
+from ..utils.persistence import take
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,3 +186,90 @@ def encode(params: Dict, cfg: MagvitConfig, pixel_values: torch.Tensor
 def get_code(params: Dict, cfg: MagvitConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """pixels [B, H, W, 3] -> tokens [B, h * w] int32."""
     return encode(params, cfg, pixel_values)[1]
+
+
+# ---------------------------------------------------------------------------
+# Torch weight import (reference checkpoints are NCHW torch state dicts)
+# ---------------------------------------------------------------------------
+
+def convert_torch_state_dict(sd: Dict[str, torch.Tensor], cfg: MagvitConfig,
+                             device="cpu") -> Dict[str, Any]:
+    """The reference MAGViTv2 state dict -> the port's encoder and decoder,
+    each leaf on ``device`` in ``cfg.dtype``: convolutions OIHW -> HWIO,
+    stored contiguous (kernel 3 would copy a strided weight at every
+    launch). The levels follow ``enc_ch_mult`` / ``dec_ch_mult``, their
+    res-block counts and ``attn_resolutions``; a res-block has
+    ``nin_shortcut`` only where its channels change (JAX magvit.py:374-449).
+    A missing key raises ``KeyError`` naming it."""
+    def conv(name):
+        return {"kernel": take(sd, name + ".weight", device, cfg.dtype)
+                .permute(2, 3, 1, 0).contiguous(),
+                "bias": take(sd, name + ".bias", device, cfg.dtype)}
+
+    def gn(name):
+        return {"scale": take(sd, name + ".weight", device, cfg.dtype),
+                "bias": take(sd, name + ".bias", device, cfg.dtype)}
+
+    def res(name, cin, cout):
+        p = {"norm1": gn(name + ".norm1"), "conv1": conv(name + ".conv1"),
+             "norm2": gn(name + ".norm2"), "conv2": conv(name + ".conv2")}
+        if cin != cout:
+            p["nin_shortcut"] = conv(name + ".nin_shortcut")
+        return p
+
+    def attn(name):
+        return {"norm": gn(name + ".norm"), "q": conv(name + ".q"), "k": conv(name + ".k"),
+                "v": conv(name + ".v"), "proj_out": conv(name + ".proj_out")}
+
+    def mid(part, ch):
+        return {"block_1": res(f"{part}.mid.block_1", ch, ch), "attn_1": attn(f"{part}.mid.attn_1"),
+                "block_2": res(f"{part}.mid.block_2", ch, ch)}
+
+    enc: Dict[str, Any] = {"conv_in": conv("encoder.conv_in"),
+                           "quant_conv": conv("encoder.quant_conv"),
+                           "conv_out": conv("encoder.conv_out"),
+                           "norm_out": gn("encoder.norm_out")}
+    in_ch_mult = (1,) + tuple(cfg.enc_ch_mult)
+    num_levels = len(cfg.enc_ch_mult)
+    curr_res = cfg.resolution
+    down = []
+    block_in = cfg.ch
+    for i in range(num_levels):
+        level: Dict[str, Any] = {"block": [], "attn": []}
+        block_in = cfg.ch * in_ch_mult[i]
+        block_out = cfg.ch * cfg.enc_ch_mult[i]
+        for j in range(cfg.enc_num_res_blocks[i]):
+            level["block"].append(res(f"encoder.down.{i}.block.{j}", block_in, block_out))
+            block_in = block_out
+            if curr_res in cfg.attn_resolutions:
+                level["attn"].append(attn(f"encoder.down.{i}.attn.{j}"))
+        if i != num_levels - 1:
+            level["downsample"] = {"conv": conv(f"encoder.down.{i}.downsample.conv")}
+            curr_res //= 2
+        down.append(level)
+    enc["down"] = down
+    enc["mid"] = mid("encoder", block_in)
+
+    num_levels = len(cfg.dec_ch_mult)
+    block_in = cfg.ch * cfg.dec_ch_mult[num_levels - 1]
+    curr_res = cfg.resolution // 2 ** (num_levels - 1)
+    dec: Dict[str, Any] = {"post_quant_conv": conv("decoder.post_quant_conv"),
+                           "conv_in": conv("decoder.conv_in"),
+                           "conv_out": conv("decoder.conv_out"),
+                           "norm_out": gn("decoder.norm_out"),
+                           "mid": mid("decoder", block_in)}
+    up: list = [None] * num_levels
+    for i in reversed(range(num_levels)):
+        level = {"block": [], "attn": []}
+        block_out = cfg.ch * cfg.dec_ch_mult[i]
+        for j in range(cfg.dec_num_res_blocks[i]):
+            level["block"].append(res(f"decoder.up.{i}.block.{j}", block_in, block_out))
+            block_in = block_out
+            if curr_res in cfg.attn_resolutions:
+                level["attn"].append(attn(f"decoder.up.{i}.attn.{j}"))
+        if i != 0:
+            level["upsample"] = {"conv": conv(f"decoder.up.{i}.upsample.conv")}
+            curr_res *= 2
+        up[i] = level
+    dec["up"] = up
+    return {"encoder": enc, "decoder": dec}

@@ -78,6 +78,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.int4 import dense_int4, dense_int4_prequant, is_quantized_int4
 from ..ops.quantization import (dense_int8, dense_int8_prequant, int8_leaf, is_quantized,
                                 quantize_activations)
+from ..utils.persistence import take
 
 
 @dataclasses.dataclass(frozen=True)
@@ -487,3 +488,39 @@ def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
     if vocab_slice is not None:
         w = w[vocab_slice[0]:vocab_slice[1]]
     return F.linear(hidden, w.to(hidden.dtype))
+
+
+# ---------------------------------------------------------------------------
+# HF weight import
+# ---------------------------------------------------------------------------
+
+# the port's layer leaves and their names in HF's Qwen2 layer (JAX qwen2.py:588-629)
+HF_LAYER_KEYS = {
+    "input_ln": "input_layernorm.weight", "post_ln": "post_attention_layernorm.weight",
+    "q_w": "self_attn.q_proj.weight", "q_b": "self_attn.q_proj.bias",
+    "k_w": "self_attn.k_proj.weight", "k_b": "self_attn.k_proj.bias",
+    "v_w": "self_attn.v_proj.weight", "v_b": "self_attn.v_proj.bias",
+    "o_w": "self_attn.o_proj.weight",
+    "gate_w": "mlp.gate_proj.weight", "up_w": "mlp.up_proj.weight",
+    "down_w": "mlp.down_proj.weight",
+}
+
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: Qwen2Config, prefix: str = "model.",
+                          device="cpu") -> Dict[str, Any]:
+    """A HuggingFace ``Qwen2ForCausalLM`` state dict -> the port's
+    parameters, each leaf on ``device`` in ``cfg.dtype``, one at a time.
+    HF's ``nn.Linear`` weights are [out, in], the port's layout, so nothing
+    is transposed; ``lm_head`` is taken only when the embeddings are untied.
+    A missing key raises ``KeyError`` naming it."""
+
+    def get(name):
+        return take(sd, prefix + name, device, cfg.dtype)
+
+    params: Dict[str, Any] = {"embed": get("embed_tokens.weight")}
+    params["layers"] = [{leaf: get(f"layers.{i}.{key}") for leaf, key in HF_LAYER_KEYS.items()}
+                        for i in range(cfg.num_hidden_layers)]
+    params["final_ln"] = get("norm.weight")
+    if "lm_head.weight" in sd and not cfg.tie_word_embeddings:
+        params["lm_head"] = take(sd, "lm_head.weight", device, cfg.dtype)
+    return params

@@ -32,6 +32,7 @@ from ..ops.flash_attention import flash_attention, kernel_head_dim
 from ..ops.masks import BIDIRQ_BIT
 from ..ops.quantization import (dense_int8, dense_int8_prequant, is_quantized,
                                 quantize_activations)
+from ..utils.persistence import take
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +130,49 @@ def forward(params: Dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torc
     for lp in params["layers"]:
         x = _encoder_layer(lp, cfg, x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# HF weight import
+# ---------------------------------------------------------------------------
+
+# the port's dense leaves and their modules in HF's SigLIP encoder layer
+HF_DENSE = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+            "o": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def hf_encoder_layers(sd: Dict[str, torch.Tensor], cfg, prefix: str, device) -> list:
+    """The first ``cfg.num_layers_used`` HF encoder layers (SigLIP's or
+    SigLIP2's) -> one dict a layer in ``cfg.dtype`` on ``device``; the
+    dropped last layer is not read."""
+
+    def get(name):
+        return take(sd, prefix + name, device, cfg.dtype)
+
+    layers = []
+    for i in range(cfg.num_layers_used):
+        at = f"encoder.layers.{i}."
+        lp: Dict[str, Any] = {ln: {"scale": get(f"{at}layer_norm{n}.weight"),
+                                   "bias": get(f"{at}layer_norm{n}.bias")}
+                              for ln, n in (("ln1", 1), ("ln2", 2))}
+        for name, module in HF_DENSE.items():
+            lp[f"{name}_w"] = get(f"{at}{module}.weight")
+            lp[f"{name}_b"] = get(f"{at}{module}.bias")
+        layers.append(lp)
+    return layers
+
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: SiglipConfig,
+                          prefix: str = "vision_model.", device="cpu") -> Dict[str, Any]:
+    """A HF ``SiglipVisionModel`` state dict -> the port's tower, each leaf on
+    ``device`` in ``cfg.dtype``: the patch convolution OIHW -> HWIO, stored
+    contiguous; the first ``num_layers_used`` layers (the last layer,
+    ``post_layernorm`` and ``head.*`` are not read, as in JAX). A missing
+    key raises ``KeyError`` naming it."""
+    patch = prefix + "embeddings.patch_embedding."
+    return {"patch_embed": {"kernel": take(sd, patch + "weight", device, cfg.dtype)
+                            .permute(2, 3, 1, 0).contiguous(),
+                            "bias": take(sd, patch + "bias", device, cfg.dtype)},
+            "pos_embed": take(sd, prefix + "embeddings.position_embedding.weight", device,
+                              cfg.dtype),
+            "layers": hf_encoder_layers(sd, cfg, prefix, device)}

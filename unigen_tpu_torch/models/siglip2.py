@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import kernel_head_dim
-from .siglip import _encoder_layer
+from ..utils.persistence import take
+from .siglip import _encoder_layer, hf_encoder_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,3 +146,17 @@ def forward(params: Dict, cfg: Siglip2Config, pixel_values: torch.Tensor,
     pos = resize_positional_embeddings(params["pos_embed"], spatial_shapes,
                                        pixel_values.shape[1])
     return forward_with_pos(params, cfg, pixel_values, pixel_attention_mask, pos)
+
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: Siglip2Config,
+                          prefix: str = "vision_model.", device="cpu") -> Dict:
+    """A HF ``Siglip2VisionModel`` state dict -> the port's NaFlex tower, each
+    leaf on ``device`` in ``cfg.dtype``: the patch embedding is an HF
+    ``nn.Linear``, [D, 3 p p] as the port's ``w``; the first
+    ``num_layers_used`` layers. A missing key raises ``KeyError`` naming it."""
+    patch = prefix + "embeddings.patch_embedding."
+    return {"patch_embed": {"w": take(sd, patch + "weight", device, cfg.dtype),
+                            "b": take(sd, patch + "bias", device, cfg.dtype)},
+            "pos_embed": take(sd, prefix + "embeddings.position_embedding.weight", device,
+                              cfg.dtype),
+            "layers": hf_encoder_layers(sd, cfg, prefix, device)}

@@ -9,10 +9,11 @@ read each other's files. The trees here are in that JAX layout, with tensor
 leaves: ``weights.unigen_to_jax`` and its siblings take the port's
 parameters there, and ``weights.unigen_from_jax`` brings them back.
 
-The machine with the card has no ``safetensors`` package, so the format is
+The port does not depend on the ``safetensors`` package, so the format is
 written and read here: an 8-byte little-endian header length, a JSON header
 ``{name: {dtype, shape, data_offsets}}`` (plus ``__metadata__``), then the
-raw little-endian bytes of every tensor.
+raw little-endian bytes of every tensor. ``load_state_dict`` also reads the
+reference / HF torch layouts' files for ``utils/hf_import.py``.
 """
 from __future__ import annotations
 
@@ -57,17 +58,17 @@ def _bytes(t: torch.Tensor) -> bytes:
 
 def save_file(tensors: Dict[str, torch.Tensor], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
-    """One safetensors file of ``tensors`` (in their order)."""
+    """One safetensors file of ``tensors`` (in their order), written one
+    tensor at a time: the host holds one tensor's bytes, not the file's."""
     header: Dict[str, Any] = {}
-    blobs, offset = [], 0
+    offset = 0
     for name, t in tensors.items():
         if t.dtype not in _CODES:
             raise TypeError(f"{name}: dtype {t.dtype} has no safetensors code")
-        blob = _bytes(t)
+        nb = t.numel() * t.element_size()
         header[name] = {"dtype": _CODES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(blob)]}
-        blobs.append(blob)
-        offset += len(blob)
+                        "data_offsets": [offset, offset + nb]}
+        offset += nb
     if metadata:
         header["__metadata__"] = dict(metadata)
     raw = json.dumps(header, separators=(",", ":")).encode()
@@ -75,8 +76,8 @@ def save_file(tensors: Dict[str, torch.Tensor], path: str,
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for blob in blobs:
-            f.write(blob)
+        for t in tensors.values():
+            f.write(_bytes(t))
 
 
 def tensor_names(path: str) -> list:
@@ -91,8 +92,10 @@ def tensor_names(path: str) -> list:
 def load_file(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of one safetensors file, on the CPU, after checking the
     header against the file's size."""
+    data = bytearray(os.path.getsize(path))        # read once, into the tensors' buffer
     with open(path, "rb") as f:
-        data = bytearray(f.read())
+        if f.readinto(data) != len(data):
+            raise ValueError(f"{path}: shorter than its size")
     if len(data) < 8:
         raise ValueError(f"{path}: not a safetensors file")
     n = struct.unpack("<Q", bytes(data[:8]))[0]
@@ -119,24 +122,38 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A file, or a directory's safetensors (through the shard index when
-    there is one) -> {name: tensor}."""
+    """A file, or a directory's weights -> {name: CPU tensor}: through the
+    shard index when there is one (``model.safetensors.index.json`` or
+    ``pytorch_model.bin.index.json``), else every ``*.safetensors``, else
+    every ``pytorch_model*.bin`` (a pickled state dict, read by ``torch.load``
+    with ``weights_only``: no code from the file runs)."""
     if os.path.isfile(path):
         files = [path]
     else:
-        index = glob.glob(os.path.join(path, "*.index.json"))
+        index = sorted(glob.glob(os.path.join(path, "*.index.json")))
         if index:
             with open(index[0]) as f:
                 weight_map = json.load(f)["weight_map"]
             files = sorted({os.path.join(path, fn) for fn in weight_map.values()})
         else:
             files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+            if not files:
+                files = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
         if not files:
-            raise FileNotFoundError(f"no safetensors files under {path}")
+            raise FileNotFoundError(f"no weight files under {path}")
     sd: Dict[str, torch.Tensor] = {}
     for fn in files:
-        sd.update(load_file(fn))
+        sd.update(load_file(fn) if fn.endswith(".safetensors") else
+                  torch.load(fn, map_location="cpu", weights_only=True))
     return sd
+
+
+def take(sd: Dict[str, torch.Tensor], name: str, device, dtype) -> torch.Tensor:
+    """``sd[name]`` on ``device`` in ``dtype``, contiguous; a name the state
+    dict lacks raises ``KeyError`` naming it."""
+    if name not in sd:
+        raise KeyError(f"the checkpoint has no tensor {name!r}")
+    return sd[name].to(device=device, dtype=dtype).contiguous()
 
 
 def _flatten_cfg(cfg: Dict, prefix: str = "") -> Dict:
@@ -150,6 +167,15 @@ def _flatten_cfg(cfg: Dict, prefix: str = "") -> Dict:
     return out
 
 
+def _config_value(v) -> str:
+    """A config value JSON has no type for, as text. A dtype is spelt as the
+    JAX package's writer spells it (``str`` of the ``jax.numpy`` type), so
+    the two packages write the same ``config.json`` for the same config."""
+    if isinstance(v, torch.dtype):
+        return f"<class 'jax.numpy.{str(v).split('.', 1)[1]}'>"
+    return str(v)
+
+
 def save_pretrained(params: Any, save_dir: str, config: Optional[Any] = None,
                     max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
     """Write config.json and the safetensors of a JAX-layout tree of tensors,
@@ -158,8 +184,8 @@ def save_pretrained(params: Any, save_dir: str, config: Optional[Any] = None,
     os.makedirs(save_dir, exist_ok=True)
     if config is not None:
         cfg = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config)
-        cfg = {k: (str(v) if not isinstance(v, (int, float, bool, str, list, dict, tuple,
-                                                type(None))) else v)
+        cfg = {k: (_config_value(v) if not isinstance(v, (int, float, bool, str, list, dict,
+                                                          tuple, type(None))) else v)
                for k, v in _flatten_cfg(cfg).items()}
         with open(os.path.join(save_dir, CONFIG_NAME), "w") as f:
             json.dump(cfg, f, indent=2, default=str)
