@@ -209,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -220,7 +221,7 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
-          "sft_naflex", "sft_real", "checkpoints", "tiny")
+          "sft_naflex", "jpeg", "sft_real", "checkpoints", "tiny")
 OPTIONAL_PHASES = ("pt2_real", "dpo_real", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
@@ -286,13 +287,23 @@ LMMS_BUDGETS = (16, 32, 64, 128)
 LMMS_REQUESTS, LMMS_BATCH, LMMS_SLOTS, LMMS_CHUNK = 24, 8, 16, 8
 SFT_NAFLEX_OVERRIDES = ("model.vision_tower.name=siglip2-so400m-patch16-naflex",)
 SFT_NAFLEX_WARM, SFT_NAFLEX_TIMED = 1, 2
-# the real-data phases: files written under a temporary directory from numpy seed 0;
-# image sizes (H, W) in turn, the PNG filter sets in turn (all five in turn last)
-REAL_SIZES = ((256, 256), (256, 320), (320, 256), (288, 384), (240, 300))
+# the real-data phases: files written under a temporary directory from the committed
+# JPEG fixtures (unigen_tpu_torch/data/assets/jpeg/, written with PIL from seed 0): the
+# web fixtures in the tar shards, the COCO ones in the LLaVA folder, the ImageNet ones
+# in the DPO pairs, in turn; one image in REAL_PNG_EVERY a PNG of a fixture's pixels
+# (the PNG filter sets in turn, all five in turn last), one truncated JPEG a shard
+REAL_T2I_FIXTURES = ("web_512x512_420_q90.jpg", "web_768x512_420_q85_progressive.jpg",
+                     "web_1024x768_420_q90.jpg")
+REAL_LLAVA_FIXTURES = ("coco_640x480_420_q85.jpg", "coco_640x427_grey.jpg")
+REAL_DPO_FIXTURES = ("imagenet_500x375_420_q75.jpg", "imagenet_500x375_cmyk.jpg")
+REAL_TRUNCATED = "cov_640x480_truncated.jpg"
+REAL_PNG_EVERY = 8
 REAL_FILTERS = ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4))
 REAL_SHARDS, REAL_SFT_SHARDS, REAL_PER_SHARD = 8, 4, 64
-REAL_LLAVA_IMAGES, REAL_LLAVA_SIZES = 16, ((384, 384), (360, 480), (400, 300))
+REAL_FORMAT_SAMPLES = 32     # each of the JPEG-only and PNG-only shards the loaders are timed on
+REAL_LLAVA_IMAGES = 16
 REAL_DPO_PAIRS = 21          # one with a corrupt image: 2 batches of 10 an epoch
+JPEG_DECODES = 20            # the jpeg phase's decodes a fixture (their median is printed)
 # free-running: more steps than the prefetch thread holds (data/prefetch.DEPTH + 1)
 REAL_WARM, REAL_TIMED, REAL_LOADER_BATCHES, REAL_FREE_STEPS = 1, 2, 3, 10
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
@@ -1260,6 +1271,31 @@ def run_kernel_phases(results):
           f"{per_encode[8] + per_encode[6]:.4f} ms")
     run_post_training_kernel_phases(results, gen)
     run_naflex_kernel_phases(results)
+    run_visualize_kernel_phases(results, gen)
+
+
+def run_visualize_kernel_phases(results, gen):
+    """The shapes of the train phase's visualize hook (``Trainer._visualize``
+    at PT2's width): kernel 3's fp32 route at the decoder's 11 shapes at
+    batch 8 (the VQ reconstruction and the prediction of the 8 t2i rows; its
+    two encodes are the encoder's batch-8 rows) and kernel 2 at the t2i
+    rows' bits, bf16, timed as the other rows."""
+    import torch
+    print("phase: kernels at the visualize hook's shapes (kernel 3: the decoder's 11 shapes at "
+          "batch 8, fp32; kernel 2: the t2i rows' forward, bf16)")
+    dec = [phase_conv(gen, 8, hw, hw, c, cout, torch.float32, 1e-4, 10 if hw < 128 else 3, gn)
+           for hw, c, cout, gn, _ in DECODER_CONVS]
+    results["conv3x3_gn_swish"]["shapes"] += [{k: v for k, v in e.items() if k != "gn"}
+                                              for e in dec]
+    results["gn_affine"]["shapes"] += [e["gn"] for e in dec if "gn" in e]
+    per_decode = sum(n * e["ms"] for (*_, n), e in zip(DECODER_CONVS, dec))
+    results["conv3x3_gn_swish"]["visualize_decode_ms"] = per_decode
+    print(f"kernel 3 (launches x ms at each shape) over one fp32 decode of 8 rows "
+          f"{per_decode:.4f} ms (the hook decodes twice)")
+    t2i = train_metas(train_config())[0]
+    b, l = t2i.pad.shape
+    results["flash_attention"]["shapes"].append(phase_flash_meta(
+        gen, t2i, torch.bfloat16, 2 ** -7, 20, f"visualize forward q [{b},{l},12,128], t2i bits"))
 
 
 def run_post_training_kernel_phases(results, gen):
@@ -1435,9 +1471,17 @@ def train_config(*extra):
 
 def train_bits(config, device="cuda"):
     """The meta bits of the train step's first synthetic batch at PT2's
-    shape: the t2i, lm and mmu templates as ``Trainer.build_device_batch``
-    assembles them (the image blocks' codes never equal a pad, soi or eoi
-    id, so the templates give the step's bits)."""
+    shape (``train_metas``, joined)."""
+    from unigen_tpu_torch.ops import masks as M
+    return M.pack_meta(M.concat_meta(*train_metas(config, device)))
+
+
+def train_metas(config, device="cuda"):
+    """The t2i, lm and mmu metadata of the train step's first synthetic batch
+    at PT2's shape: the templates as ``Trainer.build_device_batch`` assembles
+    them (the image blocks' codes never equal a pad, soi or eoi id, so the
+    templates give the step's bits; the visualize hook's forward takes the
+    t2i rows')."""
     import numpy as np
     import torch
     from unigen_tpu_torch.launch import build_prompting_from_config, load_tokenizer
@@ -1455,9 +1499,8 @@ def train_bits(config, device="cuda"):
 
     def t(a):
         return torch.as_tensor(a, device=device)
-    return M.pack_meta(M.concat_meta(M.t2i_attn_meta(t(t2i), pr.pad_id, soi, eoi),
-                                     M.lm_attn_meta(t(lm), pr.pad_id),
-                                     M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi)))
+    return (M.t2i_attn_meta(t(t2i), pr.pad_id, soi, eoi), M.lm_attn_meta(t(lm), pr.pad_id),
+            M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi))
 
 
 def phase_flash_grad(gen, bits, iters, at):
@@ -4018,10 +4061,11 @@ def run_train(results, profile=False):
     per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, conv3x3_gn_swish=80, gn_affine=80)
     watched = {p: t.detach().clone() for p, t in named_leaves(trainer.state.params)
                if p.startswith("llm/layers/0/") or p in ("llm/final_ln", "llm/embed")}
-    records = []
+    records, last = [], {}
     real_step = trainer.step_fn
 
     def timed_step(state, vq_params, batch, key):
+        last["batch"] = batch
         torch.cuda.synchronize()
         before = _read_counts()
         t0 = time.perf_counter()
@@ -4079,6 +4123,8 @@ def run_train(results, profile=False):
                             enqueue_s=statistics.median(r["enqueue_s"]
                                                         for r in records[TRAIN_WARM:]),
                             peak_gib=peak / 2 ** 30, model_tflops=model_flops / 1e12)
+    hook_counts = check_visualize_hook(trainer, last["batch"], results)
+    counts = {k: counts[k] + hook_counts[k] for k in counts}
 
     # one step's losses and grad norm through kernel 2 against the plain attention
     gen = torch.Generator(device="cuda")
@@ -4112,6 +4158,91 @@ def run_train(results, profile=False):
     del trainer
     torch.cuda.empty_cache()
     return {k: v for k, v in counts.items()}
+
+
+def image_grid(images, cols=None):
+    """uint8 [B, H, W, 3] on one canvas, as ``visualization.save_image_grid``
+    lays it out (rows of ``min(B, 4)``)."""
+    import numpy as np
+    b, h, w, _ = images.shape
+    cols = cols or min(b, 4)
+    canvas = np.zeros((-(-b // cols) * h, cols * w, 3), np.uint8)
+    for i in range(b):
+        r, c = divmod(i, cols)
+        canvas[r * h:(r + 1) * h, c * w:(c + 1) * w] = images[i]
+    return canvas
+
+
+def check_visualize_hook(trainer, batch, results):
+    """The Trainer's visualize hook (``Trainer._visualize``, what
+    ``visualize_every`` runs) once on the last step's batch at PT2's width:
+    8 t2i rows of 256 px, the frozen fp32 MAGViTv2, the bf16 backbone.
+    Timed alone (its PNG write included); its launches exact (kernel 3: two
+    encodes and two decodes, kernel 2: one forward); the grid PNG read back
+    by ``decode_image`` equals the triptychs; and ``masked_token_diagnostics``
+    over the same forward's image logits is finite, its token counts the
+    masked tokens. Returns the hook's launch counts."""
+    import os
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.data.decode import read_image
+    from unigen_tpu_torch.models import magvit, unigen
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops import sampling as S
+    from unigen_tpu_torch.training import visualization as VZ
+    from unigen_tpu_torch.training.diagnostics import masked_token_diagnostics
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    n, b = cfg.num_vq_tokens, tcfg.batch_size_t2i
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    draws = MK.draw_masking(gen, b, n, codebook_size=cfg.codebook_size, device="cuda")
+    enc = sum(k for *_, k in ENCODER_CONVS)
+    want = dict(NO_LAUNCHES, flash_attention=cfg.llm.num_hidden_layers,
+                conv3x3_gn_swish=2 * enc + 2 * sum(k for *_, k in DECODER_CONVS),
+                gn_affine=2 * enc + 2 * sum(k for *_, gn, k in DECODER_CONVS if gn))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trip = trainer._visualize(batch, draws)
+    torch.cuda.synchronize()
+    hook_s = time.perf_counter() - t0
+    counts = _read_counts()
+    path = os.path.join(trainer.tr.output_dir, "visualizations",
+                        f"predictions_step{trainer.global_step}.png")
+    png = read_image(path)
+    with torch.no_grad():
+        ids = VZ.masked_t2i_inputs(trainer.vq_params, trainer.vq_cfg, cfg, batch["t2i_template"],
+                                   batch["t2i_pixels"], draws, mask_schedule=tcfg.mask_schedule,
+                                   min_masking_rate=tcfg.min_masking_rate)
+        codes = magvit.get_code(trainer.vq_params, trainer.vq_cfg, batch["t2i_pixels"])
+        masked = MK.mask_or_random_replace_tokens(
+            draws, codes, cfg.codebook_size, S.get_mask_schedule(tcfg.mask_schedule),
+            min_masking_rate=tcfg.min_masking_rate, codebook_size=cfg.codebook_size)
+        bits = M.pack_meta(M.t2i_attn_meta(ids, tcfg.pad_id, tcfg.soi_id, tcfg.eoi_id))
+        logits = unigen.forward(trainer.state.params, cfg, input_ids=ids, meta_bits=bits,
+                                batch_size_t2i=b)[:, -(n + 1):-1]
+        if not cfg.use_gen_projector:
+            logits = logits[..., cfg.text_vocab_len:cfg.text_vocab_len + cfg.codebook_size]
+        diag = masked_token_diagnostics(logits, masked.labels, masked.mask_prob)
+        del logits
+    diag = {k: v.cpu().numpy() for k, v in diag.items()}
+    n_masked = int((masked.labels != -100).sum())
+    in_block = int((ids[:, -(n + 1):-1] == cfg.mask_token_id).sum())
+    print(f"  visualize hook (Trainer._visualize, {b} t2i rows, {trip.shape[1]} px): "
+          f"{hook_s:.4f} s alone, launches {counts}; grid {list(png.shape)} read back; "
+          f"{n_masked} masked tokens; masked-token diagnostics: tokens "
+          f"{diag['bucket_tokens'].astype(int).tolist()}, entropy "
+          f"{np.round(diag['bucket_entropy'], 4).tolist()}, CE {np.round(diag['bucket_ce'], 4).tolist()}")
+    check(counts == want, f"visualize hook launches {counts} != {want}")
+    check(trip.shape == (b, trip.shape[1], 3 * trip.shape[1], 3) and
+          np.array_equal(png, image_grid(trip)), "the visualize hook's PNG differs from its triptychs")
+    check(all(np.isfinite(v).all() for v in diag.values()) and
+          int(diag["bucket_tokens"].sum()) == n_masked == in_block > 0,
+          f"masked-token diagnostics: {diag}, {n_masked} masked, {in_block} mask ids")
+    results["visualize"] = dict(hook_s=hook_s, masked_tokens=n_masked,
+                                bucket_tokens=diag["bucket_tokens"].tolist())
+    return counts
 
 
 def run_tiny_train():
@@ -4772,15 +4903,93 @@ def run_dpo(results, profile=False):
 # the real-data phases: the training entries on files read from disk
 # ---------------------------------------------------------------------------
 
-def real_image(rng, h, w):
-    """A uint8 [h, w, 3] image with a natural image's structure: a random
-    colour ramp plus noise (PNG compresses it about 3x)."""
-    import numpy as np
-    y, x = np.mgrid[0:h, 0:w]
-    base = rng.integers(0, 256, size=3)
-    fx, fy = rng.uniform(0.2, 1.5, size=2)
-    img = base + fx * x[..., None] + fy * y[..., None] + rng.integers(0, 24, size=(h, w, 3))
-    return (img % 256).astype(np.uint8)
+@functools.lru_cache(maxsize=None)
+def jpeg_fixtures():
+    """{file name: (bytes, its fixtures.json entry)} of the committed JPEG
+    fixtures (the entry's sha256 is that of PIL's ``convert("RGB")`` pixels;
+    null for the truncated file)."""
+    import json
+    from pathlib import Path
+    import unigen_tpu_torch.data as data_pkg
+    root = Path(data_pkg.__file__).parent / "assets" / "jpeg"
+    index = json.loads((root / "fixtures.json").read_text())
+    return {name: ((root / name).read_bytes(), meta) for name, meta in index.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def fixture_pixels(name):
+    """A fixture's pixels by the port's decoder (held to PIL's hash by the
+    jpeg phase and check_real_reading)."""
+    from unigen_tpu_torch.data.decode import decode_image
+    return decode_image(jpeg_fixtures()[name][0])
+
+
+def real_file(fixtures, i, fmt="mixed"):
+    """(extension, bytes, what it holds) of the ``i``-th image of a set over
+    ``fixtures``: that fixture's JPEG bytes, or (every REAL_PNG_EVERY-th with
+    ``fmt`` "mixed", always with "png") a PNG of its pixels with the filter
+    set of REAL_FILTERS the PNG's turn gives."""
+    name = fixtures[i % len(fixtures)]
+    if fmt == "png" or (fmt == "mixed" and i % REAL_PNG_EVERY == REAL_PNG_EVERY - 1):
+        filters = REAL_FILTERS[(i // REAL_PNG_EVERY) % len(REAL_FILTERS)]
+        return ".png", png_bytes(fixture_pixels(name), filters), ("png", name, filters)
+    return ".jpg", jpeg_fixtures()[name][0], ("jpeg", name, None)
+
+
+def run_jpeg(results):
+    """The port's JPEG decoder (``unigen_tpu_torch/csrc/jpeg.cpp``, built with
+    the native library by g++) on the committed fixtures: each one's pixels
+    have the sha256 of PIL's ``convert("RGB")`` pixels (PIL is not on the
+    card's machine: the hashes were taken where the fixtures were written);
+    the truncated one is a ``CorruptImage`` and a SOF9 header an
+    ``UnsupportedImageFormat`` naming it. Each decode is timed on one host
+    thread (``decode_image``, the median of JPEG_DECODES)."""
+    import hashlib
+    import statistics
+    from unigen_tpu_torch.data import native
+    from unigen_tpu_torch.data.decode import CorruptImage, UnsupportedImageFormat, decode_image
+    start = time.perf_counter()
+    path = native.build()
+    native.load_library()
+    print(f"phase: jpeg (the committed fixtures through decode_image; {path.name} ready in "
+          f"{time.perf_counter() - start:.2f} s)")
+    rows = {}
+    for name, (data, meta) in sorted(jpeg_fixtures().items()):
+        if meta["sha256"] is None:
+            try:
+                decode_image(data)
+                raised = None
+            except CorruptImage as e:
+                raised = str(e)
+            print(f"  {name}: {len(data)} bytes, CorruptImage: {raised}")
+            check(raised is not None, f"{name}: no CorruptImage")
+            continue
+        arr = decode_image(data)
+        sha = hashlib.sha256(arr.tobytes()).hexdigest()
+        check(list(arr.shape) == meta["shape"] and sha == meta["sha256"],
+              f"{name}: pixels {list(arr.shape)} sha256 {sha}, PIL's {meta['sha256']}")
+        times = []
+        for _ in range(JPEG_DECODES):
+            t0 = time.perf_counter()
+            decode_image(data)
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        h, w = arr.shape[:2]
+        rows[name] = dict(ms=ms, mp_per_s=h * w / 1e3 / ms, bytes=len(data), height=h, width=w)
+        print(f"  {name} ({meta['use']}): {w}x{h}, {len(data)} bytes, sha256 = PIL's; decode "
+              f"{ms:.4f} ms (median of {JPEG_DECODES}, one host thread), "
+              f"{h * w / 1e3 / ms:.2f} MP/s")
+    data = jpeg_fixtures()[REAL_T2I_FIXTURES[0]][0]
+    sof = data.index(b"\xff\xc0")
+    try:
+        decode_image(data[:sof + 1] + b"\xc9" + data[sof + 2:])
+        raised = None
+    except UnsupportedImageFormat as e:
+        raised = str(e)
+    print(f"  the same file with a SOF9 header: UnsupportedImageFormat: {raised}")
+    check(raised is not None and "arithmetic" in raised, "SOF9: no UnsupportedImageFormat")
+    results["jpeg"] = rows
+    print(f"  the jpeg phase: {time.perf_counter() - start:.2f} s")
 
 
 def png_bytes(arr, filters):
@@ -4820,25 +5029,28 @@ def _tar_add(tf, name, data):
     tf.addfile(info, io.BytesIO(data))
 
 
-def write_real_shards(root, prefix, n_shards, per_shard, rng, keep=0):
-    """``n_shards`` tar shards of ``per_shard`` samples: PNGs of REAL_SIZES
-    in turn, each written with one filter of REAL_FILTERS in turn; captions
-    in ``.json`` (a short and a long one, or a long one with ``<person>``
-    and a prefix to strip) or ``.txt``; one corrupt image a shard. Returns
-    the shard paths and the pixels of the first ``keep`` shards by key."""
+def write_real_shards(root, prefix, n_shards, per_shard, keep=0, fmt="mixed"):
+    """``n_shards`` tar shards of ``per_shard`` samples: the web t2i fixtures
+    in turn (``real_file``: their JPEG bytes, one in REAL_PNG_EVERY a PNG of
+    their pixels; only JPEG or only PNG with ``fmt`` "jpeg" or "png");
+    captions in ``.json`` (a short and a long one, or a long one with
+    ``<person>`` and a prefix to strip) or ``.txt``; with ``fmt`` "mixed" one
+    truncated JPEG a shard. Returns the shard paths and, for the first
+    ``keep`` shards, what each key's image holds."""
     import json
     import os
     import tarfile
     paths, kept = [], {}
+    truncated = jpeg_fixtures()[REAL_TRUNCATED][0]
     for s in range(n_shards):
         path = os.path.join(root, f"{prefix}-{s:04d}.tar")
         with tarfile.open(path, "w") as tf:
             for j in range(per_shard):
                 key = f"{s:04d}{j:05d}"
-                arr = real_image(rng, *REAL_SIZES[j % len(REAL_SIZES)])
+                ext, data, holds = real_file(REAL_T2I_FIXTURES, j, fmt)
                 if s < keep:
-                    kept[key] = (arr, REAL_FILTERS[j % len(REAL_FILTERS)])
-                _tar_add(tf, f"{key}.png", png_bytes(arr, REAL_FILTERS[j % len(REAL_FILTERS)]))
+                    kept[key] = holds
+                _tar_add(tf, key + ext, data)
                 if j % 3 == 2:
                     _tar_add(tf, f"{key}.txt", f"a photo of object {key} on a table".encode())
                     continue
@@ -4847,22 +5059,43 @@ def write_real_shards(root, prefix, n_shards, per_shard, rng, keep=0):
                         if j % 3 == 0 else
                         {"caption": f"In this image, a <person> holds item {key}"})
                 _tar_add(tf, f"{key}.json", json.dumps(meta).encode())
-            _tar_add(tf, f"{s:04d}99999.png", b"\x89PNG\r\n\x1a\n truncated")
-            _tar_add(tf, f"{s:04d}99999.txt", b"the caption of a corrupt image")
+            if fmt == "mixed":
+                _tar_add(tf, f"{s:04d}99999.jpg", truncated)
+                _tar_add(tf, f"{s:04d}99999.txt", b"the caption of a truncated image")
         paths.append(path)
     return paths, kept
 
 
+def format_shards(root, prefix):
+    """One JPEG-only and one PNG-only shard of REAL_FORMAT_SAMPLES samples at
+    the same sizes and pixels, the loaders' seconds a batch on each format."""
+    return {fmt: write_real_shards(root, f"{prefix}-{fmt}", 1, REAL_FORMAT_SAMPLES,
+                                   fmt=fmt)[0][0] for fmt in ("jpeg", "png")}
+
+
+def format_loader_s(shards, batch, res):
+    """The Text2ImageDataset's seconds a batch alone (python reader and
+    native streamer) on the JPEG-only and the PNG-only shard."""
+    from unigen_tpu_torch.data.text2image import Text2ImageDataset
+    return {f"t2i {reader} {fmt.upper()} ({batch} rows)": loader_s(
+                lambda path=path, native=reader == "native": Text2ImageDataset(
+                    [path], batch, res, use_native=native))
+            for fmt, path in shards.items() for reader in ("python", "native")}
+
+
 def check_real_reading(shards, kept):
-    """The PNG decoder returns exactly the encoded pixels for every filter
-    set of REAL_FILTERS, and the corrupt sample is a ``CorruptImage``; one
-    pass over each unresampled shard gives the same samples through the
+    """Every kept JPEG decodes to its fixture's pixels (PIL's sha256), every
+    kept PNG to the fixture pixels it was written from, for every filter set
+    of REAL_FILTERS; the truncated JPEG of each shard is a ``CorruptImage``;
+    one pass over each unresampled shard gives the same samples through the
     native streamer and the Python reader."""
+    import hashlib
     import numpy as np
     from unigen_tpu_torch.data.decode import CorruptImage, decode_image
     from unigen_tpu_torch.data.native import NativeTarStream
     from unigen_tpu_torch.data.text2image import iterate_tar_samples
-    filters, corrupt, decoded = set(), 0, 0
+    fixtures = jpeg_fixtures()
+    filters, names, corrupt, jpegs, pngs = set(), set(), 0, 0, 0
     for shard in shards:
         py = list(iterate_tar_samples(shard))
         native = NativeTarStream([shard], seed=0, resample=False)
@@ -4874,21 +5107,30 @@ def check_real_reading(shards, kept):
         for sample in py:
             if sample["__key__"] not in kept:
                 continue
-            arr, fl = kept[sample["__key__"]]
-            check(np.array_equal(decode_image(sample[".png"]), arr),
-                  f"the decoder's pixels differ for {sample['__key__']} (filters {fl})")
-            filters.add(tuple(fl))
-            decoded += 1
+            kind, name, fl = kept[sample["__key__"]]
+            if kind == "jpeg":
+                arr = decode_image(sample[".jpg"])
+                check(hashlib.sha256(arr.tobytes()).hexdigest() == fixtures[name][1]["sha256"],
+                      f"{sample['__key__']}: the decoder's pixels of {name} are not PIL's")
+                jpegs += 1
+            else:
+                check(np.array_equal(decode_image(sample[".png"]), fixture_pixels(name)),
+                      f"the decoder's pixels differ for {sample['__key__']} (filters {fl})")
+                filters.add(tuple(fl))
+                pngs += 1
+            names.add(name)
         try:
-            decode_image(py[-1][".png"])
+            decode_image(py[-1][".jpg"])
             corrupt = -1
         except CorruptImage:
             corrupt += 1
-    print(f"  decoder: {decoded} PNGs equal to their pixels, filter sets {sorted(filters)}; "
-          f"the {corrupt} corrupt samples raise CorruptImage; the native streamer's pass = the "
-          f"Python reader's on all {len(shards)} shards")
-    check(len(filters) == len(REAL_FILTERS) and corrupt == len(shards),
-          f"decoder checks: filter sets {filters}, corrupt {corrupt}")
+    print(f"  decoder: {jpegs} JPEGs with PIL's pixels (sha256 of {sorted(names)}), {pngs} PNGs "
+          f"equal to their pixels, filter sets {sorted(filters)}; the {corrupt} truncated JPEGs "
+          f"raise CorruptImage; the native streamer's pass = the Python reader's on all "
+          f"{len(shards)} shards")
+    check(len(filters) == len(REAL_FILTERS) and corrupt == len(shards) and jpegs and
+          names == set(REAL_T2I_FIXTURES),
+          f"decoder checks: filter sets {filters}, corrupt {corrupt}, JPEGs {jpegs} of {names}")
 
 
 def loader_s(make, n=REAL_LOADER_BATCHES):
@@ -4987,21 +5229,21 @@ def run_pt2_real(results, profile=False):
     import shutil
     import statistics
     import tempfile
-    import numpy as np
     import torch
     from unigen_tpu_torch.data.combined import combined_loader
     from unigen_tpu_torch.data.prefetch import prefetch
     from unigen_tpu_torch.data.text2image import Text2ImageDataset
     from unigen_tpu_torch.training import train as TRAIN
     steps = REAL_WARM + REAL_TIMED
-    print(f"phase: pt2_real ({TRAIN_CONFIG} on {REAL_SHARDS} tar shards of {REAL_PER_SHARD} PNG "
-          f"samples, native streamer; lm rows from the entry's synthetic lm texts: no pyarrow on "
-          f"the card; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+    print(f"phase: pt2_real ({TRAIN_CONFIG} on {REAL_SHARDS} tar shards of {REAL_PER_SHARD} "
+          f"samples, JPEG with one PNG in {REAL_PNG_EVERY}, native streamer; lm rows from the "
+          f"entry's synthetic lm texts: no pyarrow on the card; {REAL_WARM} warm + {REAL_TIMED} "
+          f"timed steps)")
     root = tempfile.mkdtemp(prefix="chip_smoke_pt2_")
     try:
         t0 = time.perf_counter()
-        shards, kept = write_real_shards(root, "pt2", REAL_SHARDS, REAL_PER_SHARD,
-                                         np.random.default_rng(0), keep=1)
+        shards, kept = write_real_shards(root, "pt2", REAL_SHARDS, REAL_PER_SHARD, keep=1)
+        by_format = format_shards(root, "pt2")
         mib = sum(os.path.getsize(p) for p in shards) / 2 ** 20
         print(f"  wrote {len(shards)} shards ({mib:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
         check_real_reading(shards, kept)
@@ -5028,6 +5270,7 @@ def run_pt2_real(results, profile=False):
                       lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=False)),
                   f"t2i native ({tr.batch_size_t2i} rows)": loader_s(
                       lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=True)),
+                  **format_loader_s(by_format, tr.batch_size_t2i, res),
                   "the entry's flows a step": loader_s(flows)}
         resident = torch.cuda.memory_allocated()
         trainer = TRAIN.build_trainer(config)
@@ -5094,20 +5337,23 @@ def run_pt2_real(results, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def write_llava(root, rng):
+def write_llava(root):
     """LLaVA conversations (``.jsonl``, one to three turns, some without an
-    image key, one whose image is corrupt) over PNGs of REAL_LLAVA_SIZES,
-    each written with one filter set of REAL_FILTERS."""
+    image key, one whose image is a truncated JPEG) over REAL_LLAVA_IMAGES
+    files of the COCO fixtures in turn (``real_file``: JPEG, one in
+    REAL_PNG_EVERY a PNG of their pixels)."""
     import json
     import os
     images = os.path.join(root, "llava_images")
     os.makedirs(images)
+    files = []
     for i in range(REAL_LLAVA_IMAGES):
-        with open(os.path.join(images, f"img{i:03d}.png"), "wb") as f:
-            f.write(png_bytes(real_image(rng, *REAL_LLAVA_SIZES[i % len(REAL_LLAVA_SIZES)]),
-                              REAL_FILTERS[i % len(REAL_FILTERS)]))
-    with open(os.path.join(images, "corrupt.png"), "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n truncated")
+        ext, data, _ = real_file(REAL_LLAVA_FIXTURES, i)
+        files.append(f"img{i:03d}{ext}")
+        with open(os.path.join(images, files[-1]), "wb") as f:
+            f.write(data)
+    with open(os.path.join(images, "corrupt.jpg"), "wb") as f:
+        f.write(jpeg_fixtures()[REAL_TRUNCATED][0])
     path = os.path.join(root, "llava.jsonl")
     with open(path, "w") as f:
         for i in range(3 * REAL_LLAVA_IMAGES):
@@ -5119,7 +5365,7 @@ def write_llava(root, rng):
                            "wooden chair beside a small table with a lamp."}]
             item = {"id": str(i), "conversations": turns}
             if i % 7 != 6:
-                item["image"] = "corrupt.png" if i == 4 else f"img{i % REAL_LLAVA_IMAGES:03d}.png"
+                item["image"] = "corrupt.jpg" if i == 4 else files[i % REAL_LLAVA_IMAGES]
             f.write(json.dumps(item) + "\n")
     return path, images
 
@@ -5134,19 +5380,19 @@ def run_sft_real(results, profile=False):
     import os
     import shutil
     import tempfile
-    import numpy as np
     import torch
     from unigen_tpu_torch.data.llava import LlavaDataset
     from unigen_tpu_torch.data.text2image import Text2ImageDataset
     from unigen_tpu_torch.training import train_sft as SFT
     print(f"phase: sft_real ({SFT_CONFIG} on {REAL_SFT_SHARDS} tar shards and a LLaVA .jsonl over "
-          f"{REAL_LLAVA_IMAGES} PNGs; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+          f"{REAL_LLAVA_IMAGES} images, JPEG with one PNG in {REAL_PNG_EVERY}; {REAL_WARM} warm + "
+          f"{REAL_TIMED} timed steps)")
     root = tempfile.mkdtemp(prefix="chip_smoke_sft_")
     try:
-        rng = np.random.default_rng(0)
         t0 = time.perf_counter()
-        shards, kept = write_real_shards(root, "sft", REAL_SFT_SHARDS, REAL_PER_SHARD, rng, keep=1)
-        llava, images = write_llava(root, rng)
+        shards, kept = write_real_shards(root, "sft", REAL_SFT_SHARDS, REAL_PER_SHARD, keep=1)
+        by_format = format_shards(root, "sft")
+        llava, images = write_llava(root)
         print(f"  wrote the shards and the conversations in {time.perf_counter() - t0:.2f} s")
         check_real_reading(shards, kept)
         t2i = os.path.join(root, f"sft-{{0000..{REAL_SFT_SHARDS - 1:04d}}}.tar")
@@ -5160,6 +5406,7 @@ def run_sft_real(results, profile=False):
                       lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=False)),
                   f"t2i native ({tr.batch_size_t2i} rows)": loader_s(
                       lambda: Text2ImageDataset([t2i], tr.batch_size_t2i, res, use_native=True)),
+                  **format_loader_s(by_format, tr.batch_size_t2i, res),
                   f"llava ({tr.batch_size_mmu} conversations)": loader_s(
                       lambda: LlavaDataset([llava], images, run.prompting.text_tokenizer,
                                            tr.batch_size_mmu, visual_mode="siglip")),
@@ -5209,31 +5456,32 @@ def run_dpo_real(results, profile=False):
     import os
     import shutil
     import tempfile
-    import numpy as np
     import torch
     from unigen_tpu_torch.data.dpo_data import DPODataset
     from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.training.train_dpo import DPORun, real_pairs
     steps = REAL_WARM + REAL_TIMED
-    print(f"phase: dpo_real ({DPO_CONFIG} on {REAL_DPO_PAIRS} pairs of PNGs, num_epoch 2, the "
-          f"precomputed reference; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
+    print(f"phase: dpo_real ({DPO_CONFIG} on {REAL_DPO_PAIRS} pairs of images, JPEG with one PNG "
+          f"in {REAL_PNG_EVERY}, num_epoch 2, the precomputed reference; {REAL_WARM} warm + "
+          f"{REAL_TIMED} timed steps)")
     root = tempfile.mkdtemp(prefix="chip_smoke_dpo_")
     try:
-        rng = np.random.default_rng(0)
         images = os.path.join(root, "dpo_images")
         os.makedirs(images)
         t0 = time.perf_counter()
         with open(os.path.join(root, "pairs.jsonl"), "w") as f:
             for i in range(REAL_DPO_PAIRS):
+                pair = {}
                 for side in ("c", "r"):
-                    with open(os.path.join(images, f"{side}{i:03d}.png"), "wb") as img:
-                        img.write(b"\x89PNG\r\n\x1a\n truncated" if (i, side) == (7, "r") else
-                                  png_bytes(real_image(rng, *REAL_SIZES[(2 * i + (side == "r"))
-                                                                        % len(REAL_SIZES)]),
-                                            REAL_FILTERS[i % len(REAL_FILTERS)]))
+                    ext, data, _ = real_file(REAL_DPO_FIXTURES, 2 * i + (side == "r"))
+                    if (i, side) == (7, "r"):
+                        ext, data = ".jpg", jpeg_fixtures()[REAL_TRUNCATED][0]
+                    pair[side] = f"{side}{i:03d}{ext}"
+                    with open(os.path.join(images, pair[side]), "wb") as img:
+                        img.write(data)
                 f.write(json.dumps({"prompt": f"a photo of a red cup number {i} on a table",
-                                    "chosen": f"c{i:03d}.png", "rejected": f"r{i:03d}.png"}) + "\n")
-        print(f"  wrote {2 * REAL_DPO_PAIRS} PNGs in {time.perf_counter() - t0:.2f} s")
+                                    "chosen": pair["c"], "rejected": pair["r"]}) + "\n")
+        print(f"  wrote {2 * REAL_DPO_PAIRS} images in {time.perf_counter() - t0:.2f} s")
         data = ("dataset.synthetic=false", f"dataset.params.dpo_data_path={root}/pairs.jsonl",
                 f"dataset.params.dpo_image_root={images}", "training.num_epoch=2")
         resident = torch.cuda.memory_allocated()
@@ -6039,6 +6287,8 @@ def main(argv=None) -> int:
             path_counts["serve_entry"] = run_serve_entry(results)
         if "train" in phases:
             path_counts["train"] = run_train(results, profile="profile" in phases)
+        if "jpeg" in phases:
+            run_jpeg(results)
         for name, fn in (("sft", run_sft), ("sft_packed", run_sft_packed), ("dpo", run_dpo),
                          ("cotv_post_sft", run_cotv_post_sft), ("sft_naflex", run_sft_naflex),
                          ("pt2_real", run_pt2_real), ("sft_real", run_sft_real),

@@ -217,9 +217,10 @@ def test_decode_png_every_filter(channels):
 
 
 def test_decode_failures():
-    """A broken image is ``CorruptImage`` (a skipped sample); JPEG, an
-    interlaced and a 16-bit PNG raise ``UnsupportedImageFormat`` naming the
-    format (the port imports no PIL)."""
+    """A broken image is ``CorruptImage`` (a skipped sample); WebP raises
+    ``UnsupportedImageFormat`` naming the format (the port imports no PIL).
+    An interlaced PNG short of its passes' bytes is broken; a 16-bit PNG
+    decodes as PIL's."""
     png = _pil_png(_image(8, 8, 0))
     for bad in (b"not an image", png[:40], png[:-20],
                 png[:20] + bytes([png[20] ^ 1]) + png[21:]):
@@ -228,28 +229,28 @@ def test_decode_failures():
     with pytest.raises(D.CorruptImage, match="filter type 7"):
         D.decode_image(_png(4, 4, 0, bytes([0, 1, 2, 3, 4]) * 3 + bytes([7, 1, 2, 3, 4])))
     buf = io.BytesIO()
-    PIL.fromarray(_image(8, 8, 0)).save(buf, format="JPEG")
-    with pytest.raises(D.UnsupportedImageFormat, match="jpeg image"):
+    PIL.fromarray(_image(8, 8, 0)).save(buf, format="WEBP")
+    with pytest.raises(D.UnsupportedImageFormat, match="webp image"):
         D.decode_image(buf.getvalue())
-    with pytest.raises(D.UnsupportedImageFormat, match="interlaced PNG"):
+    with pytest.raises(D.CorruptImage, match="truncated PNG pixels"):
         D.decode_image(_png(4, 4, 0, bytes(20), interlace=1))
     buf = io.BytesIO()
     PIL.fromarray(_image(8, 8, 0)[:, :, 0].astype(np.uint16) * 257).save(buf, format="PNG")
-    with pytest.raises(D.UnsupportedImageFormat, match="16-bit PNG"):
-        D.decode_image(buf.getvalue())
+    np.testing.assert_array_equal(D.decode_image(buf.getvalue()),
+                                  np.asarray(PIL.open(io.BytesIO(buf.getvalue())).convert("RGB")))
 
 
 def test_loaders_raise_on_an_undecodable_format(tmp_path):
-    path = str(tmp_path / "jpeg.tar")
+    path = str(tmp_path / "webp.tar")
     buf = io.BytesIO()
-    PIL.fromarray(_image(8, 8, 0)).save(buf, format="JPEG")
+    PIL.fromarray(_image(8, 8, 0)).save(buf, format="WEBP")
     with tarfile.open(path, "w") as tf:
-        _add(tf, "00000.jpg", buf.getvalue())
+        _add(tf, "00000.webp", buf.getvalue())
         _add(tf, "00000.txt", b"a caption")
     for native in (False, True):
         ds = P_t2i.Text2ImageDataset([path], per_device_batch_size=1, resolution=8,
                                      use_native=native)
-        with pytest.raises(RuntimeError, match="jpeg image: the port reads"):
+        with pytest.raises(RuntimeError, match="webp image: the port reads"):
             next(iter(ds))
 
 
@@ -260,6 +261,7 @@ def test_native_library_builds_from_the_port(tmp_path):
     assert path.parent == N.BUILD_DIR and path.name.startswith("libtarloader-")
     assert N.load_library() is N.load_library()
     assert N.SOURCE == N._PKG / "csrc" / "tarloader.cpp"
+    assert N.SOURCES == (N.SOURCE, N._PKG / "csrc" / "jpeg.cpp")
 
 
 @pytest.mark.parametrize("loader", ["llava", "dpo", "imagenet", "t2i_python", "t2i_native"])

@@ -99,8 +99,18 @@ def test_trainer_runs_saves_and_resumes(tmp_path):
 
 
 def test_visualize_every_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _build(tmp_path, visualize_every=3)
+    """``visualize_every`` no longer raises (the name is the test's from when
+    it did): every third step writes the triptych grid of its t2i batch and
+    logs its path; test_torch_visualization.py holds the grids to JAX's."""
+    from unigen_tpu_torch.data.decode import read_image
+    trainer = _build(tmp_path, max_steps=3, visualize_every=3, save_every=0)
+    trainer.train(_flows(2, 8, 10))
+    assert os.listdir(tmp_path / "visualizations") == ["predictions_step3.png"]
+    logged = [e for e in _logs(tmp_path) if "visualization" in e]
+    assert [(e["step"], os.path.basename(e["visualization"])) for e in logged] == \
+        [(3, "predictions_step3.png")]
+    grid = read_image(str(tmp_path / "visualizations" / "predictions_step3.png"))
+    assert grid.shape == (8, 2 * 24, 3) and grid.dtype == np.uint8
 
 
 def test_trainer_throughput_is_window_averaged(tmp_path, monkeypatch):

@@ -1,27 +1,38 @@
-"""Image bytes -> uint8 [H, W, 3] RGB, PNG without PIL.
+"""Image bytes -> uint8 [H, W, 3] RGB, JPEG and PNG without PIL.
 
 The JAX loaders open every image with PIL and convert it to RGB; the card's
-machine has no PIL and the port imports none. ``decode_image`` reads PNG
-itself: the chunks with
-``struct``, the IDAT stream with ``zlib``, the five row filters reversed by
-the port's native library (``native.png_unfilter``; ``png_unfilter_numpy``
-is the same arithmetic in numpy, the tests' reference), then 8-bit grey,
-grey + alpha, RGB, RGBA and palette pixels (grey and palette also at 1, 2
-and 4 bits) to RGB as PIL's ``convert("RGB")`` does: alpha dropped, grey
-repeated, low bit depths scaled to 0-255.
+machine has no PIL and the port imports none. ``decode_image`` gives the
+same pixels from its own decoders:
+
+* JPEG by the port's native library (``native.jpeg_decode``, C++ that
+  follows libjpeg-turbo as PIL runs it: the ISLOW IDCT, fancy upsampling,
+  its YCbCr, CMYK and YCCK conversions), bit for bit for baseline,
+  extended and progressive JPEG. It raises where PIL raises (a truncated
+  file, a broken marker, a stream without tables). Where the entropy data
+  is corrupt and libjpeg only warns (a bad Huffman code, a flipped byte), it
+  returns pixels as PIL does, but those pixels may differ from PIL's.
+* PNG: the chunks with ``struct``, the IDAT stream with ``zlib``, the five
+  row filters reversed by the native library (``native.png_unfilter``;
+  ``png_unfilter_numpy`` is the same arithmetic in numpy, the tests'
+  reference), Adam7 passes put in place, then grey, grey + alpha, RGB, RGBA
+  and palette pixels at every bit depth to RGB as PIL's ``convert("RGB")``
+  does: alpha dropped, grey repeated, low bit depths scaled to 0-255,
+  16-bit samples cut to their high byte (16-bit grey, PIL's ``I;16``,
+  clipped at 255 instead).
 
 Two kinds of failure, kept apart:
 
 * ``CorruptImage`` (a ``ValueError``): the bytes are no image, or a broken
   one (truncated, a bad chunk CRC before the pixels, an inflate error, a
-  filter type outside 0-4). The loaders skip such a sample where JAX's skip
-  it.
+  filter type outside 0-4, a JPEG PIL fails on). The loaders skip such a
+  sample where JAX's skip it.
 * ``UnsupportedImageFormat`` (a ``RuntimeError``): an image the port does
-  not decode: JPEG, WebP, GIF, BMP and TIFF, and interlaced or 16-bit PNG.
-  It names the format, and the loaders let it through: a shard of JPEGs
-  must stop a run, not be skipped sample by sample. So do they let
-  ``native.NativeLibraryError`` through (the unfilter's library could not
-  be built or loaded); both are ``NOT_A_BAD_SAMPLE``.
+  not decode: WebP, GIF, BMP and TIFF, and arithmetic-coded, lossless,
+  hierarchical or 12-bit JPEG. It names the format, and the loaders let it
+  through: a shard of WebPs must stop a run, not be skipped sample by
+  sample. So do they let ``native.NativeLibraryError`` through (the
+  decoders' library could not be built or loaded); both are
+  ``NOT_A_BAD_SAMPLE``.
 """
 from __future__ import annotations
 
@@ -31,11 +42,14 @@ from typing import Optional
 
 import numpy as np
 
-from .native import NativeLibraryError, png_unfilter
+from .native import JpegError, NativeLibraryError, jpeg_decode, png_unfilter
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 class CorruptImage(ValueError):
@@ -73,14 +87,22 @@ def decode_image(data: bytes) -> np.ndarray:
     fmt = sniff(data)
     if fmt is None:
         raise CorruptImage("unrecognised image bytes")
+    if fmt == "jpeg":
+        try:
+            return jpeg_decode(data)
+        except JpegError as e:
+            if e.unsupported:
+                _unsupported(str(e))
+            raise CorruptImage(f"JPEG: {e}") from e
     if fmt != "png":
-        _unsupported(fmt)
+        _unsupported(f"{fmt} image")
     return decode_png(data)
 
 
-def _unsupported(fmt: str):
-    raise UnsupportedImageFormat(f"{fmt} image: the port reads 8-bit non-interlaced PNG only "
-                                 "(it imports no PIL; its card's machine has none)")
+def _unsupported(what: str):
+    raise UnsupportedImageFormat(f"{what}: the port reads baseline, extended and progressive "
+                                 "JPEG and PNG only (it imports no PIL; its card's machine "
+                                 "has none)")
 
 
 def _chunks(data: bytes):
@@ -121,50 +143,71 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise CorruptImage("PNG without IHDR or IDAT")
     w, h, depth, color, _, _, interlace = header
-    if color not in _CHANNELS or w == 0 or h == 0:
+    if color not in _CHANNELS or w == 0 or h == 0 or interlace > 1:
         raise CorruptImage(f"bad PNG header {header}")
-    if interlace:
-        _unsupported("interlaced PNG")
-    if depth == 16:
-        _unsupported("16-bit PNG")
-    if depth not in (1, 2, 4, 8) or (depth != 8 and color not in (0, 3)):
+    if depth not in (1, 2, 4, 8, 16) or (depth < 8 and color not in (0, 3)) or \
+            (depth == 16 and color == 3):
         raise CorruptImage(f"bad PNG bit depth {depth} for colour type {color}")
     channels = _CHANNELS[color]
-    stride = (w * channels * depth + 7) // 8
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    # each pass's sub-image [ph, pw]; an empty pass has no rows in the stream
+    sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    strides = [(pw * channels * depth + 7) // 8 for _, pw in sizes]
+    needed = sum(ph * (st + 1) for (ph, pw), st in zip(sizes, strides) if ph and pw)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise CorruptImage(f"PNG inflate: {e}") from e
-    if len(raw) < h * (stride + 1):
+    if len(raw) < needed:
         raise CorruptImage("truncated PNG pixels")
-    try:
-        rows = png_unfilter(raw, h, stride, max(1, channels * depth // 8))
-    except ValueError as e:
-        raise CorruptImage(str(e)) from e
-    return _to_rgb(rows, w, depth, color, palette)
+    px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for (x0, y0, dx, dy), (ph, pw), stride in zip(passes, sizes, strides):
+        if not (ph and pw):
+            continue
+        size = ph * (stride + 1)
+        try:
+            rows = png_unfilter(raw[offset:offset + size], ph, stride,
+                                max(1, channels * depth // 8))
+        except ValueError as e:
+            raise CorruptImage(str(e)) from e
+        offset += size
+        px[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+    return _to_rgb(px, depth, color, palette)
 
 
-def _to_rgb(rows: np.ndarray, w: int, depth: int, color: int,
-            palette: Optional[np.ndarray]) -> np.ndarray:
-    """Unfiltered rows [H, stride] -> uint8 [H, W, 3] as PIL's convert("RGB")."""
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows [H, stride] -> the samples [H, W, channels]: uint8
+    (1-8 bits, unscaled) or uint16 (16 bits, big-endian in the stream)."""
     h = rows.shape[0]
     if depth < 8:
         bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        px = (bits * weights).sum(axis=2).astype(np.uint8)
-        if color == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
-    else:
-        px = rows[:, :w * _CHANNELS[color]].reshape(h, w, _CHANNELS[color])
+        return (bits * weights).sum(axis=2).astype(np.uint8)[:, :, None]
+    if depth == 16:
+        return rows[:, :w * channels * 2].view(">u2").reshape(h, w, channels)
+    return rows[:, :w * channels].reshape(h, w, channels)
+
+
+def _to_rgb(px: np.ndarray, depth: int, color: int,
+            palette: Optional[np.ndarray]) -> np.ndarray:
+    """Samples [H, W, channels] -> uint8 [H, W, 3] as PIL's convert("RGB")."""
+    h, w = px.shape[:2]
+    if depth == 16:
+        # PIL opens 16-bit grey as "I;16" (clipped to 255 on the way to RGB),
+        # the other colour types through ";16B" unpackers (the high byte)
+        px = np.minimum(px, 255) if color == 0 else px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8 and color == 0:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if color == 3:
         if palette is None:
             raise CorruptImage("palette PNG without PLTE")
         full = np.zeros((256, 3), np.uint8)
         full[:len(palette)] = palette[:256]
-        return full[px.reshape(h, w)]
+        return full[px[:, :, 0]]
     if color in (0, 4):
-        grey = px.reshape(h, w, -1)[:, :, 0]
-        return np.repeat(grey[:, :, None], 3, axis=2)
+        return np.repeat(px[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(px[:, :, :3])
 
 

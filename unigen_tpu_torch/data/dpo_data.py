@@ -6,7 +6,7 @@ per-file sampling strategy (first/end/random with counts or percentages),
 ±1-normalized 256px transforms, collated to a prompt list and image stacks.
 The same files and seed give JAX's items, order and batches. Images are
 read by ``data/decode.py``: a pair with an unreadable image is skipped, as
-in JAX; an image format the port does not decode (not PNG), or a native
+in JAX; an image format the port does not decode (WebP, GIF, ...), or a native
 library that cannot be built, raises (``decode.NOT_A_BAD_SAMPLE``).
 """
 from __future__ import annotations

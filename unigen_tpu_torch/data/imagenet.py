@@ -8,7 +8,7 @@ ships as the package's own copy of the data asset
 (``assets/imagenet2012_synsets.txt``) and is the default; a custom mapping
 file can be supplied for non-standard label sets. Images are read by
 ``data/decode.py``: an unreadable file is skipped forward, as in JAX; an
-image format the port does not decode (not PNG), or a native library that
+image format the port does not decode (WebP, BMP, ...), or a native library that
 cannot be built, raises (``decode.NOT_A_BAD_SAMPLE``).
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ def load_synset_mapping(path: Optional[str] = None) -> Dict[str, str]:
 
 @dataclass
 class ImageNetDataset:
-    root: str                                  # ImageFolder layout: root/<wnid>/xxx.png
+    root: str                                  # ImageFolder layout: root/<wnid>/xxx.JPEG
     per_device_batch_size: int
     synset_mapping: Optional[Dict[str, str]] = None  # default: the ILSVRC-2012 table
     image_size: int = 256

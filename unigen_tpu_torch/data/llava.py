@@ -12,12 +12,12 @@ imports nothing of the JAX package):
   (NaFlex samples with their patch masks and spatial shapes), the optional
   system-prompt stream;
 * ``LlavaDataset``: conversations + images -> collated batches, the files
-  mixed by per-file weights; the images read by ``data/decode.py`` (PNG
-  without PIL) in the ``vq`` (±1 pixels), ``siglip`` (384 px) or ``naflex``
+  mixed by per-file weights; the images read by ``data/decode.py`` (JPEG
+  and PNG without PIL) in the ``vq`` (±1 pixels), ``siglip`` (384 px) or ``naflex``
   (patches) mode; ``siglip_image_size`` (384, JAX's fixed size, by
   default) lets a tower of another size take the ``siglip`` mode. An
   unreadable image becomes the zero image, as in JAX;
-  an image format the port does not decode (not PNG), or a native library
+  an image format the port does not decode (WebP, GIF, ...), or a native library
   that cannot be built, raises (``decode.NOT_A_BAD_SAMPLE``). The same files and
   seed give JAX's samples: the ``random.Random(seed)`` calls come in JAX's
   order.

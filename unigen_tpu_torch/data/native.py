@@ -1,15 +1,19 @@
-"""The port's native data library (``unigen_tpu_torch/csrc/tarloader.cpp``):
-the threaded tar-shard streamer and the PNG row unfilter, over ``ctypes``.
+"""The port's native data library (``unigen_tpu_torch/csrc/tarloader.cpp`` and
+``csrc/jpeg.cpp``): the threaded tar-shard streamer, the PNG row unfilter and
+the JPEG decoder, over ``ctypes``.
 
-The library is compiled at first use by ``g++ -O3 -std=c++17 -fPIC -Wall
--Wextra -pthread -shared`` into ``unigen_tpu_torch/build/`` (as
-``ops/_cuda.py`` builds the CUDA kernels), its file name keyed on a hash of
-the source and the flags, so an edited source is rebuilt. A failed build
+The library is compiled from both sources at first use by ``g++ -O3
+-std=c++17 -fPIC -Wall -Wextra -pthread -shared`` into
+``unigen_tpu_torch/build/`` (as ``ops/_cuda.py`` builds the CUDA kernels), its
+file name keyed on a hash of the sources and the flags, so an edited source is
+rebuilt. A failed build
 raises: nothing falls back to the Python reader because the compiler is
 missing, and the loaders let ``NativeLibraryError`` through where they skip
 a bad sample. ``NativeTarStream`` yields the same sample dicts as
 ``text2image.iterate_tar_samples``, so ``Text2ImageDataset`` can swap
-backends; ``png_unfilter`` reverses the PNG filters for ``data/decode.py``.
+backends; ``png_unfilter`` reverses the PNG filters and ``jpeg_decode``
+decodes a JPEG for ``data/decode.py``. Both release the GIL (``ctypes``
+does), so a loader's prefetch thread decodes beside the training loop.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tarloader.cpp"
+JPEG_SOURCE = _PKG / "csrc" / "jpeg.cpp"
+SOURCES = (SOURCE, JPEG_SOURCE)
 BUILD_DIR = _PKG / "build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread", "-shared")
 
@@ -39,8 +45,19 @@ class NativeLibraryError(RuntimeError):
     never of a sample."""
 
 
+class JpegError(ValueError):
+    """``jpeg_decode`` failed: a broken stream (PIL raises on it too) or,
+    with ``unsupported`` set, a JPEG variant the decoder does not read."""
+
+    def __init__(self, msg: str, unsupported: bool = False):
+        super().__init__(msg)
+        self.unsupported = unsupported
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     return BUILD_DIR / f"libtarloader-{h.hexdigest()[:12]}.so"
 
@@ -56,10 +73,11 @@ def build() -> Path:
         raise NativeLibraryError(f"{cxx} not found: the native data library needs a C++ compiler")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise NativeLibraryError(f"{cxx} failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+        names = " + ".join(src.name for src in SOURCES)
+        raise NativeLibraryError(f"{cxx} failed for {names}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -91,6 +109,12 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.png_unfilter.restype = ctypes.c_int
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
                                  ctypes.c_int, ctypes.c_void_p]
+    lib.jpeg_info.restype = ctypes.c_int
+    lib.jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+                              ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_decode_rgb.restype = ctypes.c_int
+    lib.jpeg_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
+                                    ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
     return lib
 
 
@@ -106,6 +130,24 @@ def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     if bad:
         raise ValueError(f"PNG row {bad - 1}: filter type {src[(bad - 1) * (stride + 1)]}")
     return out
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W, 3], the pixels of PIL's
+    ``Image.open(b).convert("RGB")`` (``csrc/jpeg.cpp``); raises
+    ``JpegError`` where PIL raises, and with ``unsupported`` set for a
+    variant the decoder does not read (arithmetic, lossless, hierarchical,
+    12-bit)."""
+    lib = load_library()
+    info = (ctypes.c_int * 5)()
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.jpeg_info(data, len(data), info, msg, len(msg))
+    if rc == 0:
+        out = np.empty((info[1], info[0], 3), np.uint8)
+        rc = lib.jpeg_decode_rgb(data, len(data), out.ctypes.data, out.nbytes, msg, len(msg))
+        if rc == 0:
+            return out
+    raise JpegError(msg.value.decode("utf-8", "replace"), unsupported=rc == 2)
 
 
 def _parse_blob(raw: bytes) -> Dict:

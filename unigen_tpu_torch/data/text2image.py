@@ -11,9 +11,9 @@ stripping :170-184, short/long caption mixing by ``short_caption_ratio``
 fixed-size batching. The same shards and seed give JAX's captions, skips
 and samples: the ``random.Random(seed)`` calls come in JAX's order.
 
-Images are decoded by ``data/decode.py`` (PNG without PIL) and resized by
+Images are decoded by ``data/decode.py`` (JPEG and PNG without PIL) and resized by
 ``data/transform.py``. A corrupt image is a skipped sample, as in JAX; an
-image format the port does not decode (not PNG), or a native library that
+image format the port does not decode (WebP, ...), or a native library that
 cannot be built, raises (``decode.NOT_A_BAD_SAMPLE``).
 ``use_native=None`` (the default) builds and uses the native streamer
 (``data/native.py``); ``use_native=False`` and ``pipe:`` URLs take the Python

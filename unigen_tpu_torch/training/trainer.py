@@ -9,9 +9,11 @@ Periodic work as in JAX: metric logging with timing meters (the meters of
 step N are read after step N + 1 is enqueued, so the host's batch building
 overlaps the device's step; throughput is averaged over the log window),
 checkpoint save and rotation with the portable export
-(``utils/checkpoint.py``), resume from the latest checkpoint. The
-in-training image triptychs (``visualize_every``) are not ported:
-``visualization.py`` needs PIL (ROADMAP Queue 1 item 11).
+(``utils/checkpoint.py``), resume from the latest checkpoint, and every
+``visualize_every`` steps the [original | VQ reconstruction | prediction]
+triptychs of the current t2i batch (``visualization.py``), written to
+``output_dir/visualizations/predictions_step{N}.png``. The entries leave
+``visualize_every`` at 0, as JAX's ``scripts/train.py`` does.
 """
 from __future__ import annotations
 
@@ -59,10 +61,6 @@ class Trainer:
                  params: Any, vq_params: Any,
                  metric_logger: Optional[MetricLogger] = None,
                  generate_callback: Optional[Callable[[Any, int], None]] = None):
-        if trainer_cfg.visualize_every > 0:
-            raise NotImplementedError(
-                "visualize_every > 0: the prediction triptychs need training/visualization.py "
-                "(PIL), not ported yet (ROADMAP Queue 1 item 11)")
         self.cfg, self.vq_cfg, self.tcfg, self.tr = cfg, vq_cfg, tcfg, trainer_cfg
         self.prompting = prompting
         self.tx = tx
@@ -141,6 +139,28 @@ class Trainer:
             out["mmu_pixels"] = self._tensor(mmu["images"])
         return out
 
+    # ----------------------------------------------------------- visualize --
+
+    def _visualize(self, batch: Dict[str, torch.Tensor], generator) -> np.ndarray:
+        """[original | VQ recon | model prediction] triptychs of the current
+        t2i batch (masking draws from ``generator``), saved as a grid PNG and
+        logged to metrics.jsonl (reference train.py:859-875); returns them."""
+        from . import visualization as VZ
+        ids = VZ.masked_t2i_inputs(
+            self.vq_params, self.vq_cfg, self.cfg, batch["t2i_template"], batch["t2i_pixels"],
+            generator, mask_schedule=self.tcfg.mask_schedule,
+            min_masking_rate=self.tcfg.min_masking_rate)
+        trip = VZ.visualize_predictions(
+            self.state.params, self.cfg, self.vq_params, self.vq_cfg, batch["t2i_pixels"], ids,
+            self.tcfg.pad_id, self.tcfg.soi_id, self.tcfg.eoi_id)
+        if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+            vis_dir = os.path.join(self.tr.output_dir, "visualizations")
+            os.makedirs(vis_dir, exist_ok=True)
+            path = os.path.join(vis_dir, f"predictions_step{self.global_step}.png")
+            VZ.save_image_grid(trip, path)
+            self.metrics.log({"visualization": path}, self.global_step)
+        return trip
+
     # ---------------------------------------------------------------- train --
 
     def train(self, combined_flow: Iterator[Dict[str, Dict]]) -> TrainState:
@@ -194,6 +214,9 @@ class Trainer:
             if (self.generate_callback and self.tr.generate_every
                     and self.global_step % self.tr.generate_every == 0):
                 self.generate_callback(self.state.params, self.global_step)
+            if (self.tr.visualize_every and self.tcfg.batch_size_t2i > 0
+                    and self.global_step % self.tr.visualize_every == 0):
+                self._visualize(batch, generator)
 
         # save_every == 0 disables checkpointing, the final save included
         if self.tr.save_every:
