@@ -153,7 +153,21 @@ read just after:
   as a subprocess, seconds to healthy and SIGTERM; then ``build_server``
   of the same config in this process, the three routes with exact launch
   counts, the replies held against ``submit``, the PNG against its batch's
-  direct call, the subprocess's tokens against this process's.
+  direct call, the subprocess's tokens against this process's;
+* ``parallel``: kernels 1 and 2 at a model rank's shapes (model 2: 6 query
+  heads over 1 KV head), then 2 ranks on the one card under gloo (NCCL
+  refuses two ranks on one device; a TCP store on localhost): the tiny
+  fp32 PT2 step on meshes (1,1,2), (2,1,1), (1,2,1) against one rank's
+  (losses, grad norm, the gathered gradients before the update, every
+  parameter element after it), a tiny t2i at model 2 token for token, and
+  the flagship t2i at model 2 as the flagship phase runs it (batch 4,
+  guidance 6, 50 steps) with its first-step image logits against the
+  unsharded forward, exact launches a rank, its codes against the flagship
+  phase's, the call's seconds and its collectives' share (gloo on one
+  card, not a multi-card speed);
+* ``parallel_train`` (only when named): the flagship PT2 step at model 2
+  and at fsdp 2, its first losses against one rank's and each rank's peak
+  memory.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
@@ -199,8 +213,9 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
-serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,tiny) runs
-a subset, for quick checks; ``pt2_real`` and ``dpo_real`` run only when named;
+serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,parallel,tiny)
+runs a subset, for quick checks; ``pt2_real``, ``dpo_real`` and ``parallel_train`` run only
+when named;
 adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -221,8 +236,8 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
-          "sft_naflex", "jpeg", "sft_real", "checkpoints", "tiny")
-OPTIONAL_PHASES = ("pt2_real", "dpo_real", "profile")
+          "sft_naflex", "jpeg", "sft_real", "checkpoints", "parallel", "tiny")
+OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 (non-tensor) FLOP/s
@@ -430,13 +445,14 @@ def _attn_inputs(gen, b, lq, s, h, kvh, dh, dtype):
     return q, k, v
 
 
-def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed, at="t2i chunk step"):
+def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed, at="t2i chunk step", heads=(12, 2)):
     """Chunk attention: q [b, lq, 12, 128] against a cache of lp prefix slots
-    (left pads masked out) plus the lq chunk slots. The tolerance is relative
-    to the largest output magnitude."""
+    (left pads masked out) plus the lq chunk slots (``heads``: query and KV
+    heads, a model rank's under tensor parallelism). The tolerance is
+    relative to the largest output magnitude."""
     import torch
     from unigen_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
-    h, kvh, dh = 12, 2, 128
+    (h, kvh), dh = heads, 128
     s = lp + lq
     q, k, v = _attn_inputs(gen, b, lq, s, h, kvh, dh, dtype)
     pads = torch.arange(b, device="cuda") * 7 % (lp // 2)        # left pads per row
@@ -461,13 +477,14 @@ def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed, at="t2i chunk step"):
     return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"{at} q [{b},{lq},{h},{dh}], S={s}")
 
 
-def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
+def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False, heads=(12, 2),
+                at="t2i prefill"):
     """Flash attention over a left-padded prefix (pad bit, causal); with
     ``ragged_bits`` also bidir_q / bidir_k / segment bits and all-pad rows."""
     import torch
     from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    h, kvh, dh = 12, 2, 128
+    (h, kvh), dh = heads, 128
     q, k, v = _attn_inputs(gen, b, l, l, h, kvh, dh, dtype)
     pos = torch.arange(l, device="cuda")[None]
     pads = torch.arange(b, device="cuda")[:, None] * 11 % (l // 2)
@@ -498,7 +515,7 @@ def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False):
     b_ms, by = bound(attn_flops(vis, h, kvh, dh), nbytes(q, k, v, bits, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
-    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"t2i prefill q [{b},{l},{h},{dh}]")
+    return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"{at} q [{b},{l},{h},{dh}]")
 
 
 # Every kernel-3 call of the MAGViTv2 decoder (models/magvit.py, MagvitConfig(),
@@ -1503,7 +1520,7 @@ def train_metas(config, device="cuda"):
             M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi))
 
 
-def phase_flash_grad(gen, bits, iters, at):
+def phase_flash_grad(gen, bits, iters, at, heads=(12, 2)):
     """Kernel 2 as the training steps call it: the autograd function at
     [B, L, 12, 128] with a step's ``bits``, bf16. Forward within 2^-7 of the
     plain version; dq, dk, dv bit-equal to the plain version's autograd (the
@@ -1519,7 +1536,7 @@ def phase_flash_grad(gen, bits, iters, at):
     from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     import torch.nn.functional as F
     b, l = bits.shape
-    h, kvh, dh = 12, 2, 128
+    (h, kvh), dh = heads, 128
     q, k, v = (t.requires_grad_(True) for t in _attn_inputs(gen, b, l, l, h, kvh, dh,
                                                            torch.bfloat16))
     g = torch.randn((b, l, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
@@ -6208,6 +6225,430 @@ def run_checkpoints(results, profile=False):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the parallel slice: 2 ranks on the one card
+# ---------------------------------------------------------------------------
+
+# Two ranks share the one card under gloo (NCCL refuses two ranks on one
+# device), joined by a TCP store on localhost. The tiny fp32 meshes (data,
+# fsdp, model) of the PT2 step; the flagship t2i at model 2; the optional
+# parallel_train meshes of the flagship PT2 step.
+PARALLEL_RANKS = 2
+PARALLEL_TINY_MESHES = ((1, 1, 2), (2, 1, 1), (1, 2, 1))
+PARALLEL_TINY_RTOL = 1e-5
+PARALLEL_T2I_SEED = 21
+PARALLEL_TRAIN_MESHES = ((1, 1, 2), (1, 2, 1))
+PARALLEL_TRAIN_WARM, PARALLEL_TRAIN_TIMED = 1, 2
+GLOO_NOTE = "gloo on one card, not a multi-card speed"
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rank_entry(rank, world, port, program, out_dir):
+    """One rank: joins the gloo world on cuda:0, runs ``program(rank)`` and
+    writes its JSON result; a failure writes the traceback and exits
+    nonzero, which stops the other rank."""
+    import os
+    import traceback
+    import torch
+    from unigen_tpu_torch.parallel import initialize_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"localhost:{port}", world, rank, device_type="cuda",
+                           backend="gloo")
+    try:
+        out = globals()[program](rank)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.error"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(program: str):
+    """Each rank's result of ``program``: PARALLEL_RANKS processes started
+    with ``spawn``, their output kept off stdout's last lines (they end
+    before the parent prints anything more)."""
+    import os
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        try:
+            mp.start_processes(_rank_entry, args=(PARALLEL_RANKS, _free_port(), program, out_dir),
+                               nprocs=PARALLEL_RANKS, start_method="spawn")
+        except Exception as e:
+            errors = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir))
+                      if f.endswith(".error")]
+            raise Failed(f"{program}: a rank failed ({e})\n" + "\n".join(errors))
+        return [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+                for r in range(PARALLEL_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _tiny_train_inputs(pipe, device):
+    """run_tiny_train's batch (2 t2i + 2 lm + 2 mmu rows of 28) and draws."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.ops import masking as MK
+    from unigen_tpu_torch.training import train_step as TS
+    sp = pipe.prompting.sptids_dict
+    n, seq, b = pipe.cfg.num_vq_tokens, 28, 2
+    rng = np.random.default_rng(0)
+    t2i = rng.integers(3, 100, size=(b, seq))
+    t2i[:, -n - 2], t2i[:, -1], t2i[:, -n - 1:-1] = sp["<|soi|>"], sp["<|eoi|>"], 0
+    t2i[0, :3] = pipe.prompting.pad_id
+    mmu = rng.integers(3, 100, size=(b, seq))
+    mmu[:, 2], mmu[:, 3 + n], mmu[:, 3:3 + n] = sp["<|soi|>"], sp["<|eoi|>"], 0
+    mmu_labels = np.where(rng.random((b, seq)) < 0.5, rng.integers(3, 100, (b, seq)), -100)
+    mmu_labels[:, :4 + n] = -100
+    lm = rng.integers(3, 100, size=(b, seq))
+    res = pipe.vq_cfg.resolution
+    host = {"t2i_template": t2i, "t2i_labels": np.full((b, seq), -100),
+            "t2i_pixels": rng.normal(size=(b, res, res, 3)).astype(np.float32),
+            "lm_ids": lm, "lm_labels": lm.copy(), "mmu_template": mmu, "mmu_labels": mmu_labels,
+            "mmu_pixels": rng.normal(size=(b, res, res, 3)).astype(np.float32)}
+    draws = MK.draw_masking(torch.Generator().manual_seed(0), b, n,
+                            codebook_size=pipe.cfg.codebook_size)
+    tcfg = TS.TrainStepConfig(b, b, b, max_grad_norm=1.0, pad_id=pipe.prompting.pad_id,
+                              soi_id=sp["<|soi|>"], eoi_id=sp["<|eoi|>"])
+    return ({k: torch.as_tensor(v, device=device) for k, v in host.items()},
+            MK.MaskDraws(*(None if x is None else x.to(device) for x in draws)), tcfg)
+
+
+def _adam_allowance(g, norm, tx, rtol):
+    """The most by which AdamW's first update of a leaf can move, element by
+    element, when its gradient ``g`` and the grad norm ``norm`` are each
+    off by at most ``rtol`` (of the leaf's largest gradient, and of the
+    norm): the clip scales both by c = min(1, max_grad_norm / norm), and
+    the first update lr g / (|g| + eps), of slope lr eps / (|g| + eps)^2,
+    moves by at most the slope's largest value within the error times the
+    error, and never by more than 2 lr."""
+    import torch
+    c = min(1.0, tx.max_grad_norm / norm) if tx.max_grad_norm else 1.0
+    a = c * g.abs()
+    err = c * rtol * (g.abs().max() + g.abs())
+    eps = tx.epsilon
+    slope = eps / (torch.clamp(a - err, min=0) + eps) ** 2
+    return tx.learning_rate * torch.clamp(err * slope, max=2.0)
+
+
+def _parallel_tiny(rank):
+    """The tiny fp32 PT2 step on each mesh against the one-rank step on the
+    same batch and draws: the losses and grad norm (relative errors); each
+    leaf's gathered gradient before the update (its largest difference over
+    its largest gradient); each parameter element after the update, within
+    1e-5 of its leaf's largest magnitude plus what AdamW's first step makes
+    of the gradient tolerance there (``_adam_allowance``; the leaves where
+    that allowance is the larger are listed); and the tiny t2i at model 2
+    against one rank's tokens."""
+    import torch
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.parallel.partition import gather_full
+    from unigen_tpu_torch.training import lr_schedules as LRS
+    from unigen_tpu_torch.training import train_step as TS
+    from unigen_tpu_torch.training.optimizer import global_norm, make_optimizer, named_leaves
+    pipe = build_pipeline("tiny", dtype=torch.float32, device="cuda", seed=3)
+    batch, draws, tcfg = _tiny_train_inputs(pipe, "cuda")
+    tx = make_optimizer(pipe.params, 1e-3, LRS.get_scheduler("constant"), max_grad_norm=1.0)
+    step = TS.make_train_step(pipe.cfg, pipe.vq_cfg, tx, tcfg)
+    paths = [p for p, _ in named_leaves(pipe.params)]
+    whole = TS.init_train_state(pipe.params, tx)
+    g_whole, wm = step.grads(whole, pipe.vq_params, batch, draws)
+    norm = float(global_norm(g_whole))
+    allow = {p: _adam_allowance(g, norm, tx, PARALLEL_TINY_RTOL) for p, g in zip(paths, g_whole)}
+    whole, wm = step.apply(whole, g_whole, wm)
+    out = {}
+    for d, f, m in PARALLEL_TINY_MESHES:
+        mesh = P.make_mesh(d, f, m, device_type="cuda")
+        local, sh = P.shard_params(pipe.params, P.unigen_specs(pipe.params, pipe.cfg, mesh,
+                                                               fsdp=f > 1), mesh)
+        state = TS.init_train_state(local, tx, sharding=sh)
+        g_local, sm = step.grads(state, pipe.vq_params, batch, draws)
+        grad_err = {}
+        for p, g, spec, gw in zip(paths, g_local, sh.spec_list(state.params), g_whole):
+            full = gather_full(g, spec, mesh)
+            grad_err[p] = ((full - gw).abs().max() / gw.abs().max().clamp(min=1e-30)).item()
+        state, sm = step.apply(state, g_local, sm)
+        got = dict(named_leaves(P.gather_params(state.params, sh)))
+        param_err, loosened = {}, {}
+        for p, t in named_leaves(whole.params):
+            base = PARALLEL_TINY_RTOL * t.abs().max()
+            diff = (got[p] - t).abs()
+            param_err[p] = (diff / (base + allow[p])).max().item()
+            n_loose = int((allow[p] > base).sum())
+            if n_loose:
+                loosened[p] = n_loose
+        out[f"{d}x{f}x{m}"] = {
+            "rel": {k: abs(float(sm[k]) - float(wm[k])) / max(abs(float(wm[k])), 1e-30)
+                    for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm")},
+            "grad_err": max(grad_err.values()), "worst_grad": max(grad_err, key=grad_err.get),
+            "param_err": max(param_err.values()), "worst_param": max(param_err, key=param_err.get),
+            "loosened": loosened,
+            "local_q_rows": int(state.params["llm"]["layers"][0]["q_w"].shape[0])}
+    mesh = P.make_mesh(1, 1, 2, device_type="cuda")
+
+    def tokens(p):
+        gen = torch.Generator(device="cuda").manual_seed(PARALLEL_T2I_SEED)
+        return p.generate_images(list(PROMPTS[:2]), gen, guidance_scale=6.0, timesteps=8,
+                                 return_codes=True).tolist()
+    out["t2i_equal"] = tokens(pipe.shard(mesh)) == tokens(pipe)
+    return out
+
+
+def _parallel_flagship(rank):
+    """The flagship t2i at model 2, as the flagship phase runs it (batch 4,
+    guidance 6, 50 steps, text budget 128, generator seed 0, codes -> 256
+    px): the first step's image logits against the unsharded forward, the
+    exact launches a rank, the call's seconds and its collectives' share,
+    and (rank 0) the codes, which the parent holds against the flagship
+    phase's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.generation import t2i as T2I
+    from unigen_tpu_torch.models import unigen
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.parallel import collectives as C
+    pipe = flagship_pipeline()
+    cfg, n = pipe.cfg, pipe.cfg.num_vq_tokens
+    mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
+    tp = pipe.shard(mesh)
+    sp = pipe.prompting.sptids_dict
+    ids, uncond = pipe.prompt_ids(list(PROMPTS), 128)
+    x = torch.as_tensor(np.concatenate([ids, uncond]), device="cuda")
+    bits = M.pack_meta(M.t2i_attn_meta(x, pipe.prompting.pad_id, sp["<|soi|>"], sp["<|eoi|>"]))
+
+    @torch.no_grad()
+    def first_step_logits(params):
+        h = unigen.forward(params, cfg, input_ids=x, meta_bits=bits, return_hidden=True)
+        return T2I._cfg_head_logits(params, cfg, h[:, -(n + 1):-1], len(PROMPTS), True, 6.0,
+                                    "hidden").float()
+    a, b = first_step_logits(tp.params), first_step_logits(pipe.params)
+    cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+    argmax = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    _t2i_run(tp, timesteps=1)()                               # warm: every call once
+    torch.cuda.synchronize()
+    _reset_counts()
+    with C.timing() as coll:
+        t0 = time.perf_counter()
+        codes, pixels = _t2i_run(tp, timesteps=50)()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    out = {"cos": cos, "argmax": argmax, "counts": counts, "seconds": seconds,
+           "collective_s": coll["seconds"], "collectives": coll["calls"],
+           "pixels_shape": list(pixels.shape), "finite": bool(torch.isfinite(pixels).all()),
+           "local_heads": int(tp.params["llm"]["layers"][0]["q_w"].shape[0]) // 128,
+           "kv_rows": int(tp.params["llm"]["layers"][0]["k_w"].shape[0])}
+    if rank == 0:
+        out["codes"] = codes.tolist()
+    return out
+
+
+def _parallel_rank(rank):
+    out = {}
+    for name, program in (("tiny", _parallel_tiny), ("flagship", _parallel_flagship)):
+        t0 = time.perf_counter()
+        out[name] = program(rank)
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_parallel_kernel_phases(results):
+    """Kernels 1 and 2 at a model rank's shapes under tensor parallelism at
+    model 2: 6 query heads over 1 KV head (the flagship's 12 over 2)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2020)
+    bf16 = torch.bfloat16
+    print("phase: kernels at a model rank's shapes (model 2: 6 query heads over 1 KV head)")
+    rows = {"chunk_attention": phase_chunk(gen, 8, 258, 148, bf16, 2 ** -7, 10, True,
+                                           at="t2i step, a rank at model 2", heads=(6, 1)),
+            "flash_attention": phase_flash(gen, 8, 148, bf16, 2 ** -7, 10, True, heads=(6, 1),
+                                           at="t2i prefill, a rank at model 2"),
+            "flash_attention_train": phase_flash_grad(
+                gen, train_bits(train_config()), 5, "train step, a rank at model 2",
+                heads=(6, 1))}
+    for name, row in rows.items():
+        results.setdefault(name, {}).setdefault("shapes", []).append(row)
+
+
+def run_parallel(results):
+    """The parallel phase (module docstring): kernels at a rank's shapes,
+    then 2 ranks on the card: the tiny meshes against one rank, the
+    flagship t2i at model 2. Returns rank 0's launches of the t2i call."""
+    t0 = time.perf_counter()
+    import torch
+    run_parallel_kernel_phases(results)
+    t_kernels = time.perf_counter() - t0
+    print(f"phase: parallel, {PARALLEL_RANKS} ranks on the one card under gloo over a TCP store "
+          "on localhost (NCCL refuses two ranks on one device)")
+    ranks = spawn_ranks("_parallel_rank")
+    for mesh_name, r in ranks[0]["tiny"].items():
+        if mesh_name == "t2i_equal":
+            continue
+        print(f"  tiny fp32 PT2 step on mesh (data, fsdp, model) = {mesh_name}: relative "
+              f"differences to one rank {r['rel']}; gathered gradients before the update: the "
+              f"largest leaf difference {r['grad_err']:.3e} of the leaf's largest gradient "
+              f"({r['worst_grad']}); parameters after it: the largest element difference "
+              f"{r['param_err']:.3e} of its bound ({r['worst_param']}; the bound is "
+              f"{PARALLEL_TINY_RTOL:g} of the leaf's largest magnitude plus AdamW's first step "
+              f"on a gradient off by {PARALLEL_TINY_RTOL:g}, the larger term for "
+              f"{sum(r['loosened'].values())} elements: {r['loosened']}); local q rows "
+              f"{r['local_q_rows']}")
+        check(all(v <= PARALLEL_TINY_RTOL for v in r["rel"].values())
+              and r["grad_err"] <= PARALLEL_TINY_RTOL and r["param_err"] <= 1.0,
+              f"the tiny sharded step on {mesh_name} differs from one rank's: {r}")
+    for rank, r in enumerate(ranks):
+        check(r["tiny"]["t2i_equal"], f"rank {rank}: the tiny t2i at model 2 changed tokens")
+    print("  tiny t2i at model 2: every rank's tokens equal one rank's")
+    want = dict(NO_LAUNCHES, flash_attention=28, chunk_attention=1400, conv3x3_gn_swish=44,
+                gn_affine=40)
+    for rank, r in enumerate(ranks):
+        f = r["flagship"]
+        print(f"  flagship t2i at model 2, rank {rank}: {f['local_heads']} query heads and "
+              f"{f['kv_rows'] // 128} KV head a rank; first step's image logits against the "
+              f"unsharded forward: cosine {f['cos']:.6f}, argmax agreement {f['argmax']:.4f}; "
+              f"launches {f['counts']}; {f['seconds']:.3f} s a call, of which collectives "
+              f"{f['collective_s']:.3f} s ({f['collective_s'] / f['seconds']:.4f}, "
+              f"{f['collectives']} calls; {GLOO_NOTE})")
+        check(f["cos"] >= 0.999, f"rank {rank}: first-step logits cosine {f['cos']}")
+        check(f["counts"] == want, f"rank {rank}: launches {f['counts']} != {want}")
+        check(f["finite"] and f["pixels_shape"] == [len(PROMPTS), 256, 256, 3],
+              f"rank {rank}: pixels {f['pixels_shape']} finite {f['finite']}")
+    agree = None
+    if "flagship_codes" in results:
+        one = results["flagship_codes"].cpu()
+        agree = (torch.as_tensor(ranks[0]["flagship"]["codes"]) == one).float().mean().item()
+        print(f"  flagship codes at model 2 against the flagship phase's one-rank codes (same "
+              f"weights, prompts and seed): {agree:.4f} agree")
+    else:
+        print("  flagship codes against one rank's: not measured (the flagship phase did not "
+              "run)")
+    print("  collectives staged through host memory: none (gloo took CUDA tensors for every "
+          "op)")
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"  the parallel phase: {seconds:.1f} s (kernels {t_kernels:.1f} s; rank 0: tiny meshes "
+          f"{r0['tiny_s']:.1f} s, flagship {r0['flagship_s']:.1f} s of which the timed call "
+          f"{r0['flagship']['seconds']:.1f} s; the rest the ranks' start and join)")
+    f0 = ranks[0]["flagship"]
+    results["parallel"] = {"phase_s": seconds, "t2i_s": f0["seconds"],
+                           "collective_share": f0["collective_s"] / f0["seconds"],
+                           "cos": [r["flagship"]["cos"] for r in ranks],
+                           "argmax": [r["flagship"]["argmax"] for r in ranks],
+                           "codes_agree": agree}
+    return f0["counts"]
+
+
+def _parallel_train_rank(rank):
+    """The flagship PT2 step (the train phase's config) on each
+    PARALLEL_TRAIN_MESHES mesh: 1 warm + 2 timed steps from one batch and a
+    generator of one seed, each rank's peak memory over what it held before
+    the steps; then (rank 0) the one-rank step's first losses."""
+    import statistics
+    import torch
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.parallel import collectives as C
+    from unigen_tpu_torch.training import train as TRAIN
+    config = train_config("training.max_train_steps=3")
+    batch = None
+    out = {}
+
+    def steps(trainer, n):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        rec = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with C.timing() as coll:
+                trainer.state, m = trainer.step_fn(trainer.state, trainer.vq_params, batch, gen)
+                torch.cuda.synchronize()
+            rec.append((time.perf_counter() - t0, coll["seconds"],
+                        {k: float(v) for k, v in m.items()}))
+        return rec
+    for d, f, m in PARALLEL_TRAIN_MESHES:
+        mesh = P.make_mesh(d, f, m, device_type="cuda")
+        trainer = TRAIN.build_trainer(config, mesh=mesh, fsdp=f > 1)
+        if batch is None:
+            batch = trainer.build_device_batch(next(TRAIN.synthetic_flows(config)))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()      # not the whole tree built before sharding
+        _reset_counts()
+        rec = steps(trainer, PARALLEL_TRAIN_WARM + PARALLEL_TRAIN_TIMED)
+        timed = rec[PARALLEL_TRAIN_WARM:]
+        out[f"{d}x{f}x{m}"] = {
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "resident_gib": resident / 2 ** 30, "first": rec[0][2],
+            "step_s": statistics.median(t for t, _, _ in timed),
+            "collective_s": statistics.median(c for _, c, _ in timed),
+            "counts": _read_counts()}
+        del trainer
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        P.mesh.set_mesh(None)
+        trainer = TRAIN.build_trainer(config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["one_rank"] = steps(trainer, 1)[0][2]
+        out["one_rank_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel_train(results):
+    """The optional parallel_train phase: the flagship PT2 step at model 2
+    and at fsdp 2, 2 ranks on the card; the first step's losses against the
+    one-rank step (the train phase's bf16 bounds), each rank's peak memory."""
+    t0 = time.perf_counter()
+    print(f"phase: parallel_train ({TRAIN_CONFIG} at meshes {PARALLEL_TRAIN_MESHES}, "
+          f"{PARALLEL_RANKS} ranks on the one card under gloo, {PARALLEL_TRAIN_WARM} warm + "
+          f"{PARALLEL_TRAIN_TIMED} timed steps)")
+    ranks = spawn_ranks("_parallel_train_rank")
+    one = ranks[0]["one_rank"]
+    print(f"  one rank (whole tree, rank 0 alone after the meshes): peak "
+          f"{ranks[0]['one_rank_peak_gib']:.2f} GiB over its first step")
+    out = {"one_rank_peak_gib": ranks[0]["one_rank_peak_gib"]}
+    for name in (f"{d}x{f}x{m}" for d, f, m in PARALLEL_TRAIN_MESHES):
+        first = ranks[0][name]["first"]
+        rel = {k: abs(first[k] - one[k]) / max(abs(one[k]), 1e-30)
+               for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm")}
+        for rank, r in enumerate(ranks):
+            m = r[name]
+            print(f"  mesh {name}, rank {rank}: peak {m['peak_gib']:.2f} GiB "
+                  f"(torch.cuda.max_memory_allocated of the rank over its steps; "
+                  f"{m['resident_gib']:.2f} GiB held before them); {m['step_s']:.3f} s a step "
+                  f"(median of {PARALLEL_TRAIN_TIMED}), collectives {m['collective_s']:.3f} s "
+                  f"({GLOO_NOTE}); launches {m['counts']}")
+        print(f"  mesh {name}: first step {first}, one rank {one}, relative differences {rel} "
+              "(losses need <= 1e-2, the grad norm <= 5e-2)")
+        check(all(rel[k] <= 1e-2 for k in ("loss_t2i", "loss_lm", "loss_mmu"))
+              and rel["grad_norm"] <= 5e-2, f"parallel_train {name} differs from one rank: {rel}")
+        out[name] = {"peak_gib": [r[name]["peak_gib"] for r in ranks],
+                     "step_s": ranks[0][name]["step_s"], "rel": rel}
+    seconds = time.perf_counter() - t0
+    print(f"  the parallel_train phase: {seconds:.1f} s")
+    results["parallel_train"] = dict(out, phase_s=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6300,6 +6741,10 @@ def main(argv=None) -> int:
             path_counts.update(run_checkpoints(results))
             results["checkpoints"]["phase_s"] = time.perf_counter() - t0
             print(f"  the checkpoints phase: {results['checkpoints']['phase_s']:.1f} s")
+        if "parallel" in phases:
+            path_counts["parallel_t2i"] = run_parallel(results)
+        if "parallel_train" in phases:
+            run_parallel_train(results)
         if "tiny" in phases:
             run_tiny_train()
             run_tiny_post_training()

@@ -1,0 +1,629 @@
+"""The port's parallelism against the JAX package's, on the CPU in fp32.
+
+The specs of every leaf of the tiny UniGen, SigLIP and MAGViTv2 trees (and
+of a UniGen of vocabulary 512, whose embedding shards) against JAX's
+``partition_*`` / ``add_fsdp`` / ``sanitize_specs``. Then one spawn of 8
+gloo ranks (``torch_parallel_ranks.parallel_all``) runs, on the tiny
+models with JAX's weights, batches and draws:
+
+* the PT2 step at data 4 x model 2, against JAX's step sharded on the same
+  mesh of 8 virtual devices (tests/test_training.py's setup) and against
+  the port's unsharded step; and at data 2 x model 4, where two KV heads do
+  not divide over the model axis (k/v whole, sliced a rank);
+* the SFT step (separate and packed modes, tower sharded) and the DPO step
+  (reference sharded) at data 4 x model 2, against JAX's unsharded steps;
+* the vocab-parallel embedding and text head at vocab 512, model 2;
+* a checkpoint saved on (2, 2, 2) with ``add_fsdp`` and restored bit for bit
+  onto (4, 2, 1), then one more step; this process restores it onto one
+  process, and reads the ``unwrapped_model`` back through
+  ``launch.build_pipeline``;
+* t2i at model 2 against the unsharded sampler; the errors.
+
+The JAX references are computed here while the ranks run.
+"""
+import json
+import os
+import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding
+
+import torch_parallel_ranks as R
+from test_torch_training import _jax_draws, _leaf_errors, _perturb
+from unigen_tpu.models import magvit as JMV
+from unigen_tpu.models import siglip as JSG
+from unigen_tpu.models import unigen as JU
+from unigen_tpu.parallel import make_mesh as j_make_mesh
+from unigen_tpu.parallel import partition as JP
+from unigen_tpu.training import dpo as JDPO
+from unigen_tpu.training import lr_schedules as JLRS
+from unigen_tpu.training import optimizer as JO
+from unigen_tpu.training import sft as JSFT
+from unigen_tpu.training import train_step as JT
+from unigen_tpu_torch import parallel as P
+from unigen_tpu_torch.launch import build_pipeline
+from unigen_tpu_torch import weights as W
+from unigen_tpu_torch.models import magvit as TMV
+from unigen_tpu_torch.models import siglip as TSG
+from unigen_tpu_torch.models import unigen as TU
+from unigen_tpu_torch.parallel import partition as PT
+from unigen_tpu_torch.training import optimizer as TO
+from unigen_tpu_torch.training import train_step as TT
+from unigen_tpu_torch.training.train import build_trainer
+from unigen_tpu_torch.utils import checkpoint as CK
+from unigen_tpu_torch.utils.configuration import initialize_config
+
+PT2_METRICS = TT.METRICS + ("grad_norm",)
+SFT_METRICS = ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm", "avg_masking_rate")
+DPO_METRICS = ("loss", "reward_accuracy", "policy_chosen_logps", "policy_rejected_logps",
+               "chosen_masking_rate", "rejected_masking_rate", "grad_norm")
+COSINE = ("cosine", dict(num_warmup_steps=2, num_training_steps=50))
+SMOKE = os.path.join(R.REPO, "configs", "tiny", "smoke_pt2.yaml")
+CKPT_OVERRIDES = ["device=cpu", "training.batch_size_t2i=8", "training.batch_size_lm=8",
+                  "training.batch_size_mmu=8", "experiment.checkpoints_total_limit=3"]
+
+
+class SpecMesh:
+    """A mesh's axis sizes, all ``sanitize_specs`` and ``align_heads`` read."""
+
+    def __init__(self, data, fsdp, model):
+        self.shape = {"data": data, "fsdp": fsdp, "model": model}
+
+    def size(self, *axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+
+# ---------------------------------------------------------------------------
+# shared tiny models
+# ---------------------------------------------------------------------------
+
+def _numpy(tree):
+    return jax.tree.map(lambda t: t.detach().numpy(), tree)
+
+
+def _unigen(**kw):
+    """(JAX config, JAX-layout numpy tree, port config, port tree): the
+    port's init with perturbed biases and norm scales, carried across."""
+    jcfg, tcfg = JU.UniGenConfig.tiny(**kw), TU.UniGenConfig.tiny(**kw)
+    params = W.init_unigen(tcfg, torch.Generator().manual_seed(0), "cpu")
+    tree = _perturb(_numpy(W.unigen_to_jax(params, tcfg)), np.random.default_rng(0))
+    return jcfg, tree, tcfg, W.unigen_from_jax(tree, tcfg)
+
+
+def _vq():
+    jvq, tvq = (m.MagvitConfig.tiny(resolution=8, z_channels=5) for m in (JMV, TMV))
+    tree = _numpy(W.magvit_to_jax(W.init_magvit(tvq, torch.Generator().manual_seed(1), "cpu")))
+    return jvq, tree, tvq, W.magvit_from_jax(tree, tvq)
+
+
+def _siglip():
+    jvs, tvs = (m.SiglipConfig.tiny(image_size=28, patch_size=14, hidden_size=32)
+                for m in (JSG, TSG))
+    params = W.init_siglip(tvs, torch.Generator().manual_seed(2), "cpu")
+    tree = _perturb(_numpy(W.siglip_to_jax(params, tvs)), np.random.default_rng(1))
+    return jvs, tree, tvs, W.siglip_from_jax(tree, tvs)
+
+
+def _t2i_rows(rng, b, n, length=28):
+    t = rng.integers(3, 100, size=(b, length))
+    t[:, -n - 2] = 1
+    t[:, -n - 1:-1] = 0
+    t[:, -1] = 2
+    return t
+
+
+def _pt2_batch(b, n, seed=0, length=28):
+    rng = np.random.default_rng(seed)
+    t2i = _t2i_rows(rng, b, n, length)
+    t2i[0, :3] = 0
+    mmu = rng.integers(3, 100, size=(b, length))
+    mmu[:, 2] = 1
+    mmu[:, 3 + n] = 2
+    mmu[:, 3:3 + n] = 0
+    mmu_labels = np.where(rng.random((b, length)) < 0.5, rng.integers(3, 100, (b, length)), -100)
+    mmu_labels[:, :4 + n] = -100
+    lm = rng.integers(3, 100, size=(b, length))
+    return {"t2i_template": t2i, "t2i_labels": np.full((b, length), -100),
+            "t2i_pixels": rng.normal(size=(b, 8, 8, 3)).astype(np.float32),
+            "lm_ids": lm, "lm_labels": lm.copy(), "mmu_template": mmu, "mmu_labels": mmu_labels,
+            "mmu_pixels": rng.normal(size=(b, 8, 8, 3)).astype(np.float32)}
+
+
+def _sft_batch(cfg, vs_cfg, b=4, part2=8):
+    n, p = cfg.num_vq_tokens, vs_cfg.num_patches
+    rng = np.random.default_rng(3)
+    mmu_len = 3 + p + part2
+    mmu_labels = np.full((b, mmu_len), -100)
+    mmu_labels[:, -6:] = rng.integers(3, 100, size=(b, 6))
+    t2i_labels = np.full((b, 28), -100)
+    t2i_labels[:, -n - 2] = 1
+    t2i_labels[:, -1] = 2
+    return {"t2i_template": _t2i_rows(rng, b, n), "t2i_labels": t2i_labels,
+            "t2i_pixels": rng.normal(size=(b, 8, 8, 3)).astype(np.float32),
+            "lm_ids": rng.integers(3, 100, size=(b, 28)),
+            "lm_labels": rng.integers(3, 100, size=(b, 28)),
+            "mmu_part1": rng.integers(3, 100, size=(b, 3)),
+            "mmu_part2": rng.integers(3, 100, size=(b, part2)),
+            "mmu_labels": mmu_labels,
+            "mmu_pixels": rng.normal(size=(b, 28, 28, 3)).astype(np.float32),
+            "mmu_prompt_len": np.array([mmu_len, mmu_len - 2] * (b // 2))}
+
+
+def _torch(batch):
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _jax_batch(batch, mesh=None):
+    out = {k: jnp.asarray(v) for k, v in batch.items()}
+    if mesh is not None:
+        out = {k: jax.device_put(v, NamedSharding(mesh, JP.partition_batch(v.ndim)))
+               for k, v in out.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def _siglip_jax_path(p):
+    m = re.match(r"layers/\d+/(\w+)_([wb])$", p)
+    if m:
+        name, kind = m.groups()
+        node = "mlp" if name.startswith("fc") else "attn"
+        return f"layers/{node}/{name}/{'kernel' if kind == 'w' else 'bias'}", True
+    m = re.match(r"layers/\d+/(ln\d)/(\w+)$", p)
+    if m:
+        return f"layers/{m.group(1)}/{m.group(2)}", True
+    return ("pos_embed/weight" if p == "pos_embed" else p), False
+
+
+def _jax_spec(jspecs, jpath):
+    node = jspecs
+    for k in jpath.split("/"):
+        node = node[int(k)] if isinstance(node, list) else node[k]
+    return tuple(node)
+
+
+def _expected(jspec, pre, jshape, layer, transposed, mesh):
+    """JAX's spec of a leaf in the port's layout: the stacked layer axis
+    dropped, a kernel transposed. Where JAX's ``add_fsdp`` chose the layer
+    axis (``pre``: its spec before ``sanitize_specs``), the port's leaf
+    takes fsdp on its first free dimension instead (the port's rule), kept
+    where the fsdp axis divides it."""
+    dims = list(jspec) + [None] * (len(jshape) - len(jspec))
+    if layer:
+        dims, jshape = dims[1:], jshape[1:]
+        if tuple(pre)[:1] == ("fsdp",):
+            for i, d in enumerate(dims):
+                if d is None and jshape[i] > 1:
+                    dims[i] = "fsdp" if jshape[i] % mesh.size("fsdp") == 0 else None
+                    break
+    return tuple(dims[::-1] if transposed else dims)
+
+
+def _spec_cases():
+    jcfg, jtree, tcfg, ttree = _unigen()
+    jcfg5, jtree5, tcfg5, ttree5 = _unigen(text_vocab_len=479)
+    _, vs_tree, _, tvs = _siglip()
+    _, vq_tree, _, tvq = _vq()
+
+    def unigen_paths(p):
+        return W.jax_leaf_path(p), "layers/" in p
+    return {
+        "unigen_v161": (jtree, ttree, JP.partition_unigen, PT.partition_unigen, unigen_paths),
+        "unigen_v512": (jtree5, ttree5, JP.partition_unigen, PT.partition_unigen, unigen_paths),
+        "siglip": (vs_tree, tvs, JP.partition_siglip, PT.partition_siglip, _siglip_jax_path),
+        "magvit": (vq_tree, tvq, JP.partition_magvit, PT.partition_magvit,
+                   lambda p: (p, False)),
+    }
+
+
+MESHES = {"4x1x2": (4, 1, 2, False), "2x2x2_fsdp": (2, 2, 2, True),
+          "1x1x8": (1, 1, 8, False), "1x8x1_fsdp": (1, 8, 1, True)}
+
+
+@pytest.fixture(scope="module")
+def spec_cases():
+    return _spec_cases()
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("tree", ["unigen_v161", "unigen_v512", "siglip", "magvit"])
+def test_specs_match_jax(spec_cases, eight_devices, tree, mesh_name):
+    """Every leaf's spec after ``sanitize_specs`` (and ``add_fsdp``) equals
+    JAX's on the same mesh, in the port's layout."""
+    jtree, ttree, jpart, tpart, to_jax = spec_cases[tree]
+    d, f, m, fsdp = MESHES[mesh_name]
+    jmesh = j_make_mesh(data=d, fsdp=f, model=m)
+    mesh = SpecMesh(d, f, m)
+    jspecs = jpart(jtree)
+    tspecs = tpart(ttree)
+    if fsdp:
+        jspecs, tspecs = JP.add_fsdp(jspecs, jtree), PT.add_fsdp(tspecs, ttree)
+    pre = jax.tree.map(lambda s: s, jspecs, is_leaf=lambda x: isinstance(x, JP.P))
+    jspecs = JP.sanitize_specs(jspecs, jtree, jmesh)
+    tspecs = PT.sanitize_specs(tspecs, ttree, mesh)
+    jshapes = {jax.tree_util.keystr(p, simple=True, separator="/"): a.shape
+               for p, a in jax.tree_util.tree_leaves_with_path(jtree)}
+    jspec_tree = jax.tree.map(lambda s: s, jspecs, is_leaf=lambda x: isinstance(x, JP.P))
+    assert len(tspecs) == len(dict(PT.named_leaves(ttree)))
+    sharded = 0
+    for path, leaf in PT.named_leaves(ttree):
+        jpath, layer = to_jax(path)
+        transposed = jpath.endswith("kernel") and leaf.dim() == 2
+        want = _expected(_jax_spec(jspec_tree, jpath), _jax_spec(pre, jpath), jshapes[jpath],
+                         layer, transposed, mesh)
+        assert tspecs[path] == want, (path, tspecs[path], want)
+        sharded += any(a is not None for a in want)
+    assert sharded or tree == "magvit"
+    embed = tspecs.get("llm/embed")
+    if embed is not None and m > 1:
+        assert (embed[0] == "model") == (tree == "unigen_v512")   # 161 replicates, 512 shards
+
+
+def test_align_heads_keeps_heads_whole():
+    """At the flagship's 12 query / 2 KV heads, model 4 replicates k/v (the
+    port's rule; JAX's GSPMD splits them mid-head) and model 5 raises."""
+    tcfg = TU.UniGenConfig.tiny(llm=TU.qwen2.Qwen2Config.tiny(
+        vocab_size=161, num_attention_heads=12, num_key_value_heads=2, hidden_size=96,
+        head_dim=8))
+    params = W.init_unigen(tcfg, torch.Generator().manual_seed(0), "cpu")
+    specs = P.unigen_specs(params, tcfg, SpecMesh(1, 1, 4))
+    assert specs["llm/layers/0/q_w"] == ("model", None)
+    assert specs["llm/layers/0/k_w"] == specs["llm/layers/1/v_b"][:1] + (None,) == (None, None)
+    assert P.unigen_specs(params, tcfg, SpecMesh(1, 1, 2))["llm/layers/0/k_w"] == ("model", None)
+    with pytest.raises(ValueError, match="query heads"):
+        P.unigen_specs(params, tcfg, SpecMesh(1, 1, 5))
+    assert TU.qwen2.kv_heads_of_rank(12, 2, 3, 1) == slice(0, 1)
+    assert TU.qwen2.kv_heads_of_rank(12, 2, 3, 2) == slice(1, 2)
+    assert TU.qwen2.kv_heads_of_rank(4, 2, 1, 3) == slice(1, 2)
+    assert TU.qwen2.kv_heads_of_rank(6, 2, 2, 1) == slice(0, 2)   # one KV head a query head
+    assert TU.qwen2.kv_heads_of_rank(6, 3, 3, 0) == [0, 0, 1]     # two groups, unevenly
+
+
+def test_make_mesh_raises_on_a_world_it_cannot_factor():
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 devices"):
+        P.make_mesh(data=2, device_type="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        P.make_mesh(data=-1, model=2, device_type="cpu")
+    mesh = P.make_mesh(device_type="cpu")
+    assert mesh.shape == {"data": 1, "fsdp": 1, "model": 1} and mesh.group("model") is None
+    P.mesh.set_mesh(None)
+
+
+@pytest.mark.parametrize("saved", ["sharded_f2_m2", "unsharded"])
+def test_checkpoint_pieces_read_by_overlap(tmp_path, saved):
+    """A restore builds each rank's piece from the parts of the saved pieces
+    that overlap it: for every target (fsdp, model) layout and rank, the
+    pieces equal the whole leaf's slices and own no more memory than
+    themselves."""
+    from unigen_tpu_torch.utils.persistence import save_pretrained
+    g = torch.Generator().manual_seed(0)
+    whole = {"a": torch.randn(8, 12, generator=g), "b": torch.randn(12, generator=g),
+             "c": torch.randn(4, 8, generator=g).bfloat16(), "step": torch.tensor(3)}
+    specs = {"a": ("model", "fsdp"), "b": ("fsdp",), "c": (None, "model"), "step": ()}
+    d = str(tmp_path)
+    if saved == "unsharded":
+        save_pretrained(whole, d)
+    else:
+        src = {"fsdp": 2, "model": 2}
+        for f in range(2):
+            for m in range(2):
+                coord = {"fsdp": f, "model": m}
+                save_pretrained({p: _piece(t, specs[p], src, coord) for p, t in whole.items()},
+                                os.path.join(d, f"shard-f{f}-m{m}"))
+        with open(os.path.join(d, CK.SHARDING_NAME), "w") as fh:
+            json.dump({"mesh": dict(src, data=1), "specs": specs}, fh)
+    for sizes in ({"fsdp": 1, "model": 1}, {"fsdp": 2, "model": 1}, {"fsdp": 1, "model": 4},
+                  {"fsdp": 4, "model": 2}, {"fsdp": 2, "model": 2}):
+        for f in range(sizes["fsdp"]):
+            for m in range(sizes["model"]):
+                coord = {"fsdp": f, "model": m}
+                got = CK._read_pieces(d, specs, sizes, coord)
+                for p, t in whole.items():
+                    want = _piece(t, specs[p], sizes, coord)
+                    assert torch.equal(got[p], want), (sizes, coord, p)
+                    assert got[p].untyped_storage().nbytes() == want.numel() * want.element_size()
+
+
+def _piece(t, spec, sizes, coord):
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            k = t.shape[dim] // sizes[axis]
+            t = t.narrow(dim, coord[axis] * k, k)
+    return t.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the 8-rank spawn
+# ---------------------------------------------------------------------------
+
+def _inputs():
+    jcfg, jtree, tcfg, tparams = _unigen()
+    jvq, vq_tree, tvq, tvq_params = _vq()
+    n = jcfg.num_vq_tokens
+    out, refs = {}, {}
+
+    # PT2 at data 4 x model 2
+    pt2 = _pt2_batch(4, n)
+    key = jax.random.key(0)
+    kw = dict(batch_size_t2i=4, batch_size_lm=4, batch_size_mmu=4, max_grad_norm=1.0)
+    out["pt2"] = dict(cfg=tcfg, vq_cfg=tvq, tcfg=TT.TrainStepConfig(**kw), params=tparams,
+                      vq=tvq_params, batch=_torch(pt2), draws=_jax_draws(key, 4, n),
+                      schedule=COSINE)
+    refs["pt2"] = (jcfg, jtree, jvq, vq_tree, pt2, key, kw)
+
+    # SFT: separate and packed modes
+    _, vs_tree, tvs_cfg, tvs = _siglip()
+    jvs = JSG.SiglipConfig.tiny(image_size=28, patch_size=14, hidden_size=32)
+    skw = dict(w_und_encoder=True, mm_input_dim=32)
+    sjcfg, sjtree, stcfg, stparams = _unigen(**skw)
+    sep, packed = _sft_batch(sjcfg, jvs), _sft_batch(sjcfg, jvs, part2=50)
+    cases = {"separate": (sep, dict(batch_size_t2i=4, batch_size_lm=4, batch_size_mmu=4)),
+             "packed": (packed, dict(batch_size_t2i=4, batch_size_lm=4, batch_size_mmu=4,
+                                     common_length=3 + jvs.num_patches + 50))}
+    skey = jax.random.key(5)
+    opt_kw = dict(lr_mapper={"mm_projector": 2.0}, tunable_parts=["mm_projector", "llm"],
+                  max_grad_norm=1.0, weight_decay=0.01)
+    out["sft"] = dict(cfg=stcfg, vq_cfg=tvq, vs_cfg=tvs_cfg, params=stparams, vq=tvq_params,
+                      vs=tvs, draws=_jax_draws(skey, 4, n), opt_kw=opt_kw,
+                      cases={name: (_torch(b), kw_) for name, (b, kw_) in cases.items()},
+                      schedule=("constant", {}))
+    refs["sft"] = (sjcfg, sjtree, jvq, vq_tree, jvs, vs_tree, cases, skey, opt_kw)
+
+    # DPO
+    rng = np.random.default_rng(0)
+    template = _t2i_rows(rng, 4, n)
+    template[1, :3] = 0
+    dpo = {"template": template, "labels": np.full((4, 28), -100),
+           "chosen_pixels": rng.normal(size=(4, 8, 8, 3)).astype(np.float32),
+           "rejected_pixels": rng.normal(size=(4, 8, 8, 3)).astype(np.float32)}
+    dkey = jax.random.key(7)
+    k_c, k_r = jax.random.split(dkey)
+    out["dpo"] = dict(cfg=tcfg, vq_cfg=tvq, params=tparams, vq=tvq_params, batch=_torch(dpo),
+                      draws=(_jax_draws(k_c, 4, n), _jax_draws(k_r, 4, n)),
+                      schedule=("constant", {}))
+    refs["dpo"] = (jcfg, jtree, jvq, vq_tree, dpo, dkey)
+
+    # vocab 512
+    _, _, vcfg, vparams = _unigen(text_vocab_len=479)
+    g = np.random.default_rng(4)
+    ids = torch.as_tensor(g.integers(0, 512, size=(4, 12)))
+    ids[0, 0] = 511                                       # the last row of rank 1's shard
+    out["vocab"] = dict(qcfg=vcfg.llm, qparams=vparams["llm"], ids=ids,
+                        labels=torch.as_tensor(g.integers(0, 512, size=(4, 12))))
+
+    # checkpoint across meshes: the Trainer of the tiny PT2 config, its batch
+    # divisible by both meshes' batch groups (4 and 8)
+    out["ckpt"] = dict(config=SMOKE, overrides=CKPT_OVERRIDES + [
+        "experiment.save_every=1000", "experiment.resume_from_checkpoint=latest"])
+
+    # t2i at model 2
+    rng = np.random.default_rng(5)
+    t2i_ids = _t2i_rows(rng, 2, n, 24)
+    t2i_ids[:, -n - 1:-1] = tcfg.mask_token_id
+    uncond = t2i_ids.copy()
+    uncond[:, :-n - 2] = 0
+    out["t2i"] = dict(cfg=tcfg, params=tparams, t2i_ids=torch.as_tensor(t2i_ids),
+                      t2i_uncond=torch.as_tensor(uncond))
+    out["errors"] = dict(cfg=tcfg, params=tparams)
+    return out, refs
+
+
+def _jax_pt2(refs):
+    jcfg, jtree, jvq, vq_tree, pt2, key, kw = refs["pt2"]
+    jparams = jax.tree.map(jnp.asarray, jtree)
+    tx = JO.make_optimizer(jparams, 1e-3, JLRS.get_scheduler(COSINE[0], **COSINE[1]),
+                           max_grad_norm=1.0)
+    mesh = j_make_mesh(data=4, fsdp=1, model=2)
+    sharded = JP.shard_params(jparams, JP.partition_unigen(jparams), mesh)
+    vq = JP.shard_params(jax.tree.map(jnp.asarray, vq_tree), JP.partition_magvit(vq_tree), mesh)
+    step = JT.make_train_step(jcfg, jvq, tx, JT.TrainStepConfig(**kw))
+    with jax.set_mesh(mesh):
+        state, m = jax.jit(step)(JT.init_train_state(sharded, tx), vq, _jax_batch(pt2, mesh), key)
+    return jax.tree.map(np.asarray, state.params), {k: float(v) for k, v in m.items()}
+
+
+def _jax_sft(refs):
+    sjcfg, sjtree, jvq, vq_tree, jvs, vs_tree, cases, skey, opt_kw = refs["sft"]
+    sjparams = jax.tree.map(jnp.asarray, sjtree)
+    b, kw = cases["separate"]          # the packed mode is held to the port's unsharded step
+    stx = JO.make_optimizer(sjparams, 1e-3, JLRS.get_scheduler("constant"), **opt_kw)
+    sstep = jax.jit(JSFT.make_sft_train_step(sjcfg, jvq, jvs, stx, JSFT.SFTStepConfig(
+        max_grad_norm=1.0, **kw)))
+    st, sm = sstep(JT.init_train_state(sjparams, stx), jax.tree.map(jnp.asarray, vq_tree),
+                   jax.tree.map(jnp.asarray, vs_tree), _jax_batch(b), skey)
+    return {"separate": (jax.tree.map(np.asarray, st.params),
+                         {k: float(v) for k, v in sm.items()})}
+
+
+def _jax_dpo(refs):
+    jcfg, jtree, jvq, vq_tree, dpo, dkey = refs["dpo"]
+    jparams = jax.tree.map(jnp.asarray, jtree)
+    dtx = JO.make_optimizer(jparams, 5e-4, JLRS.get_scheduler("constant"), max_grad_norm=1.0)
+    dstep = jax.jit(JDPO.make_dpo_step(jcfg, jvq, dtx, JDPO.DPOConfig(beta=0.1)))
+    ds, dm = dstep(JT.init_train_state(jparams, dtx), jparams, jax.tree.map(jnp.asarray, vq_tree),
+                   _jax_batch(dpo), dkey)
+    return jax.tree.map(np.asarray, ds.params), {k: float(v) for k, v in dm.items()}
+
+
+def _jax_references(refs):
+    """JAX's three steps, compiled in three threads."""
+    with ThreadPoolExecutor(3) as pool:
+        futures = {name: pool.submit(fn, refs)
+                   for name, fn in (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo))}
+        return {name: f.result() for name, f in futures.items()}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, eight_devices):
+    """The 8 ranks' results and the JAX references, computed together."""
+    tmp = str(tmp_path_factory.mktemp("parallel"))
+    inputs, refs = _inputs()
+    torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+    errors = []
+
+    def run():
+        try:
+            R.spawn("parallel_all", 8, os.path.join(tmp, "inputs.pt"), tmp)
+        except Exception as e:   # the ranks' tracebacks are in error-<rank>.txt
+            errors.append(e)
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        jax_refs = _jax_references(refs)
+    finally:
+        thread.join()
+    if errors:
+        logs = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp))
+                if f.startswith("error-")]
+        raise RuntimeError(f"{errors[0]}\n{logs[0] if logs else ''}")
+    out = {name: torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+           for name in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors")}
+    return out, jax_refs, inputs
+
+
+def _close_metrics(got, want, keys, rtol, atol):
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol, err_msg=k)
+
+
+def _max_leaf_err(a, b):
+    return max((x - y).abs().max().item() / max(x.abs().max().item(), 1e-12)
+               for (_, x), (_, y) in zip(TO.named_leaves(a), TO.named_leaves(b)))
+
+
+@pytest.mark.parametrize("case", ["jax_sharded", "port_unsharded", "model4_kv_whole"])
+def test_pt2_step_data4_model2(ranks, case):
+    """The sharded PT2 step: against JAX's step on the same 8-device mesh
+    (its dense masks: losses and grad norm rtol 1e-4, the updated
+    parameters within 1e-4 of each leaf's largest magnitude), and against
+    the port's unsharded step (1e-5, parameters 1e-5)."""
+    out, jax_refs, inputs = ranks
+    r = out["pt2"]
+    cfg = inputs["pt2"]["cfg"]
+    assert r["q_local"] == (32, 64)                           # 2 of 4 heads a rank
+    if case == "jax_sharded":
+        jparams, jm = jax_refs["pt2"]
+        _close_metrics(r["metrics"], jm, PT2_METRICS, 1e-4, 1e-5)
+        errs = _leaf_errors(jparams, W.unigen_to_jax(r["params"], cfg))
+        assert max(errs.values()) < 1e-4, {k: v for k, v in errs.items() if v >= 1e-4}
+    else:
+        metrics, params = ((r["metrics"], r["params"]) if case == "port_unsharded"
+                           else (r["metrics4"], r["params4"]))
+        if case == "model4_kv_whole":
+            assert r["specs4"]["llm/layers/0/k_w"] == (None, None)
+        _close_metrics(metrics, r["whole_metrics"], PT2_METRICS, 1e-5, 1e-6)
+        assert _max_leaf_err(r["whole_params"], params) < 1e-5
+
+
+@pytest.mark.parametrize("mode,ref", [("separate", "jax"), ("separate", "port_unsharded"),
+                                      ("packed", "port_unsharded")])
+def test_sft_step_data4_model2(ranks, mode, ref):
+    """The sharded SFT step (SigLIP tower sharded too; a packed rank packs
+    its own rows) against JAX's unsharded step (its dense masks: rtol 1e-4,
+    parameters 1e-4) and the port's unsharded step (1e-5)."""
+    out, jax_refs, inputs = ranks
+    r = out["sft"][mode]
+    assert r["mode"] == mode
+    if ref == "jax":
+        jparams, jm = jax_refs["sft"][mode]
+        _close_metrics(r["metrics"], jm, SFT_METRICS, 1e-4, 1e-5)
+        errs = _leaf_errors(jparams, W.unigen_to_jax(r["params"], inputs["sft"]["cfg"]))
+        assert max(errs.values()) < 1e-4, {k: v for k, v in errs.items() if v >= 1e-4}
+    else:
+        _close_metrics(r["metrics"], r["whole_metrics"], SFT_METRICS, 1e-5, 1e-6)
+        assert _max_leaf_err(r["whole_params"], r["params"]) < 1e-5
+
+
+@pytest.mark.parametrize("ref", ["jax", "port_unsharded"])
+def test_dpo_step_data4_model2(ranks, ref):
+    """The sharded DPO step (reference tree sharded as the policy) against
+    JAX's unsharded step (rtol 1e-4, parameters 1e-4) and the port's
+    (metrics 1e-5; parameters 1e-4, tests/test_torch_dpo.py's: at DPO's
+    first step the gradients are near zero and Adam's update turns their
+    rounding into lr-sized differences)."""
+    out, jax_refs, inputs = ranks
+    r = out["dpo"]
+    if ref == "jax":
+        jparams, jm = jax_refs["dpo"]
+        _close_metrics(r["metrics"], jm, DPO_METRICS, 1e-4, 1e-6)
+        errs = _leaf_errors(jparams, W.unigen_to_jax(r["params"], inputs["dpo"]["cfg"]))
+        assert max(errs.values()) < 1e-4, {k: v for k, v in errs.items() if v >= 1e-4}
+    else:
+        _close_metrics(r["metrics"], r["whole_metrics"], DPO_METRICS, 1e-5, 1e-6)
+        assert _max_leaf_err(r["whole_params"], r["params"]) < 1e-4
+
+
+@pytest.mark.parametrize("what", ["embed", "logits", "grads"])
+def test_vocab_parallel_embedding_and_head(ranks, what):
+    """Vocab 512 at model 2: the masked lookup plus reduce equals the whole
+    table's rows exactly; the gathered logits and every gradient (the
+    vocab-sharded table's gathered) within 1e-5."""
+    r = ranks[0]["vocab"]
+    assert r["specs"]["embed"] == ("model", None)
+    whole, sharded = r["whole"], r["sharded"]
+    if what == "embed":
+        assert torch.equal(whole["embed"], sharded["embed"])
+    elif what == "logits":
+        torch.testing.assert_close(sharded["logits"], whole["logits"], rtol=1e-5, atol=1e-5)
+        assert abs(whole["loss"] - sharded["loss"]) < 1e-5
+    else:
+        for p, g in whole["grads"].items():
+            torch.testing.assert_close(sharded["grads"][p], g, rtol=1e-5, atol=1e-6, msg=p)
+
+
+@pytest.mark.parametrize("target", ["mesh_4x2x1", "one_process", "unwrapped_model"])
+def test_checkpoint_across_meshes(ranks, tmp_path, target):
+    """The Trainer on (2, 2, 2) with add_fsdp saves a step: a Trainer on
+    (4, 2, 1) resumes it bit for bit and takes one more step; this process
+    restores it onto one process bit for bit; the portable export read back
+    by ``build_pipeline`` equals the gathered parameters."""
+    r = ranks[0]["ckpt"]
+    if target == "mesh_4x2x1":
+        assert r["files"] == ["shard-f0-m0", "shard-f0-m1", "shard-f1-m0", "shard-f1-m1",
+                              "sharding.json"]
+        assert sorted(r["want"]) == sorted(r["got"])
+        for p, t in r["want"].items():
+            assert torch.equal(r["got"][p], t), p
+        assert r["gate_local_b"] == (128, 32)                 # fsdp 2 on the restored mesh
+        assert r["resumed_at"] == 1 and r["step2"] == 2
+        assert r["ranks_saved"][:2] == ["checkpoint-1", "checkpoint-2"]
+        return
+    config = initialize_config(SMOKE, CKPT_OVERRIDES + [f"experiment.output_dir={tmp_path}"])
+    if target == "one_process":
+        restored = CK.restore_checkpoint(r["path"], build_trainer(config).state)
+        got = dict(CK._leaves(CK._to_tree(restored)))
+        assert sorted(got) == sorted(r["want"])
+        for p, t in r["want"].items():
+            assert torch.equal(got[p].detach(), t), p
+        return
+    handoff = initialize_config(SMOKE, CKPT_OVERRIDES + [
+        f"experiment.output_dir={tmp_path}", f"model.unigen.pretrained_model_path={r['path']}"])
+    pipe = build_pipeline(handoff, device="cpu")
+    for (p, a), (_, b) in zip(TO.named_leaves(r["whole_params"]), TO.named_leaves(pipe.params)):
+        assert torch.equal(a, b), p
+
+
+def test_t2i_model2_tokens_equal_one_rank(ranks):
+    r = ranks[0]["t2i"]
+    for toks in r["ranks"]:
+        assert toks == r["whole"].tolist()
+
+
+@pytest.mark.parametrize("what", ["mesh", "lora", "quant"])
+def test_errors(ranks, what):
+    """``make_mesh`` on 8 ranks with fsdp 3; LoRA and W8A8 trees at model 2
+    name their ROADMAP item (data and fsdp alone take them)."""
+    msg = ranks[0]["errors"][what]
+    assert msg, what
+    if what == "mesh":
+        assert "not divisible by fsdp*model=3" in msg
+    else:
+        assert "15(c)" in msg

@@ -1,0 +1,278 @@
+"""The rank programs of tests/test_torch_parallel.py and tests/test_torch_multihost.py.
+
+``spawn(program, world, inputs_path, out_dir)`` starts ``world`` processes
+on the CPU, joined by gloo over a TCP store on localhost, each with one
+thread; every rank runs ``program(inputs, out_dir)`` after
+``torch.distributed`` is up, and rank 0 writes what the test compares
+(``save``). The programs import torch and the port only.
+"""
+import os
+import socket
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from unigen_tpu_torch import parallel as P  # noqa: E402
+from unigen_tpu_torch import weights as W  # noqa: E402
+from unigen_tpu_torch.models import qwen2  # noqa: E402
+from unigen_tpu_torch.parallel import collectives as C  # noqa: E402
+from unigen_tpu_torch.parallel import partition as PT  # noqa: E402
+from unigen_tpu_torch.training import dpo as TD  # noqa: E402
+from unigen_tpu_torch.training import lr_schedules as TLRS  # noqa: E402
+from unigen_tpu_torch.training import optimizer as TO  # noqa: E402
+from unigen_tpu_torch.training import sft as TSFT  # noqa: E402
+from unigen_tpu_torch.training import train_step as TT  # noqa: E402
+from unigen_tpu_torch.utils import checkpoint as CK  # noqa: E402
+from unigen_tpu_torch.utils import multihost as MH  # noqa: E402
+from unigen_tpu_torch.utils.persistence import _leaves  # noqa: E402
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _entry(rank, world, port, program, inputs_path, out_dir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        inputs = torch.load(inputs_path, weights_only=False) if inputs_path else None
+        globals()[program](inputs, out_dir)
+        dist.barrier()
+    except Exception:
+        with open(os.path.join(out_dir, f"error-{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(program: str, world: int, inputs_path, out_dir: str) -> None:
+    """The ranks fork from a fresh server process that has imported torch,
+    the port and this module once (the forkserver, with those preloaded):
+    a rank starts in a fraction of a second instead of importing them."""
+    mp.set_forkserver_preload([__name__, "torch._dynamo"])
+    mp.start_processes(_entry, args=(world, free_port(), program, inputs_path, out_dir),
+                       nprocs=world, start_method="forkserver")
+
+
+def save(out_dir: str, name: str, obj) -> None:
+    if dist.get_rank() == 0:
+        torch.save(obj, os.path.join(out_dir, f"{name}.pt"))
+
+
+def _raises(fn, exc) -> str:
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    return ""
+
+
+def _whole_state(state) -> dict:
+    """{path: whole tensor} of a sharded TrainState (every rank gathers)."""
+    specs = CK.state_specs(state)
+    mesh = state.sharding.mesh
+    return {p: PT.gather_full(t.detach(), specs[p], mesh)
+            for p, t in _leaves(CK._to_tree(state))}
+
+
+def _schedule(inp):
+    name, kw = inp["schedule"]
+    return TLRS.get_scheduler(name, **kw)
+
+
+def _metrics(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+# ---------------------------------------------------------------- programs --
+
+def pt2(inp, out_dir):
+    """The PT2 step at data 4 x model 2 against the unsharded step; the
+    flagship's GQA layout (KV heads that do not divide) at model 4."""
+    cfg, vq_cfg, tcfg = inp["cfg"], inp["vq_cfg"], inp["tcfg"]
+    params, vq, batch, draws = inp["params"], inp["vq"], inp["batch"], inp["draws"]
+    tx = TO.make_optimizer(params, 1e-3, _schedule(inp), max_grad_norm=1.0)
+    step = TT.make_train_step(cfg, vq_cfg, tx, tcfg)
+    whole, wm = step(TT.init_train_state(params, tx), vq, batch, draws)
+    out = {"whole_metrics": _metrics(wm), "whole_params": whole.params}
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    specs = P.unigen_specs(params, cfg, mesh)
+    local, sh = P.shard_params(params, specs, mesh)
+    state, m = step(TT.init_train_state(local, tx, sharding=sh), vq, batch, draws)
+    out.update(specs=specs, metrics=_metrics(m), params=P.gather_params(state.params, sh),
+               q_local=tuple(state.params["llm"]["layers"][0]["q_w"].shape))
+    # four query heads over two KV heads at model 4: one query head a rank,
+    # k/v whole and sliced to the rank's KV head (the port's alignment rule)
+    mesh4 = P.make_mesh(data=2, fsdp=1, model=4, device_type="cpu")
+    specs4 = P.unigen_specs(params, cfg, mesh4)
+    local4, sh4 = P.shard_params(params, specs4, mesh4)
+    state4, m4 = step(TT.init_train_state(local4, tx, sharding=sh4), vq, batch, draws)
+    out.update(specs4=specs4, metrics4=_metrics(m4),
+               params4=P.gather_params(state4.params, sh4))
+    save(out_dir, "pt2", out)
+
+
+def sft(inp, out_dir):
+    cfg, vq_cfg, vs_cfg = inp["cfg"], inp["vq_cfg"], inp["vs_cfg"]
+    params, vq, vs, draws = (inp[k] for k in ("params", "vq", "vs", "draws"))
+    out = {}
+    for name, (batch, step_kw) in inp["cases"].items():
+        tx = TO.make_optimizer(params, 1e-3, _schedule(inp), **inp["opt_kw"])
+        step = TSFT.make_sft_train_step(cfg, vq_cfg, vs_cfg, tx,
+                                        TSFT.SFTStepConfig(max_grad_norm=1.0, **step_kw))
+        whole, wm = step(TSFT.init_sft_state(params, tx), vq, vs, batch, draws)
+        mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+        local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+        vs_local, _ = P.shard_params(vs, P.siglip_specs(vs, mesh), mesh)
+        state, m = step(TSFT.init_sft_state(local, tx, sh), vq, vs_local, batch, draws)
+        out[name] = {"whole_metrics": _metrics(wm), "whole_params": whole.params,
+                     "metrics": _metrics(m), "params": P.gather_params(state.params, sh),
+                     "mode": step.mode}
+    save(out_dir, "sft", out)
+
+
+def dpo(inp, out_dir):
+    cfg, vq_cfg = inp["cfg"], inp["vq_cfg"]
+    params, vq, batch, draws = inp["params"], inp["vq"], inp["batch"], inp["draws"]
+    tx = TO.make_optimizer(params, 5e-4, _schedule(inp), max_grad_norm=1.0)
+    step = TD.make_dpo_step(cfg, vq_cfg, tx, TD.DPOConfig(beta=0.1))
+    whole, wm = step(TT.init_train_state(params, tx), params, vq, batch, draws)
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    specs = P.unigen_specs(params, cfg, mesh)
+    local, sh = P.shard_params(params, specs, mesh)
+    ref, _ = P.shard_params(params, specs, mesh)
+    state, m = step(TT.init_train_state(local, tx, sharding=sh), ref, vq, batch, draws)
+    save(out_dir, "dpo", {"whole_metrics": _metrics(wm), "whole_params": whole.params,
+                          "metrics": _metrics(m), "params": P.gather_params(state.params, sh)})
+
+
+def vocab(inp, out_dir):
+    """A Qwen2 tree of vocab 512 at model 2: the vocab-parallel embedding,
+    text head and their gradients against the unsharded forward."""
+    cfg, params, ids, labels = inp["qcfg"], inp["qparams"], inp["ids"], inp["labels"]
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    specs = P.sanitize_specs(P.partition_qwen2(params), params, mesh)
+    out = {"specs": specs}
+    for name, tree, sh in (("whole", params, None),
+                           ("sharded", *P.shard_params(params, specs, mesh))):
+        tree = C.register(sh, W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True)))
+        emb = qwen2.embed(tree, ids)
+        hidden, _ = qwen2.forward(tree, cfg, input_ids=ids)
+        logits = qwen2.logits(tree, cfg, hidden)
+        loss = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                                 labels.reshape(-1))
+        leaves = [t for _, t in TO.named_leaves(tree)]
+        grads = torch.autograd.grad(loss, leaves)
+        paths = [p for p, _ in TO.named_leaves(tree)]
+        if sh is not None:
+            grads = [PT.gather_full(g, sh.specs[p], mesh) for p, g in zip(paths, grads)]
+        out[name] = {"embed": emb.detach(), "logits": logits.detach(), "loss": float(loss),
+                     "grads": dict(zip(paths, grads))}
+    save(out_dir, "vocab", out)
+
+
+def ckpt(inp, out_dir):
+    """The Trainer of the tiny PT2 config on (2, 2, 2) with add_fsdp: one
+    step and its checkpoint; a Trainer on (4, 2, 1) resumes from it bit for
+    bit and takes one more step. Rank 0 keeps the whole saved state for
+    the one-process restore."""
+    from unigen_tpu_torch.training.train import build_trainer, synthetic_flows
+    from unigen_tpu_torch.utils.configuration import initialize_config
+    run = os.path.join(out_dir, "run")
+
+    def trainer(mesh, steps):
+        config = initialize_config(inp["config"], inp["overrides"] + [
+            f"experiment.output_dir={run}", f"training.max_train_steps={steps}"])
+        return build_trainer(config, mesh=mesh, fsdp=True), config
+
+    mesh_a = P.make_mesh(data=2, fsdp=2, model=2, device_type="cpu")
+    tr_a, config = trainer(mesh_a, 1)
+    state = tr_a.train(synthetic_flows(config))
+    want = _whole_state(state)
+    mesh_b = P.make_mesh(data=4, fsdp=2, model=1, device_type="cpu")
+    tr_b, _ = trainer(mesh_b, 2)
+    got = _whole_state(tr_b.state)
+    q_b = tuple(tr_b.state.params["llm"]["layers"][0]["gate_w"].shape)
+    resumed_at = tr_b.global_step
+    state2 = tr_b.train(synthetic_flows(config))
+    path = os.path.join(run, "checkpoint-1")
+    save(out_dir, "ckpt", {"path": path, "want": want, "got": got, "resumed_at": resumed_at,
+                           "step2": int(state2.step), "gate_local_b": q_b,
+                           "whole_params": P.gather_params(state.params, state.sharding),
+                           "files": sorted(os.listdir(os.path.join(path, "state"))),
+                           "ranks_saved": sorted(os.listdir(os.path.join(run)))})
+
+
+def t2i(inp, out_dir):
+    """Tiny MaskGIT t2i at model 2: every rank's tokens equal the unsharded
+    sampler's under the same seed."""
+    from unigen_tpu_torch.generation import t2i_generate
+    cfg, params, ids, uncond = inp["cfg"], inp["params"], inp["t2i_ids"], inp["t2i_uncond"]
+
+    def run(tree):
+        g = torch.Generator().manual_seed(3)
+        return t2i_generate(tree, cfg, g, ids, None, uncond_input_ids=uncond,
+                            guidance_scale=3.0, timesteps=4, pad_id=0)
+
+    whole = run(params)
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    local, _ = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+    toks = run(local)
+    everyone = MH.gather_objects(toks.tolist())
+    save(out_dir, "t2i", {"whole": whole, "ranks": everyone})
+
+
+def errors(inp, out_dir):
+    from unigen_tpu_torch.ops.quantization import quantize_unigen_params
+    from unigen_tpu_torch.training.lora import add_lora
+    cfg, params = inp["cfg"], inp["params"]
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    lora = dict(params, llm=add_lora(params["llm"], torch.Generator().manual_seed(0), 2))
+    quant = quantize_unigen_params(params)
+    out = {
+        "mesh": _raises(lambda: P.make_mesh(data=-1, fsdp=3, device_type="cpu"), ValueError),
+        "lora": _raises(lambda: P.shard_params(lora, P.partition_unigen(lora), mesh),
+                        NotImplementedError),
+        "quant": _raises(lambda: P.shard_params(quant, P.partition_unigen(quant), mesh),
+                         NotImplementedError),
+    }
+    # data and fsdp alone take them
+    mesh_df = P.make_mesh(data=4, fsdp=2, model=1, device_type="cpu")
+    P.shard_params(lora, P.add_fsdp(P.partition_unigen(lora), lora), mesh_df)
+    save(out_dir, "errors", out)
+
+
+def parallel_all(inp, out_dir):
+    for program in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors"):
+        globals()[program](inp[program], out_dir)
+
+
+def multihost(inp, out_dir):
+    """tests/test_multihost.py's checks at the world's size, then the CoT
+    rating table of the world's ranks."""
+    rank, n = MH.process_index(), MH.process_count()
+    out = {"rank": rank, "count": n}
+    out["gather"] = MH.gather_objects({"rank": rank, "rows": [rank * 10, rank * 10 + 1]})
+    out["ragged"] = MH.gather_objects(["x"] * (rank % 3 + 1))
+    out["bcast0"] = MH.broadcast_object({"cfg": [1, 2, 3]} if rank == 0 else None)
+    out["bcast_last"] = MH.broadcast_object(f"from {rank}" if rank == n - 1 else None,
+                                            source=n - 1)
+    MH.sync_hosts()
+    if inp is not None:
+        from unigen_tpu_torch.evaluation.cot import run_cot
+        out["cot"] = run_cot(inp["pipeline"], inp["prompts"], **inp["kw"])
+    everyone = MH.gather_objects({k: v for k, v in out.items() if k != "cot"})
+    save(out_dir, "multihost", {"ranks": everyone, "cot": out.get("cot")})

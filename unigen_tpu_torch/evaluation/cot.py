@@ -31,7 +31,7 @@ import json
 import os
 import re
 from collections import defaultdict
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from ..data.transform import naflex_resize
 from ..models.siglip2 import Siglip2Config
 from ..ops.sampling import derived_generator
 from ..pipeline import UniGenPipeline, pixels_to_uint8
+from ..utils.multihost import gather_objects, process_index
 from .geneval import load_metadata_jsonl, save_png, shard_for_process
 
 # the derived generators' streams of one prompt
@@ -255,16 +256,6 @@ def rate_candidates(
     return rows
 
 
-def gather_objects(obj: Any) -> List[Any]:
-    """``obj`` of every process of ``torch.distributed``, by rank, when a
-    process group is initialised; ``[obj]`` otherwise."""
-    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
-        return [obj]
-    out: List[Any] = [None] * torch.distributed.get_world_size()
-    torch.distributed.all_gather_object(out, obj)
-    return out
-
-
 def run_cot(
     pipeline: UniGenPipeline,
     prompts: Sequence[str],
@@ -381,8 +372,7 @@ def main(argv: Optional[Sequence[str]] = None):
                 json.dump(md, f)
             for i in range(imgs.shape[0]):
                 save_png(imgs[i], os.path.join(d, f"{i:05}.png"))
-    dist = torch.distributed.is_available() and torch.distributed.is_initialized()
-    if not dist or torch.distributed.get_rank() == 0:
+    if process_index() == 0:
         for name, rows in (("rating_table", rating_table), ("rating_stats", stats)):
             with open(os.path.join(out, f"{name}_{args.style}.jsonl"), "w") as f:
                 for row in rows:

@@ -27,6 +27,7 @@ import torch
 
 from ..device import fetch_async
 from ..pipeline import UniGenPipeline, pixels_to_uint8
+from ..utils import multihost
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -83,11 +84,10 @@ def shard_for_process(items: Sequence, process_index: Optional[int] = None,
                       process_count: Optional[int] = None) -> List:
     """Every ``process_count``-th item from ``process_index``: the rank and
     world size of ``torch.distributed`` when it is initialised, else 0 of 1."""
-    dist = torch.distributed.is_available() and torch.distributed.is_initialized()
     if process_index is None:
-        process_index = torch.distributed.get_rank() if dist else 0
+        process_index = multihost.process_index()
     if process_count is None:
-        process_count = torch.distributed.get_world_size() if dist else 1
+        process_count = multihost.process_count()
     return list(items)[process_index::process_count]
 
 

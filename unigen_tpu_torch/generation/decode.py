@@ -109,7 +109,8 @@ def mmu_generate(
     b, l, _ = input_embeddings.shape
     dev = input_embeddings.device
     prompt_len = prompt_len.to(device=dev, dtype=torch.long)
-    cache = qwen2.init_kv_cache(cfg.llm, b, l + max_new_tokens, dev, quantize=quantized_cache)
+    cache = qwen2.init_kv_cache(cfg.llm, b, l + max_new_tokens, dev, quantize=quantized_cache,
+                                num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
     pos = torch.arange(l, device=dev)[None]
     positions = torch.minimum(pos, prompt_len[:, None] - 1)   # pads collapse, masked anyway
     hidden, cache = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=input_embeddings,

@@ -21,6 +21,12 @@ same logits, the port and the JAX package emit the same tokens.
 ``ops.flash_attention`` with pad bits) and then emits one image token a step
 against the KV cache (through ``ops.chunk_attention`` with the per-row key
 mask ``valid``); its shared-noise hook is ``noise [N, B, CB]``.
+
+Under tensor parallelism (a sharded tree, ``UniGenPipeline.shard``) every
+model rank runs the sampler in
+lockstep: the same seed and the same generator draws on logits that the
+all-gather makes identical on every rank, so the ranks emit the same
+tokens; the cache holds the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from ..models.unigen import UniGenConfig, embed_tokens, get_gen_embed
 from ..ops import masks as M
 from ..ops import sampling as S
 from ..ops.quantization import dense_int8
+from ..parallel import collectives as C
 
 FLOAT_MAX = torch.finfo(torch.float32).max
 
@@ -45,11 +52,13 @@ def _image_head(params, cfg: UniGenConfig, hidden: torch.Tensor) -> torch.Tensor
     if "img_head_q" in params:
         return dense_int8(params["img_head_q"], hidden).float()
     if cfg.use_gen_projector:
-        w = params["img_head"]
-    else:
-        w = qwen2.lm_head_weight(params["llm"], cfg.llm)
-        w = w[cfg.text_vocab_len:cfg.text_vocab_len + cfg.codebook_size]
-    return torch.nn.functional.linear(hidden, w.to(hidden.dtype)).float()
+        return qwen2.project(hidden, C.gather_fsdp(params["img_head"])).float()
+    w = qwen2.lm_head_weight(params["llm"], cfg.llm)
+    lo, hi = cfg.text_vocab_len, cfg.text_vocab_len + cfg.codebook_size
+    if C.model_dim(w) is not None:
+        # a vocab-sharded head: the image columns of the gathered logits
+        return qwen2.project(hidden, w)[..., lo:hi].float()
+    return torch.nn.functional.linear(hidden, w[lo:hi].to(hidden.dtype)).float()
 
 
 def _cfg_head_logits(params, cfg: UniGenConfig, hidden_img: torch.Tensor, bsz: int,
@@ -152,7 +161,8 @@ def t2i_generate(
         chunk_len = n + 2
         meta = M.pack_meta(M.lm_attn_meta(prompt, pad_id))
         keep = (meta & M.PAD_BIT) == 0
-        cache = qwen2.init_kv_cache(cfg.llm, rb, lp + chunk_len, dev)
+        cache = qwen2.init_kv_cache(cfg.llm, rb, lp + chunk_len, dev,
+                                    num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
         _, cache = qwen2.forward(params["llm"], cfg.llm,
                                  inputs_embeds=embed_tokens(params, prompt),
                                  meta_bits=meta, cache=cache)
@@ -231,7 +241,8 @@ def t2i_generate_ar(
     keep = attention_1d[:, :lp].to(device=dev, dtype=torch.bool)
     z = torch.zeros_like(keep)
     meta = M.pack_meta(M.AttnMeta(pad=~keep, bidir_q=z, bidir_k=z))
-    cache = qwen2.init_kv_cache(cfg.llm, rb, total, dev)
+    cache = qwen2.init_kv_cache(cfg.llm, rb, total, dev,
+                                num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
     hidden, cache = qwen2.forward(params["llm"], cfg.llm,
                                   inputs_embeds=embed_tokens(params, prompt),
                                   meta_bits=meta, cache=cache)

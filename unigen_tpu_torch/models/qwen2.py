@@ -62,17 +62,33 @@ W8A8 or W4A8 base (QLoRA) the adapters ride the forward, but a backward
 through the quantized product raises ``NotImplementedError``: JAX's
 autodiff differentiates through its ``round`` (zero) and ``act_scale``, and
 matching that is open (ROADMAP Queue 1 item 17).
+
+Tensor and ZeRO-3 parallelism (``parallel/``): on a sharded tree (its
+tensors registered by ``parallel.collectives.register``) the forward reads
+each leaf's spec. Under column-sharded q/k/v the rank computes its own heads (local
+heads = local q rows / ``head_dim``): the hidden states enter through
+``copy_to_model``, kernels 1 and 2 run unchanged on the local heads, and o
+and down leave through ``reduce_from_model``, a row-parallel bias added
+after the reduce. Replicated k/v under sharded q (the KV heads do not
+divide over ``model``) are taken whole and sliced to the rank's query
+group's KV heads (``kv_heads_of_rank``). A vocab-sharded ``embed`` is a
+masked lookup plus the reduce; the text head's logits are gathered over
+the vocabulary (``project``). Leaves sharded on ``fsdp`` are gathered at
+use: a layer's at the top of ``_layer``, so that ``remat`` gathers them
+again in the backward. RMSNorm, RoPE and the residual stream stay
+replicated. The KV cache holds the local KV heads (``local_kv_heads``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, dot_product_attention_q8
+from ..parallel import collectives as C
 from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.int4 import dense_int4, dense_int4_prequant, is_quantized_int4
@@ -133,13 +149,16 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: Qwen2Config, batch_size: int, max_len: int,
                   device: torch.device, dtype=None, quantize: bool = False,
-                  per_row_index: bool = False) -> KVCache:
+                  per_row_index: bool = False,
+                  num_kv_heads: Optional[int] = None) -> KVCache:
+    """``num_kv_heads``: the KV heads a rank holds under tensor parallelism
+    (``local_kv_heads``); all of them by default."""
     if cfg.kv_layout != "bskd":
         raise NotImplementedError(
             f"kv_layout {cfg.kv_layout!r}: the port's cache is bskd only (ROADMAP, "
             "'Deliberate differences')")
-    shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+    shape = (cfg.num_hidden_layers, batch_size, max_len,
+             num_kv_heads or cfg.num_key_value_heads, cfg.head_dim)
     index = (torch.zeros((batch_size,), dtype=torch.int32, device=device)
              if per_row_index else 0)
     if quantize:
@@ -324,6 +343,48 @@ def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
     return [_lora(p, n, x, y) for n, y in zip(names, ys)]
 
 
+def kv_heads_of_rank(h: int, kvh: int, h_loc: int, r: int) -> Union[slice, List[int]]:
+    """The KV heads that model rank ``r``'s query heads r*h_loc .. read: a
+    slice when they are a contiguous GQA group of the local heads, else one
+    KV head a query head (a list)."""
+    g = h // kvh
+    idx = [(r * h_loc + i) // g for i in range(h_loc)]
+    n = idx[-1] + 1 - idx[0]
+    if h_loc % n == 0 and all(j - idx[0] == i // (h_loc // n) for i, j in enumerate(idx)):
+        return slice(idx[0], idx[-1] + 1)
+    return idx
+
+
+def _tp_heads(p: Dict, cfg: Qwen2Config):
+    """(local query heads, KV heads to take from a whole k/v or None) of a
+    layer's bound leaves; (all heads, None) without tensor parallelism."""
+    h, dh = cfg.num_attention_heads, cfg.head_dim
+    if C.model_dim(p.get("q_w")) is None:
+        return h, None
+    h_loc = p["q_w"].shape[0] // dh
+    if C.model_dim(p["k_w"]) is not None:
+        return h_loc, None
+    return h_loc, kv_heads_of_rank(h, cfg.num_key_value_heads, h_loc, C.model_index())
+
+
+def local_kv_heads(params: Dict, cfg: Qwen2Config) -> int:
+    """The KV heads this rank's cache holds (all of them on a whole tree)."""
+    h_loc, sel = _tp_heads(params["layers"][0], cfg)
+    if sel is None:
+        return cfg.num_key_value_heads * h_loc // cfg.num_attention_heads
+    return sel.stop - sel.start if isinstance(sel, slice) else len(sel)
+
+
+def _dense_row(p: Dict, name: str, x: torch.Tensor, tp: bool) -> torch.Tensor:
+    """A row-parallel product: the local partial sums reduced over
+    ``model``, the bias added once after the reduce."""
+    if not tp:
+        return _dense(p, name, x)
+    y = C.reduce_from_model(F.linear(x, p[f"{name}_w"]))
+    bias = p.get(f"{name}_b")
+    return y if bias is None else y + bias
+
+
 def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      mask: Optional[torch.Tensor],
                      cos_sin: Tuple[torch.Tensor, torch.Tensor],
@@ -333,11 +394,20 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      where: Union[int, RowSlots, None],
                      q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     b, l, _ = x.shape
-    h, kvh, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, kv_sel = _tp_heads(p, cfg)
+    tp = h < cfg.num_attention_heads
+    if tp:
+        x = C.copy_to_model(x)
+    if kv_sel is not None:
+        # whole k/v, each rank on its own heads: their gradients are summed over model
+        p = {**p, **{n: C.copy_to_model(p[n]) for n in ("k_w", "k_b", "v_w", "v_b") if n in p}}
     q, k, v = _dense_shared(p, ("q", "k", "v"), x)
     q = q.view(b, l, h, dh)
-    k = k.view(b, l, kvh, dh)
-    v = v.view(b, l, kvh, dh)
+    k = k.view(b, l, -1, dh)
+    v = v.view(b, l, -1, dh)
+    if kv_sel is not None:
+        k, v = k[:, :, kv_sel], v[:, :, kv_sel]
     q = apply_rope(q, *cos_sin)
     k = apply_rope(k, *cos_sin)
 
@@ -354,7 +424,7 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
             key_mask = mask if kv_rowmask is None else kv_rowmask[:, None, None, :]
             out = dot_product_attention_q8(q, cache.k[li], cache.k_scale[li], cache.v[li],
                                            cache.v_scale[li], mask=key_mask)
-        return _dense(p, "o", out.reshape(b, l, h * dh))
+        return _dense_row(p, "o", out.reshape(b, l, h * dh), tp)
     if cache is not None:
         _cache_write(cache.k, k, li, where)
         _cache_write(cache.v, v, li, where)
@@ -368,20 +438,33 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                                     mask=mask)
     else:
         out = dot_product_attention(q, k, v, mask=mask)
-    return _dense(p, "o", out.reshape(b, l, h * dh))
+    return _dense_row(p, "o", out.reshape(b, l, h * dh), tp)
 
 
 def _mlp_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    tp = C.model_dim(p.get("gate_w")) is not None
+    if tp:
+        x = C.copy_to_model(x)
     gate, up = _dense_shared(p, ("gate", "up"), x)
-    return _dense(p, "down", F.silu(gate) * up)
+    return _dense_row(p, "down", F.silu(gate) * up, tp)
 
 
 def embed(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(input_ids, params["embed"])
+    """Token embeddings; a vocab-sharded table looks up the ids in its rows
+    (zeros elsewhere) and the ranks' rows are summed over ``model``."""
+    w = C.gather_fsdp(params["embed"])
+    if C.model_dim(w) != 0:
+        return F.embedding(input_ids, w)
+    vl = w.shape[0]
+    local = input_ids - C.model_index() * vl
+    inside = (local >= 0) & (local < vl)
+    e = F.embedding(torch.where(inside, local, torch.zeros_like(local)), w)
+    return C.reduce_from_model(e * inside[..., None].to(e.dtype))
 
 
 def _layer(lp: Dict, cfg: Qwen2Config, x: torch.Tensor, mask, cos_sin, cache, li: int,
            meta_bits, kv_rowmask, where, q_start) -> torch.Tensor:
+    lp = C.gather_tree(lp)
     hn = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
     x = x + _attention_block(lp, cfg, hn, mask, cos_sin, cache, li, meta_bits,
                              kv_rowmask, where, q_start)
@@ -448,16 +531,27 @@ def forward(
     for li, lp in enumerate(params["layers"]):
         args = (lp, cfg, x, mask, cos_sin, cache, li, meta_bits, kv_rowmask, where, q_start)
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
-    x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+    x = rms_norm(x, C.gather_fsdp(params["final_ln"]), cfg.rms_norm_eps)
     new_cache = None if cache is None else cache._replace(index=start + l)
     return x, new_cache
 
 
 def lm_head_weight(params: Dict, cfg: Qwen2Config) -> torch.Tensor:
-    """[V, D] output projection (the embedding unless the head is untied)."""
+    """[V, D] output projection (the embedding unless the head is untied),
+    gathered over ``fsdp``; on a sharded tree it may be vocab-sharded
+    (``project``)."""
     if cfg.tie_word_embeddings and "lm_head" not in params:
-        return params["embed"]
-    return params["lm_head"]
+        return C.gather_fsdp(params["embed"])
+    return C.gather_fsdp(params["lm_head"])
+
+
+def project(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``hidden @ w.T`` in hidden's dtype over all of w's rows: a weight
+    sharded on its rows (a vocab- or code-parallel head) gives this rank's
+    columns of the logits, gathered over ``model``."""
+    if C.model_dim(w) != 0:
+        return F.linear(hidden, w.to(hidden.dtype))
+    return C.gather_last(F.linear(C.copy_to_model(hidden), w.to(hidden.dtype)))
 
 
 def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
@@ -486,8 +580,10 @@ def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
         return dense_int4(p, hidden)
     w = lm_head_weight(params, cfg)
     if vocab_slice is not None:
+        if C.model_dim(w) is not None:
+            return project(hidden, w)[..., vocab_slice[0]:vocab_slice[1]]
         w = w[vocab_slice[0]:vocab_slice[1]]
-    return F.linear(hidden, w.to(hidden.dtype))
+    return project(hidden, w)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ An int8 tower (``ops.quantization.quantize_siglip_params``) holds ``<name>:
 {'kernel_int8', 'scale', 'bias'}`` for q, k, v, o, fc1 and fc2 and runs them
 W8A8 (q/k/v on one activation quantization), as the JAX package does; the
 patch embedding and the layer norms stay float.
+
+On a tree sharded by ``parallel.partition.partition_siglip`` (column-parallel
+q/k/v and fc1, row-parallel o and fc2) a rank runs its own heads (16 of 72
+become 8 a rank at ``model=2``, padded to 80 for kernel 2 as before): the
+input enters through ``copy_to_model``, o and fc2 leave through
+``reduce_from_model`` with their biases added after the reduce, and fsdp
+shards are gathered at the top of each layer.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention, kernel_head_dim
+from ..parallel import collectives as C
 from ..ops.masks import BIDIRQ_BIT
 from ..ops.quantization import (dense_int8, dense_int8_prequant, is_quantized,
                                 quantize_activations)
@@ -95,15 +103,29 @@ def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p[f"{name}_w"], p[f"{name}_b"])
 
 
+def _dense_row(p: Dict, name: str, x: torch.Tensor, tp: bool) -> torch.Tensor:
+    """A row-parallel product under tensor parallelism: the partial sums
+    reduced over ``model``, then the bias."""
+    if not tp:
+        return _dense(p, name, x)
+    return C.reduce_from_model(F.linear(x, p[f"{name}_w"])) + p[f"{name}_b"]
+
+
 def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
                    attend=_bidir_attention) -> torch.Tensor:
     """One pre-LN layer; ``attend(q, k, v, scale)`` on [B, L, H, dh] is its
     attention (SigLIP2-NaFlex passes its key-masked one)."""
+    p = C.gather_tree(p)
     b, l, d = x.shape
     h = cfg.num_attention_heads
     dh = d // h
+    tp = C.model_dim(p.get("q_w")) is not None
+    if tp:
+        h = p["q_w"].shape[0] // dh
     res = x
     x = layer_norm(p["ln1"], x, cfg.layer_norm_eps)
+    if tp:
+        x = C.copy_to_model(x)
     if is_quantized(p.get("q")):
         # q/k/v share the input: one activation quantization for all three
         x8, xs = quantize_activations(x)
@@ -111,22 +133,26 @@ def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
                    for n in ("q", "k", "v"))
     else:
         q, k, v = (_dense(p, n, x).view(b, l, h, dh) for n in ("q", "k", "v"))
-    attn = attend(q, k, v, dh ** -0.5).reshape(b, l, d)
-    x = res + _dense(p, "o", attn)
+    attn = attend(q, k, v, dh ** -0.5).reshape(b, l, h * dh)
+    x = res + _dense_row(p, "o", attn, tp)
     res = x
     x = layer_norm(p["ln2"], x, cfg.layer_norm_eps)
+    tp_mlp = C.model_dim(p.get("fc1_w")) is not None
+    if tp_mlp:
+        x = C.copy_to_model(x)
     x = F.gelu(_dense(p, "fc1", x), approximate="tanh")
-    return res + _dense(p, "fc2", x)
+    return res + _dense_row(p, "fc2", x, tp_mlp)
 
 
 @torch.no_grad()
 def forward(params: Dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """pixels [B, H, W, 3] (normalized to [-1, 1]) -> patch features [B, P, D]."""
-    w = params["patch_embed"]["kernel"].to(cfg.dtype).permute(3, 2, 0, 1)   # HWIO -> OIHW
+    pe = C.gather_tree(params["patch_embed"])
+    w = pe["kernel"].to(cfg.dtype).permute(3, 2, 0, 1)   # HWIO -> OIHW
     x = F.conv2d(pixel_values.to(cfg.dtype).permute(0, 3, 1, 2), w, stride=cfg.patch_size)
-    x = x.permute(0, 2, 3, 1) + params["patch_embed"]["bias"].to(cfg.dtype)
+    x = x.permute(0, 2, 3, 1) + pe["bias"].to(cfg.dtype)
     b, gh, gw, d = x.shape
-    x = x.reshape(b, gh * gw, d) + params["pos_embed"].to(cfg.dtype)[None]
+    x = x.reshape(b, gh * gw, d) + C.gather_fsdp(params["pos_embed"]).to(cfg.dtype)[None]
     for lp in params["layers"]:
         x = _encoder_layer(lp, cfg, x)
     return x

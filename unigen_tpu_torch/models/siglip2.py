@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import kernel_head_dim
+from ..parallel import collectives as C
 from ..utils.persistence import take
 from .siglip import _encoder_layer, hf_encoder_layers
 
@@ -132,8 +133,8 @@ def forward_with_pos(params: Dict, cfg: Siglip2Config, pixel_values: torch.Tenso
                      pos_embeds: torch.Tensor) -> torch.Tensor:
     """pixel_values [B, N, 3 p p] and pre-resized ``pos_embeds`` [B, N, D]
     -> features [B, N, D] (the NaFlex SFT step resizes once a batch)."""
-    x = F.linear(pixel_values.to(cfg.dtype), params["patch_embed"]["w"].to(cfg.dtype),
-                 params["patch_embed"]["b"].to(cfg.dtype))
+    pe = C.gather_tree(params["patch_embed"])
+    x = F.linear(pixel_values.to(cfg.dtype), pe["w"].to(cfg.dtype), pe["b"].to(cfg.dtype))
     x = x + pos_embeds.to(cfg.dtype)
     return encoder_forward(params, cfg, x, pixel_attention_mask)
 
@@ -143,7 +144,7 @@ def forward(params: Dict, cfg: Siglip2Config, pixel_values: torch.Tensor,
             pixel_attention_mask: torch.Tensor, spatial_shapes) -> torch.Tensor:
     """pixel_values [B, N, 3 p p] (normalized to [-1, 1]), the patch mask
     [B, N] and each image's (h, w) in patches [B, 2] -> features [B, N, D]."""
-    pos = resize_positional_embeddings(params["pos_embed"], spatial_shapes,
+    pos = resize_positional_embeddings(C.gather_fsdp(params["pos_embed"]), spatial_shapes,
                                        pixel_values.shape[1])
     return forward_with_pos(params, cfg, pixel_values, pixel_attention_mask, pos)
 

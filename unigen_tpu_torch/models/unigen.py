@@ -15,6 +15,14 @@ the port's parameters):
   the sequence (``_chunked_ce``: 64 positions a chunk, each under
   ``torch.utils.checkpoint``, fp32 log-softmax and sums, so the [B, L, V]
   fp32 logits never exist at once; JAX's ``jax.checkpoint`` scan body).
+
+Under ``parallel/``: ``img_head`` is column-parallel over the codes and its
+logits are gathered before the CE and the samplers (``qwen2.project``), as
+are the vocab-parallel text head's; the projectors and ``gen_embed``
+replicate (gathered at use when fsdp shards them). Inside a sharded step
+(``collectives.batch_sharded``) each CE's valid count is summed over the
+batch group before the division, so a rank's loss is its share of the
+global mean.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import collectives as C
 from . import qwen2
 from .qwen2 import Qwen2Config
 
@@ -79,13 +88,14 @@ def mlp_apply(layers: List[Dict], x: torch.Tensor) -> torch.Tensor:
     for i, p in enumerate(layers):
         if i > 0:
             x = F.gelu(x, approximate="none")
-        x = F.linear(x, p["w"].to(x.dtype), p["b"].to(x.dtype))
+        x = F.linear(x, C.gather_fsdp(p["w"]).to(x.dtype), C.gather_fsdp(p["b"]).to(x.dtype))
     return x
 
 
 def get_gen_embed(params: Dict, img_tokens: torch.Tensor) -> torch.Tensor:
     """(codebook+1)-space image tokens -> LLM hidden embeddings."""
-    return mlp_apply(params["gen_projector"], F.embedding(img_tokens, params["gen_embed"]))
+    return mlp_apply(params["gen_projector"],
+                     F.embedding(img_tokens, C.gather_fsdp(params["gen_embed"])))
 
 
 def mm_project(params: Dict, image_feats: torch.Tensor) -> torch.Tensor:
@@ -118,18 +128,19 @@ def prepare_inputs_for_t2i(params: Dict, cfg: UniGenConfig,
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                    ignore_id: int = -100) -> torch.Tensor:
-    """Mean CE over non-ignored positions, fp32 (== F.cross_entropy)."""
+    """Mean CE over non-ignored positions, fp32 (== F.cross_entropy); in a
+    sharded step this rank's share (the count is the batch group's)."""
     valid = labels != ignore_id
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return total / torch.clamp(valid.sum(), min=1)
+    return total / torch.clamp(C.batch_sum(valid.sum()), min=1)
 
 
 def _chunk_label_logps(h_c: torch.Tensor, w: torch.Tensor, lab_c: torch.Tensor,
                        ignore_id: int, per_row: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = F.linear(h_c, w.to(h_c.dtype)).float()
+    logits = qwen2.project(h_c, w).float()
     valid = lab_c != ignore_id
     safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
     tok = torch.gather(torch.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
@@ -161,7 +172,7 @@ def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                 ignore_id: int = -100, chunk: int = 64) -> torch.Tensor:
     """Mean CE over non-ignored positions, chunked (== ``_cross_entropy``)."""
     total, count = _chunked_label_logps(hidden, w, labels, ignore_id=ignore_id, chunk=chunk)
-    return -total / torch.clamp(count, min=1)
+    return -total / torch.clamp(C.batch_sum(count), min=1)
 
 
 def forward(
@@ -220,7 +231,7 @@ def forward(
         return None, loss_t2i, loss_lm, loss_mmu
 
     if use_gen:
-        img_logits = F.linear(hidden[:bt], params["img_head"].to(hidden.dtype))
+        img_logits = qwen2.project(hidden[:bt], C.gather_fsdp(params["img_head"]))
         if labels is None:
             return img_logits
         logits = qwen2.logits(params["llm"], cfg.llm, hidden[bt:])

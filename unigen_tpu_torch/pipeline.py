@@ -30,6 +30,8 @@ from .generation import mmu_generate, t2i_generate, t2i_generate_ar
 from .models import magvit, qwen2, siglip, siglip2, unigen
 from .ops import masks as M
 from .ops import sampling as S
+from .parallel import collectives as C
+from .parallel.partition import shard_params, unigen_specs
 from .prompting import UniPrompting
 from .weights import tree_to
 
@@ -113,14 +115,25 @@ class UniGenPipeline:
     vision_params: Optional[Any] = None
     vision_cfg: Optional[Any] = None     # SiglipConfig or siglip2.Siglip2Config
     quantized_cache: bool = False   # int8 KV cache for understand and generate_text
+    sharding: Optional[Any] = None  # parallel.partition.Sharding of a sharded params
 
     def to(self, device) -> "UniGenPipeline":
         """A pipeline with every parameter moved to ``device``."""
         device = torch.device(device)
-        return dataclasses.replace(self, params=tree_to(self.params, device),
+        return dataclasses.replace(self, params=C.register(self.sharding,
+                                                           tree_to(self.params, device)),
                                    vq_params=tree_to(self.vq_params, device),
                                    vision_params=tree_to(self.vision_params, device),
                                    device=device)
+
+    def shard(self, mesh) -> "UniGenPipeline":
+        """The pipeline with this rank's shards of the UniGen tree on
+        ``mesh`` (``parallel.unigen_specs``; the tokenizer and the vision
+        tower stay whole): tensor parallelism for ``generate_images``, every
+        model rank running the sampler in lockstep."""
+        params, sharding = shard_params(self.params, unigen_specs(self.params, self.cfg, mesh),
+                                        mesh)
+        return dataclasses.replace(self, params=params, sharding=sharding)
 
     def prompt_ids(self, prompts: Sequence[str], max_text_len: int = 128
                    ) -> Tuple[np.ndarray, np.ndarray]:

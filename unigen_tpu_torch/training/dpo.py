@@ -23,6 +23,12 @@ Masking draws: ``key`` is a ``torch.Generator`` (the chosen draws, then the
 rejected ones) or a pair of ``ops.masking.MaskDraws`` (JAX's ``k_c, k_r``
 split; the entry derives both from the step's seed, so the reference pass
 and the step see the same draws).
+
+A sharded state (``train_step``'s docstring) takes the global batch: each
+rank scores its rows of the batch group under its rows of the global
+draws, its loss and metrics are its shares of the means over all pairs,
+and the gradients are summed over the batch group. The reference tree is
+sharded as the policy's (``parallel.shard_params`` with the same specs).
 """
 from __future__ import annotations
 
@@ -38,8 +44,9 @@ from ..models.unigen import UniGenConfig, _chunked_label_logps
 from ..ops import masking as MK
 from ..ops import masks as M
 from ..ops import sampling as S
-from .optimizer import AdamW, global_norm, named_leaves
-from .train_step import TrainState, _splice
+from ..parallel import collectives as C
+from .optimizer import AdamW, named_leaves
+from .train_step import TrainState, _splice, apply_update, batch_grads, check_key, local_draws
 
 PairKey = Union[torch.Generator, Sequence[MK.MaskDraws], None]
 
@@ -223,27 +230,35 @@ class DPOStep:
                 rc, rr = _concatenated_logps(cfg, dcfg, ref_params, ids, labs, bits, b)
         pc, pr = _concatenated_logps(cfg, dcfg, params, ids, labs, bits, b)
         logits_diff = (pc - pr) - (rc - rr)
-        loss = dcfg.dpo_coef * (-F.logsigmoid(dcfg.beta * logits_diff)).mean()
+        loss = dcfg.dpo_coef * C.batch_mean(-F.logsigmoid(dcfg.beta * logits_diff))
         leaves = [t for _, t in named_leaves(params)]
         want = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad(loss, want, allow_unused=True, materialize_grads=True))
         grads = [next(got) if t.requires_grad else None for t in leaves]
         metrics = {
             "loss": loss.detach(),
-            "reward_accuracy": ((pc - pr) > (rc - rr)).float().mean(),
-            "policy_chosen_logps": pc.detach().mean(),
-            "policy_rejected_logps": pr.detach().mean(),
-            "chosen_masking_rate": c_prob.mean(),
-            "rejected_masking_rate": r_prob.mean(),
+            "reward_accuracy": C.batch_mean(((pc - pr) > (rc - rr)).float()),
+            "policy_chosen_logps": C.batch_mean(pc.detach()),
+            "policy_rejected_logps": C.batch_mean(pr.detach()),
+            "chosen_masking_rate": C.batch_mean(c_prob),
+            "rejected_masking_rate": C.batch_mean(r_prob),
         }
         return grads, metrics
 
     def __call__(self, state: TrainState, ref_params, vq_params, batch, key: PairKey):
-        grads, metrics = self.loss_and_grads(state.params, ref_params, vq_params, batch, key)
-        metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
-        leaves = [t for _, t in named_leaves(state.params)]
-        opt_state = self.tx.update(grads, state.opt_state, leaves)
-        return TrainState(state.params, opt_state, state.step + 1, state.ema), metrics
+        def draw(key):
+            check_key(key)
+            return tuple(local_draws(d) for d in pair_draws(
+                key, batch["template"].shape[0], self.cfg.num_vq_tokens,
+                self.cfg.codebook_size, state.step.device))
+
+        def grads_fn(rows, key):
+            return self.loss_and_grads(state.params, ref_params, vq_params, rows, key)
+        return self.apply(state, *batch_grads(state, batch, key, draw, grads_fn))
+
+    def apply(self, state: TrainState, grads, metrics):
+        """The grad norm metric (over the trained leaves) and AdamW in place."""
+        return apply_update(self.tx, state, grads, metrics)
 
 
 def make_dpo_step(cfg: UniGenConfig, vq_cfg: MagvitConfig, tx: AdamW,

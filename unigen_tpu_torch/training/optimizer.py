@@ -20,6 +20,10 @@ The decay, freeze and multiplier patterns match the JAX tree's paths of
 the leaves (``weights.jax_leaf_path``), so a pattern means what it means
 there. One difference: the global norm (clip and metric) is summed in fp32
 for every leaf dtype; optax sums a bf16 tree in bf16.
+
+On a sharded tree (``parallel/``) the moments are the shards' and the
+update is elementwise on them; only the global norm (clip and metric)
+reduces, each leaf's partial sum over the axes it is sharded on.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Se
 
 import torch
 
+from ..parallel.collectives import sum_over_shards
 from ..weights import jax_leaf_path
 
 NO_DECAY_PATTERNS = ("bias", "ln/scale", "final_ln", "embed/weight", "pos_embed",
@@ -69,10 +74,17 @@ def lr_multiplier_mask(params: Any, lr_mapper: Dict[str, float]) -> Dict[str, fl
     return {p: mult(jax_leaf_path(p)) for p, _ in named_leaves(params)}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in fp32, on the device."""
-    norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors: Sequence[torch.Tensor],
+                specs: Optional[Sequence[Tuple]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, in fp32, on the device.
+    With ``specs`` (one a tensor: the leaves of a sharded tree) each local
+    shard's sum of squares is summed over the mesh axes its leaf is sharded
+    on, a replicated leaf counted once: the whole tree's norm on every rank."""
+    if specs is None:
+        norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = [torch.linalg.vector_norm(t, dtype=torch.float32) ** 2 for t in tensors]
+    return torch.sqrt(sum_over_shards(squares, specs))
 
 
 class OptState(NamedTuple):
@@ -103,13 +115,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
-               leaves: Sequence[torch.Tensor]) -> OptState:
+               leaves: Sequence[torch.Tensor],
+               specs: Optional[Sequence[Tuple]] = None) -> OptState:
         """Applies one update to ``leaves`` in place; returns the new state
-        (its moments are the old ones, updated in place)."""
+        (its moments are the old ones, updated in place). ``specs``: the
+        leaves' specs when they are local shards (the clip's norm is the
+        whole tree's; the rest is elementwise on the shards)."""
         idx = [i for i, train in enumerate(self.trainable) if train]
         g = [grads[i] for i in idx]
         if self.max_grad_norm is not None:
-            norm = global_norm(g)
+            norm = global_norm(g, None if specs is None else [specs[i] for i in idx])
             keep = norm < self.max_grad_norm
             g = [torch.where(keep, x, x / norm.to(x.dtype) * self.max_grad_norm) for x in g]
         count = state.count + 1

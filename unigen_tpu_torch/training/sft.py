@@ -41,6 +41,13 @@ rows carry patches instead of pixels: ``mmu_pixel_values`` [Bm, P, 3 p p],
 once a batch); the image block's bidirectional keys are each row's own
 patches (``mmu_vit_attn_meta`` with the spatial shapes). ``n_grid`` tiling is
 a fixed-resolution feature and raises with it, as in JAX.
+
+A sharded state (``train_step``'s docstring) takes the global batch: each
+rank runs the step on its rows of the batch group under its rows of the
+global t2i draws, in any of the modes (a packed rank packs its own rows),
+with every CE's count, the gradients and the metrics summed over the
+batch group. The frozen tower may be sharded by
+``parallel.partition.siglip_specs``. ``make_sft_grad_fns`` is unsharded.
 """
 from __future__ import annotations
 
@@ -56,8 +63,10 @@ from ..models.unigen import UniGenConfig, _chunked_ce
 from ..ops import masking as MK
 from ..ops import masks as M
 from ..ops import sampling as S
-from .optimizer import AdamW, global_norm, named_leaves
-from .train_step import Key, TrainState, TrainStepConfig, _splice, init_train_state
+from ..parallel import collectives as C
+from .optimizer import AdamW, named_leaves
+from .train_step import (Key, TrainState, TrainStepConfig, _splice, apply_update, batch_grads,
+                         global_draws, init_train_state, local_tcfg)
 
 
 def grid_tiles(pixels: torch.Tensor, n_grid: int, tile_size: int) -> torch.Tensor:
@@ -85,10 +94,10 @@ class SFTStepConfig(TrainStepConfig):
     pack_rows: bool = True
 
 
-def init_sft_state(params: Any, tx: AdamW) -> TrainState:
+def init_sft_state(params: Any, tx: AdamW, sharding: Optional[Any] = None) -> TrainState:
     """``init_train_state`` with the leaves the optimizer freezes not
     requiring grad: no gradient is computed for them."""
-    state = init_train_state(params, tx)
+    state = init_train_state(params, tx, sharding=sharding)
     for (_, t), train in zip(named_leaves(state.params), tx.trainable):
         t.requires_grad_(train)
     return state
@@ -247,7 +256,7 @@ class SFTStep:
         if bl:
             losses["loss_lm"] = ll
             total = total + tcfg.lm_coeff * ll
-        losses["avg_masking_rate"] = mask_prob.mean()
+        losses["avg_masking_rate"] = C.batch_mean(mask_prob)
         return total, losses
 
     def loss_mmu(self, params, vision_params, batch):
@@ -304,7 +313,7 @@ class SFTStep:
             meta_bits=M.pack_meta(M.concat_meta(*metas, mmu_meta)),
             batch_size_t2i=bt, batch_size_lm=bl, batch_size_mmu=bm,
             t2i_mode=tcfg.t2i_gen_mode, positions=torch.cat(pos))
-        return self._total({"avg_masking_rate": mask_prob.mean()}, lt, ll, lmu, bt, bl)
+        return self._total({"avg_masking_rate": C.batch_mean(mask_prob)}, lt, ll, lmu, bt, bl)
 
     def _pack(self, ids_r, labs_r, meta_builder):
         """r rows of length ls -> ceil(r / segs) rows of ``common_length``:
@@ -375,7 +384,7 @@ class SFTStep:
         lt = _chunked_ce(hidden[:rt], w, t2i_labs_p) if bt else None
         ll = _chunked_ce(hidden[rt:rt + rl, :-1], w, lm_labs_p[:, 1:]) if bl else None
         lmu = _chunked_ce(hidden[rt + rl:, :-1], w, mmu_labels[:, 1:])
-        return self._total({"avg_masking_rate": mask_prob.mean()}, lt, ll, lmu, bt, bl)
+        return self._total({"avg_masking_rate": C.batch_mean(mask_prob)}, lt, ll, lmu, bt, bl)
 
     # ---------------------------------------------------------- the step --
 
@@ -420,14 +429,21 @@ class SFTStep:
 
     def apply(self, state: TrainState, grads, metrics):
         """The update of ``grads``: the grad norm metric, AdamW in place."""
-        metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
-        leaves = [t for _, t in named_leaves(state.params)]
-        opt_state = self.tx.update(grads, state.opt_state, leaves)
-        return TrainState(state.params, opt_state, state.step + 1, state.ema), metrics
+        return apply_update(self.tx, state, grads, metrics)
 
     def __call__(self, state: TrainState, vq_params, vision_params, batch, key: Key):
-        grads, metrics = self.loss_and_grads(state.params, vq_params, vision_params, batch, key)
-        return self.apply(state, grads, metrics)
+        tcfg = self.tcfg
+
+        def draw(key):
+            if tcfg.batch_size_t2i > 0:
+                return global_draws(key, tcfg.batch_size_t2i, self.cfg.num_vq_tokens,
+                                    self.cfg.codebook_size, state.step.device)
+            return key
+
+        def grads_fn(rows, key):
+            step = SFTStep(self.cfg, self.vq_cfg, self.vision_cfg, self.tx, local_tcfg(tcfg))
+            return step.loss_and_grads(state.params, vq_params, vision_params, rows, key)
+        return self.apply(state, *batch_grads(state, batch, key, draw, grads_fn))
 
 
 def make_sft_train_step(cfg: UniGenConfig, vq_cfg: MagvitConfig, vision_cfg, tx: AdamW,

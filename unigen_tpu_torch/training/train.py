@@ -26,10 +26,10 @@ import sys
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
-import torch
 
 from ..device import resolve_device
 from ..launch import build_prompting_from_config, build_unigen, build_vq, load_tokenizer
+from ..utils import multihost
 from ..utils.configuration import initialize_config
 from . import lr_schedules as LRS
 from .optimizer import make_optimizer
@@ -92,12 +92,10 @@ def task_flows(config) -> Dict[str, object]:
             per_device_batch_size=tr.batch_size_t2i, resolution=res,
             short_caption_ratio=params.get("t2i_short_caption_ratio", 0.5))
     if tr.batch_size_lm:
-        dist = torch.distributed.is_available() and torch.distributed.is_initialized()
         flows["lm_flow"] = ParquetTextDataset(
             data_files(config, "train_lm_shards_path_or_url"),
             per_device_batch_size=tr.batch_size_lm,
-            process_index=torch.distributed.get_rank() if dist else 0,
-            process_count=torch.distributed.get_world_size() if dist else 1)
+            process_index=multihost.process_index(), process_count=multihost.process_count())
     if tr.batch_size_mmu:
         flows["mmu_flow"] = Text2ImageDataset(
             data_files(config, "train_mmu_shards_path_or_url"),
@@ -116,8 +114,9 @@ def real_flows(config, prompting=None) -> Iterator[dict]:
     return prefetch(combined_loader(task_flows(config)))
 
 
-def build_trainer(config, dtype=None) -> Trainer:
-    """The Trainer a run's config describes, on ``config.device`` (cuda by default)."""
+def build_trainer(config, dtype=None, mesh=None, fsdp: bool = False) -> Trainer:
+    """The Trainer a run's config describes, on ``config.device`` (cuda by
+    default); with a ``mesh`` (``parallel.make_mesh``) sharded on it."""
     device = resolve_device(config.get("device"))
     prompting = build_prompting_from_config(config, load_tokenizer(config))
     params, cfg = build_unigen(config, prompting, dtype, device)
@@ -160,7 +159,8 @@ def build_trainer(config, dtype=None) -> Trainer:
         seed=tr.get("seed", 10084),
         und_type=config.dataset.get("und_type", "captioning"),
         ema_decay=tr.get("ema_decay", 0.0))
-    return Trainer(cfg, vq_cfg, tcfg, trainer_cfg, prompting, tx, params, vq_params)
+    return Trainer(cfg, vq_cfg, tcfg, trainer_cfg, prompting, tx, params, vq_params,
+                   mesh=mesh, fsdp=fsdp)
 
 
 def main(argv=None) -> int:

@@ -25,6 +25,20 @@ Randomness: ``key`` is a ``torch.Generator`` (the masking draws come from
 it on the device), a ``ops.masking.MaskDraws``, or with gradient
 accumulation a list of one ``MaskDraws`` a micro-batch (JAX's
 ``jax.random.split(key, a)`` streams).
+
+One path runs every state (``batch_grads`` then ``apply_update``, shared
+with the SFT and DPO steps). A sharded state (``init_train_state(..., sharding=)`` over the
+local shards of ``parallel.shard_params``) takes the same global batch and
+key: inside ``collectives.batch_sharded`` each rank takes its rows of the
+batch group (data, fsdp) of every micro-batch (``collectives.local_rows``),
+which removes the three differences from the unsharded step: the masking
+draws are made for the global batch on every rank and sliced
+(``global_draws``); every CE's valid count is summed over the batch group
+before its division; and the gradients are summed over the batch group
+(``collectives.sync_grads``), each rank's loss being its share of the
+global mean. The metrics are summed the same way, the grad norm and the
+clip are the whole tree's, and AdamW and the EMA run on the shards. With no
+mesh each of these is the identity.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ from ..models.unigen import UniGenConfig
 from ..ops import masking as MK
 from ..ops import masks as M
 from ..ops import sampling as S
+from ..parallel import collectives as C
 from ..weights import map_tree
 from .ema import EMAConfig, EMAState, ema_init, ema_update
 from .optimizer import AdamW, OptState, global_norm, named_leaves
@@ -52,6 +67,7 @@ class TrainState(NamedTuple):
     opt_state: OptState
     step: torch.Tensor       # int32 [] on the parameters' device
     ema: Optional[EMAState] = None
+    sharding: Optional[Any] = None   # parallel.partition.Sharding of local shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,15 +93,95 @@ class TrainStepConfig:
     memory_efficient_loss: bool = True  # chunked CE: no [B, L, 160k] logits tensor
 
 
-def init_train_state(params: Any, tx: AdamW, ema_cfg: Optional[EMAConfig] = None
-                     ) -> TrainState:
+def init_train_state(params: Any, tx: AdamW, ema_cfg: Optional[EMAConfig] = None,
+                     sharding: Optional[Any] = None) -> TrainState:
     """A state over a copy of ``params`` (the step updates it in place; the
-    caller's tree is left as it is), its leaves requiring grad."""
-    params = map_tree(params, lambda t: t.detach().clone().requires_grad_(True))
+    caller's tree is left as it is), its leaves requiring grad. With
+    ``sharding`` (``parallel.shard_params``' record) ``params`` are this
+    rank's shards: the copies are registered as such."""
+    params = C.register(sharding, map_tree(
+        params, lambda t: t.detach().clone().requires_grad_(True)))
     leaves = [t for _, t in named_leaves(params)]
+    if sharding is not None:
+        sharding = dataclasses.replace(sharding, moments=[
+            s for s, train in zip(sharding.spec_list(params), tx.trainable) if train])
+    ema = ema_init(params) if ema_cfg is not None else None
+    if ema is not None:
+        C.register(sharding, ema.params)
     return TrainState(params, tx.init(leaves),
-                      torch.zeros((), dtype=torch.int32, device=leaves[0].device),
-                      ema_init(params) if ema_cfg is not None else None)
+                      torch.zeros((), dtype=torch.int32, device=leaves[0].device), ema, sharding)
+
+
+def local_draws(draws: MK.MaskDraws) -> MK.MaskDraws:
+    """This rank's rows of the global batch's masking draws (the contiguous
+    region's choice is one scalar for all rows)."""
+    def rows(x, dim=0):
+        return None if x is None else C.local_rows(x, dim=dim)
+    return draws._replace(timesteps=rows(draws.timesteps), scores=rows(draws.scores),
+                          replace=rows(draws.replace), rect=rows(draws.rect, 1),
+                          eval_idx=rows(draws.eval_idx))
+
+
+def check_key(key) -> None:
+    """A sharded step needs the key: every rank must draw the same numbers."""
+    if key is None and C.batch_size() > 1:
+        raise ValueError("a sharded step needs a generator or the draws: every rank must "
+                         "draw the same numbers")
+
+
+def global_draws(key, rows: int, n: int, codebook_size: int, device, accum: int = 1):
+    """This rank's rows of the masking draws of the global batch's ``rows``
+    t2i rows: a generator (None: the default one) draws for every global
+    row, one set a micro-batch in order; given draws are sliced."""
+    check_key(key)
+    if isinstance(key, MK.MaskDraws):
+        return local_draws(key)
+    if isinstance(key, list):
+        return [local_draws(d) for d in key]
+    ds = [local_draws(MK.draw_masking(key, rows // accum, n, codebook_size=codebook_size,
+                                      device=device)) for _ in range(accum)]
+    return ds if accum > 1 else ds[0]
+
+
+def leaf_specs(state: TrainState) -> Optional[List]:
+    """The specs of the state's leaves in ``named_leaves`` order (None: whole)."""
+    return None if state.sharding is None else state.sharding.spec_list(state.params)
+
+
+def batch_grads(state: TrainState, batch: Dict[str, torch.Tensor], key,
+                draw: Callable, grads_fn: Callable, accum: int = 1):
+    """(gradients in ``named_leaves`` order, metrics) of ``state`` on the
+    global ``batch``: this rank's rows and its rows of the draws that
+    ``draw(key)`` makes for the whole batch, ``grads_fn(rows, draws)`` on
+    them, its gradients and metrics summed over the batch group."""
+    with C.batch_sharded(None if state.sharding is None else state.sharding.mesh):
+        key = draw(key)
+        grads, metrics = grads_fn({k: C.local_rows(v, accum) for k, v in batch.items()}, key)
+        return (C.sync_grads(grads, leaf_specs(state)),
+                {k: C.batch_sum(v) for k, v in metrics.items()})
+
+
+def apply_update(tx: AdamW, state: TrainState, grads, metrics, ema_cfg=None):
+    """The grad norm metric (over the leaves with a gradient), AdamW in
+    place, the EMA; returns (state, metrics)."""
+    specs = leaf_specs(state)
+    with C.batch_sharded(None if state.sharding is None else state.sharding.mesh):
+        kept = [i for i, g in enumerate(grads) if g is not None]
+        metrics["grad_norm"] = global_norm([grads[i] for i in kept],
+                                           None if specs is None else [specs[i] for i in kept])
+        leaves = [t for _, t in named_leaves(state.params)]
+        opt_state = tx.update(grads, state.opt_state, leaves, specs)
+    del grads
+    ema = ema_update(ema_cfg, state.ema, state.params) if ema_cfg is not None else state.ema
+    return state._replace(opt_state=opt_state, step=state.step + 1, ema=ema), metrics
+
+
+def local_tcfg(tcfg):
+    """``tcfg`` with its batch sizes divided over the batch group."""
+    n = C.batch_size()
+    return tcfg if n == 1 else dataclasses.replace(
+        tcfg, batch_size_t2i=tcfg.batch_size_t2i // n, batch_size_lm=tcfg.batch_size_lm // n,
+        batch_size_mmu=tcfg.batch_size_mmu // n)
 
 
 def _splice(ids: torch.Tensor, block: torch.Tensor, start: int) -> torch.Tensor:
@@ -173,7 +269,7 @@ class TrainStep:
             memory_efficient_loss=tcfg.memory_efficient_loss and not self.cfg.use_gen_projector)
         loss = tcfg.t2i_coeff * lt + tcfg.lm_coeff * ll + tcfg.mmu_coeff * lm
         metrics = {"loss": loss, "loss_t2i": lt, "loss_lm": ll, "loss_mmu": lm,
-                   "avg_masking_rate": mask_prob.mean()}
+                   "avg_masking_rate": C.batch_mean(mask_prob)}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     def loss_and_grads(self, params, vq_params, batch: Dict[str, torch.Tensor], key: Key
@@ -199,16 +295,29 @@ class TrainStep:
             metrics = {n: v / a for n, v in metrics.items()}
         return grads, metrics
 
+    def grads(self, state: TrainState, vq_params, batch, key: Key):
+        """(gradients, metrics) of ``state`` on the global batch
+        (``batch_grads``); the parameters are not touched."""
+        tcfg, a = self.tcfg, self.tcfg.grad_accum_steps
+
+        def draw(key):
+            if tcfg.batch_size_t2i > 0 and tcfg.t2i_gen_mode == "mask":
+                return global_draws(key, tcfg.batch_size_t2i, self.cfg.num_vq_tokens,
+                                    self.cfg.codebook_size, state.step.device, a)
+            return key
+
+        def grads_fn(rows, key):
+            step = TrainStep(self.cfg, self.vq_cfg, self.tx, local_tcfg(tcfg), self.ema_cfg)
+            return step.loss_and_grads(state.params, vq_params, rows, key)
+        return batch_grads(state, batch, key, draw, grads_fn, a)
+
     def __call__(self, state: TrainState, vq_params, batch: Dict[str, torch.Tensor],
                  key: Key):
-        grads, metrics = self.loss_and_grads(state.params, vq_params, batch, key)
-        metrics["grad_norm"] = global_norm(grads)
-        leaves = [t for _, t in named_leaves(state.params)]
-        opt_state = self.tx.update(grads, state.opt_state, leaves)
-        del grads
-        ema = (ema_update(self.ema_cfg, state.ema, state.params)
-               if self.ema_cfg is not None else state.ema)
-        return TrainState(state.params, opt_state, state.step + 1, ema), metrics
+        return self.apply(state, *self.grads(state, vq_params, batch, key))
+
+    def apply(self, state: TrainState, grads, metrics):
+        """The grad norm metric, AdamW in place, the EMA (``apply_update``)."""
+        return apply_update(self.tx, state, grads, metrics, self.ema_cfg)
 
 
 def make_train_step(cfg: UniGenConfig, vq_cfg: MagvitConfig, tx: AdamW,

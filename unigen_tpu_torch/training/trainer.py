@@ -14,6 +14,12 @@ checkpoint save and rotation with the portable export
 triptychs of the current t2i batch (``visualization.py``), written to
 ``output_dir/visualizations/predictions_step{N}.png``. The entries leave
 ``visualize_every`` at 0, as JAX's ``scripts/train.py`` does.
+
+With a ``mesh`` (``parallel.make_mesh``) every rank builds the Trainer on
+the same global batches: the parameters are sharded by
+``parallel.unigen_specs`` (``fsdp=True`` adds ZeRO-3), the step runs
+sharded, every rank saves its shards and rank 0 the gathered portable
+export, and a resume cuts this mesh's shards from whatever mesh saved.
 """
 from __future__ import annotations
 
@@ -30,7 +36,9 @@ from ..models.magvit import MagvitConfig
 from ..models.unigen import UniGenConfig
 from ..prompting import UniPrompting
 from ..utils import checkpoint as CK
+from ..parallel import gather_params, shard_params, unigen_specs
 from ..utils.logging import AverageMeter, MetricLogger, get_logger
+from ..utils.multihost import process_index
 from .ema import EMAConfig
 from .optimizer import AdamW
 from .train_step import TrainState, TrainStepConfig, init_train_state, make_train_step
@@ -60,7 +68,8 @@ class Trainer:
                  trainer_cfg: TrainerConfig, prompting: UniPrompting, tx: AdamW,
                  params: Any, vq_params: Any,
                  metric_logger: Optional[MetricLogger] = None,
-                 generate_callback: Optional[Callable[[Any, int], None]] = None):
+                 generate_callback: Optional[Callable[[Any, int], None]] = None,
+                 mesh=None, fsdp: bool = False):
         self.cfg, self.vq_cfg, self.tcfg, self.tr = cfg, vq_cfg, tcfg, trainer_cfg
         self.prompting = prompting
         self.tx = tx
@@ -69,7 +78,10 @@ class Trainer:
         self.generate_callback = generate_callback
         ema_cfg = EMAConfig(decay=trainer_cfg.ema_decay) if trainer_cfg.ema_decay > 0 else None
         self.step_fn = make_train_step(cfg, vq_cfg, tx, tcfg, ema_cfg)
-        self.state: TrainState = init_train_state(params, tx, ema_cfg)
+        sharding = None
+        if mesh is not None:
+            params, sharding = shard_params(params, unigen_specs(params, cfg, mesh, fsdp), mesh)
+        self.state: TrainState = init_train_state(params, tx, ema_cfg, sharding)
         self.device = self.state.step.device
         self.global_step = 0
         self._maybe_resume()
@@ -91,6 +103,8 @@ class Trainer:
         """The portable weights, in the JAX layout: the EMA average when it is
         kept, else the params."""
         params = self.state.ema.params if self.state.ema is not None else self.state.params
+        if self.state.sharding is not None:
+            params = gather_params(params, self.state.sharding)
         with torch.no_grad():
             return W.unigen_to_jax(params, self.cfg)
 
@@ -153,7 +167,7 @@ class Trainer:
         trip = VZ.visualize_predictions(
             self.state.params, self.cfg, self.vq_params, self.vq_cfg, batch["t2i_pixels"], ids,
             self.tcfg.pad_id, self.tcfg.soi_id, self.tcfg.eoi_id)
-        if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        if process_index() == 0:
             vis_dir = os.path.join(self.tr.output_dir, "visualizations")
             os.makedirs(vis_dir, exist_ok=True)
             path = os.path.join(vis_dir, f"predictions_step{self.global_step}.png")
@@ -203,9 +217,10 @@ class Trainer:
                     "data_time": data_time.avg,
                     "batch_time": batch_time.avg,
                 })
-                self.metrics.log(logs, self.global_step)
-                logger.info(f"step {self.global_step}: loss={logs['loss']:.4f} "
-                            f"({logs['samples_per_sec_per_device']:.2f} samples/s/dev)")
+                if process_index() == 0:   # the metrics are the batch group's on every rank
+                    self.metrics.log(logs, self.global_step)
+                    logger.info(f"step {self.global_step}: loss={logs['loss']:.4f} "
+                                f"({logs['samples_per_sec_per_device']:.2f} samples/s/dev)")
                 for m in (*meters.values(), batch_time, data_time):
                     m.reset()
 

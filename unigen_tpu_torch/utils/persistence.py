@@ -13,13 +13,17 @@ The port does not depend on the ``safetensors`` package, so the format is
 written and read here: an 8-byte little-endian header length, a JSON header
 ``{name: {dtype, shape, data_offsets}}`` (plus ``__metadata__``), then the
 raw little-endian bytes of every tensor. ``load_state_dict`` also reads the
-reference / HF torch layouts' files for ``utils/hf_import.py``.
+reference / HF torch layouts' files for ``utils/hf_import.py``; with
+``mmap=True`` its safetensors tensors are views of a private memory map of
+each file (``map_file``), so a caller that copies a slice reads little more
+than the slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import glob
 import json
+import mmap as _mmap
 import os
 import struct
 import sys
@@ -96,6 +100,22 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         if f.readinto(data) != len(data):
             raise ValueError(f"{path}: shorter than its size")
+    return _tensors(data, path)
+
+
+def map_file(path: str) -> Dict[str, torch.Tensor]:
+    """``load_file``'s tensors as views of a private, copy-on-write memory
+    map of the file: a page is read when a caller first touches it, and
+    nothing is written back."""
+    if os.path.getsize(path) < 8:
+        raise ValueError(f"{path}: not a safetensors file")
+    with open(path, "rb") as f:
+        return _tensors(_mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_COPY), path)
+
+
+def _tensors(data, path: str) -> Dict[str, torch.Tensor]:
+    """{name: view of ``data``} of one safetensors file's bytes, after
+    checking the header against their size."""
     if len(data) < 8:
         raise ValueError(f"{path}: not a safetensors file")
     n = struct.unpack("<Q", bytes(data[:8]))[0]
@@ -121,12 +141,13 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_state_dict(path: str, mmap: bool = False) -> Dict[str, torch.Tensor]:
     """A file, or a directory's weights -> {name: CPU tensor}: through the
     shard index when there is one (``model.safetensors.index.json`` or
     ``pytorch_model.bin.index.json``), else every ``*.safetensors``, else
     every ``pytorch_model*.bin`` (a pickled state dict, read by ``torch.load``
-    with ``weights_only``: no code from the file runs)."""
+    with ``weights_only``: no code from the file runs). ``mmap``: the
+    safetensors' tensors are ``map_file``'s views."""
     if os.path.isfile(path):
         files = [path]
     else:
@@ -143,7 +164,7 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
             raise FileNotFoundError(f"no weight files under {path}")
     sd: Dict[str, torch.Tensor] = {}
     for fn in files:
-        sd.update(load_file(fn) if fn.endswith(".safetensors") else
+        sd.update((map_file if mmap else load_file)(fn) if fn.endswith(".safetensors") else
                   torch.load(fn, map_location="cpu", weights_only=True))
     return sd
 
