@@ -160,14 +160,24 @@ read just after:
   fp32 PT2 step on meshes (1,1,2), (2,1,1), (1,2,1) against one rank's
   (losses, grad norm, the gathered gradients before the update, every
   parameter element after it), a tiny t2i at model 2 token for token, and
-  the flagship t2i at model 2 as the flagship phase runs it (batch 4,
-  guidance 6, 50 steps) with its first-step image logits against the
-  unsharded forward, exact launches a rank, its codes against the flagship
-  phase's, the call's seconds and its collectives' share (gloo on one
-  card, not a multi-card speed);
+  a tiny fp32 serving engine at model 2 (rank 0 decides, rank 1 follows
+  its plan; greedy, sampled and embeddings requests, speculation on) token
+  for token against one rank's engine, with equal decode chunks and busy
+  steps on both ranks, and the flagship t2i at model 2 as the flagship
+  phase runs it (batch 4, guidance 6, 50 steps) with its first-step image
+  logits against the unsharded forward, exact launches a rank, its codes
+  against the flagship phase's, the call's seconds and its collectives'
+  share (gloo on one card, not a multi-card speed); the kernels at a rank's
+  shapes include the serving decode step (kernel 1 at [32, 1, 6, 128], S
+  896) and admission (kernel 2 at [16, 640, 6, 128], pad bits);
 * ``parallel_train`` (only when named): the flagship PT2 step at model 2
   and at fsdp 2, its first losses against one rank's and each rank's peak
-  memory.
+  memory;
+* ``parallel_serving`` (only when named): the flagship serving engine at
+  model 2 in bf16 on the serving phase's first 48 requests: every rank's
+  tokens, chunks, busy steps and exact launches, useful tokens/s, TTFT p50,
+  the collectives' share of the wall and each rank's peak memory (gloo on
+  one card), beside the one-rank engine on the same requests.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
@@ -214,8 +224,8 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
 serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,parallel,tiny)
-runs a subset, for quick checks; ``pt2_real``, ``dpo_real`` and ``parallel_train`` run only
-when named;
+runs a subset, for quick checks; ``pt2_real``, ``dpo_real``, ``parallel_train`` and
+``parallel_serving`` run only when named;
 adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -237,7 +247,7 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
           "sft_naflex", "jpeg", "sft_real", "checkpoints", "parallel", "tiny")
-OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "profile")
+OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "parallel_serving", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 (non-tensor) FLOP/s
@@ -354,31 +364,37 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+class EventMs(float):
+    """A time taken by CUDA events (``call_ms``) because the profiler
+    recorded no device time: it counts the host's time between launches
+    where the host is the slower side. ``_measured`` names such fields in
+    the row's ``timed_by``."""
+
+
+# calls timed by CUDA events because the profiler recorded no device time
+EVENT_TIMED = []
+
+
 def device_traces(fn, iters: int):
-    """The device kernels that ``iters`` calls of ``fn`` launch, as one
-    [(name, microseconds)] list a trace, after a warm-up. A trace now and then
-    comes back with some or all of its device records missing, so traces are
-    taken until two hold the same number of device records (at most four),
-    and every trace is returned; it fails if none holds a device record."""
+    """The device kernels that ``iters`` calls of ``fn`` launch, one
+    [(name, microseconds)] list a trace (``utils/trace_analysis.py``'s
+    ``device_traces``: traced until two traces agree). If no trace holds a
+    device record, the caching allocator's free blocks are released and it
+    traces once more; then it fails."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    traces = []
-    while len(traces) < 4:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        traces.append([(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation])
-        counts = [len(t) for t in traces if t]
-        if len(counts) > len(set(counts)):
-            break
-    if not any(traces):
-        raise Failed(f"the profiler recorded no device time in {len(traces)} traces")
-    return traces
+    from unigen_tpu_torch.utils import trace_analysis as TA
+    try:
+        return TA.device_traces(fn, iters)
+    except TA.NoDeviceTime as e:
+        print(f"  the profiler recorded no device time ({e}); card memory allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; tracing again after "
+              "empty_cache")
+        torch.cuda.empty_cache()
+        try:
+            return TA.device_traces(fn, iters)
+        except TA.NoDeviceTime as e2:
+            raise Failed(str(e2)) from None
 
 
 def time_ms(fn, iters: int) -> float:
@@ -386,11 +402,18 @@ def time_ms(fn, iters: int) -> float:
     launches over ``iters`` calls (``device_traces``; the mean of the fullest
     traces counts). Unlike ``call_ms`` it does not count the host's time
     between launches, which at decode shapes is longer than the kernels
-    themselves."""
-    traces = device_traces(fn, iters)
-    most = max(len(t) for t in traces)
-    kept = [sum(us for _, us in t) for t in traces if len(t) == most]
-    return sum(kept) / len(kept) / 1e3 / iters
+    themselves. Where the profiler records no device time even after a
+    retry, it times by CUDA events instead (``call_ms``, which counts the
+    host's time where the host is the slower side), says so, and records
+    the call in ``EVENT_TIMED``; the time is an ``EventMs``."""
+    from unigen_tpu_torch.utils import trace_analysis as TA
+    try:
+        return TA.traces_ms(device_traces(fn, iters), iters)
+    except Failed as e:
+        ms = EventMs(call_ms(fn, iters))
+        EVENT_TIMED.append(ms)
+        print(f"  {e}: timed by CUDA events instead, {ms:.4f} ms a call")
+        return ms
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -418,9 +441,21 @@ def sdpa_ms(q, k, v, mask, iters):
 
 
 def _measured(err, ms, plain_ms, lib_ms, b_ms, by, at):
-    """The JSON fields of one timed kernel phase; ``at`` names the shape."""
+    """The JSON fields of one timed kernel phase; ``at`` names the shape.
+    ``timed_by`` says how each of the three times was taken: "profiler" (the
+    kernels' device time) or "cuda_events" (an ``EventMs``)."""
+    timed_by = {k: "cuda_events" if isinstance(t, EventMs) else "profiler"
+                for k, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms))
+                if t is not None}
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms, at=at)
+                library_ms=lib_ms, at=at, timed_by=timed_by)
+
+
+def kv_read_bytes(k, kvalid) -> int:
+    """The K and V bytes a key-masked attention must read: the visible
+    slots' rows only (``kvalid`` [B, S]; k [B, S, KVH, Dh]), not the whole
+    cache."""
+    return int(kvalid.sum().item()) * 2 * k.shape[2] * k.shape[3] * k.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +506,7 @@ def phase_chunk(gen, b, lq, lp, dtype, rtol, iters, timed, at="t2i chunk step", 
     plain_ms = time_ms(lambda: chunk_attention_plain(q, k, v, kvalid), iters)
     lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
     flops = 4.0 * h * dh * lq * kvalid.sum().item()
-    b_ms, by = bound(flops, nbytes(q, k, v, kvalid, got), BF16_PEAK)
+    b_ms, by = bound(flops, kv_read_bytes(k, kvalid) + nbytes(q, kvalid, got), BF16_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa) {lib_ms:.4f}  "
           f"bound_ms {b_ms:.4f} ({by})")
     return _measured(err, ms, plain_ms, lib_ms, b_ms, by, f"{at} q [{b},{lq},{h},{dh}], S={s}")
@@ -797,13 +832,14 @@ def phase_flash_mmu(gen, b, l, prompt_len, dtype, rtol, iters):
                             f"understand prefill q [{b},{l},12,128], mmu_vit meta")
 
 
-def phase_flash_meta(gen, meta, dtype, rtol, iters, at):
+def phase_flash_meta(gen, meta, dtype, rtol, iters, at, heads=(12, 2)):
     """Flash attention of q [b, l, 12, 128], k/v [b, l, 2, 128] under the
-    metadata ``meta`` (a path's prefill); timed when ``iters`` > 0."""
+    metadata ``meta`` (a path's prefill); timed when ``iters`` > 0.
+    ``heads``: query and KV heads (a model rank's under tensor parallelism)."""
     import torch
     from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    h, kvh, dh = 12, 2, 128
+    (h, kvh), dh = heads, 128
     b, l = meta.pad.shape
     q, k, v = _attn_inputs(gen, b, l, l, h, kvh, dh, dtype)
     bits = M.pack_meta(meta)
@@ -828,7 +864,7 @@ def phase_flash_meta(gen, meta, dtype, rtol, iters, at):
 
 def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=True,
                        new_tokens=NEW_TOKENS, masked=False, left_pads=None,
-                       at="understand decode step"):
+                       at="understand decode step", heads=(12, 2)):
     """One understanding decode step: q [b, 1, 12, 128] against the cache of
     l + new_tokens slots, visible = the row's prompt slots and the decoded
     slots (with ``left_pads``, the prompt slots from each row's pads on: the
@@ -837,11 +873,13 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     wrapper's ``_launch``; with ``masked``, keys 128..255 are invisible to
     every row (a fully masked split at 8 splits) and row 0 sees no key at
     all. Timed warm (one K/V pair, which stays in L2) and cold (a cycle of
-    K/V pairs larger than L2, as the path's 28 layers' caches are)."""
+    K/V pairs larger than L2, as the path's 28 layers' caches are). The
+    bound reads the visible slots' K/V only (``kv_read_bytes``).
+    ``heads``: query and KV heads (a model rank's under tensor parallelism)."""
     import torch
     import torch.nn.functional as F
     from unigen_tpu_torch.ops import chunk_attention as CA
-    h, kvh, dh = 12, 2, 128
+    (h, kvh), dh = heads, 128
     s = l + new_tokens
     q, k, v = _attn_inputs(gen, b, 1, s, h, kvh, dh, dtype)
     slots = torch.arange(s, device="cuda")[None]
@@ -892,15 +930,15 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     lib_cold = cold(lambda kk, vv: F.scaled_dot_product_attention(
         q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask4,
         enable_gqa=True))
-    b_ms, by = bound(4.0 * h * dh * kvalid.sum().item(), nbytes(q, k, v, kvalid, got),
-                     BF16_PEAK)
+    b_ms, by = bound(4.0 * h * dh * kvalid.sum().item(),
+                     kv_read_bytes(k, kvalid) + nbytes(q, kvalid, got), BF16_PEAK)
     print(f"    ms {ms:.4f} ({chosen} splits)  plain_ms {plain_ms:.4f}  library_ms (sdpa) "
           f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
     print("    by splits (1 = unsplit), warm / cold ms: "
           + ", ".join(f"{n}: {ms_by[n]:.4f} / {cold_by[n]:.4f}" for n in routes)
           + f"; sdpa cold {lib_cold:.4f}")
     return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
-                          f"{at} q [{b},1,12,128], S={s}, {chosen} splits"),
+                          f"{at} q [{b},1,{h},{dh}], S={s}, {chosen} splits"),
                 ms_cold=cold_by[chosen])
 
 
@@ -1350,8 +1388,8 @@ def phase_chunk_naflex(gen, dtype, ragged, rtol, iters):
     ``naflex_preprocess`` pads: a full row, a 6-patch row, the rest drawn).
     Every row, pad query rows too, against the plain version; the unsplit
     route. Timed beside SDPA with the boolean key mask (head dim 72); the
-    bound counts 4 h dh a visible (query, key) pair at dh 72 and reads q, k,
-    v and the mask and writes the output once, unpadded; fp32 against the
+    bound counts 4 h dh a visible (query, key) pair at dh 72 and reads q, the
+    visible keys' k and v and the mask and writes the output once, unpadded; fp32 against the
     card's fp32 peak, bf16 against its tensor cores'."""
     import torch
     import torch.nn.functional as F
@@ -1383,7 +1421,8 @@ def phase_chunk_naflex(gen, dtype, ragged, rtol, iters):
     plain_ms = time_ms(lambda: CA.chunk_attention_plain(qp, kp, vp, kvalid, scale=scale), 3)
     lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
     pairs = n * kvalid.sum().item()
-    b_ms, by = bound(4.0 * h * dh * pairs, nbytes(q, k, v, kvalid, got[..., :dh]),
+    b_ms, by = bound(4.0 * h * dh * pairs,
+                     kv_read_bytes(k, kvalid) + nbytes(q, kvalid, got[..., :dh]),
                      BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
     print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (sdpa, dh 72, bool key mask) "
           f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
@@ -1898,24 +1937,16 @@ def profile_run(run_once, warm_s: float, top: int = 12) -> None:
     kernels are printed by name wherever they rank, and every kernel is
     summed into a family (``FAMILIES``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from unigen_tpu_torch.utils import trace_analysis as TA
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_once()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    by_name = {}
-    for e in events:
-        if not e.is_user_annotation:
-            ms, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    busy, wall = busy_us / 1e3, prof_s * 1e3
+    events = TA.profiler_events(prof)
+    by_name = TA.kernel_times(events)
+    busy, wall = TA.busy_ms(events), prof_s * 1e3
     idle = f"{1 - busy / wall:.3f}" if busy <= wall else "unresolved (busy exceeds the wall)"
     print(f"  profile: device busy {busy:.1f} ms (union of device intervals) in a profiled "
           f"wall of {wall:.1f} ms; unprofiled warm wall {warm_s * 1e3:.1f} ms; "
@@ -3031,7 +3062,7 @@ def serve_run(eng, make_requests, static=False):
             "tokens_per_s": useful / dt, "requests_per_s": len(futs) / dt,
             "ttft_p50_s": _percentile(ttft, 50), "ttft_p99_s": _percentile(ttft, 99),
             "itl_p50_s": _percentile(itl, 50), "itl_p99_s": _percentile(itl, 99),
-            "occupancy": stats.occupancy,
+            "occupancy": stats.occupancy, "busy_steps": stats.busy_steps,
             "tokens_per_busy_step": stats.tokens_generated / max(stats.busy_steps, 1),
             "t_admit_s": stats.t_admit, "t_dispatch_s": stats.t_dispatch,
             "t_harvest_s": stats.t_harvest}
@@ -3999,10 +4030,10 @@ def _train_profile(step_once, tx, warm_s):
     backward runs in autograd's engine, outside the annotation) and the
     optimizer update."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from unigen_tpu_torch.models import magvit, siglip, siglip2, unigen
     from unigen_tpu_torch.ops import flash_attention as FA
+    from unigen_tpu_torch.utils import trace_analysis as TA
 
     def annotated(name, fn):
         def wrapped(*a, **kw):
@@ -4027,10 +4058,7 @@ def _train_profile(step_once, tx, warm_s):
         for obj, attr, fn in saved:
             setattr(obj, attr, fn)
         FA._FlashAttention.backward = staticmethod(real_bwd)
-    parts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name.startswith("train::"):
-            parts[e.name[7:]] = parts.get(e.name[7:], 0.0) + e.time_range.elapsed_us() / 1e3
+    parts = TA.annotated_ms(TA.profiler_events(prof), "train::")
     print("  device time inside the annotated parts of one step (GPU annotations): "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(parts.items())))
 
@@ -6239,6 +6267,9 @@ PARALLEL_TINY_RTOL = 1e-5
 PARALLEL_T2I_SEED = 21
 PARALLEL_TRAIN_MESHES = ((1, 1, 2), (1, 2, 1))
 PARALLEL_TRAIN_WARM, PARALLEL_TRAIN_TIMED = 1, 2
+# the optional parallel_serving phase: the serving phase's trace, its first
+# requests (the budgets as they are)
+PARALLEL_SERVE_REQUESTS = 48
 GLOO_NOTE = "gloo on one card, not a multi-card speed"
 
 
@@ -6460,9 +6491,53 @@ def _parallel_flagship(rank):
     return out
 
 
+def _parallel_serving_tiny(rank):
+    """The tiny fp32 serving engine at model 2 (rank 0 decides, rank 1
+    follows its plan) against one rank's engine on the same requests: three
+    greedy text prompts, a sampled one and an embeddings prompt, speculation
+    on; this rank's tokens (a follower's from ``followed``), decode chunks
+    and busy steps."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.models.unigen import embed_tokens
+    from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.serving import ServingEngine
+    pipe = build_pipeline("tiny", dtype=torch.float32, device="cuda", seed=3)
+    cfg = pipe.cfg
+    rng = np.random.default_rng(PARALLEL_T2I_SEED)
+    prompts = [rng.integers(3, cfg.text_vocab_len - 1, size=(n,)).tolist() for n in (5, 11, 8)]
+    emb = embed_tokens(pipe.params, torch.tensor([prompts[1] + [0] * 5], device="cuda"))
+    pad = torch.arange(16, device="cuda")[None] >= 11
+    z = torch.zeros_like(pad)
+    bits = M.pack_meta(M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z))
+    kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), speculate_k=2, device="cuda",
+              keep_followed=True)
+
+    def serve(params, follow):
+        with ServingEngine(params, cfg, **kw) as eng:
+            if follow:
+                eng.close(timeout=None)
+                toks = [f.result(0) for _, f in sorted(eng.followed.items())]
+            else:
+                futs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+                futs.append(eng.submit(prompts[0], max_new_tokens=6, temperature=0.9, seed=5))
+                futs.append(eng.submit_embeds(emb, bits, 11, max_new_tokens=7,
+                                              lookup_ids=prompts[1]))
+                toks = [f.result(120) for f in futs]
+            return toks, eng.stats.decode_chunks, eng.stats.busy_steps
+    whole = serve(pipe.params, False)
+    mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
+    toks, chunks, busy = serve(pipe.shard(mesh).params, rank != 0)
+    return {"equal": toks == whole[0], "toks": toks, "chunks": chunks, "busy": busy,
+            "one_rank_chunks": whole[1]}
+
+
 def _parallel_rank(rank):
     out = {}
-    for name, program in (("tiny", _parallel_tiny), ("flagship", _parallel_flagship)):
+    for name, program in (("tiny", _parallel_tiny), ("serving_tiny", _parallel_serving_tiny),
+                          ("flagship", _parallel_flagship)):
         t0 = time.perf_counter()
         out[name] = program(rank)
         out[name + "_s"] = time.perf_counter() - t0
@@ -6471,20 +6546,37 @@ def _parallel_rank(rank):
 
 def run_parallel_kernel_phases(results):
     """Kernels 1 and 2 at a model rank's shapes under tensor parallelism at
-    model 2: 6 query heads over 1 KV head (the flagship's 12 over 2)."""
+    model 2: 6 query heads over 1 KV head (the flagship's 12 over 2): the
+    t2i step and prefill, the train step's attention, and the serving
+    engine's decode step (32 slots against the 896-slot cache, each row at
+    its own key count) and batched admission (16 rows of 640, pad bits)."""
     import torch
+    from unigen_tpu_torch.ops import masks as M
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2020)
     bf16 = torch.bfloat16
     print("phase: kernels at a model rank's shapes (model 2: 6 query heads over 1 KV head)")
-    rows = {"chunk_attention": phase_chunk(gen, 8, 258, 148, bf16, 2 ** -7, 10, True,
-                                           at="t2i step, a rank at model 2", heads=(6, 1)),
-            "flash_attention": phase_flash(gen, 8, 148, bf16, 2 ** -7, 10, True, heads=(6, 1),
-                                           at="t2i prefill, a rank at model 2"),
-            "flash_attention_train": phase_flash_grad(
+    ages = torch.randint(SERVE_PROMPT, SERVE_PROMPT + 224, (SERVE_SLOTS,), generator=gen,
+                         device="cuda").tolist()
+    pad = (torch.arange(SERVE_BUCKET, device="cuda")[None].expand(SERVE_ADMIT, SERVE_BUCKET)
+           >= SERVE_PROMPT)
+    z = torch.zeros_like(pad)
+    rows = [("chunk_attention", phase_chunk(gen, 8, 258, 148, bf16, 2 ** -7, 10, True,
+                                            at="t2i step, a rank at model 2", heads=(6, 1))),
+            ("flash_attention", phase_flash(gen, 8, 148, bf16, 2 ** -7, 10, True, heads=(6, 1),
+                                            at="t2i prefill, a rank at model 2")),
+            ("flash_attention_train", phase_flash_grad(
                 gen, train_bits(train_config()), 5, "train step, a rank at model 2",
-                heads=(6, 1))}
-    for name, row in rows.items():
+                heads=(6, 1))),
+            ("chunk_attention", phase_chunk_decode(
+                gen, SERVE_SLOTS, SERVE_MAX_LEN, [a + 1 for a in ages], -1, bf16, 2 ** -7, 50,
+                new_tokens=0, heads=(6, 1),
+                at="serving decode step, a rank at model 2 (per-row key counts)")),
+            ("flash_attention", phase_flash_meta(
+                gen, M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z), bf16, 2 ** -7, 10,
+                f"serving admission, a rank at model 2: q [{SERVE_ADMIT},{SERVE_BUCKET},6,128], "
+                "pad bits", heads=(6, 1)))]
+    for name, row in rows:
         results.setdefault(name, {}).setdefault("shapes", []).append(row)
 
 
@@ -6517,6 +6609,16 @@ def run_parallel(results):
     for rank, r in enumerate(ranks):
         check(r["tiny"]["t2i_equal"], f"rank {rank}: the tiny t2i at model 2 changed tokens")
     print("  tiny t2i at model 2: every rank's tokens equal one rank's")
+    st = [r["serving_tiny"] for r in ranks]
+    for rank, r in enumerate(st):
+        check(r["equal"], f"rank {rank}: the tiny serving engine at model 2 changed tokens")
+        check((r["toks"], r["chunks"], r["busy"]) == (st[0]["toks"], st[0]["chunks"],
+                                                      st[0]["busy"]),
+              f"rank {rank}'s serving engine diverged from rank 0's: {r} against {st[0]}")
+    print(f"  tiny serving engine at model 2 (rank 0's plan, rank 1 following; greedy, sampled "
+          f"and embeddings requests, speculation on): every rank's tokens equal one rank's "
+          f"engine; {st[0]['chunks']} decode chunks and {st[0]['busy']} busy steps on each rank "
+          f"({st[0]['one_rank_chunks']} chunks on one rank)")
     want = dict(NO_LAUNCHES, flash_attention=28, chunk_attention=1400, conv3x3_gn_swish=44,
                 gn_affine=40)
     for rank, r in enumerate(ranks):
@@ -6545,7 +6647,8 @@ def run_parallel(results):
     seconds = time.perf_counter() - t0
     r0 = ranks[0]
     print(f"  the parallel phase: {seconds:.1f} s (kernels {t_kernels:.1f} s; rank 0: tiny meshes "
-          f"{r0['tiny_s']:.1f} s, flagship {r0['flagship_s']:.1f} s of which the timed call "
+          f"{r0['tiny_s']:.1f} s, tiny serving {r0['serving_tiny_s']:.1f} s, flagship "
+          f"{r0['flagship_s']:.1f} s of which the timed call "
           f"{r0['flagship']['seconds']:.1f} s; the rest the ranks' start and join)")
     f0 = ranks[0]["flagship"]
     results["parallel"] = {"phase_s": seconds, "t2i_s": f0["seconds"],
@@ -6554,6 +6657,109 @@ def run_parallel(results):
                            "argmax": [r["flagship"]["argmax"] for r in ranks],
                            "codes_agree": agree}
     return f0["counts"]
+
+
+def _follow_run(eng):
+    """A follower's side of ``serve_run``: the launch counts set to 0, the
+    engine followed until rank 0's stop, the counts read; the requests
+    mirrored from rank 0's plan, with this rank's tokens and stats."""
+    import torch
+    sizes = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    with admission_census(sizes):
+        t0 = time.perf_counter()
+        eng.close(timeout=None)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    check(not eng._thread.is_alive(), "a follower's engine outlived rank 0's stop")
+    stats = eng.stats
+    return {"seconds": dt, "tokens": [f.result(0) for _, f in sorted(eng.followed.items())],
+            "counts": _read_counts(), "groups": len(sizes), "group_sizes": sizes,
+            "steps": stats.slot_steps // eng.slots, "chunks": stats.decode_chunks,
+            "busy_steps": stats.busy_steps, "t_plan_s": stats.t_plan}
+
+
+def _parallel_serving_rank(rank):
+    """The flagship serving engine at model 2, bf16 (rank 0 decides, rank 1
+    follows its plan), bench_serve's engine (32 slots, cache 896, bucket
+    640, chunk 16) on the serving phase's trace cut to its first
+    PARALLEL_SERVE_REQUESTS requests, all queued at once: the run with the
+    launch counts set to 0 just before and read just after (exact from the
+    admissions and decode steps), its collectives timed, this rank's peak
+    memory over the engine and the run; then (rank 0) the same requests
+    through the one-rank engine, whose tokens are compared."""
+    import torch
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.parallel import collectives as C
+    pipe = flagship_pipeline()
+    cfg = pipe.cfg
+    mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
+    tp = pipe.shard(mesh)
+    prompts, budgets = serving_trace(PARALLEL_SERVE_REQUESTS)
+    requests = [(dict(input_ids=p, max_new_tokens=b), b, None) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serving_engine(tp.params, cfg, keep_followed=True)
+    warm = time.perf_counter() - t0
+    with C.timing() as coll:
+        run = serve_run(eng, lambda: requests) if rank == 0 else _follow_run(eng)
+    out = dict(run, warm_s=warm, collective_s=coll["seconds"], collectives=coll["calls"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               resident_gib=resident / 2 ** 30, t_plan_s=eng.stats.t_plan,
+               layers=cfg.llm.num_hidden_layers, local_heads=int(tp.params["llm"]["layers"][0]["q_w"].shape[0]) // 128)
+    if rank == 0:
+        one = serve_run(serving_engine(pipe.params, cfg), lambda: requests)
+        out["one_rank"] = {k: one[k] for k in ("tokens", "seconds", "tokens_per_s",
+                                               "ttft_p50_s", "chunks")}
+    return out
+
+
+def run_parallel_serving(results):
+    """The optional parallel_serving phase (``_parallel_serving_rank``): 2
+    ranks on the card under gloo; every rank's tokens, decode chunks, busy
+    steps and exact launches; useful tokens/s, TTFT p50, the collectives'
+    share of the wall and each rank's peak memory, beside the one-rank
+    engine on the same requests."""
+    t0 = time.perf_counter()
+    print(f"phase: parallel_serving (ServingEngine on Qwen2.5-1.5B at model 2, bf16, random init: "
+          f"the serving phase's first {PARALLEL_SERVE_REQUESTS} requests of {SERVE_PROMPT} ids, "
+          f"{SERVE_SLOTS} slots, chunk {SERVE_CHUNK}, bucket {SERVE_BUCKET}, cache "
+          f"{SERVE_MAX_LEN}, greedy; {PARALLEL_RANKS} ranks on the one card, {GLOO_NOTE})")
+    ranks = spawn_ranks("_parallel_serving_rank")
+    r0 = ranks[0]
+    layers = r0["layers"]
+    for rank, r in enumerate(ranks):
+        expect = _serve_expect(r, layers, "bf16")
+        print(f"  rank {rank} ({r['local_heads']} query heads): engine and warm-up "
+              f"{r['warm_s']:.2f} s; {r['seconds']:.3f} s; collectives {r['collective_s']:.3f} s "
+              f"({r['collectives']} calls, {r['collective_s'] / r['seconds']:.4f} of the wall; "
+              f"{GLOO_NOTE}); the plan's broadcasts {r['t_plan_s']:.3f} s; {r['groups']} "
+              f"admissions, {r['chunks']} chunks, {r['steps']} decode steps, busy steps "
+              f"{r['busy_steps']}; launches {r['counts']}; peak memory {r['peak_gib']:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated over the engine and the run; "
+              f"{r['resident_gib']:.2f} GiB held before)")
+        check(r["counts"] == expect, f"rank {rank}: launches {r['counts']} != {expect}")
+        check((r["tokens"], r["chunks"], r["busy_steps"]) ==
+              (r0["tokens"], r0["chunks"], r0["busy_steps"]),
+              f"rank {rank}'s tokens or steps differ from rank 0's")
+    _serve_report(f"model 2, rank 0 ({GLOO_NOTE})", r0)
+    one = r0["one_rank"]
+    same = sum(int(a == b) for t, o in zip(r0["tokens"], one["tokens"]) for a, b in zip(t, o))
+    agree = same / max(sum(map(len, one["tokens"])), 1)
+    print(f"  one rank on the same requests: {one['seconds']:.3f} s, {one['tokens_per_s']:.2f} "
+          f"useful tokens/s, TTFT p50 {one['ttft_p50_s']:.3f} s, {one['chunks']} chunks; tokens "
+          f"at model 2 equal to one rank's: {agree:.4f} (bf16 sums in another order; not a gate)")
+    seconds = time.perf_counter() - t0
+    print(f"  the parallel_serving phase: {seconds:.1f} s")
+    results["parallel_serving"] = {
+        "phase_s": seconds, "tokens_per_s": r0["tokens_per_s"], "ttft_p50_s": r0["ttft_p50_s"],
+        "collective_share": [r["collective_s"] / r["seconds"] for r in ranks],
+        "peak_gib": [r["peak_gib"] for r in ranks], "agree_one_rank": agree,
+        "one_rank_tokens_per_s": one["tokens_per_s"]}
+    return r0["counts"]
 
 
 def _parallel_train_rank(rank):
@@ -6745,6 +6951,8 @@ def main(argv=None) -> int:
             path_counts["parallel_t2i"] = run_parallel(results)
         if "parallel_train" in phases:
             run_parallel_train(results)
+        if "parallel_serving" in phases:
+            path_counts["parallel_serving"] = run_parallel_serving(results)
         if "tiny" in phases:
             run_tiny_train()
             run_tiny_post_training()
@@ -6908,6 +7116,9 @@ def main(argv=None) -> int:
                   f"{tr['tokens_per_s']:.1f} tokens/s, enqueue {tr['enqueue_s']:.4f} s, peak "
                   f"{tr['peak_gib']:.2f} GiB, model FLOPs {tr['model_tflops']:.2f} T a step "
                   f"(flagship width){real} on {card}")
+    if EVENT_TIMED:
+        print(f"{len(EVENT_TIMED)} kernel timings came from CUDA events: the profiler recorded "
+              "no device time for them (printed where they were taken)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

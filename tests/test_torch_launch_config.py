@@ -15,8 +15,8 @@
   parameters exactly, t2i codes exact under shared noise and ``understand``
   tokens exact, also with ``model.quantization=int8``;
 * ``models/builder.py`` (the NaFlex name dispatching to ``models.siglip2``),
-  ``models/registry.py`` and the refusals (a torch-layout checkpoint that
-  lacks a tensor, ``enable_reuse_tk``); ``task_token_first``.
+  ``models/registry.py``, the refusal of a torch-layout checkpoint that
+  lacks a tensor, ``enable_reuse_tk`` as JAX builds it; ``task_token_first``.
 """
 import dataclasses
 import glob
@@ -334,9 +334,14 @@ def test_random_init_and_refusals(tmp_path, caplog):
         TL.build_pipeline(conf, device="cpu")
     assert TB.get_vision_tower_config("siglip2-so400m-patch16-naflex")[0].__name__ == \
         "unigen_tpu_torch.models.siglip2"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TL.build_prompting_from_config(
-            TC.initialize_config(path, ["model.enable_reuse_tk=true"]), TL.FallbackTokenizer())
+    # enable_reuse_tk builds (it raised before the rest of prompting was
+    # ported) and maps the vision markers as JAX's build_prompting does
+    reuse = ["model.enable_reuse_tk=true"]
+    tp = TL.build_prompting_from_config(TC.initialize_config(path, reuse), TL.FallbackTokenizer())
+    jp = JL.build_prompting(JC.initialize_config(path, reuse), JL.FallbackTokenizer())
+    assert tp.sptids_dict == jp.sptids_dict
+    assert tp.sptids_dict["<|soi|>"] == TL.FallbackTokenizer().convert_tokens_to_ids(
+        ["<|vision_start|>"])[0]
 
 
 @pytest.mark.parametrize("kw", [dict(seed=1), dict(vision=True), dict(quantization="int4"),

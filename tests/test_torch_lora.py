@@ -165,6 +165,21 @@ def test_qlora_forward_matches_jax_and_backward_raises(base, quant):
         TL.merge_lora(tad)
 
 
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_qlora_jax_grad_raises_too(base, quant):
+    """The port's refused QLoRA backward is parity: JAX's steps take
+    ``jax.value_and_grad`` over the whole tree (training/sft.py, dpo.py,
+    train_step.py), and on the same QLoRA tree that raises too, on the
+    quantized base's integer leaves."""
+    jcfg, _, jllm, ids = base
+    jq = (JQZ.quantize_qwen2_params if quant == "int8"
+          else lambda p: JI4.quantize_qwen2_params_int4(p, group=32))
+    jad = _randomize_b(jq(JL.add_lora(jllm, jax.random.key(1), rank=4, dtype=jnp.float32)),
+                       jax.random.key(2))
+    with pytest.raises(TypeError, match="int8"):
+        jax.grad(lambda p: _jlogits_traced(p, jcfg.llm, ids).sum())(jad)
+
+
 def _ce(params, cfg, ids):
     logits = _tlogits(params, cfg, ids)
     labels = torch.roll(torch.as_tensor(ids), -1, dims=1)

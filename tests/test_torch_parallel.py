@@ -41,6 +41,7 @@ from unigen_tpu.models import siglip as JSG
 from unigen_tpu.models import unigen as JU
 from unigen_tpu.parallel import make_mesh as j_make_mesh
 from unigen_tpu.parallel import partition as JP
+from unigen_tpu.serving.engine import ServingEngine as JServingEngine
 from unigen_tpu.training import dpo as JDPO
 from unigen_tpu.training import lr_schedules as JLRS
 from unigen_tpu.training import optimizer as JO
@@ -52,6 +53,7 @@ from unigen_tpu_torch import weights as W
 from unigen_tpu_torch.models import magvit as TMV
 from unigen_tpu_torch.models import siglip as TSG
 from unigen_tpu_torch.models import unigen as TU
+from unigen_tpu_torch.ops import masks as TM
 from unigen_tpu_torch.parallel import partition as PT
 from unigen_tpu_torch.training import optimizer as TO
 from unigen_tpu_torch.training import train_step as TT
@@ -413,6 +415,17 @@ def _inputs():
     out["t2i"] = dict(cfg=tcfg, params=tparams, t2i_ids=torch.as_tensor(t2i_ids),
                       t2i_uncond=torch.as_tensor(uncond))
     out["errors"] = dict(cfg=tcfg, params=tparams)
+
+    # the serving engine at model 2: tests/test_serving.py's requests
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(3, tcfg.text_vocab_len - 1, size=(n,)).tolist() for n in (5, 11, 8)]
+    emb_ids = torch.tensor([prompts[1] + [0] * 5])
+    pad = torch.arange(16)[None] >= 11
+    z = torch.zeros_like(pad)
+    out["serving"] = dict(cfg=tcfg, params=tparams, prompts=prompts, emb_ids=prompts[1],
+                          emb=TU.embed_tokens(tparams, emb_ids), plen=11,
+                          bits=TM.pack_meta(TM.AttnMeta(pad=pad, bidir_q=z, bidir_k=z)))
+    refs["serving"] = (jcfg, jtree, prompts, emb_ids.numpy(), 11)
     return out, refs
 
 
@@ -453,11 +466,31 @@ def _jax_dpo(refs):
     return jax.tree.map(np.asarray, ds.params), {k: float(v) for k, v in dm.items()}
 
 
+def _jax_serving(refs):
+    """JAX's ServingEngine on the rank program's first engine trace (the
+    same requests, slots, buckets, chunks and speculation): the embeddings
+    request under the dense causal mask its pad bits describe."""
+    jcfg, jtree, prompts, emb_ids, plen = refs["serving"]
+    jparams = jax.tree.map(jnp.asarray, jtree)
+    pos = np.arange(emb_ids.shape[1])
+    keep = pos < plen
+    mask = ((pos[:, None] >= pos[None, :]) & keep[None, :] & keep[:, None])[None, None]
+    emb = np.asarray(JU.embed_tokens(jparams, jnp.asarray(emb_ids, jnp.int32)))
+    with JServingEngine(jparams, jcfg, slots=2, max_len=48, buckets=(16,), chunk=(2, 4),
+                        speculate_k=2) as eng:
+        futs = [eng.submit(x, max_new_tokens=8) for x in prompts]
+        futs.append(eng.submit(prompts[0], max_new_tokens=6, temperature=0.9, seed=5))
+        futs.append(eng.submit_embeds(emb, mask, plen, max_new_tokens=7,
+                                      lookup_ids=emb_ids[0, :plen]))
+        return [f.result(timeout=300) for f in futs]
+
+
 def _jax_references(refs):
-    """JAX's three steps, compiled in three threads."""
-    with ThreadPoolExecutor(3) as pool:
+    """JAX's three steps and its serving engine, in four threads."""
+    with ThreadPoolExecutor(4) as pool:
         futures = {name: pool.submit(fn, refs)
-                   for name, fn in (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo))}
+                   for name, fn in (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo),
+                                    ("serving", _jax_serving))}
         return {name: f.result() for name, f in futures.items()}
 
 
@@ -485,7 +518,7 @@ def ranks(tmp_path_factory, eight_devices):
                 if f.startswith("error-")]
         raise RuntimeError(f"{errors[0]}\n{logs[0] if logs else ''}")
     out = {name: torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
-           for name in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors")}
+           for name in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving")}
     return out, jax_refs, inputs
 
 
@@ -627,3 +660,48 @@ def test_errors(ranks, what):
         assert "not divisible by fsdp*model=3" in msg
     else:
         assert "15(c)" in msg
+
+
+@pytest.mark.parametrize("what", ["jax", "one_rank", "ranks_identical", "follower_submit",
+                                  "cancel", "followed_pruned"])
+def test_engine_model2_matches_one_rank(ranks, what):
+    """The serving engine on TP-sharded params at data 4 x model 2 (JAX's
+    test_engine_tensor_parallel_matches_unsharded, tests/test_serving.py:410,
+    holds JAX's at >= 0.95 agreement with its unsharded engine): three greedy
+    prompts of 8 tokens, a sampled one and an embeddings prompt, speculation
+    on. The greedy and embeddings requests' tokens equal JAX's engine's on
+    the same trace (agreement 1.0 against JAX's bar of 0.95); the sampled
+    one, whose random stream differs from JAX's, is held to the port's
+    one-rank engine, which the whole trace equals exactly in fp32. The
+    followers run rank 0's plan: the same tokens, decode chunks and busy
+    steps on every rank, the same outcome of a request cancelled mid-stream,
+    ``submit`` on a follower raises, and a follower that does not keep
+    finished requests holds none once they ended."""
+    r = ranks[0]["serving"]
+    ranks_out = r["ranks"]
+    if what == "jax":
+        want, got = ranks[1]["serving"], ranks_out[0]["toks"]
+        pairs = [(want[i], got[i]) for i in (0, 1, 2, 4)]      # not the sampled request
+        agree = np.mean([np.mean(np.array(a) == np.array(b)) for a, b in pairs])
+        assert agree >= 0.95, f"TP engine agreement with JAX {agree:.2f}"
+        assert [g for _, g in pairs] == [w for w, _ in pairs]
+    elif what == "one_rank":
+        got = ranks_out[0]["toks"]
+        agree = np.mean([np.mean(np.array(a) == np.array(b)) for a, b in zip(r["whole"], got)])
+        assert agree >= 0.95, f"TP engine agreement {agree:.2f}"
+        assert got == r["whole"]
+    elif what == "ranks_identical":
+        for o in ranks_out[1:]:
+            for key in ("toks", "decode_chunks", "busy_steps", "cancel"):
+                assert o[key] == ranks_out[0][key], key
+        assert ranks_out[0]["decode_chunks"] == r["whole_chunks"]
+    elif what == "follower_submit":
+        assert ranks_out[0]["error"] == ""
+        for o in ranks_out[1:]:
+            assert "follows rank 0's plan" in o["error"]
+    elif what == "cancel":
+        assert all(o["cancel"] == "cancelled" for o in ranks_out)
+    else:
+        assert ranks_out[0]["followed_after"] == ([], 2)
+        for o in ranks_out[1:]:
+            assert o["followed_after"] == ([], 2)       # both followed, neither kept

@@ -255,8 +255,73 @@ def errors(inp, out_dir):
     save(out_dir, "errors", out)
 
 
+def serving(inp, out_dir):
+    """The serving engine at model 2 (rank 0 decides, the others follow its
+    plan) against the one-rank engine on the same requests: three greedy
+    prompts, a sampled one, and an embeddings prompt with speculation on;
+    then a request rank 0 cancels after its first token; then two requests
+    on an engine that keeps only the requests in flight. Every rank reports
+    its tokens (a follower from ``followed``, kept), its stats, on a
+    follower the error ``submit`` raises, and what the last engine's
+    ``followed`` holds after its requests ended."""
+    from concurrent.futures import CancelledError
+    from unigen_tpu_torch.serving.engine import ServingEngine
+    cfg, params, prompts = inp["cfg"], inp["params"], inp["prompts"]
+    emb, bits, plen = inp["emb"], inp["bits"], inp["plen"]
+    kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), speculate_k=2, device="cpu",
+              keep_followed=True)
+
+    def serve(tree):
+        with ServingEngine(tree, cfg, **kw) as eng:
+            if MH.process_index() and C.spec_of(tree["llm"]["layers"][0]["q_w"]) is not None:
+                err = _raises(lambda: eng.submit(prompts[0], max_new_tokens=2), RuntimeError)
+                eng.close(timeout=120)
+                assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
+                return [f.result(0) for _, f in sorted(eng.followed.items())], eng.stats, err
+            futs = [eng.submit(x, max_new_tokens=8) for x in prompts]
+            futs.append(eng.submit(prompts[0], max_new_tokens=6, temperature=0.9, seed=5))
+            futs.append(eng.submit_embeds(emb, bits, plen, max_new_tokens=7,
+                                          lookup_ids=inp["emb_ids"]))
+            return [f.result(60) for f in futs], eng.stats, ""
+
+    def cancelled(tree):
+        with ServingEngine(tree, cfg, **dict(kw, speculate_k=0, chunk=2)) as eng:
+            if MH.process_index():
+                eng.close(timeout=120)
+                assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
+                fut = eng.followed[0]
+            else:
+                fut = eng.submit(prompts[1], max_new_tokens=30)
+                next(fut.stream(60))
+                fut.cancel()
+            try:
+                return fut.result(60)
+            except CancelledError:
+                return "cancelled"
+
+    def pruned(tree):
+        with ServingEngine(tree, cfg, **dict(kw, speculate_k=0, chunk=2,
+                                             keep_followed=False)) as eng:
+            if MH.process_index():
+                eng.close(timeout=120)
+                assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
+            else:
+                for f in [eng.submit(x, max_new_tokens=3) for x in prompts[:2]]:
+                    f.result(60)
+            return sorted(eng.followed), eng.stats.requests_completed
+
+    whole, whole_stats, _ = serve(params)
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    local, _ = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+    toks, stats, err = serve(local)
+    out = {"toks": toks, "decode_chunks": stats.decode_chunks, "busy_steps": stats.busy_steps,
+           "error": err, "cancel": cancelled(local), "followed_after": pruned(local)}
+    save(out_dir, "serving", {"whole": whole, "whole_chunks": whole_stats.decode_chunks,
+                              "ranks": MH.gather_objects(out)})
+
+
 def parallel_all(inp, out_dir):
-    for program in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors"):
+    for program in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving"):
         globals()[program](inp[program], out_dir)
 
 

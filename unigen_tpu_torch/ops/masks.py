@@ -194,6 +194,31 @@ def create_attention_mask_for_mmu(input_ids: torch.Tensor, eoi_id: int) -> torch
     return (causal[None] | prefix)[:, None]
 
 
+def create_attention_mask_for_mmu_vit(batch_size: int, seq_len: int, *,
+                                      system_prompt_len: int = 0, num_images: int = 1,
+                                      num_tokens=576, prefix_length: int = -1,
+                                      return_causal_mask: bool = False,
+                                      device="cpu") -> torch.Tensor:
+    """Causal attention plus a bidirectional continuous-image block: [B, 1,
+    L, L] bool. The block starts at ``prefix_length`` (else after the system
+    prompt and two head tokens) and spans ``num_tokens * num_images`` keys;
+    ``num_tokens`` may be a [B, 2] tensor of NaFlex spatial shapes (h * w
+    keys a row). As in JAX and the reference, in the NaFlex case pad-patch
+    slots past a row's patches stay causally visible as keys."""
+    pos = torch.arange(seq_len, device=device)
+    causal = (pos[:, None] >= pos[None, :])[None, None].expand(batch_size, 1, seq_len, seq_len)
+    if return_causal_mask:
+        return causal
+    start = prefix_length if prefix_length > 0 else 1 + system_prompt_len + 1
+    if isinstance(num_tokens, numbers.Integral):
+        block = (pos >= start) & (pos < start + int(num_tokens) * num_images)
+        return causal | block[None, None, None, :]
+    shapes = torch.as_tensor(num_tokens, device=device)
+    img_lens = shapes[:, 0] * shapes[:, 1]
+    block = (pos[None] >= start) & (pos[None] < (start + img_lens)[:, None])
+    return causal | block[:, None, None, :]
+
+
 def causal_mask_from_attention(attention_1d: torch.Tensor) -> torch.Tensor:
     """[B, L] 0/1 padding mask -> [B, 1, L, L] bool causal mask without pads."""
     l = attention_1d.shape[-1]
@@ -201,3 +226,11 @@ def causal_mask_from_attention(attention_1d: torch.Tensor) -> torch.Tensor:
     causal = pos[:, None] >= pos[None, :]
     keep = attention_1d.bool()
     return (causal[None] & keep[:, None, :] & keep[:, :, None])[:, None]
+
+
+def to_additive(mask_bool: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Boolean mask -> additive form: 0 where visible, the dtype's most
+    negative finite value elsewhere."""
+    neg = torch.finfo(dtype).min
+    return torch.where(mask_bool, torch.zeros((), dtype=dtype, device=mask_bool.device),
+                       torch.tensor(neg, dtype=dtype, device=mask_bool.device))

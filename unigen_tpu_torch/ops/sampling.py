@@ -49,6 +49,19 @@ def gumbel_noise(generator: Optional[torch.Generator], shape, device,
     return -safe_log(-safe_log(u))
 
 
+def gumbel_sample(generator: Optional[torch.Generator], logits: torch.Tensor,
+                  temperature: float = 1.0, dim: int = -1,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gumbel-max sampling: ``argmax(logits / temperature + g)``, with ``g``
+    standard Gumbel noise of the logits' shape and dtype from ``generator``,
+    or from the uniform[0, 1) ``noise`` (the shared-noise hook)."""
+    if noise is not None:
+        g = -safe_log(-safe_log(noise.to(logits.dtype)))
+    else:
+        g = gumbel_noise(generator, logits.shape, logits.device, logits.dtype)
+    return torch.argmax(logits / max(temperature, 1e-10) + g, dim=dim)
+
+
 def sample_categorical(generator: Optional[torch.Generator], probs: torch.Tensor,
                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Indices drawn from (possibly unnormalized) ``probs`` by the Gumbel-max
@@ -112,3 +125,36 @@ def get_mask_schedule(method: str, **schedule_kwargs) -> Callable[[torch.Tensor]
     if method == "sigmoid":
         return partial(sigmoid_schedule, **schedule_kwargs)
     raise ValueError(f"Unknown schedule method: {method}")
+
+
+def top_k_by_threshold(logits: torch.Tensor, thres: float = 0.9) -> torch.Tensor:
+    """The top ceil((1 - thres) * V) logits kept (ties with the k-th too),
+    -inf elsewhere."""
+    v = logits.shape[-1]
+    k = math.ceil((1.0 - thres) * v)
+    kth = torch.sort(logits, dim=-1).values[..., v - k]
+    return torch.where(logits >= kth[..., None], logits, float("-inf"))
+
+
+def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0, top_p: float = 1.0,
+                          filter_value: float = float("-inf"),
+                          min_tokens_to_keep: int = 1) -> torch.Tensor:
+    """Top-k, then nucleus (top-p) filtering, as JAX's: by thresholds on the
+    sorted values, so a logit tied with the last kept one is kept; the first
+    token above ``top_p`` stays, and at least ``min_tokens_to_keep``."""
+    vocab = logits.shape[-1]
+    if top_k > 0:
+        k = min(max(top_k, min_tokens_to_keep), vocab)
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, filter_value, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cumulative = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        remove = cumulative > top_p
+        remove = torch.cat([torch.zeros_like(remove[..., :1]), remove[..., :-1]], dim=-1)
+        if min_tokens_to_keep > 1:
+            remove[..., :min_tokens_to_keep] = False
+        num_keep = (~remove).sum(dim=-1, keepdim=True)
+        cutoff = torch.gather(sorted_logits, -1, num_keep - 1)
+        logits = torch.where(logits < cutoff, filter_value, logits)
+    return logits

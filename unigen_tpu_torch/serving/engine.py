@@ -41,16 +41,39 @@ One scheduler thread owns the device and queues every kernel on the
 default stream; submitters on any thread only enqueue requests. Eager
 PyTorch compiles nothing, so the engine admits exactly K rows (no padding to
 a power of two), and ``precompile`` is a warm-up on the scheduler thread.
+
+Under tensor parallelism (params from ``parallel.shard_params``, every
+process of the mesh building the engine with the same arguments) the device
+programs call collectives, so every rank must run them in one order. JAX's
+GSPMD hides this behind one controller; here process 0 alone takes
+``submit`` / ``submit_embeds`` and decides, and at each loop iteration it
+broadcasts its plan before it runs it: the cancels its last harvest saw,
+the groups it admits (each request's ids or embeddings and meta bits,
+lengths, budget, eot, temperature and seed, and the slots they take), and
+the chunk's step count with the rows active at its dispatch. The other
+ranks run a follower loop that applies the plan with the same admission,
+chunk and harvest code, draw from the same ``derived_generator(seed,
+position)`` streams, and so emit the same tokens; they check their own
+bookkeeping against the plan (free slots, active rows) and raise on any
+difference. A follower's futures in flight are ``followed[rid]`` (an entry
+leaves when its request ends, unless ``keep_followed``); ``submit`` on a
+follower raises. The plan is a fixed-layout int64 header and payload (and
+the raw bytes of an embeddings group), not a pickle. The int8 cache and a
+separate decode tree that is not sharded (W4A8) are refused there, as
+``parallel.shard_params`` refuses quantized trees (ROADMAP Queue 1 item
+15(c)).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import itertools
 import queue
 import threading
 import time
 from concurrent.futures import CancelledError
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +83,9 @@ from ..models import qwen2
 from ..models.unigen import UniGenConfig, embed_tokens
 from ..ops import masks as M
 from ..ops import sampling as S
+from ..parallel import collectives as C
+from ..parallel.mesh import current_mesh
+from ..utils import multihost as MH
 
 # process-level memo of the warm-up signatures already dispatched
 # (ServingEngine._precompile), under its lock; a key is added only after its
@@ -370,6 +396,127 @@ def _admit_ids_prefix(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: Sl
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: rank 0's plan
+# ---------------------------------------------------------------------------
+
+# header words: flags, steps (0: no chunk), cancels, groups, payload words,
+# active-row words (slots when a chunk is dispatched, else 0)
+_PLAN_HEADER = 6
+_PLAN_STOP, _PLAN_ABORT = 1, 2
+# a group's words: embeddings?, K, L, D, dtype code; then K requests of
+# rid, slot, prompt_len, max_new_tokens, eot (-1 none), seed, start,
+# temperature (float32 bits), lookup ids?; then K x L ids (text) or meta bits
+# and K x L lookup ids (embeddings)
+_GROUP_WORDS, _REQ_WORDS = 5, 9
+_EMB_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# an idle leader broadcasts an empty plan this often, inside any collective timeout
+_KEEPALIVE_S = 30.0
+
+
+class _Plan(NamedTuple):
+    flags: int
+    steps: Optional[int]
+    cancels: List[int]                               # request ids
+    groups: List[Tuple[List["_Request"], List[int]]]
+    active: Optional[np.ndarray]                     # [slots] bool at the chunk's dispatch
+
+
+def _sharded(tree) -> bool:
+    """Whether a leaf of ``tree`` is registered as sharded (``parallel.collectives``)."""
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, torch.Tensor) and C.spec_of(node) is not None:
+            return True
+    return False
+
+
+def _encode_plan(plan: _Plan) -> Tuple[List[int], List[int], List[torch.Tensor]]:
+    """(header, payload words, embeddings a group) of a plan."""
+    words = list(plan.cancels)
+    active = [] if plan.active is None else plan.active.astype(np.int64).tolist()
+    words += active
+    embs = []
+    for group, slots in plan.groups:
+        emb = group[0].input_ids is None
+        first = group[0].inputs_embeds if emb else group[0].input_ids
+        l = first.shape[1]
+        words += [int(emb), len(group), l, first.shape[2] if emb else 0,
+                  _EMB_DTYPES.index(first.dtype) if emb else 0]
+        for r, s in zip(group, slots):
+            words += [r.rid, s, r.prompt_len, r.max_new_tokens,
+                      -1 if r.eot_token is None else int(r.eot_token), r.seed, r.start,
+                      int(np.float32(r.temperature).view(np.int32)),
+                      int(r.lookup_ids is not None)]
+        if emb:
+            words += torch.cat([r.meta_bits for r in group]).reshape(-1).tolist()
+            words += np.concatenate([np.zeros((1, l), np.int64) if r.lookup_ids is None
+                                     else r.lookup_ids for r in group]).reshape(-1).tolist()
+            embs.append(torch.cat([r.inputs_embeds for r in group]).contiguous())
+        else:
+            words += np.concatenate([r.input_ids for r in group]).reshape(-1).tolist()
+    header = [plan.flags, plan.steps or 0, len(plan.cancels), len(plan.groups), len(words),
+              len(active)]
+    return header, words, embs
+
+
+def _send_plan(plan: _Plan) -> None:
+    header, words, embs = _encode_plan(plan)
+    MH.broadcast_tensor(torch.tensor(header, dtype=torch.int64), (_PLAN_HEADER,), torch.int64)
+    if words:
+        MH.broadcast_tensor(torch.tensor(words, dtype=torch.int64), (len(words),), torch.int64)
+    for e in embs:
+        b = e.view(torch.uint8)
+        MH.broadcast_tensor(b, b.shape, torch.uint8)
+
+
+def _recv_plan(device: torch.device) -> _Plan:
+    """Rank 0's plan on a follower: its requests rebuilt, each with a fresh
+    future; embeddings and meta bits on ``device``."""
+    flags, steps, n_cancel, n_groups, n_words, n_active = MH.broadcast_tensor(
+        None, (_PLAN_HEADER,), torch.int64).tolist()
+    words = (MH.broadcast_tensor(None, (n_words,), torch.int64).tolist() if n_words else [])
+    at = 0
+
+    def take(n: int) -> List[int]:
+        nonlocal at
+        at += n
+        return words[at - n:at]
+    cancels = take(n_cancel)
+    active = np.asarray(take(n_active), bool) if n_active else None
+    groups = []
+    for _ in range(n_groups):
+        emb, k, l, d, code = take(_GROUP_WORDS)
+        rows = [take(_REQ_WORDS) for _ in range(k)]
+        reqs, slots = [], []
+        for rid, slot, plen, max_new, eot, seed, start, temp, _ in rows:
+            reqs.append(_Request(
+                rid=rid, future=GenerationResult(rid), prompt_len=plen, max_new_tokens=max_new,
+                temperature=float(np.int32(temp).view(np.float32)),
+                eot_token=None if eot < 0 else eot, seed=seed, start=start))
+            slots.append(slot)
+        if emb:
+            bits = torch.tensor(take(k * l), dtype=torch.int32).reshape(k, l).to(device)
+            lookup = np.asarray(take(k * l), np.int64).reshape(k, l)
+            dtype = _EMB_DTYPES[code]
+            nbytes = d * torch.empty((), dtype=dtype).element_size()
+            e = MH.broadcast_tensor(None, (k, l, nbytes), torch.uint8).view(dtype).to(device)
+            for i, (r, row) in enumerate(zip(reqs, rows)):
+                r.inputs_embeds, r.meta_bits = e[i:i + 1], bits[i:i + 1]
+                r.lookup_ids = lookup[i:i + 1] if row[-1] else None
+        else:
+            ids = np.asarray(take(k * l), np.int64).reshape(k, l)
+            for i, r in enumerate(reqs):
+                r.input_ids = ids[i:i + 1]
+        groups.append((reqs, slots))
+    return _Plan(flags, steps or None, cancels, groups, active)
+
+
+# ---------------------------------------------------------------------------
 # Host scheduler
 # ---------------------------------------------------------------------------
 
@@ -480,7 +627,9 @@ class EngineStats:
     cell, busy_steps the occupied ones; busy / total is continuous
     batching's gain over static batching on the same trace. The t_* fields
     split the scheduler loop's wall (seconds): dispatch queues device work,
-    harvest waits for a chunk's tokens, admit builds and queues prefills."""
+    harvest waits for a chunk's tokens, admit builds and queues prefills,
+    plan broadcasts (rank 0) or receives (a follower) the plan under tensor
+    parallelism."""
     requests_completed: int = 0
     tokens_generated: int = 0
     decode_chunks: int = 0
@@ -490,6 +639,7 @@ class EngineStats:
     t_harvest: float = 0.0
     t_admit: float = 0.0
     t_drain: float = 0.0
+    t_plan: float = 0.0
 
     @property
     def occupancy(self) -> float:
@@ -513,7 +663,12 @@ class ServingEngine:
     admission. ``speculate_k > 0`` turns on prompt-lookup speculative
     decoding (module docstring); the mean tokens a busy step accepts is
     ``stats.tokens_generated / stats.busy_steps``. One scheduler thread owns
-    the device; submissions come from any thread.
+    the device; submissions come from any thread. With sharded ``params``
+    every process of the mesh builds the engine with the same arguments;
+    process 0 serves and the others follow its plan (module docstring). A
+    follower's ``followed`` holds the requests in flight; with
+    ``keep_followed`` it keeps the finished ones too (a comparison of the
+    ranks' tokens reads them after ``close``).
     """
 
     def __init__(self, params, cfg: UniGenConfig, *, slots: int = 8,
@@ -524,12 +679,26 @@ class ServingEngine:
                  speculate_k: int = 0,
                  prefix_ids: Optional[Sequence[int]] = None,
                  decode_params=None, admit_cap: Optional[int] = None,
-                 precompile: Sequence[Tuple] = (), device: DeviceLike = None):
+                 precompile: Sequence[Tuple] = (), device: DeviceLike = None,
+                 keep_followed: bool = False):
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         if max(buckets) > max_len:
             raise ValueError(f"bucket {max(buckets)} exceeds max_len {max_len}")
         self.device = resolve_device(device)
+        # tensor parallelism: rank 0 decides, the other ranks follow its plan
+        self._distributed = _sharded(params)
+        if self._distributed:
+            if current_mesh() is None:
+                raise ValueError("sharded params need their mesh current (parallel.make_mesh)")
+            if quantized_cache or (decode_params is not None and not _sharded(decode_params)):
+                raise NotImplementedError(
+                    "the int8 KV cache and an unsharded (W4A8) decode tree under tensor "
+                    "parallelism are not ported (ROADMAP Queue 1 item 15(c))")
+        self._follower = self._distributed and MH.process_index() != 0
+        self.followed: Dict[int, GenerationResult] = {}   # a follower's, by rank 0's request id
+        self._keep_followed = keep_followed
+        self._cancelled_rids: List[int] = []
         for name, tree in (("params", params), ("decode_params", decode_params)):
             if tree is not None and tree["llm"]["embed"].device.type != self.device.type:
                 raise ValueError(f"{name} lie on {tree['llm']['embed'].device}, the engine "
@@ -591,8 +760,9 @@ class ServingEngine:
         # error surfaces here
         self._ready = threading.Event()
         self._warmup_error: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._loop, args=(tuple(precompile),),
-                                        daemon=True, name="unigen-serving")
+        self._thread = threading.Thread(
+            target=self._follow if self._follower else self._loop, args=(tuple(precompile),),
+            daemon=True, name="unigen-serving-follower" if self._follower else "unigen-serving")
         self._thread.start()
         self._ready.wait()
         if self._warmup_error is not None:
@@ -695,6 +865,7 @@ class ServingEngine:
                temperature: float = 0.0, eot_token: Optional[int] = None,
                seed: Optional[int] = None) -> GenerationResult:
         """Queue a text prompt; returns a future resolving to generated token ids."""
+        self._check_leader()
         ids = np.asarray(input_ids, np.int64).reshape(-1)
         if len(ids) == 0:  # prompt_len 0 would mask every key
             raise ValueError("prompt must contain at least one token")
@@ -725,6 +896,7 @@ class ServingEngine:
         zeros over the image (``pipeline.vqa_lookup_ids``), to
         seed the draft; without them an embeddings request drafts from its
         generated tokens only."""
+        self._check_leader()
         if self._prefix is not None:
             raise ValueError("submit_embeds does not compose with a shared prefix (the "
                              "meta bits cover the full splice); run an engine without "
@@ -754,6 +926,12 @@ class ServingEngine:
             inputs_embeds=emb.to(self.device), meta_bits=bits.to(self.device),
             lookup_ids=lk, start=int(prompt_len)))
 
+    def _check_leader(self) -> None:
+        if self._follower:
+            raise RuntimeError(
+                f"rank {MH.process_index()} follows rank 0's plan under tensor parallelism: "
+                "submit on rank 0")
+
     def _check_fit(self, bucket_len: int, max_new: int) -> None:
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
@@ -780,44 +958,63 @@ class ServingEngine:
 
     # -- scheduler loop -------------------------------------------------------
 
-    def _loop(self, precompile: Tuple) -> None:
+    def _warm_up(self, precompile: Tuple) -> bool:
         try:
             self._precompile(precompile)
         except BaseException as e:
             self._closing = True
             self._warmup_error = e
             self._ready.set()
-            return
+            return False
         self._ready.set()
+        return True
+
+    def _loop(self, precompile: Tuple) -> None:
+        if not self._warm_up(precompile):
+            return
         # One-deep pipeline: chunk i + 1 is queued before chunk i's tokens
         # are waited for, so the host's harvest overlaps the device's work.
         # Tokens are unchanged: sampling is keyed by (seed, position), a slot
         # freed at harvest i decodes one junk chunk that the snapshot guard
-        # discards, and admission lands before the next dispatch.
+        # discards, and admission lands before the next dispatch. Under
+        # tensor parallelism the iteration's decisions are broadcast before
+        # any of its device work (``_follow`` runs them on the other ranks).
         inflight = None   # (slot_req snapshot at dispatch, fetched toks) or None
         try:
             while True:
                 idle = (inflight is None and not self._active.any() and not self._pending)
                 if idle and self._closing:
-                    return
+                    break
                 t0 = time.perf_counter()
                 self._drain_queue(block=idle)
                 t1 = time.perf_counter()
                 if (inflight is None and self._closing and not self._pending
                         and not self._active.any()):
-                    return
-                self._admit_pending()
+                    break
+                groups = self._admit_pending()
+                steps = self._pick_steps() if self._active.any() else None
                 t2 = time.perf_counter()
-                nxt = self._dispatch_chunk() if self._active.any() else None
+                if self._distributed:
+                    _send_plan(_Plan(0, steps, self._cancelled_rids, groups,
+                                     None if steps is None else self._active.copy()))
+                    self._cancelled_rids = []
                 t3 = time.perf_counter()
+                for group, slots in groups:
+                    self._admit_group(group, slots)
+                t4 = time.perf_counter()
+                nxt = None if steps is None else self._dispatch_chunk(steps)
+                t5 = time.perf_counter()
                 if inflight is not None:
                     self._harvest(*inflight)
-                t4 = time.perf_counter()
+                t6 = time.perf_counter()
                 self.stats.t_drain += t1 - t0
-                self.stats.t_admit += t2 - t1
-                self.stats.t_dispatch += t3 - t2
-                self.stats.t_harvest += t4 - t3
+                self.stats.t_admit += (t2 - t1) + (t4 - t3)
+                self.stats.t_plan += t3 - t2
+                self.stats.t_dispatch += t5 - t4
+                self.stats.t_harvest += t6 - t5
                 inflight = nxt
+            if self._distributed:   # the followers' last harvest, then they stop
+                _send_plan(_Plan(_PLAN_STOP, None, self._cancelled_rids, [], None))
         except BaseException as e:  # resolve every future so callers unblock
             self._closing = True     # reject new submissions: no thread serves them
             undrained = []
@@ -830,11 +1027,77 @@ class ServingEngine:
                 pass
             for req in self._pending + undrained + [r for r in self._slot_req if r]:
                 req.future._fail(e)
+            if self._distributed:   # best effort: the followers stop and fail theirs
+                with contextlib.suppress(Exception):
+                    _send_plan(_Plan(_PLAN_ABORT, None, [], [], None))
+            raise
+
+    def _follow(self, precompile: Tuple) -> None:
+        """A follower rank's loop: each of rank 0's plans in turn, through the
+        same admission, chunk and harvest code. Rank 0 harvests chunk i - 1
+        after it dispatches chunk i and sends that harvest's cancels with
+        plan i + 1, so a follower harvests a chunk two plans after it
+        dispatched it, with those cancels: the device work (admissions,
+        chunks, the cancelled rows' deactivation) runs in rank 0's order."""
+        if not self._warm_up(precompile):
+            return
+        dispatched = collections.deque()     # the last two plans' chunks (or None)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                plan = _recv_plan(self.device)
+                t1 = time.perf_counter()
+                for rid in plan.cancels:
+                    self.followed[rid].cancel()
+                if len(dispatched) == 2:
+                    done = dispatched.popleft()
+                    if done is not None:
+                        self._harvest(*done)
+                        if not self._keep_followed:   # hold only the requests in flight
+                            for rid in [r for r, f in self.followed.items() if f.done()]:
+                                del self.followed[rid]
+                if plan.flags & _PLAN_ABORT:
+                    raise RuntimeError("rank 0's serving engine stopped on an error")
+                if plan.flags & _PLAN_STOP:
+                    if any(d is not None for d in dispatched):
+                        raise RuntimeError("rank 0 stopped with a chunk this rank did not harvest")
+                    return
+                t2 = time.perf_counter()
+                for group, slots in plan.groups:
+                    if self._active[slots].any():
+                        raise RuntimeError(f"rank 0 admits into slots {slots}, which this rank "
+                                           "holds occupied: the ranks diverged")
+                    self._occupy(group, slots)
+                    for req in group:
+                        self.followed[req.rid] = req.future
+                    self._admit_group(group, slots)
+                t3 = time.perf_counter()
+                nxt = None
+                if plan.steps is not None:
+                    if not np.array_equal(self._active, plan.active):
+                        raise RuntimeError(
+                            f"active rows {np.flatnonzero(self._active).tolist()} differ from "
+                            f"rank 0's {np.flatnonzero(plan.active).tolist()}: the ranks diverged")
+                    nxt = self._dispatch_chunk(plan.steps)
+                dispatched.append(nxt)
+                t4 = time.perf_counter()
+                self.stats.t_plan += t1 - t0
+                self.stats.t_harvest += t2 - t1
+                self.stats.t_admit += t3 - t2
+                self.stats.t_dispatch += t4 - t3
+        except BaseException as e:
+            self._closing = True
+            for fut in self.followed.values():
+                if not fut.done():
+                    fut._fail(e)
             raise
 
     def _drain_queue(self, block: bool) -> None:
         try:
-            item = self._queue.get(block=block)
+            # an idle leader wakes up to send an empty plan, so the followers'
+            # broadcast never waits past a collective timeout
+            item = self._queue.get(block=block,
+                                   timeout=_KEEPALIVE_S if self._distributed else None)
         except queue.Empty:
             return
         while True:
@@ -853,7 +1116,11 @@ class ServingEngine:
             return ("ids", req.input_ids.shape[1])
         return ("emb", req.inputs_embeds.shape[1], req.inputs_embeds.shape[2])
 
-    def _admit_pending(self) -> None:
+    def _admit_pending(self) -> List[Tuple[List[_Request], List[int]]]:
+        """The groups to admit and their slots, taken from the pending
+        requests and marked occupied on the host; ``_admit_group`` runs
+        each on the device."""
+        groups = []
         free = [i for i in range(self.slots) if not self._active[i]]
         while free and self._pending:
             head = self._pending.pop(0)
@@ -870,7 +1137,16 @@ class ServingEngine:
                    and self._admit_sig(self._pending[0]) == sig):
                 group.append(self._pending.pop(0))
                 slots_used.append(free.pop(0))
-            self._admit_group(group, slots_used)
+            self._occupy(group, slots_used)
+            groups.append((group, slots_used))
+        return groups
+
+    def _occupy(self, group: List[_Request], slots_used: List[int]) -> None:
+        for slot, req in zip(slots_used, group):
+            # no fetch at admission: the first token comes out with the next chunk
+            self._slot_req[slot] = req
+            self._active[slot] = True
+            req.dispatched = 0
 
     def _admit_group(self, group: List[_Request], slots_used: List[int]) -> None:
         dev = self.device
@@ -913,11 +1189,6 @@ class ServingEngine:
             _ctx_install(self._ctx, self._ctx_start, ints[0],
                          to_device(np.concatenate(rows, axis=0), dev),
                          to_device(np.asarray(starts, np.int64), dev))
-        for slot, req in zip(slots_used, group):
-            # no fetch here: the first token comes out with the next chunk
-            self._slot_req[slot] = req
-            self._active[slot] = True
-            req.dispatched = 0
 
     def _pick_steps(self) -> Optional[int]:
         """The next chunk length from ``self.chunks``.
@@ -955,13 +1226,10 @@ class ServingEngine:
         return _decode_chunk(self.decode_params, self.cfg, self._cache, self._state, steps,
                              self.top_k, draws)
 
-    def _dispatch_chunk(self):
-        """Queue one decode chunk and the copy of its tokens to the host;
-        returns (slot_req snapshot, fetched tokens) for a later ``_harvest``,
-        or None when every occupant provably finishes in the in-flight chunk."""
-        steps = self._pick_steps()
-        if steps is None:
-            return None
+    def _dispatch_chunk(self, steps: int):
+        """Queue one decode chunk of ``steps`` (``_pick_steps``) and the copy
+        of its tokens to the host; returns (slot_req snapshot, fetched
+        tokens) for a later ``_harvest``."""
         # a sampling row's token at decode step s of its occupancy is drawn at
         # position start + s + 1 (it accepts one token a step, speculating or
         # not); an inactive row draws nothing
@@ -1007,6 +1275,8 @@ class ServingEngine:
                 # finished rows stop themselves on the device; a cancelled row
                 # does not know it
                 _state_deactivate(self._state, slot)
+                if self._distributed and not self._follower:
+                    self._cancelled_rids.append(req.rid)
                 continue
             accepted = [int(t) for st in range(toks.shape[1])
                         for t in toks[slot, st, :counts[slot, st]]]
@@ -1032,7 +1302,8 @@ class ServingEngine:
     # -- lifecycle ------------------------------------------------------------
 
     def close(self, timeout: Optional[float] = 60.0) -> None:
-        """Finish every queued and in-flight request, then stop the scheduler."""
+        """Finish every queued and in-flight request, then stop the scheduler.
+        On a follower rank: wait for rank 0's stop."""
         self._queue.put(None)
         self._thread.join(timeout)
         if self._thread.is_alive():

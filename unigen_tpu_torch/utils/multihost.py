@@ -3,14 +3,15 @@
 Port of ``unigen_tpu/utils/multihost.py``: ``gather_objects`` merges the
 CoT-V rating tables of every rank (the reference's ``dist.all_gather_object``),
 ``broadcast_object`` sends rank 0's object to all, ``sync_hosts`` is the
-barrier. One process (no process group initialised) makes each the
-identity. The objects are pickled by ``torch.distributed``'s object
+barrier, ``broadcast_tensor`` sends rank 0's tensor of a known shape. One
+process (no process group initialised) makes each the identity. The objects are pickled by ``torch.distributed``'s object
 collectives, where JAX sends JSON bytes: anything JSON carries goes.
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 
 
@@ -50,3 +51,22 @@ def sync_hosts() -> None:
     """A barrier across processes."""
     if process_count() > 1:
         dist.barrier()
+
+
+def broadcast_tensor(t: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+                     source: int = 0) -> torch.Tensor:
+    """``source``'s tensor of ``shape`` and ``dtype`` on every process, on
+    the device the world's backend carries (the CPU under gloo, this rank's
+    card under NCCL): ``t`` on ``source``, ignored elsewhere. Fixed-layout
+    integer plans go this way instead of a pickle (the serving engine's
+    rank-0 plan); ``t`` itself on one process."""
+    if process_count() == 1:
+        return t
+    device = (torch.device("cpu") if dist.get_backend() == "gloo"
+              else torch.device("cuda", torch.cuda.current_device()))
+    if process_index() == source:
+        buf = t.to(device=device, dtype=dtype).contiguous()
+    else:
+        buf = torch.empty(tuple(shape), dtype=dtype, device=device)
+    dist.broadcast(buf, src=source)
+    return buf
