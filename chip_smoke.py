@@ -169,7 +169,17 @@ read just after:
   against the flagship phase's, the call's seconds and its collectives'
   share (gloo on one card, not a multi-card speed); the kernels at a rank's
   shapes include the serving decode step (kernel 1 at [32, 1, 6, 128], S
-  896) and admission (kernel 2 at [16, 640, 6, 128], pad bits);
+  896) and admission (kernel 2 at [16, 640, 6, 128], pad bits), and kernel
+  4, the quantization kernel and the W8A8 epilogue at a model-2 rank's
+  quantized layers (``RANK_W4A8``: kernel 4 at T 32, 160 and 6,296 on a
+  column layer's fused launch or a row layer's fp32 product, the down
+  projection repacked at group 128; a row layer's slice quantized with the
+  global absmax; the W4A8 row epilogue; the W8A8 layer at the t2i step's
+  2,064 rows), bit for bit; the tiny checks add the PT2 step of a tree with
+  LoRA adapters at (1,1,2), the tiny W8A8 t2i at model 2 token for token,
+  the tiny W4A8 t2i (group 64, a rank's o cut inside a group) by its first
+  image logits, and the tiny engine in int8+kv and int8+int4 at model 2
+  token for token, with 1 KV head a rank's cache;
 * ``parallel_train`` (only when named): the flagship PT2 step at model 2
   and at fsdp 2, its first losses against one rank's and each rank's peak
   memory;
@@ -177,7 +187,15 @@ read just after:
   model 2 in bf16 on the serving phase's first 48 requests: every rank's
   tokens, chunks, busy steps and exact launches, useful tokens/s, TTFT p50,
   the collectives' share of the wall and each rank's peak memory (gloo on
-  one card), beside the one-rank engine on the same requests.
+  one card), beside the one-rank engine on the same requests;
+* ``parallel_quant`` (only when named): the flagship W8A8 t2i at model 2
+  (``build_pipeline(quantization="int8")``, batch 4, guidance 6, 50 steps,
+  the int8 image head split over the codes): its first-step logits against
+  the unsharded forward, its codes against the one-rank W8A8 run's, exact
+  launches a rank, the collectives' share and a rank's peak memory; then the
+  flagship engine in int8+int4 and int8+kv at model 2 on parallel_serving's
+  48 requests beside the one-rank engines: useful tokens/s, the share of
+  tokens equal to one rank's, exact launches and a rank's peak memory.
 
 It checks that each path went through every kernel it runs (fixed launch
 counts), and compares tiny fp32 runs through the kernels on the card with
@@ -224,8 +242,8 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
 serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,parallel,tiny)
-runs a subset, for quick checks; ``pt2_real``, ``dpo_real``, ``parallel_train`` and
-``parallel_serving`` run only when named;
+runs a subset, for quick checks; ``pt2_real``, ``dpo_real``, ``parallel_train``,
+``parallel_serving`` and ``parallel_quant`` run only when named;
 adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
 where the device time goes, by kernel and by family (the port's kernels,
 cuBLAS, plain-torch copies, reductions and elementwise kernels).
@@ -247,7 +265,8 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
           "sft_naflex", "jpeg", "sft_real", "checkpoints", "parallel", "tiny")
-OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "parallel_serving", "profile")
+OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "parallel_serving",
+                   "parallel_quant", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 (non-tensor) FLOP/s
@@ -3068,20 +3087,24 @@ def serve_run(eng, make_requests, static=False):
             "t_harvest_s": stats.t_harvest}
 
 
-def _serve_expect(run, layers, mode, tower=0):
+def _serve_expect(run, layers, mode, tower=0, tp=False):
     """The launch counts of a serving run from its admissions and decode
     steps: a group prefill is one flash launch a layer, a decode step one
     chunk launch a layer (none with the int8 cache); a W8A8 forward quantizes
     4 x layers + 1 times (q/k/v, o, gate/up, down, head) and runs 7 x layers
     + 1 products and epilogues, a W4A8 one as many quantizations and kernel-4
-    launches. ``mode``: bf16, int8+int4 (W8A8 admission, W4A8 decode), int8+kv."""
+    launches. ``mode``: bf16, int8+int4 (W8A8 admission, W4A8 decode), int8+kv.
+    ``tp``: a rank at model > 1, where o and down each add the absmax pass
+    (6 x layers + 1 quantization launches) and a W4A8 o or down ends in the
+    epilogue kernel after the sum of kernel 4's partials."""
     g, st = run["groups"], run["steps"]
-    quant, dense = 4 * layers + 1, 7 * layers + 1
+    quant, dense = (6 if tp else 4) * layers + 1, 7 * layers + 1
     out = dict(NO_LAUNCHES, flash_attention=tower + layers * g,
                chunk_attention=0 if mode == "int8+kv" else layers * st)
     if mode == "int8+int4":
         out.update(quantize_activations=quant * (g + st), w4a8_matmul=dense * st,
-                   w8a8_epilogue=dense * g, int8_matmul=dense * g)
+                   w8a8_epilogue=dense * g + (2 * layers * st if tp else 0),
+                   int8_matmul=dense * g)
     elif mode == "int8+kv":
         out.update(quantize_activations=quant * (g + st), w8a8_epilogue=dense * (g + st),
                    int8_matmul=dense * (g + st))
@@ -6377,39 +6400,124 @@ def _adam_allowance(g, norm, tx, rtol):
 
 def _parallel_tiny(rank):
     """The tiny fp32 PT2 step on each mesh against the one-rank step on the
-    same batch and draws: the losses and grad norm (relative errors); each
-    leaf's gathered gradient before the update (its largest difference over
-    its largest gradient); each parameter element after the update, within
-    1e-5 of its leaf's largest magnitude plus what AdamW's first step makes
-    of the gradient tolerance there (``_adam_allowance``; the leaves where
-    that allowance is the larger are listed); and the tiny t2i at model 2
-    against one rank's tokens."""
+    same batch and draws (``_mesh_steps``), and the step of a tree with
+    LoRA adapters (the adapters alone trained) at (1, 1, 2); the tiny t2i at
+    model 2 against one rank's tokens, float, W8A8 (its image head split
+    over the codes) and W4A8 (group 64: the rank's o cuts a group, repacked
+    at 32), the W4A8 tree by its first forward (``_quant_first_forward``)."""
+    import dataclasses
     import torch
     from unigen_tpu_torch import parallel as P
     from unigen_tpu_torch.launch import build_pipeline
-    from unigen_tpu_torch.parallel.partition import gather_full
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    from unigen_tpu_torch.ops.quantization import quantize_unigen_params
     from unigen_tpu_torch.training import lr_schedules as LRS
     from unigen_tpu_torch.training import train_step as TS
-    from unigen_tpu_torch.training.optimizer import global_norm, make_optimizer, named_leaves
+    from unigen_tpu_torch.training.lora import add_lora, lora_tunable_parts
+    from unigen_tpu_torch.training.optimizer import make_optimizer
     pipe = build_pipeline("tiny", dtype=torch.float32, device="cuda", seed=3)
     batch, draws, tcfg = _tiny_train_inputs(pipe, "cuda")
     tx = make_optimizer(pipe.params, 1e-3, LRS.get_scheduler("constant"), max_grad_norm=1.0)
     step = TS.make_train_step(pipe.cfg, pipe.vq_cfg, tx, tcfg)
-    paths = [p for p, _ in named_leaves(pipe.params)]
-    whole = TS.init_train_state(pipe.params, tx)
+    out = _mesh_steps(pipe, pipe.params, tx, step, batch, draws, PARALLEL_TINY_MESHES)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    llm = add_lora(pipe.params["llm"], gen, 4, dtype=torch.float32)
+    for lp in llm["layers"]:
+        for key in [key for key in lp if key.endswith("_lora_b")]:
+            lp[key] = torch.randn(lp[key].shape, generator=gen, device="cuda") * 0.05
+    lora = dict(pipe.params, llm=llm)
+    tx_l = make_optimizer(lora, 1e-3, LRS.get_scheduler("constant"), max_grad_norm=1.0,
+                          tunable_parts=list(lora_tunable_parts()))
+    out["lora"] = _mesh_steps(pipe, lora, tx_l, TS.make_train_step(pipe.cfg, pipe.vq_cfg, tx_l,
+                                                                   tcfg),
+                              batch, draws, ((1, 1, 2),))["1x1x2"]
+    mesh = P.make_mesh(1, 1, 2, device_type="cuda")
+
+    def tokens(p):
+        gen = torch.Generator(device="cuda").manual_seed(PARALLEL_T2I_SEED)
+        return p.generate_images(list(PROMPTS[:2]), gen, guidance_scale=6.0, timesteps=8,
+                                 return_codes=True).tolist()
+    out["t2i_equal"] = tokens(pipe.shard(mesh)) == tokens(pipe)
+    w8 = dataclasses.replace(pipe, params=quantize_unigen_params(pipe.params, pipe.cfg,
+                                                                 lm_head=True))
+    out["t2i_w8a8_equal"] = tokens(w8.shard(mesh)) == tokens(w8)
+    w4 = dataclasses.replace(pipe, params=quantize_unigen_params_int4(pipe.params, pipe.cfg,
+                                                                      group=64))
+    w4_tp = w4.shard(mesh)
+    out["w4a8_groups"] = w4_tp.sharding.groups
+    out["t2i_w4a8"] = _quant_first_forward(w4, w4_tp)
+    toks, toks_tp = tokens(w4), tokens(w4_tp)
+    out["t2i_w4a8"]["codes_agree"] = sum(a == b for r, q in zip(toks, toks_tp)
+                                         for a, b in zip(r, q)) / sum(map(len, toks))
+    return out
+
+
+def _first_image_logits(pipe, prompts):
+    """The t2i call's first image logits of ``prompts`` as a function of the
+    params: a cache-free forward of the prompts and their unconditional rows
+    (text budget 128), CFG 6 on the hidden states, fp32."""
+    import numpy as np
+    import torch
+    from unigen_tpu_torch.generation import t2i as T2I
+    from unigen_tpu_torch.models import unigen
+    from unigen_tpu_torch.ops import masks as M
+    cfg, n = pipe.cfg, pipe.cfg.num_vq_tokens
+    sp = pipe.prompting.sptids_dict
+    ids, uncond = pipe.prompt_ids(list(prompts), 128)
+    x = torch.as_tensor(np.concatenate([ids, uncond]), device="cuda")
+    bits = M.pack_meta(M.t2i_attn_meta(x, pipe.prompting.pad_id, sp["<|soi|>"], sp["<|eoi|>"]))
+
+    @torch.no_grad()
+    def logits(params):
+        h = unigen.forward(params, cfg, input_ids=x, meta_bits=bits, return_hidden=True)
+        return T2I._cfg_head_logits(params, cfg, h[:, -(n + 1):-1], len(prompts), True, 6.0,
+                                    "hidden").float()
+    return logits
+
+
+def _quant_first_forward(pipe, tp):
+    """The relative difference of the first image logits of 2 prompts at
+    model 2 from one rank's, and their argmax agreement."""
+    logits = _first_image_logits(pipe, PROMPTS[:2])
+    a, b = logits(tp.params), logits(pipe.params)
+    return {"rel": ((a - b).abs().max() / b.abs().max()).item(),
+            "argmax": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
+
+
+def _mesh_steps(pipe, params, tx, step, batch, draws, meshes):
+    """The tiny fp32 PT2 step of ``params`` on each mesh against the
+    one-rank step on the same batch and draws: the losses and grad norm
+    (relative errors); each trained leaf's gathered gradient before the
+    update (its largest difference over its largest gradient; a frozen
+    scalar such as a LoRA scale sums its gradient with cancellation, which
+    no update reads); each parameter element
+    after the update, within 1e-5 of its leaf's largest magnitude plus what
+    AdamW's first step makes of the gradient tolerance there
+    (``_adam_allowance``; the leaves where that allowance is the larger are
+    listed); the leaves the update moved."""
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.parallel.partition import gather_full
+    from unigen_tpu_torch.training import train_step as TS
+    from unigen_tpu_torch.training.optimizer import global_norm, named_leaves
+    paths = [p for p, _ in named_leaves(params)]
+    whole = TS.init_train_state(params, tx)
     g_whole, wm = step.grads(whole, pipe.vq_params, batch, draws)
     norm = float(global_norm(g_whole))
     allow = {p: _adam_allowance(g, norm, tx, PARALLEL_TINY_RTOL) for p, g in zip(paths, g_whole)}
     whole, wm = step.apply(whole, g_whole, wm)
+    before = dict(named_leaves(params))
     out = {}
-    for d, f, m in PARALLEL_TINY_MESHES:
+    for d, f, m in meshes:
         mesh = P.make_mesh(d, f, m, device_type="cuda")
-        local, sh = P.shard_params(pipe.params, P.unigen_specs(pipe.params, pipe.cfg, mesh,
-                                                               fsdp=f > 1), mesh)
+        local, sh = P.shard_params(params, P.unigen_specs(params, pipe.cfg, mesh, fsdp=f > 1),
+                                   mesh)
         state = TS.init_train_state(local, tx, sharding=sh)
         g_local, sm = step.grads(state, pipe.vq_params, batch, draws)
         grad_err = {}
-        for p, g, spec, gw in zip(paths, g_local, sh.spec_list(state.params), g_whole):
+        for p, g, spec, gw, train in zip(paths, g_local, sh.spec_list(state.params), g_whole,
+                                         tx.trainable):
+            if not train:
+                continue
             full = gather_full(g, spec, mesh)
             grad_err[p] = ((full - gw).abs().max() / gw.abs().max().clamp(min=1e-30)).item()
         state, sm = step.apply(state, g_local, sm)
@@ -6428,14 +6536,8 @@ def _parallel_tiny(rank):
             "grad_err": max(grad_err.values()), "worst_grad": max(grad_err, key=grad_err.get),
             "param_err": max(param_err.values()), "worst_param": max(param_err, key=param_err.get),
             "loosened": loosened,
-            "local_q_rows": int(state.params["llm"]["layers"][0]["q_w"].shape[0])}
-    mesh = P.make_mesh(1, 1, 2, device_type="cuda")
-
-    def tokens(p):
-        gen = torch.Generator(device="cuda").manual_seed(PARALLEL_T2I_SEED)
-        return p.generate_images(list(PROMPTS[:2]), gen, guidance_scale=6.0, timesteps=8,
-                                 return_codes=True).tolist()
-    out["t2i_equal"] = tokens(pipe.shard(mesh)) == tokens(pipe)
+            "local_q_rows": int(state.params["llm"]["layers"][0]["q_w"].shape[0]),
+            "moved": sorted(p for p, t in got.items() if not bool((t == before[p]).all()))}
     return out
 
 
@@ -6446,28 +6548,14 @@ def _parallel_flagship(rank):
     exact launches a rank, the call's seconds and its collectives' share,
     and (rank 0) the codes, which the parent holds against the flagship
     phase's."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
     from unigen_tpu_torch import parallel as P
-    from unigen_tpu_torch.generation import t2i as T2I
-    from unigen_tpu_torch.models import unigen
-    from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.parallel import collectives as C
     pipe = flagship_pipeline()
-    cfg, n = pipe.cfg, pipe.cfg.num_vq_tokens
     mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
     tp = pipe.shard(mesh)
-    sp = pipe.prompting.sptids_dict
-    ids, uncond = pipe.prompt_ids(list(PROMPTS), 128)
-    x = torch.as_tensor(np.concatenate([ids, uncond]), device="cuda")
-    bits = M.pack_meta(M.t2i_attn_meta(x, pipe.prompting.pad_id, sp["<|soi|>"], sp["<|eoi|>"]))
-
-    @torch.no_grad()
-    def first_step_logits(params):
-        h = unigen.forward(params, cfg, input_ids=x, meta_bits=bits, return_hidden=True)
-        return T2I._cfg_head_logits(params, cfg, h[:, -(n + 1):-1], len(PROMPTS), True, 6.0,
-                                    "hidden").float()
+    first_step_logits = _first_image_logits(pipe, PROMPTS)
     a, b = first_step_logits(tp.params), first_step_logits(pipe.params)
     cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
     argmax = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
@@ -6495,14 +6583,17 @@ def _parallel_serving_tiny(rank):
     """The tiny fp32 serving engine at model 2 (rank 0 decides, rank 1
     follows its plan) against one rank's engine on the same requests: three
     greedy text prompts, a sampled one and an embeddings prompt, speculation
-    on; this rank's tokens (a follower's from ``followed``), decode chunks
-    and busy steps."""
+    on; then int8+kv and int8+int4 on the text requests; this rank's tokens
+    (a follower's from ``followed``), decode chunks, busy steps and cache
+    KV heads."""
     import numpy as np
     import torch
     from unigen_tpu_torch import parallel as P
     from unigen_tpu_torch.launch import build_pipeline
     from unigen_tpu_torch.models.unigen import embed_tokens
     from unigen_tpu_torch.ops import masks as M
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    from unigen_tpu_torch.ops.quantization import quantize_unigen_params
     from unigen_tpu_torch.serving import ServingEngine
     pipe = build_pipeline("tiny", dtype=torch.float32, device="cuda", seed=3)
     cfg = pipe.cfg
@@ -6515,23 +6606,37 @@ def _parallel_serving_tiny(rank):
     kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), speculate_k=2, device="cuda",
               keep_followed=True)
 
-    def serve(params, follow):
-        with ServingEngine(params, cfg, **kw) as eng:
+    def serve(params, follow, embeds=True, **extra):
+        with ServingEngine(params, cfg, **dict(kw, **extra)) as eng:
             if follow:
                 eng.close(timeout=None)
                 toks = [f.result(0) for _, f in sorted(eng.followed.items())]
             else:
                 futs = [eng.submit(p, max_new_tokens=8) for p in prompts]
                 futs.append(eng.submit(prompts[0], max_new_tokens=6, temperature=0.9, seed=5))
-                futs.append(eng.submit_embeds(emb, bits, 11, max_new_tokens=7,
-                                              lookup_ids=prompts[1]))
+                if embeds:
+                    futs.append(eng.submit_embeds(emb, bits, 11, max_new_tokens=7,
+                                                  lookup_ids=prompts[1]))
                 toks = [f.result(120) for f in futs]
-            return toks, eng.stats.decode_chunks, eng.stats.busy_steps
+            return toks, eng.stats.decode_chunks, eng.stats.busy_steps, eng._cache.k.shape[3]
     whole = serve(pipe.params, False)
     mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
-    toks, chunks, busy = serve(pipe.shard(mesh).params, rank != 0)
-    return {"equal": toks == whole[0], "toks": toks, "chunks": chunks, "busy": busy,
-            "one_rank_chunks": whole[1]}
+    toks, chunks, busy, _ = serve(pipe.shard(mesh).params, rank != 0)
+    out = {"equal": toks == whole[0], "toks": toks, "chunks": chunks, "busy": busy,
+           "one_rank_chunks": whole[1]}
+    # int8+kv (W8A8, the int8 cache) and int8+int4 (W8A8 admission, W4A8 decode
+    # chunks, group 32), speculation off, on the text requests
+    w8 = quantize_unigen_params(pipe.params, cfg, lm_head=True)
+    w4 = quantize_unigen_params_int4(pipe.params, cfg, group=32)
+    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    for mode, (one, tp) in (("int8+kv", (dict(quantized_cache=True),) * 2),
+                            ("int8+int4", (dict(decode_params=w4), dict(decode_params=l4)))):
+        w_toks, w_chunks, _, w_heads = serve(w8, False, False, speculate_k=0, **one)
+        toks, chunks, busy, heads = serve(l8, rank != 0, False, speculate_k=0, **tp)
+        out[mode] = {"equal": toks == w_toks, "toks": toks, "chunks": chunks, "busy": busy,
+                     "one_rank_chunks": w_chunks, "heads": heads, "one_rank_heads": w_heads}
+    return out
 
 
 def _parallel_rank(rank):
@@ -6580,6 +6685,138 @@ def run_parallel_kernel_phases(results):
         results.setdefault(name, {}).setdefault("shapes", []).append(row)
 
 
+# the understand prefill's rows at the flagship: 8 questions x 787
+# (``understand_prompt_shape``), a rank's rows at model 2 as on one card
+UNDERSTAND_ROWS = 6296
+# (label, K, N, group, bias, row parallel) of a W4A8 layer on a model-2 rank
+# of the flagship: column q/k/v and gate/up on their output halves, row o
+# (768 = 3 groups of 256) and down (4,480: 17.5 groups of 256, repacked at 128)
+RANK_W4A8 = (("gate/up", 1536, 4480, 256, False, False), ("q", 1536, 768, 256, True, False),
+             ("k/v", 1536, 128, 256, True, False), ("o", 768, 1536, 256, False, True),
+             ("down", 4480, 1536, 128, False, True))
+
+
+def phase_quant_rank(gen, t, k, dtype, iters, timed, label=""):
+    """A row-parallel layer's quantization on a model-2 rank: x [t, k] is
+    one half of a row of 2k values (normal * 3, the other half * 5, so
+    that either holds the row's absmax). The absmax pass (``row_absmax``)
+    and the quantization with the global absmax (``quantize_activations(x,
+    amax)``) must equal their plain versions bit for bit, and the slice's
+    int8 values and scales must equal those of the whole row's
+    quantization. Timed: the two launches against their plain versions and
+    the bytes they must move."""
+    import torch
+    from unigen_tpu_torch.ops.quantization import (quantize_activations,
+                                                   quantize_activations_plain, row_absmax,
+                                                   row_absmax_plain)
+    x = torch.randn((t, k), generator=gen, device="cuda") * 3
+    other = torch.randn((t, k), generator=gen, device="cuda") * 5
+    x, other = x.to(dtype), other.to(dtype)
+    whole = torch.cat([x, other], -1)
+    amax = torch.maximum(row_absmax(x), row_absmax_plain(other))       # the MAX over the ranks
+    check(bool(torch.equal(row_absmax(x), row_absmax_plain(x))),
+          f"row_absmax {label} [{t},{k}] {dtype} differs from its plain version")
+    q, s = quantize_activations(x, amax)
+    qr, sr = quantize_activations_plain(x, amax)
+    qw, sw = quantize_activations_plain(whole)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(q, qr)) and bool(torch.equal(s, sr)),
+          f"quantize_activations(x, amax) {label} [{t},{k}] {dtype} differs from its plain version")
+    check(bool(torch.equal(q, qw[:, :k])) and bool(torch.equal(s, sw)),
+          f"quantize_activations(x, amax) {label}: the slice's values are not the whole row's")
+    print(f"  quantization of a rank's slice {label} [{t},{k}] of [{t},{2 * k}] {dtype}: the "
+          "absmax pass and the quantization with the global absmax equal their plain versions "
+          "and the whole row's values bit for bit")
+    if not timed:
+        return None
+
+    def pair():
+        return quantize_activations(x, row_absmax(x))
+    ms = time_ms(pair, iters)
+    plain_ms = time_ms(lambda: quantize_activations_plain(x, row_absmax_plain(x)), iters)
+    b_ms, by = bound(0.0, nbytes(x, q, s, amax), INT8_PEAK)
+    print(f"    the two launches ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms none  "
+          f"bound_ms {b_ms:.4f} ({by})")
+    return _measured(0.0, ms, plain_ms, None, b_ms, by,
+                     f"{label} x [{t},{k}] {dtype}, absmax pass + quantization (model 2)")
+
+
+def phase_row_epilogue(gen, t, n, npad, iters, timed, label=""):
+    """The epilogue of a row-parallel W4A8 layer (``w8a8_epilogue`` on kernel
+    4's fp32 partials summed over the ranks, no weight scale): [t, n] of
+    [t, npad] against its plain version bit for bit, bf16 and fp32 out, with
+    an fp32 zero bias (the layers without one) and a bf16 bias."""
+    import torch
+    from unigen_tpu_torch.ops.quantization import w8a8_epilogue, w8a8_epilogue_plain
+    acc = torch.randn((t, npad), generator=gen, device="cuda") * 40
+    act = torch.rand((t,), generator=gen, device="cuda") * 0.05
+    biases = (torch.zeros((n,), device="cuda"),
+              (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16))
+    for bias in biases:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = w8a8_epilogue(acc, act, None, bias, out_dtype)
+            check(bool(torch.equal(got, w8a8_epilogue_plain(acc, act, None, bias, out_dtype))),
+                  f"the W4A8 row epilogue {label} [{t},{n}] {out_dtype} differs from its plain "
+                  "version")
+    print(f"  the W4A8 row epilogue {label} [{t},{n}] of [{t},{npad}] fp32 partials: bf16 and "
+          "fp32 out, fp32 and bf16 bias, equal to its plain version bit for bit")
+    if not timed:
+        return None
+    bias = biases[0]
+    ms = time_ms(lambda: w8a8_epilogue(acc, act, None, bias, torch.bfloat16), iters)
+    plain_ms = time_ms(lambda: w8a8_epilogue_plain(acc, act, None, bias, torch.bfloat16), iters)
+    b_ms, by = bound(0.0, nbytes(acc[:, :n], act, bias) + t * n * 2, INT8_PEAK)
+    print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms none  bound_ms {b_ms:.4f} ({by})")
+    return _measured(0.0, ms, plain_ms, None, b_ms, by,
+                     f"{label} [{t},{n}] of fp32 [{t},{npad}] (W4A8 row, model 2)")
+
+
+def run_parallel_quant_kernel_phases(results):
+    """Kernel 4, the quantization kernel and the W8A8 epilogue at a model-2
+    rank's shapes (module docstring; ``RANK_W4A8``): kernel 4 at the
+    serving decode's 32 rows, the k-4 verify's 160 and the understand
+    prefill's 6,296, on the route each layer runs (a column layer's fused
+    dense launch, a row layer's fp32 product), the quantization of a row
+    layer's slice with the global absmax at [T, 768] and [T, 4480], the
+    W4A8 row epilogue, and the W8A8 layer at the t2i step's 2,064 rows; all
+    bit for bit against their plain versions. Timed: the decode's gate/up
+    and down, the [32, 4480] and [6296, 4480] quantizations, the W4A8 row
+    epilogue at 32 rows and the t2i step's W8A8 gate/up and down."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2022)
+    bf16 = torch.bfloat16
+    print("phase: kernel 4, the quantization kernel and the W8A8 epilogue at a model rank's "
+          "shapes (model 2)")
+    rows = {"w4a8_matmul": [], "quantize_activations": [], "w8a8_epilogue": []}
+    for t, at in ((SERVE_SLOTS, "serving decode"), (SERVE_SLOTS * (SPEC_K + 1), "k-4 verify"),
+                  (UNDERSTAND_ROWS, "understand prefill")):
+        for label, k, n, group, bias, row in RANK_W4A8:
+            timed = t == SERVE_SLOTS and label in ("gate/up", "down")
+            r = phase_w4a8(gen, t, k, n, group, 50 if timed else 0, timed,
+                           f"{at} {label} ({'row' if row else 'column'}), a rank at model 2",
+                           bias=bias)
+            if r is not None:
+                rows["w4a8_matmul"].append(r)
+        for k in (768, 4480):
+            r = phase_quant_rank(gen, t, k, bf16, 50, k == 4480 and t != SERVE_SLOTS * 5,
+                                 f"{at}, a rank's row slice")
+            if r is not None:
+                rows["quantize_activations"].append(r)
+        r = phase_row_epilogue(gen, t, 1536, 1536, 50, t == SERVE_SLOTS, f"{at} o/down")
+        if r is not None:
+            rows["w8a8_epilogue"].append(r)
+    t_step = 8 * 258
+    for label, k, n, _, bias, _ in RANK_W4A8:
+        timed = label in ("gate/up", "down")
+        r = phase_w8a8(gen, t_step, k, n, 20 if timed else 0, timed,
+                       f"t2i step {label}, a rank at model 2", bf16 if bias else None)
+        if r is not None:
+            rows["w8a8_epilogue"].append(r)
+    for name, shapes in rows.items():
+        results.setdefault(name, {}).setdefault("shapes", []).extend(shapes)
+
+
 def run_parallel(results):
     """The parallel phase (module docstring): kernels at a rank's shapes,
     then 2 ranks on the card: the tiny meshes against one rank, the
@@ -6587,13 +6824,14 @@ def run_parallel(results):
     t0 = time.perf_counter()
     import torch
     run_parallel_kernel_phases(results)
+    run_parallel_quant_kernel_phases(results)
     t_kernels = time.perf_counter() - t0
     print(f"phase: parallel, {PARALLEL_RANKS} ranks on the one card under gloo over a TCP store "
           "on localhost (NCCL refuses two ranks on one device)")
     ranks = spawn_ranks("_parallel_rank")
-    for mesh_name, r in ranks[0]["tiny"].items():
-        if mesh_name == "t2i_equal":
-            continue
+    tiny = ranks[0]["tiny"]
+    steps = [(f"{d}x{f}x{m}", tiny[f"{d}x{f}x{m}"]) for d, f, m in PARALLEL_TINY_MESHES]
+    for mesh_name, r in steps + [("1x1x2 with LoRA adapters", tiny["lora"])]:
         print(f"  tiny fp32 PT2 step on mesh (data, fsdp, model) = {mesh_name}: relative "
               f"differences to one rank {r['rel']}; gathered gradients before the update: the "
               f"largest leaf difference {r['grad_err']:.3e} of the leaf's largest gradient "
@@ -6606,9 +6844,23 @@ def run_parallel(results):
         check(all(v <= PARALLEL_TINY_RTOL for v in r["rel"].values())
               and r["grad_err"] <= PARALLEL_TINY_RTOL and r["param_err"] <= 1.0,
               f"the tiny sharded step on {mesh_name} differs from one rank's: {r}")
+    moved = tiny["lora"]["moved"]
+    print(f"  the LoRA step moved {len(moved)} leaves, all adapters")
+    check(bool(moved) and all(p.endswith(("_lora_a", "_lora_b")) for p in moved),
+          f"the tiny LoRA step at model 2 moved {moved}")
     for rank, r in enumerate(ranks):
-        check(r["tiny"]["t2i_equal"], f"rank {rank}: the tiny t2i at model 2 changed tokens")
-    print("  tiny t2i at model 2: every rank's tokens equal one rank's")
+        t = r["tiny"]
+        check(t["t2i_equal"], f"rank {rank}: the tiny t2i at model 2 changed tokens")
+        check(t["t2i_w8a8_equal"], f"rank {rank}: the tiny W8A8 t2i at model 2 changed tokens")
+        check(t["t2i_w4a8"]["rel"] <= PARALLEL_TINY_RTOL and t["t2i_w4a8"]["argmax"] == 1.0
+              and t["w4a8_groups"], f"rank {rank}: the tiny W4A8 t2i at model 2: {t['t2i_w4a8']}, "
+              f"repacked {t['w4a8_groups']}")
+    w4 = tiny["t2i_w4a8"]
+    print(f"  tiny t2i at model 2: every rank's tokens equal one rank's, float and W8A8 (the int8 "
+          f"image head split over the codes); W4A8 (group 64, repacked at 32 where a rank cuts "
+          f"a group: {tiny['w4a8_groups']}): first image logits {w4['rel']:.3e} of their "
+          f"largest from one rank's, argmax agreement {w4['argmax']:.4f}, codes agree "
+          f"{w4['codes_agree']:.4f} (not a gate: kernel 4's partials fold in another order)")
     st = [r["serving_tiny"] for r in ranks]
     for rank, r in enumerate(st):
         check(r["equal"], f"rank {rank}: the tiny serving engine at model 2 changed tokens")
@@ -6619,6 +6871,18 @@ def run_parallel(results):
           f"and embeddings requests, speculation on): every rank's tokens equal one rank's "
           f"engine; {st[0]['chunks']} decode chunks and {st[0]['busy']} busy steps on each rank "
           f"({st[0]['one_rank_chunks']} chunks on one rank)")
+    for mode in ("int8+kv", "int8+int4"):
+        sq = [r[mode] for r in st]
+        for rank, r in enumerate(sq):
+            check(r["equal"] and r["heads"] == 1 and r["one_rank_heads"] == 2,
+                  f"rank {rank}: the tiny {mode} engine at model 2 changed tokens or cache "
+                  f"heads: {r}")
+            check((r["toks"], r["chunks"], r["busy"]) == (sq[0]["toks"], sq[0]["chunks"],
+                                                          sq[0]["busy"]),
+                  f"rank {rank}'s {mode} engine diverged from rank 0's")
+        print(f"  tiny {mode} engine at model 2 (greedy and sampled requests): every rank's "
+              f"tokens equal one rank's engine, {sq[0]['chunks']} decode chunks and "
+              f"{sq[0]['busy']} busy steps on each rank, a cache of 1 KV head a rank (2 on one)")
     want = dict(NO_LAUNCHES, flash_attention=28, chunk_attention=1400, conv3x3_gn_swish=44,
                 gn_affine=40)
     for rank, r in enumerate(ranks):
@@ -6760,6 +7024,154 @@ def run_parallel_serving(results):
         "peak_gib": [r["peak_gib"] for r in ranks], "agree_one_rank": agree,
         "one_rank_tokens_per_s": one["tokens_per_s"]}
     return r0["counts"]
+
+
+def _parallel_quant_rank(rank):
+    """The named-only parallel_quant phase on one rank: the flagship W8A8 t2i
+    at model 2 as the flagship_int8 phase runs it (batch 4, guidance 6, 50
+    steps, the int8 image head split over the codes, codes -> 256 px): the
+    first step's image logits against the unsharded forward, the exact
+    launches a rank, the call's seconds, its collectives' share and the
+    rank's peak memory, and (rank 0) its codes against the one-rank W8A8
+    run's on the same generator seed; then the flagship serving engine in
+    int8+int4 (W8A8 admission, W4A8 decode chunks) and int8+kv (the int8
+    cache of the rank's KV head) on the parallel_serving phase's requests,
+    with (rank 0) the one-rank engines on the same requests."""
+    import torch
+    import torch.nn.functional as F
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.launch import build_pipeline
+    from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
+    from unigen_tpu_torch.parallel import collectives as C
+    out = {}
+    pipe = build_pipeline("flagship", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int8")
+    cfg = pipe.cfg
+    layers = cfg.llm.num_hidden_layers
+    mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
+    tp = pipe.shard(mesh)
+    first_step_logits = _first_image_logits(pipe, PROMPTS)
+    a, b = first_step_logits(tp.params), first_step_logits(pipe.params)
+    t2i = {"cos": F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item(),
+           "argmax": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+           "logits_equal": bool(torch.equal(a, b))}
+    del a, b
+    _t2i_run(tp, timesteps=1)()                               # warm: every call once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with C.timing() as coll:
+        t0 = time.perf_counter()
+        codes, pixels = _t2i_run(tp, timesteps=50)()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    t2i.update(counts=_read_counts(), seconds=seconds, collective_s=coll["seconds"],
+               collectives=coll["calls"], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               pixels_shape=list(pixels.shape), finite=bool(torch.isfinite(pixels).all()),
+               local_heads=int(tp.params["llm"]["layers"][0]["q"]["scale"].shape[0]) // 128,
+               head_codes=int(tp.params["img_head_q"]["scale"].shape[0]), layers=layers)
+    if rank == 0:
+        one, _ = _t2i_run(pipe, timesteps=50)()
+        t2i["codes_equal"] = (codes == one).float().mean().item()
+    out["t2i"] = t2i
+    del tp
+    torch.cuda.empty_cache()
+
+    # the serving engine: int8+int4 and int8+kv
+    w8 = pipe.params
+    w4 = quantize_unigen_params_int4(build_pipeline("flagship", dtype=torch.bfloat16,
+                                                    device="cuda", seed=0).params, cfg)
+    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    prompts, budgets = serving_trace(PARALLEL_SERVE_REQUESTS)
+    requests = [(dict(input_ids=p, max_new_tokens=b), b, None) for p, b in zip(prompts, budgets)]
+    for mode, (one_kw, tp_kw) in (("int8+int4", (dict(decode_params=w4), dict(decode_params=l4))),
+                                  ("int8+kv", (dict(quantized_cache=True),) * 2)):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = serving_engine(l8, cfg, keep_followed=True, **tp_kw)
+        with C.timing() as coll:
+            run = serve_run(eng, lambda: requests) if rank == 0 else _follow_run(eng)
+        r = dict(run, collective_s=coll["seconds"], collectives=coll["calls"],
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 resident_gib=resident / 2 ** 30, heads=int(eng._cache.k.shape[3]))
+        del eng
+        torch.distributed.barrier()
+        if rank == 0:
+            one = serve_run(serving_engine(w8, cfg, **one_kw), lambda: requests)
+            r["one_rank"] = {k: one[k] for k in ("tokens", "seconds", "tokens_per_s",
+                                                 "ttft_p50_s", "chunks")}
+        torch.distributed.barrier()
+        out[mode] = r
+    return out
+
+
+def run_parallel_quant(results):
+    """The named-only parallel_quant phase (``_parallel_quant_rank``): 2 ranks
+    on the card under gloo."""
+    t0 = time.perf_counter()
+    print(f"phase: parallel_quant (the flagship W8A8 t2i and the int8+int4 / int8+kv serving "
+          f"engine at model 2; {PARALLEL_RANKS} ranks on the one card, {GLOO_NOTE})")
+    ranks = spawn_ranks("_parallel_quant_rank")
+    out = {}
+    t0r = ranks[0]["t2i"]
+    layers, steps = t0r["layers"], 50
+    dense = 7 * layers * (steps + 1) + steps
+    want = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * steps,
+                conv3x3_gn_swish=44, gn_affine=40,
+                quantize_activations=6 * layers + steps * (6 * layers + 1),
+                w8a8_epilogue=dense, int8_matmul=dense)
+    for rank, r in enumerate(ranks):
+        f = r["t2i"]
+        print(f"  flagship W8A8 t2i at model 2, rank {rank}: {f['local_heads']} query heads, "
+              f"{f['head_codes']} of the image head's codes a rank; first step's image logits "
+              f"against the unsharded forward: cosine {f['cos']:.6f}, argmax agreement "
+              f"{f['argmax']:.4f}, bit for bit {f['logits_equal']}; launches {f['counts']}; "
+              f"{f['seconds']:.3f} s a call, of which collectives {f['collective_s']:.3f} s "
+              f"({f['collective_s'] / f['seconds']:.4f}, {f['collectives']} calls; {GLOO_NOTE}); "
+              f"peak memory {f['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated over the "
+              "call, both ranks' trees on the one card)")
+        check(f["cos"] >= 0.999, f"rank {rank}: W8A8 first-step logits cosine {f['cos']}")
+        check(f["counts"] == want, f"rank {rank}: W8A8 t2i launches {f['counts']} != {want}")
+        check(f["finite"] and f["pixels_shape"] == [len(PROMPTS), 256, 256, 3],
+              f"rank {rank}: pixels {f['pixels_shape']} finite {f['finite']}")
+    print(f"  flagship W8A8 t2i codes at model 2 equal to the one-rank W8A8 run's (same weights, "
+          f"prompts and generator seed): {t0r['codes_equal']:.4f}")
+    out["t2i"] = {k: t0r[k] for k in ("cos", "argmax", "logits_equal", "seconds", "collective_s",
+                                      "peak_gib", "codes_equal")}
+    for mode in ("int8+int4", "int8+kv"):
+        r0 = ranks[0][mode]
+        for rank, r in enumerate(ranks):
+            m = r[mode]
+            expect = _serve_expect(m, layers, mode, tp=True)
+            print(f"  {mode} at model 2, rank {rank}: {m['seconds']:.3f} s; collectives "
+                  f"{m['collective_s']:.3f} s ({m['collectives']} calls, "
+                  f"{m['collective_s'] / m['seconds']:.4f} of the wall; {GLOO_NOTE}); "
+                  f"{m['groups']} admissions, {m['chunks']} chunks, {m['steps']} decode steps; "
+                  f"cache of {m['heads']} KV head; launches {m['counts']}; peak memory "
+                  f"{m['peak_gib']:.2f} GiB ({m['resident_gib']:.2f} GiB held before)")
+            check(m["counts"] == expect, f"rank {rank} {mode}: launches {m['counts']} != {expect}")
+            check(m["heads"] == 1, f"rank {rank} {mode}: a cache of {m['heads']} KV heads")
+            check((m["tokens"], m["chunks"], m["busy_steps"]) ==
+                  (r0["tokens"], r0["chunks"], r0["busy_steps"]),
+                  f"rank {rank}'s {mode} tokens or steps differ from rank 0's")
+        _serve_report(f"{mode} at model 2, rank 0 ({GLOO_NOTE})", r0)
+        one = r0["one_rank"]
+        same = sum(int(a == b) for t, o in zip(r0["tokens"], one["tokens"]) for a, b in zip(t, o))
+        agree = same / max(sum(map(len, one["tokens"])), 1)
+        print(f"  {mode} on one rank, the same requests: {one['seconds']:.3f} s, "
+              f"{one['tokens_per_s']:.2f} useful tokens/s, TTFT p50 {one['ttft_p50_s']:.3f} s, "
+              f"{one['chunks']} chunks; tokens at model 2 equal to one rank's: {agree:.4f}")
+        out[mode] = {"tokens_per_s": r0["tokens_per_s"], "one_rank_tokens_per_s":
+                     one["tokens_per_s"], "agree_one_rank": agree,
+                     "peak_gib": [r[mode]["peak_gib"] for r in ranks],
+                     "collective_share": [r[mode]["collective_s"] / r[mode]["seconds"]
+                                          for r in ranks]}
+    seconds = time.perf_counter() - t0
+    print(f"  the parallel_quant phase: {seconds:.1f} s")
+    results["parallel_quant"] = dict(out, phase_s=seconds)
+    return t0r["counts"]
 
 
 def _parallel_train_rank(rank):
@@ -6953,6 +7365,8 @@ def main(argv=None) -> int:
             run_parallel_train(results)
         if "parallel_serving" in phases:
             path_counts["parallel_serving"] = run_parallel_serving(results)
+        if "parallel_quant" in phases:
+            path_counts["parallel_quant_t2i"] = run_parallel_quant(results)
         if "tiny" in phases:
             run_tiny_train()
             run_tiny_post_training()

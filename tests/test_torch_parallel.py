@@ -17,7 +17,14 @@ models with JAX's weights, batches and draws:
   onto (4, 2, 1), then one more step; this process restores it onto one
   process, and reads the ``unwrapped_model`` back through
   ``launch.build_pipeline``;
-* t2i at model 2 against the unsharded sampler; the errors.
+* t2i at model 2 against the unsharded sampler; the errors;
+* the engine at model 2, float, in int8+kv and in int8+int4, against the
+  one-rank engine and JAX's;
+* JAX's W8A8 and W4A8 trees at model 2: the row-parallel products against
+  one rank's (W8A8 bit for bit), the int8 t2i codes, the W4A8 backbone with
+  the down projection's groups straddling a rank's cut; every quantized and
+  LoRA tree gathered back from its shards bit for bit;
+* the SFT (separate and packed) and DPO steps with LoRA adapters at model 2.
 
 The JAX references are computed here while the ranks run.
 """
@@ -36,9 +43,14 @@ from jax.sharding import NamedSharding
 
 import torch_parallel_ranks as R
 from test_torch_training import _jax_draws, _leaf_errors, _perturb
+from test_torch_int4 import _match_but_flips
+from test_torch_int8 import PAD, SOI, EOI, STEPS, _t2i_prompts
+from unigen_tpu.generation import t2i_generate as j_t2i
 from unigen_tpu.models import magvit as JMV
+from unigen_tpu.models import qwen2 as JQ
 from unigen_tpu.models import siglip as JSG
 from unigen_tpu.models import unigen as JU
+from unigen_tpu.ops import masks as JM
 from unigen_tpu.parallel import make_mesh as j_make_mesh
 from unigen_tpu.parallel import partition as JP
 from unigen_tpu.serving.engine import ServingEngine as JServingEngine
@@ -53,8 +65,11 @@ from unigen_tpu_torch import weights as W
 from unigen_tpu_torch.models import magvit as TMV
 from unigen_tpu_torch.models import siglip as TSG
 from unigen_tpu_torch.models import unigen as TU
+from unigen_tpu_torch.ops import int4 as TI4
 from unigen_tpu_torch.ops import masks as TM
+from unigen_tpu_torch.ops import quantization as TQZ
 from unigen_tpu_torch.parallel import partition as PT
+from unigen_tpu_torch.training import lora as TL
 from unigen_tpu_torch.training import optimizer as TO
 from unigen_tpu_torch.training import train_step as TT
 from unigen_tpu_torch.training.train import build_trainer
@@ -89,10 +104,19 @@ def _numpy(tree):
     return jax.tree.map(lambda t: t.detach().numpy(), tree)
 
 
-def _unigen(**kw):
+# the W4A8 tree's backbone: a rank's down projection at model 2 (192 -> 96
+# rows) cuts a group of 64 in half, its o projection (128 -> 64) does not
+W4_LLM = dict(vocab_size=161, hidden_size=128, intermediate_size=192, head_dim=32)
+W4_GROUP = 64
+LORA = ("lora_a", "lora_b")
+
+
+def _unigen(llm=None, **kw):
     """(JAX config, JAX-layout numpy tree, port config, port tree): the
-    port's init with perturbed biases and norm scales, carried across."""
-    jcfg, tcfg = JU.UniGenConfig.tiny(**kw), TU.UniGenConfig.tiny(**kw)
+    port's init with perturbed biases and norm scales, carried across;
+    ``llm``: Qwen2 overrides of the tiny backbone."""
+    jcfg, tcfg = (m.UniGenConfig.tiny(**kw, **({} if llm is None else {
+        "llm": q.Qwen2Config.tiny(**llm)})) for m, q in ((JU, JQ), (TU, TU.qwen2)))
     params = W.init_unigen(tcfg, torch.Generator().manual_seed(0), "cpu")
     tree = _perturb(_numpy(W.unigen_to_jax(params, tcfg)), np.random.default_rng(0))
     return jcfg, tree, tcfg, W.unigen_from_jax(tree, tcfg)
@@ -110,6 +134,45 @@ def _siglip():
     params = W.init_siglip(tvs, torch.Generator().manual_seed(2), "cpu")
     tree = _perturb(_numpy(W.siglip_to_jax(params, tvs)), np.random.default_rng(1))
     return jvs, tree, tvs, W.siglip_from_jax(tree, tvs)
+
+
+def _with_lora(params, tcfg, seed):
+    """(JAX-layout numpy tree, port tree): ``params`` with rank-4 fp32
+    adapters on every projection, their b drawn nonzero so that they act."""
+    g = torch.Generator().manual_seed(seed)
+    llm = TL.add_lora(params["llm"], g, 4, dtype=torch.float32)
+    for lp in llm["layers"]:
+        for k in [k for k in lp if k.endswith("_lora_b")]:
+            lp[k] = torch.randn(lp[k].shape, generator=g) * 0.05
+    tree = dict(params, llm=llm)
+    return _numpy(W.unigen_to_jax(tree, tcfg)), tree
+
+
+def _jax_node(node):
+    """A port W8A8 / W4A8 node in JAX's layout (numpy): the W8A8 kernel's
+    real rows, transposed to [K, N]; a W4A8 node as it is."""
+    if "kernel_int8" in node:
+        n = node["scale"].shape[0]
+        node = dict(node, kernel_int8=node["kernel_int8"][:n].t())
+    return {k: v.numpy() for k, v in node.items()}
+
+
+def _jax_quantized(tq, jtree):
+    """The port's quantized UniGen tree ``tq`` in JAX's layout over the JAX
+    float tree it was quantized from (its norms, embeddings and projectors):
+    the tree JAX's ``quantize_unigen_params`` / ``quantize_unigen_params_int4``
+    make, bit for bit (tests/test_torch_int8.py, tests/test_torch_int4.py),
+    without JAX's eager quantization, whose op compiles cost seconds."""
+    out = jax.tree.map(lambda a: a, dict(jtree))
+    layers = out["llm"]["layers"]
+    for name, path in W._PROJECTIONS.items():
+        nodes = [_jax_node(lp[name]) for lp in tq["llm"]["layers"]]
+        layers[path[0]][path[1]] = {k: np.stack([n[k] for n in nodes]) for k in nodes[0]}
+    if "lm_head_q" in tq["llm"]:
+        out["llm"]["lm_head_q"] = _jax_node(tq["llm"]["lm_head_q"])
+    if "img_head_q" in tq:
+        out["img_head_q"] = _jax_node(tq["img_head_q"])
+    return jax.tree.map(jnp.asarray, out)
 
 
 def _t2i_rows(rng, b, n, length=28):
@@ -426,6 +489,54 @@ def _inputs():
                           emb=TU.embed_tokens(tparams, emb_ids), plen=11,
                           bits=TM.pack_meta(TM.AttnMeta(pad=pad, bidir_q=z, bidir_k=z)))
     refs["serving"] = (jcfg, jtree, prompts, emb_ids.numpy(), 11)
+
+    # the W8A8 tree of the tiny model (both heads), its W4A8 trees (group 32,
+    # the engine's decode tree) and W4_LLM's (group 64), by the port's
+    # quantizers; JAX's references run on the same trees (``_jax_quantized``)
+    t8 = TQZ.quantize_unigen_params(tparams, tcfg, lm_head=True)
+    t4 = TI4.quantize_unigen_params_int4(tparams, tcfg, group=32)
+    jcfg4, jtree4, tcfg4, tparams4 = _unigen(llm=W4_LLM)
+    t44 = TI4.quantize_unigen_params_int4(tparams4, tcfg4, group=W4_GROUP)
+    rng = np.random.default_rng(22)
+
+    def x(k):
+        return torch.as_tensor(rng.normal(size=(3, 5, k)).astype(np.float32))
+    ids, uncond = _t2i_prompts(jcfg)
+    u_s = rng.random((STEPS, 2, n, jcfg.codebook_size), dtype=np.float32)
+    u_m = rng.random((STEPS, 2, n), dtype=np.float32)
+    t2i_kw = dict(guidance_scale=2.0, timesteps=STEPS, temperature=1.0, reuse_prefix_cache=True)
+    rb, lp, total = 3, 9, 12
+    bb_ids = np.random.default_rng(5).integers(3, 100, size=(rb, lp))
+    valid = np.arange(total)[None].repeat(rb, 0) <= lp
+    tok = np.array([[7], [8], [9]])
+    lora_jtree, lora_params = _with_lora(tparams, tcfg, 30)
+    out["quant"] = dict(
+        cfg=tcfg, w8=t8, cfg4=tcfg4, w4=t44,
+        rows8={"o": x(64), "down": x(128)}, rows4={"o": x(128), "down": x(192)},
+        t2i=dict(ids=torch.from_numpy(ids), uncond=torch.from_numpy(uncond),
+                 noise=(torch.from_numpy(u_s), torch.from_numpy(u_m)), pad=PAD, soi=SOI,
+                 eoi=EOI, kw=t2i_kw),
+        backbone=dict(ids=torch.from_numpy(bb_ids), tok=torch.from_numpy(tok),
+                      pos=torch.full((rb, 1), lp), valid=torch.from_numpy(valid), total=total),
+        lora=lora_params, lora_cfg=tcfg, lora_ids=torch.as_tensor(rng.integers(0, 161, (4, 12))),
+        lora_labels=torch.as_tensor(rng.integers(0, 161, (4, 12))))
+    refs["quant"] = (jcfg, _jax_quantized(t8, jtree), ids, uncond, u_s, u_m, t2i_kw, jcfg4,
+                     _jax_quantized(t44, jtree4), bb_ids, tok, valid, total)
+    out["serving_quant"] = dict(cfg=tcfg, w8=t8, w4=t4, prompts=prompts)
+    refs["serving_quant"] = (jcfg, refs["quant"][1], _jax_quantized(t4, jtree), prompts)
+
+    # LoRA: the SFT cases and the DPO step with adapters, the adapters alone trained
+    sl_jtree, sl_params = _with_lora(stparams, stcfg, 31)
+    lora_opt = dict(tunable_parts=list(LORA), max_grad_norm=1.0, weight_decay=0.01)
+    out["sft_lora"] = dict(out["sft"], params=sl_params, opt_kw=lora_opt)
+    refs["sft_lora"] = (sjcfg, sl_jtree, jvq, vq_tree, jvs, vs_tree, cases, skey, lora_opt)
+    # Adam's epsilon 1e-6: at DPO's first step some adapter gradients lie within
+    # a few 1e-8 of zero, where AdamW's first update g / (|g| + eps) turns fp32
+    # rounding into lr-sized moves (at 1e-8 the port's one-rank step is 1.07e-4
+    # of a lora_b leaf from JAX's, the sharded one 1.3e-4)
+    dpo_lora_opt = dict(tunable_parts=list(LORA), epsilon=1e-6)
+    out["dpo_lora"] = dict(out["dpo"], params=lora_params, opt_kw=dpo_lora_opt)
+    refs["dpo_lora"] = (jcfg, lora_jtree, jvq, vq_tree, dpo, dkey, dpo_lora_opt)
     return out, refs
 
 
@@ -443,8 +554,8 @@ def _jax_pt2(refs):
     return jax.tree.map(np.asarray, state.params), {k: float(v) for k, v in m.items()}
 
 
-def _jax_sft(refs):
-    sjcfg, sjtree, jvq, vq_tree, jvs, vs_tree, cases, skey, opt_kw = refs["sft"]
+def _jax_sft(refs, name="sft"):
+    sjcfg, sjtree, jvq, vq_tree, jvs, vs_tree, cases, skey, opt_kw = refs[name]
     sjparams = jax.tree.map(jnp.asarray, sjtree)
     b, kw = cases["separate"]          # the packed mode is held to the port's unsharded step
     stx = JO.make_optimizer(sjparams, 1e-3, JLRS.get_scheduler("constant"), **opt_kw)
@@ -456,10 +567,11 @@ def _jax_sft(refs):
                          {k: float(v) for k, v in sm.items()})}
 
 
-def _jax_dpo(refs):
-    jcfg, jtree, jvq, vq_tree, dpo, dkey = refs["dpo"]
+def _jax_dpo(refs, name="dpo"):
+    jcfg, jtree, jvq, vq_tree, dpo, dkey, *opt_kw = refs[name]
     jparams = jax.tree.map(jnp.asarray, jtree)
-    dtx = JO.make_optimizer(jparams, 5e-4, JLRS.get_scheduler("constant"), max_grad_norm=1.0)
+    dtx = JO.make_optimizer(jparams, 5e-4, JLRS.get_scheduler("constant"), max_grad_norm=1.0,
+                            **(opt_kw[0] if opt_kw else {}))
     dstep = jax.jit(JDPO.make_dpo_step(jcfg, jvq, dtx, JDPO.DPOConfig(beta=0.1)))
     ds, dm = dstep(JT.init_train_state(jparams, dtx), jparams, jax.tree.map(jnp.asarray, vq_tree),
                    _jax_batch(dpo), dkey)
@@ -485,12 +597,57 @@ def _jax_serving(refs):
         return [f.result(timeout=300) for f in futs]
 
 
+def _jax_quant(refs):
+    """JAX's int8 t2i codes (CFG on the hidden states) on its W8A8 tree, and its
+    W4A8 backbone's prefill and decode step (test_torch_int4's)."""
+    (jcfg, j8, ids, uncond, u_s, u_m, kw, jcfg4, j44, bb_ids, tok, valid,
+     total) = refs["quant"]
+    out = {}
+    both = np.concatenate([ids, uncond])
+    mask = JM.create_attention_mask_predict_next(jnp.asarray(both), PAD, SOI, EOI,
+                                                 rm_pad_in_image=True)
+    out["t2i_hidden"] = np.asarray(j_t2i(
+        j8, jcfg, jax.random.key(0), jnp.asarray(ids), mask, uncond_input_ids=jnp.asarray(uncond),
+        noise=(jnp.asarray(u_s), jnp.asarray(u_m)), pad_id=PAD, cfg_combine="hidden", **kw))
+    rb, lp = bb_ids.shape
+    pos = np.arange(lp)
+    pm = np.broadcast_to((pos[:, None] >= pos[None, :])[None, None], (rb, 1, lp, lp))
+    pm = np.concatenate([pm, np.zeros((rb, 1, lp, total - lp), bool)], axis=-1)
+    h, cache = JQ.forward(j44["llm"], jcfg4.llm, input_ids=jnp.asarray(bb_ids),
+                          mask=jnp.asarray(pm), cache=JQ.init_kv_cache(jcfg4.llm, rb, total))
+    h2, _ = JQ.forward(j44["llm"], jcfg4.llm, input_ids=jnp.asarray(tok),
+                       mask=jnp.asarray(valid[:, None, None, :]),
+                       positions=jnp.full((rb, 1), lp), cache=cache)
+    out["backbone"] = (np.asarray(h), np.asarray(h2))
+    return out
+
+
+def _jax_serving_quant(refs):
+    """JAX's engine in int8+kv and int8+int4 on the greedy requests of the
+    rank program's trace."""
+    jcfg, j8, j4, prompts = refs["serving_quant"]
+    out = {}
+    for mode, extra in (("int8+kv", dict(quantized_cache=True)),
+                        ("int8+int4", dict(decode_params=j4))):
+        with JServingEngine(j8, jcfg, slots=2, max_len=48, buckets=(16,), chunk=(2, 4),
+                            **extra) as eng:
+            out[mode] = [f.result(timeout=300) for f in
+                         [eng.submit(x, max_new_tokens=8) for x in prompts]]
+    return out
+
+
+JAX_REFERENCES = (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo),
+                  ("serving", _jax_serving), ("quant", _jax_quant),
+                  ("serving_quant", _jax_serving_quant),
+                  ("sft_lora", lambda r: _jax_sft(r, "sft_lora")),
+                  ("dpo_lora", lambda r: _jax_dpo(r, "dpo_lora")))
+
+
 def _jax_references(refs):
-    """JAX's three steps and its serving engine, in four threads."""
-    with ThreadPoolExecutor(4) as pool:
-        futures = {name: pool.submit(fn, refs)
-                   for name, fn in (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo),
-                                    ("serving", _jax_serving))}
+    """JAX's steps, its serving engines and the quantized references, a
+    thread each."""
+    with ThreadPoolExecutor(len(JAX_REFERENCES)) as pool:
+        futures = {name: pool.submit(fn, refs) for name, fn in JAX_REFERENCES}
         return {name: f.result() for name, f in futures.items()}
 
 
@@ -518,7 +675,7 @@ def ranks(tmp_path_factory, eight_devices):
                 if f.startswith("error-")]
         raise RuntimeError(f"{errors[0]}\n{logs[0] if logs else ''}")
     out = {name: torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
-           for name in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving")}
+           for name in R.PROGRAMS}
     return out, jax_refs, inputs
 
 
@@ -650,16 +807,11 @@ def test_t2i_model2_tokens_equal_one_rank(ranks):
         assert toks == r["whole"].tolist()
 
 
-@pytest.mark.parametrize("what", ["mesh", "lora", "quant"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_errors(ranks, what):
-    """``make_mesh`` on 8 ranks with fsdp 3; LoRA and W8A8 trees at model 2
-    name their ROADMAP item (data and fsdp alone take them)."""
+    """``make_mesh`` on 8 ranks with fsdp 3."""
     msg = ranks[0]["errors"][what]
-    assert msg, what
-    if what == "mesh":
-        assert "not divisible by fsdp*model=3" in msg
-    else:
-        assert "15(c)" in msg
+    assert "not divisible by fsdp*model=3" in msg
 
 
 @pytest.mark.parametrize("what", ["jax", "one_rank", "ranks_identical", "follower_submit",
@@ -705,3 +857,239 @@ def test_engine_model2_matches_one_rank(ranks, what):
         assert ranks_out[0]["followed_after"] == ([], 2)
         for o in ranks_out[1:]:
             assert o["followed_after"] == ([], 2)       # both followed, neither kept
+
+
+# ---------------------------------------------------------------------------
+# quantized and LoRA trees under tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the port's layout of the quantized and LoRA leaves, which JAX's rules leave
+# whole (partition.py's module docstring; ROADMAP "Deliberate differences")
+PINNED = ((r"/(q|k|v|gate|up)/kernel_int8$", ("model", None)),
+          (r"/(q|k|v|gate|up)/(scale|bias)$", ("model",)),
+          (r"/(o|down)/kernel_int8$", (None, "model")),
+          (r"/(q|k|v|gate|up)/(kernel_int4|scale4)$", (None, "model")),
+          (r"/(o|down)/(kernel_int4|scale4)$", ("model", None)),
+          (r"/(q|k|v|gate|up)_lora_b$", (None, "model")),
+          (r"/(o|down)_lora_a$", ("model", None)),
+          (r"^img_head_q/kernel_int8$", ("model", None)),
+          (r"^img_head_q/scale$", ("model",)))
+
+
+def _quant_jax_path(path):
+    m = re.match(r"llm/layers/\d+/(\w+)/(kernel_int8|kernel_int4|scale4|scale|bias)$", path)
+    if m:
+        return "llm/layers/" + "/".join(W._PROJECTIONS[m.group(1)]) + "/" + m.group(2), True
+    if path.startswith(("llm/lm_head_q/", "img_head_q/")):
+        return path, False
+    return W.jax_leaf_path(path), "layers/" in path
+
+
+@pytest.fixture(scope="module")
+def quant_spec_cases():
+    _, jtree, tcfg, tparams = _unigen()
+    _, jtree4, tcfg4, tparams4 = _unigen(llm=W4_LLM)
+    t8 = TQZ.quantize_unigen_params(tparams, tcfg, lm_head=True)
+    t4 = TI4.quantize_unigen_params_int4(tparams4, tcfg4, group=W4_GROUP)
+    jl, tl = _with_lora(tparams, tcfg, 30)
+    return {"w8a8": (jax.tree.map(np.asarray, _jax_quantized(t8, jtree)), t8),
+            "w4a8": (jax.tree.map(np.asarray, _jax_quantized(t4, jtree4)), t4),
+            "lora": (jl, tl)}
+
+
+@pytest.mark.parametrize("mesh_name", ["4x1x2", "1x1x8"])
+@pytest.mark.parametrize("tree", ["w8a8", "w4a8", "lora"])
+def test_quantized_and_lora_specs(quant_spec_cases, eight_devices, tree, mesh_name):
+    """JAX's W8A8, W4A8 and LoRA trees: every leaf that JAX's rules shard
+    (the column projections' biases) has JAX's spec; the quantized and LoRA
+    leaves JAX keeps whole have the port's pinned layout (a rank's cut of a
+    W4A8 group included at model 8); the 161-row quantized text head, whose
+    real N does not divide, stays whole; every other leaf is JAX's."""
+    jtree, ttree = quant_spec_cases[tree]
+    d, f, m, _ = MESHES[mesh_name]
+    jmesh, mesh = j_make_mesh(data=d, fsdp=f, model=m), SpecMesh(d, f, m)
+    jspecs = JP.sanitize_specs(JP.partition_unigen(jtree), jtree, jmesh)
+    tspecs = PT.sanitize_specs(PT.partition_unigen(ttree), ttree, mesh)
+    jspec_tree = jax.tree.map(lambda s: s, jspecs, is_leaf=lambda x: isinstance(x, JP.P))
+    jshapes = {jax.tree_util.keystr(p, simple=True, separator="/"): a.shape
+               for p, a in jax.tree_util.tree_leaves_with_path(jtree)}
+    pinned = 0
+    for path, leaf in PT.named_leaves(ttree):
+        jpath, layer = _quant_jax_path(path)
+        jspec = _jax_spec(jspec_tree, jpath)
+        want = next((spec for pat, spec in PINNED if re.search(pat, path)), None)
+        if path.startswith("llm/lm_head_q/"):
+            want = (None,) * leaf.dim()
+        if want is None:
+            transposed = jpath.endswith("kernel") and leaf.dim() == 2
+            want = _expected(jspec, (), jshapes[jpath], layer, transposed, mesh)
+        else:
+            pinned += 1
+            if any(a is not None for a in jspec):       # a rule JAX has: the same spec
+                assert tuple(a for a in jspec[int(layer):]) == want, path
+        assert tspecs[path] == want, (path, tspecs[path], want)
+    assert pinned >= 14                       # 7 projections x 2 layers at least
+
+
+def test_flagship_head_sanitize_keeps_lm_head_q_whole():
+    """The flagship's 159,867-row head quantized (W8A8 Npad 159,872, W4A8
+    Npad 160,256, both even) stays whole at model 2, as the float head
+    does; a 512-row head splits. ``sanitize_specs`` reads the real N."""
+    def heads(n):
+        npad8, npad4 = -(-n // 8) * 8, -(-n // 512) * 512
+        return {"lm_head_q": {"kernel_int8": torch.zeros((npad8, 4), dtype=torch.int8),
+                              "scale": torch.ones(n)}}, {
+            "lm_head_q": {"kernel_int4": torch.zeros((2, npad4), dtype=torch.int8),
+                          "scale4": torch.ones((1, npad4)), "bias": torch.zeros(n)}}
+    mesh = SpecMesh(1, 1, 2)
+    for n, split in ((159867, False), (512, True)):
+        for tree in heads(n):
+            specs = PT.sanitize_specs(PT.partition_qwen2(tree), tree, mesh)
+            assert all(("model" in s) == split for s in specs.values()), (n, specs)
+
+
+@pytest.mark.parametrize("name", ["o", "down"])
+def test_w8a8_row_product_bit_for_bit_model2(ranks, name):
+    """A row-parallel W8A8 layer at model 2 (the slice quantized with the
+    rows' global absmax, the int32 products summed over ``model``, one
+    epilogue) equals the whole layer's ``dense_int8`` bit for bit on every
+    rank."""
+    for rows in ranks[0]["quant"]["rows"]:
+        assert rows[f"w8a8/{name}"] is True
+
+
+@pytest.mark.parametrize("combine,ref", [("hidden", "one_rank"), ("hidden", "jax"),
+                                         ("logits", "one_rank")])
+def test_w8a8_t2i_codes_model2(ranks, combine, ref):
+    """The tiny int8 t2i (W8A8 backbone, the int8 image head split over the
+    codes and gathered) at model 2: every rank's codes equal the port's
+    one-rank codes and, with CFG on the hidden states (the default), JAX's,
+    exactly (tests/test_torch_int8.py's bar; test_t2i_int8_codes_exact_vs_jax
+    holds the one-rank codes of both combines to JAX's)."""
+    r = ranks[0]["quant"][f"t2i_{combine}"]
+    want = (r["whole"].numpy() if ref == "one_rank" else ranks[1]["quant"][f"t2i_{combine}"])
+    assert want.shape == (2, 16)
+    for codes in r["ranks"]:
+        np.testing.assert_array_equal(np.asarray(codes), want)
+
+
+@pytest.mark.parametrize("name", ["o", "down"])
+def test_w4a8_row_product_model2(ranks, name):
+    """A row-parallel W4A8 layer at model 2 within 1e-6 of the output scale
+    of the whole layer's: kernel 4's fp32 partials summed over ``model``
+    fold the group scales in another order. o's cut falls on a group of 64
+    (128 -> 64 rows a rank); down's (192 -> 96) halves one, and the node is
+    repacked at group 32 (``Sharding.groups``)."""
+    r = ranks[0]["quant"]
+    for rows in r["rows"]:
+        assert rows[f"w4a8/{name}"] <= 1e-6
+    cut = {p.split("/")[-1] for p in r["groups4"]}
+    assert cut == {"down"} and set(r["groups4"].values()) == {W4_GROUP}
+
+
+@pytest.mark.parametrize("ref", ["jax", "one_rank"])
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+def test_w4a8_backbone_model2(ranks, step, ref):
+    """The W4A8 backbone (down's groups cut by the ranks) at model 2, into a
+    cache of the rank's one KV head: the prefill's and a decode step's
+    hidden states match JAX's within ``_match_but_flips(max_flipped=1)``
+    (tests/test_torch_int4.py's bar), and the port's one-rank run's too."""
+    r = ranks[0]["quant"]
+    h, h2, shape = r["backbone_sharded"]
+    assert shape[3] == 1
+    i = 0 if step == "prefill" else 1
+    want = ranks[1]["quant"]["backbone"][i] if ref == "jax" else r["backbone_whole"][i].numpy()
+    _match_but_flips((h, h2)[i].numpy(), np.asarray(want), max_flipped=1)
+
+
+@pytest.mark.parametrize("mesh", ["4x1x2", "2x1x4", "2x2x2"])
+@pytest.mark.parametrize("tree", ["w8", "w4", "lora"])
+def test_quantized_and_lora_trees_gather_back_bit_for_bit(ranks, tree, mesh):
+    """``gather_params(shard_params(t))`` is ``t`` bit for bit on every rank:
+    the W8A8, W4A8 (relayouts undone, group 64 rebuilt) and LoRA trees at
+    model 2, at model 4 (k/v, their nodes and adapters whole) and on (2, 2,
+    2) with ``add_fsdp``."""
+    for trips in ranks[0]["quant"]["roundtrip"]:
+        t = trips[f"{tree}@{mesh}"]
+        assert t["equal"]
+        kspecs = set(t["k"].values())
+        if mesh == "2x1x4":
+            assert all(a is None for s in kspecs for a in s), t["k"]
+        else:
+            assert any("model" in s for s in kspecs), t["k"]
+        assert (t["fsdp"] > 0) == (mesh == "2x2x2")
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_lora_gradients_model2_and_4(ranks, model):
+    """A cross-entropy forward of the LoRA tree at model 2 and at model 4
+    (k/v, their adapters included, whole): every leaf's gathered gradient
+    (the frozen ones and the adapter scales too) within 1e-5 of its largest
+    from the unsharded forward's, on every rank."""
+    for errs in ranks[0]["quant"]["lora_grads"][model]:
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= 1e-5, (worst, errs[worst])
+        assert any(p.endswith("_lora_scale") for p in errs)
+
+
+LORA_CASES = [("sft_lora", "separate", "jax"), ("sft_lora", "separate", "port_unsharded"),
+              ("sft_lora", "packed", "port_unsharded"), ("dpo_lora", None, "jax"),
+              ("dpo_lora", None, "port_unsharded")]
+
+
+@pytest.mark.parametrize("program,mode,ref", LORA_CASES)
+def test_lora_steps_model2(ranks, program, mode, ref):
+    """The SFT (separate, packed) and DPO steps with adapters at data 4 x
+    model 2, the adapters alone trained: against the port's one-rank step
+    (metrics 1e-5; parameters 1e-5, DPO's 1e-4 as test_dpo_step_data4_model2
+    says) and JAX's unsharded LoRA step (1e-4; its ``grad_norm`` metric also
+    counts the frozen leaves' gradients, which the port does not take:
+    ROADMAP "Deliberate differences", so the metrics there are the losses
+    and rates, and the update, whose clip covers the trained leaves in both,
+    is held leaf by leaf)."""
+    out, jax_refs, inputs = ranks
+    r = out[program] if mode is None else out[program][mode]
+    names = DPO_METRICS if mode is None else SFT_METRICS
+    cfg = inputs[program]["cfg"]
+    if ref == "jax":
+        jparams, jm = jax_refs[program] if mode is None else jax_refs[program][mode]
+        _close_metrics(r["metrics"], jm, [k for k in names if k != "grad_norm"], 1e-4, 1e-6)
+        errs = _leaf_errors(jparams, W.unigen_to_jax(r["params"], cfg))
+        assert max(errs.values()) < 1e-4, {k: v for k, v in errs.items() if v >= 1e-4}
+    else:
+        _close_metrics(r["metrics"], r["whole_metrics"], names, 1e-5, 1e-6)
+        assert _max_leaf_err(r["whole_params"], r["params"]) < (1e-4 if mode is None else 1e-5)
+
+
+@pytest.mark.parametrize("program,mode", [("sft_lora", "separate"), ("sft_lora", "packed"),
+                                          ("dpo_lora", None)])
+def test_lora_steps_model2_move_only_adapters(ranks, program, mode):
+    out, _, inputs = ranks
+    r = out[program] if mode is None else out[program][mode]
+    before = dict(TO.named_leaves(inputs[program]["params"]))
+    moved = {p for p, t in TO.named_leaves(r["params"]) if not torch.equal(t, before[p])}
+    assert moved and all(p.endswith(("_lora_a", "_lora_b")) for p in moved), moved
+    assert any(p.endswith("down_lora_a") for p in moved)         # a row projection's a
+
+
+@pytest.mark.parametrize("what", ["one_rank", "jax", "ranks_identical", "local_heads"])
+@pytest.mark.parametrize("mode", ["int8+kv", "int8+int4"])
+def test_quantized_engine_model2(ranks, mode, what):
+    """The engine at model 2 in int8+kv (W8A8, the int8 cache) and int8+int4
+    (W8A8 admission, W4A8 decode chunks): every request's tokens equal the
+    port's one-rank engine in fp32; the greedy ones agree with JAX's engine
+    at >= 0.95 (JAX's TP engine test's bar); the followers run the same
+    chunks and busy steps; each rank's cache holds one of the two KV heads."""
+    r = ranks[0]["serving_quant"][mode]
+    whole, ranks_out = r["whole"], r["ranks"]
+    if what == "one_rank":
+        assert ranks_out[0][0] == whole[0]
+    elif what == "jax":
+        want, got = ranks[1]["serving_quant"][mode], ranks_out[0][0][:3]
+        agree = np.mean([np.mean(np.array(a) == np.array(b)) for a, b in zip(want, got)])
+        assert agree >= 0.95, f"{mode} TP engine agreement with JAX {agree:.2f}"
+    elif what == "ranks_identical":
+        for o in ranks_out[1:]:
+            assert o[:3] == ranks_out[0][:3]
+    else:
+        assert whole[3] == 2 and all(o[3] == 1 for o in ranks_out)

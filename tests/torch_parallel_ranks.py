@@ -7,6 +7,7 @@ thread; every rank runs ``program(inputs, out_dir)`` after
 (``save``). The programs import torch and the port only.
 """
 import os
+import re
 import socket
 import sys
 import traceback
@@ -125,11 +126,14 @@ def pt2(inp, out_dir):
     save(out_dir, "pt2", out)
 
 
-def sft(inp, out_dir):
+def sft(inp, out_dir, name="sft"):
+    """The SFT step of each case at data 4 x model 2 (the tower sharded too)
+    against the unsharded step; ``name`` "sft_lora": a tree with adapters,
+    the adapters alone trained."""
     cfg, vq_cfg, vs_cfg = inp["cfg"], inp["vq_cfg"], inp["vs_cfg"]
     params, vq, vs, draws = (inp[k] for k in ("params", "vq", "vs", "draws"))
     out = {}
-    for name, (batch, step_kw) in inp["cases"].items():
+    for case, (batch, step_kw) in inp["cases"].items():
         tx = TO.make_optimizer(params, 1e-3, _schedule(inp), **inp["opt_kw"])
         step = TSFT.make_sft_train_step(cfg, vq_cfg, vs_cfg, tx,
                                         TSFT.SFTStepConfig(max_grad_norm=1.0, **step_kw))
@@ -138,16 +142,17 @@ def sft(inp, out_dir):
         local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
         vs_local, _ = P.shard_params(vs, P.siglip_specs(vs, mesh), mesh)
         state, m = step(TSFT.init_sft_state(local, tx, sh), vq, vs_local, batch, draws)
-        out[name] = {"whole_metrics": _metrics(wm), "whole_params": whole.params,
+        out[case] = {"whole_metrics": _metrics(wm), "whole_params": whole.params,
                      "metrics": _metrics(m), "params": P.gather_params(state.params, sh),
                      "mode": step.mode}
-    save(out_dir, "sft", out)
+    save(out_dir, name, out)
 
 
-def dpo(inp, out_dir):
+def dpo(inp, out_dir, name="dpo"):
     cfg, vq_cfg = inp["cfg"], inp["vq_cfg"]
     params, vq, batch, draws = inp["params"], inp["vq"], inp["batch"], inp["draws"]
-    tx = TO.make_optimizer(params, 5e-4, _schedule(inp), max_grad_norm=1.0)
+    tx = TO.make_optimizer(params, 5e-4, _schedule(inp), max_grad_norm=1.0,
+                           **inp.get("opt_kw", {}))
     step = TD.make_dpo_step(cfg, vq_cfg, tx, TD.DPOConfig(beta=0.1))
     whole, wm = step(TT.init_train_state(params, tx), params, vq, batch, draws)
     mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
@@ -155,8 +160,8 @@ def dpo(inp, out_dir):
     local, sh = P.shard_params(params, specs, mesh)
     ref, _ = P.shard_params(params, specs, mesh)
     state, m = step(TT.init_train_state(local, tx, sharding=sh), ref, vq, batch, draws)
-    save(out_dir, "dpo", {"whole_metrics": _metrics(wm), "whole_params": whole.params,
-                          "metrics": _metrics(m), "params": P.gather_params(state.params, sh)})
+    save(out_dir, name, {"whole_metrics": _metrics(wm), "whole_params": whole.params,
+                         "metrics": _metrics(m), "params": P.gather_params(state.params, sh)})
 
 
 def vocab(inp, out_dir):
@@ -236,23 +241,152 @@ def t2i(inp, out_dir):
 
 
 def errors(inp, out_dir):
-    from unigen_tpu_torch.ops.quantization import quantize_unigen_params
-    from unigen_tpu_torch.training.lora import add_lora
-    cfg, params = inp["cfg"], inp["params"]
-    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
-    lora = dict(params, llm=add_lora(params["llm"], torch.Generator().manual_seed(0), 2))
-    quant = quantize_unigen_params(params)
-    out = {
-        "mesh": _raises(lambda: P.make_mesh(data=-1, fsdp=3, device_type="cpu"), ValueError),
-        "lora": _raises(lambda: P.shard_params(lora, P.partition_unigen(lora), mesh),
-                        NotImplementedError),
-        "quant": _raises(lambda: P.shard_params(quant, P.partition_unigen(quant), mesh),
-                         NotImplementedError),
-    }
-    # data and fsdp alone take them
-    mesh_df = P.make_mesh(data=4, fsdp=2, model=1, device_type="cpu")
-    P.shard_params(lora, P.add_fsdp(P.partition_unigen(lora), lora), mesh_df)
+    out = {"mesh": _raises(lambda: P.make_mesh(data=-1, fsdp=3, device_type="cpu"), ValueError)}
     save(out_dir, "errors", out)
+
+
+def _trees_equal(a, b) -> bool:
+    la, lb = list(TO.named_leaves(a)), list(TO.named_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def quant(inp, out_dir):
+    """W8A8 and W4A8 trees (JAX's quantization of the tiny models) and a tree
+    with adapters at data 4 x model 2: the row-parallel products against one
+    rank's; the W8A8 t2i codes; the W4A8 backbone's prefill and decode step
+    (the down projection's groups straddle the rank's cut); and every tree
+    gathered back from its shards at model 2, at model 4 (k/v whole) and on
+    (2, 2, 2) with ``add_fsdp``."""
+    from unigen_tpu_torch.generation import t2i_generate
+    from unigen_tpu_torch.ops import int4 as T4
+    from unigen_tpu_torch.ops import masks as TM
+    from unigen_tpu_torch.ops import quantization as TQZ
+    out = {}
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    r = C.model_index()
+
+    def piece(x):
+        k = x.shape[-1] // 2
+        return x[..., r * k:(r + 1) * k]
+
+    cfg, w8 = inp["cfg"], inp["w8"]
+    local8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    cfg4, w4 = inp["cfg4"], inp["w4"]
+    local4, sh4 = P.shard_params(w4, P.unigen_specs(w4, cfg4, mesh), mesh)
+    rows = {}
+    for name, x in inp["rows8"].items():
+        lp, whole = local8["llm"]["layers"][0][name], w8["llm"]["layers"][0][name]
+        rows[f"w8a8/{name}"] = bool(torch.equal(
+            TQZ.dense_int8_row(lp, piece(x), C.max_over_model, C.sum_over_model),
+            TQZ.dense_int8(whole, x)))
+    for name, x in inp["rows4"].items():
+        lp, whole = local4["llm"]["layers"][0][name], w4["llm"]["layers"][0][name]
+        got = T4.dense_int4_row(lp, piece(x), C.max_over_model, C.sum_over_model)
+        want = T4.dense_int4(whole, x)
+        rows[f"w4a8/{name}"] = ((got - want).abs().max() / want.abs().max()).item()
+    out["rows"] = MH.gather_objects(rows)
+    out["groups4"] = sh4.groups
+
+    # the tiny int8 t2i on the image head split over the codes
+    t2i = inp["t2i"]
+    mask = TM.create_attention_mask_predict_next(
+        torch.cat([t2i["ids"], t2i["uncond"]]), t2i["pad"], t2i["soi"], t2i["eoi"],
+        rm_pad_in_image=True)
+
+    def codes(tree, combine):
+        return t2i_generate(tree, cfg, None, t2i["ids"], mask, uncond_input_ids=t2i["uncond"],
+                            noise=t2i["noise"], pad_id=t2i["pad"], cfg_combine=combine,
+                            **t2i["kw"])
+    for combine in ("hidden", "logits"):
+        out[f"t2i_{combine}"] = {"whole": codes(w8, combine),
+                                 "ranks": MH.gather_objects(codes(local8, combine).tolist())}
+
+    # the W4A8 backbone: prefill into a cache of the rank's KV heads, one decode step
+    bb = inp["backbone"]
+    with torch.no_grad():
+        for tag, tree in (("whole", w4), ("sharded", local4)):
+            llm = tree["llm"]
+            cache = qwen2.init_kv_cache(cfg4.llm, bb["ids"].shape[0], bb["total"], "cpu",
+                                        num_kv_heads=qwen2.local_kv_heads(llm, cfg4.llm))
+            h, cache = qwen2.forward(llm, cfg4.llm, input_ids=bb["ids"],
+                                     meta_bits=TM.pack_meta(TM.lm_attn_meta(bb["ids"], None)),
+                                     cache=cache)
+            h2, _ = qwen2.forward(llm, cfg4.llm, input_ids=bb["tok"], positions=bb["pos"],
+                                  cache=cache, kv_rowmask=bb["valid"])
+            out[f"backbone_{tag}"] = (h, h2, tuple(cache.k.shape))
+
+    # the LoRA tree's gradients, every leaf's, at model 2 and at model 4 (k/v whole)
+    lt, lcfg, ids, labels = inp["lora"], inp["lora_cfg"], inp["lora_ids"], inp["lora_labels"]
+
+    def lora_grads(tree, sh):
+        tree = C.register(sh, W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True)))
+        h, _ = qwen2.forward(tree["llm"], lcfg.llm, input_ids=ids)
+        lg = qwen2.logits(tree["llm"], lcfg.llm, h)
+        loss = torch.nn.functional.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1))
+        paths, leaves = zip(*TO.named_leaves(tree["llm"]))
+        grads = torch.autograd.grad(loss, leaves)
+        if sh is not None:
+            grads = [PT.gather_full(g, sh.specs[f"llm/{p}"], sh.mesh) for p, g in zip(paths, grads)]
+        return dict(zip(paths, grads))
+    whole = lora_grads(lt, None)
+    out["lora_grads"] = {}
+    for m in (2, 4):
+        mesh = P.make_mesh(data=8 // m, fsdp=1, model=m, device_type="cpu")
+        got = lora_grads(*P.shard_params(lt, P.unigen_specs(lt, lcfg, mesh), mesh))
+        errs = {p: ((got[p] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                for p, g in whole.items()}
+        out["lora_grads"][m] = MH.gather_objects(errs)
+
+    # every tree back from its shards, bit for bit
+    trips = {}
+    for (d, f, m) in ((4, 1, 2), (2, 1, 4), (2, 2, 2)):
+        mesh = P.make_mesh(data=d, fsdp=f, model=m, device_type="cpu")
+        for name, (tree, c) in (("w8", (w8, cfg)), ("w4", (w4, cfg4)),
+                                ("lora", (inp["lora"], inp["lora_cfg"]))):
+            specs = P.unigen_specs(tree, c, mesh, fsdp=f > 1)
+            local, sh = P.shard_params(tree, specs, mesh)
+            trips[f"{name}@{d}x{f}x{m}"] = {
+                "equal": _trees_equal(P.gather_params(local, sh), tree),
+                "k": {p: s for p, s in specs.items() if re.search(r"layers/0/k(/|_)", p)},
+                "fsdp": sum("fsdp" in s for s in specs.values())}
+    out["roundtrip"] = MH.gather_objects(trips)
+    save(out_dir, "quant", out)
+
+
+def serving_quant(inp, out_dir):
+    """The engine in int8+kv (W8A8, the int8 cache) and int8+int4 (W8A8
+    admission, W4A8 decode chunks) at model 2 against the one-rank engine on
+    the same requests: three greedy prompts and a sampled one. Every rank
+    reports its tokens, decode chunks, busy steps and cache heads."""
+    from unigen_tpu_torch.serving.engine import ServingEngine
+    cfg, prompts = inp["cfg"], inp["prompts"]
+    kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), device="cpu",
+              keep_followed=True)
+
+    def serve(tree, **extra):
+        with ServingEngine(tree, cfg, **kw, **extra) as eng:
+            heads = eng._cache.k.shape[3]
+            if MH.process_index() and C.spec_of(tree["llm"]["layers"][0]["q"]["kernel_int8"]):
+                eng.close(timeout=120)
+                toks = [f.result(0) for _, f in sorted(eng.followed.items())]
+            else:
+                futs = [eng.submit(x, max_new_tokens=8) for x in prompts]
+                futs.append(eng.submit(prompts[0], max_new_tokens=6, temperature=0.9, seed=5))
+                toks = [f.result(60) for f in futs]
+            return toks, eng.stats.decode_chunks, eng.stats.busy_steps, heads
+
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    w8, w4 = inp["w8"], inp["w4"]
+    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    out = {}
+    for mode, (whole, sharded) in {
+            "int8+kv": (dict(quantized_cache=True), dict(quantized_cache=True)),
+            "int8+int4": (dict(decode_params=w4), dict(decode_params=l4))}.items():
+        out[mode] = {"whole": serve(w8, **whole),
+                     "ranks": MH.gather_objects(serve(l8, **sharded))}
+    save(out_dir, "serving_quant", out)
 
 
 def serving(inp, out_dir):
@@ -320,9 +454,16 @@ def serving(inp, out_dir):
                               "ranks": MH.gather_objects(out)})
 
 
+PROGRAMS = ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving", "quant",
+            "serving_quant", "sft_lora", "dpo_lora")
+
+
 def parallel_all(inp, out_dir):
-    for program in ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving"):
-        globals()[program](inp[program], out_dir)
+    for program in PROGRAMS:
+        if program.endswith("_lora"):
+            globals()[program[:-len("_lora")]](inp[program], out_dir, program)
+        else:
+            globals()[program](inp[program], out_dir)
 
 
 def multihost(inp, out_dir):

@@ -21,6 +21,12 @@
 //   quantize_activations (an XLA fusion there, not a Pallas kernel):
 //     act_scale[t] = max(max_k |x[t, k]| / 127, 1e-8),
 //     x_int8[t, k] = clip(round_half_even(x[t, k] / act_scale[t]), -127, 127).
+//   Under tensor parallelism a row-parallel layer's ranks each hold a slice
+//   of k. The same launch then runs twice: first with no x_int8 it writes
+//   each row's max |x| over the slice to amax; the caller takes the MAX of
+//   those over the model ranks; then with that amax given it quantizes the
+//   slice with the row's global absmax instead of its own, so that every
+//   rank holds exactly the int8 values and scales of the whole row.
 //
 // Exactness. A group's products are summed exactly in int32 (|sum| <=
 // group * 127 * 7, below 2^24, so its fp32 conversion is exact too), and the
@@ -568,33 +574,43 @@ __device__ __forceinline__ uint32_t quant(float v, float s) {
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(r)));
 }
 
-// vec: K % 8 == 0, x 16-byte and q 8-byte aligned
+// vec: K % 8 == 0, x 16-byte and q 8-byte aligned. amax: null (the row's own
+// absmax), or [T] fp32, read as the row's absmax when q is given and written
+// (nothing else is) when q is null.
 template <typename In>
 __global__ void __launch_bounds__(kQThreads)
 quantize_kernel(const In* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                int K, int vec) {
+                float* __restrict__ amax, int K, int vec) {
   __shared__ float red[kQThreads / 32];
   const In* xr = x + (size_t)blockIdx.x * K;
-  int8_t* qr = q + (size_t)blockIdx.x * K;
   const int tid = threadIdx.x;
   float m = 0.f;
-  if (vec) {
-    for (int i = 8 * tid; i < K; i += 8 * kQThreads) {
-      float v[8];
-      load8(xr + i, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
-    }
+  if (amax != nullptr && q != nullptr) {
+    m = amax[blockIdx.x];
   } else {
-    for (int i = tid; i < K; i += kQThreads) m = fmaxf(m, fabsf(to_float(xr[i])));
+    if (vec) {
+      for (int i = 8 * tid; i < K; i += 8 * kQThreads) {
+        float v[8];
+        load8(xr + i, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+      }
+    } else {
+      for (int i = tid; i < K; i += kQThreads) m = fmaxf(m, fabsf(to_float(xr[i])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((tid & 31) == 0) red[tid >> 5] = m;
+    __syncthreads();
+    m = red[0];
+#pragma unroll
+    for (int i = 1; i < kQThreads / 32; ++i) m = fmaxf(m, red[i]);
+    if (q == nullptr) {  // the absmax pass
+      if (tid == 0) amax[blockIdx.x] = m;
+      return;
+    }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((tid & 31) == 0) red[tid >> 5] = m;
-  __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int i = 1; i < kQThreads / 32; ++i) m = fmaxf(m, red[i]);
+  int8_t* qr = q + (size_t)blockIdx.x * K;
   const float s = fmaxf(__fdiv_rn(m, 127.f), 1e-8f);
   if (tid == 0) scale[blockIdx.x] = s;
   if (vec) {
@@ -686,18 +702,25 @@ extern "C" int w4a8_dense_launch(const void* x, const void* packed, const void* 
                         static_cast<cudaStream_t>(stream));
 }
 
-// x [T, K] in dtype (0 fp32, 1 bf16) -> x_int8 [T, K], act_scale [T] fp32.
+// x [T, K] in dtype (0 fp32, 1 bf16) -> x_int8 [T, K], act_scale [T] fp32. amax
+// null: each row's own absmax. amax [T] fp32 and x_int8 given: the rows' absmax,
+// read. x_int8 and act_scale null: amax is written, each row's max |x|.
 extern "C" int quantize_activations_launch(int dtype, const void* x, void* x_int8,
-                                           void* act_scale, int T, int K, void* stream) {
-  if (T < 1 || K < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                                           void* act_scale, void* amax, int T, int K,
+                                           void* stream) {
+  if (T < 1 || K < 1 || (dtype != 0 && dtype != 1) ||
+      (x_int8 == nullptr) != (act_scale == nullptr) || (x_int8 == nullptr && amax == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int vec = K % 8 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)x_int8 % 8 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(x_int8);
   float* sc = static_cast<float*>(act_scale);
+  float* am = static_cast<float*>(amax);
   if (dtype == 1)
     quantize_kernel<__nv_bfloat16><<<T, kQThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), q, sc, K, vec);
+        static_cast<const __nv_bfloat16*>(x), q, sc, am, K, vec);
   else
-    quantize_kernel<float><<<T, kQThreads, 0, s>>>(static_cast<const float*>(x), q, sc, K, vec);
+    quantize_kernel<float><<<T, kQThreads, 0, s>>>(static_cast<const float*>(x), q, sc, am, K,
+                                                    vec);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,6 @@ from ..models import qwen2
 from ..models.unigen import UniGenConfig, embed_tokens, get_gen_embed
 from ..ops import masks as M
 from ..ops import sampling as S
-from ..ops.quantization import dense_int8
 from ..parallel import collectives as C
 
 FLOAT_MAX = torch.finfo(torch.float32).max
@@ -48,9 +47,11 @@ def _image_head(params, cfg: UniGenConfig, hidden: torch.Tensor) -> torch.Tensor
     """Codebook logits in fp32. An int8 head (``img_head_q``, from
     ``ops.quantization.quantize_unigen_params(..., cfg)``) runs W8A8; the
     float tied head slices the 8192 image rows of the [V, D] embedding before
-    the matmul, and the table is never transposed."""
+    the matmul, and the table is never transposed. An int8 head split on
+    the codes (tensor parallelism) gives this rank's codes' logits, gathered
+    over ``model`` as the float head's are."""
     if "img_head_q" in params:
-        return dense_int8(params["img_head_q"], hidden).float()
+        return qwen2.dense_head(params["img_head_q"], hidden).float()
     if cfg.use_gen_projector:
         return qwen2.project(hidden, C.gather_fsdp(params["img_head"])).float()
     w = qwen2.lm_head_weight(params["llm"], cfg.llm)

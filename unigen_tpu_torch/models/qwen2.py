@@ -76,7 +76,21 @@ masked lookup plus the reduce; the text head's logits are gathered over
 the vocabulary (``project``). Leaves sharded on ``fsdp`` are gathered at
 use: a layer's at the top of ``_layer``, so that ``remat`` gathers them
 again in the backward. RMSNorm, RoPE and the residual stream stay
-replicated. The KV cache holds the local KV heads (``local_kv_heads``).
+replicated. The KV cache holds the local KV heads (``local_kv_heads``),
+int8 or not.
+
+Quantized and LoRA layers under tensor parallelism (``parallel/partition``
+lays their leaves out): a column-split W8A8 / W4A8 q/k/v or gate/up runs
+on the whole input, quantized once as on one rank, and gives the rank's
+output columns exactly. A row-split o / down quantizes the rank's input
+slice with the rows' global absmax (MAX over ``model``), so that its int8
+values are one rank's, and sums the products over ``model`` before one
+epilogue: W8A8 sums int32 (bit for bit one rank's), W4A8 sums kernel 4's
+fp32 partials. A column projection's adapter a is whole, under
+``copy_to_model``; a row projection's partial ``x_local @ a_local`` is
+summed over ``model`` before ``@ b``, and the delta is added to the reduced
+output. Quantized heads split on their codes or vocabulary are gathered as
+the float heads' logits are.
 """
 from __future__ import annotations
 
@@ -91,9 +105,9 @@ from ..ops.attention import dot_product_attention, dot_product_attention_q8
 from ..parallel import collectives as C
 from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.int4 import dense_int4, dense_int4_prequant, is_quantized_int4
-from ..ops.quantization import (dense_int8, dense_int8_prequant, int8_leaf, is_quantized,
-                                quantize_activations)
+from ..ops.int4 import dense_int4, dense_int4_prequant, dense_int4_row, is_quantized_int4
+from ..ops.quantization import (dense_int8, dense_int8_prequant, dense_int8_row, int8_leaf,
+                                is_quantized, quantize_activations)
 from ..utils.persistence import take
 
 
@@ -303,14 +317,20 @@ def _quantized_out(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _lora(p: Dict, name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _lora(p: Dict, name: str, x: torch.Tensor, y: torch.Tensor,
+          column: bool = False) -> torch.Tensor:
     """``y`` plus the low-rank path of projection ``name`` when the layer
-    holds one: ``((x @ a) @ b) * scale`` in x's dtype."""
+    holds one: ``((x @ a) @ b) * scale`` in x's dtype. Under a column-split
+    base (``column``) a and scale are whole and b the rank's columns: their
+    gradients are summed over ``model``."""
     a = p.get(f"{name}_lora_a")
     if a is None:
         return y
+    scale = p[f"{name}_lora_scale"]
+    if column:
+        a, scale = C.copy_to_model(a), C.copy_to_model(scale)
     d = (x @ a.to(x.dtype)) @ p[f"{name}_lora_b"].to(x.dtype)
-    return y + d * p[f"{name}_lora_scale"].to(x.dtype)
+    return y + d * scale.to(x.dtype)
 
 
 def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -340,7 +360,38 @@ def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
             p[n], x8, xs, x.dtype), x) for n in names]
     else:
         ys = [F.linear(x, p[f"{n}_w"], p.get(f"{n}_b")) for n in names]
-    return [_lora(p, n, x, y) for n, y in zip(names, ys)]
+    return [_lora(p, n, x, y, _split(p, n) == "column") for n, y in zip(names, ys)]
+
+
+def _node_weight(node: Dict) -> torch.Tensor:
+    """A W8A8 / W4A8 node's ``kernel_int8`` or ``kernel_int4``."""
+    return node.get("kernel_int8", node.get("kernel_int4"))
+
+
+def _weight(p: Dict, name: str) -> Optional[torch.Tensor]:
+    """The leaf whose spec says how projection ``name`` is split: ``<name>_w``,
+    or its node's weight."""
+    leaf = p.get(name)
+    return _node_weight(leaf) if isinstance(leaf, dict) else p.get(f"{name}_w")
+
+
+def _split(p: Dict, name: str) -> Optional[str]:
+    """"column" or "row" when projection ``name`` is split on ``model``
+    (a W4A8 node's packed weight is [K/2, N], the others [N, K]), else None."""
+    d = C.model_dim(_weight(p, name))
+    if d is None:
+        return None
+    return "column" if (d == 1) == is_quantized_int4(p.get(name)) else "row"
+
+
+def _out_features(p: Dict, name: str) -> int:
+    """Projection ``name``'s (local) output features, without padding."""
+    leaf = p.get(name)
+    if is_quantized(leaf):
+        return leaf["scale"].shape[0]
+    if is_quantized_int4(leaf):
+        return leaf["bias"].shape[0]
+    return p[f"{name}_w"].shape[0]
 
 
 def kv_heads_of_rank(h: int, kvh: int, h_loc: int, r: int) -> Union[slice, List[int]]:
@@ -359,10 +410,10 @@ def _tp_heads(p: Dict, cfg: Qwen2Config):
     """(local query heads, KV heads to take from a whole k/v or None) of a
     layer's bound leaves; (all heads, None) without tensor parallelism."""
     h, dh = cfg.num_attention_heads, cfg.head_dim
-    if C.model_dim(p.get("q_w")) is None:
+    if _split(p, "q") is None:
         return h, None
-    h_loc = p["q_w"].shape[0] // dh
-    if C.model_dim(p["k_w"]) is not None:
+    h_loc = _out_features(p, "q") // dh
+    if _split(p, "k") is not None:
         return h_loc, None
     return h_loc, kv_heads_of_rank(h, cfg.num_key_value_heads, h_loc, C.model_index())
 
@@ -377,12 +428,25 @@ def local_kv_heads(params: Dict, cfg: Qwen2Config) -> int:
 
 def _dense_row(p: Dict, name: str, x: torch.Tensor, tp: bool) -> torch.Tensor:
     """A row-parallel product: the local partial sums reduced over
-    ``model``, the bias added once after the reduce."""
+    ``model``, the bias added once after the reduce (a quantized node's
+    product as the module docstring says); then the adapters, their [*, r]
+    partial reduced before b."""
     if not tp:
         return _dense(p, name, x)
-    y = C.reduce_from_model(F.linear(x, p[f"{name}_w"]))
-    bias = p.get(f"{name}_b")
-    return y if bias is None else y + bias
+    _check_leaf(p, name)
+    leaf = p.get(name)
+    if is_quantized(leaf) or is_quantized_int4(leaf):
+        row = dense_int8_row if is_quantized(leaf) else dense_int4_row
+        y = _quantized_out(row(leaf, x, C.max_over_model, C.sum_over_model), x)
+    else:
+        y = C.reduce_from_model(F.linear(x, p[f"{name}_w"]))
+        bias = p.get(f"{name}_b")
+        y = y if bias is None else y + bias
+    a = p.get(f"{name}_lora_a")
+    if a is None:
+        return y
+    d = C.reduce_from_model(x @ a.to(x.dtype)) @ p[f"{name}_lora_b"].to(x.dtype)
+    return y + d * p[f"{name}_lora_scale"].to(x.dtype)
 
 
 def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
@@ -401,7 +465,7 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
         x = C.copy_to_model(x)
     if kv_sel is not None:
         # whole k/v, each rank on its own heads: their gradients are summed over model
-        p = {**p, **{n: C.copy_to_model(p[n]) for n in ("k_w", "k_b", "v_w", "v_b") if n in p}}
+        p = {**p, **{n: C.copy_to_model(p[n]) for n in _KV_WHOLE if n in p}}
     q, k, v = _dense_shared(p, ("q", "k", "v"), x)
     q = q.view(b, l, h, dh)
     k = k.view(b, l, -1, dh)
@@ -441,8 +505,13 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
     return _dense_row(p, "o", out.reshape(b, l, h * dh), tp)
 
 
+# a whole k/v's float leaves (a quantized node has no gradient)
+_KV_WHOLE = ("k_w", "k_b", "v_w", "v_b") + tuple(f"{n}_lora_{s}" for n in "kv"
+                                                  for s in ("a", "b", "scale"))
+
+
 def _mlp_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    tp = C.model_dim(p.get("gate_w")) is not None
+    tp = _split(p, "gate") is not None
     if tp:
         x = C.copy_to_model(x)
     gate, up = _dense_shared(p, ("gate", "up"), x)
@@ -554,6 +623,16 @@ def project(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return C.gather_last(F.linear(C.copy_to_model(hidden), w.to(hidden.dtype)))
 
 
+def dense_head(p: Dict, hidden: torch.Tensor) -> torch.Tensor:
+    """A quantized head's (W8A8 or W4A8) product over all its rows: a node
+    split on its codes or vocabulary gives this rank's columns, gathered
+    over ``model``."""
+    y = (dense_int8 if is_quantized(p) else dense_int4)(p, hidden)
+    if C.model_dim(_node_weight(p)) is None:
+        return y
+    return C.gather_last(y)
+
+
 def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
            vocab_slice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Project hidden states to (a slice of) the vocabulary, in hidden.dtype.
@@ -564,10 +643,15 @@ def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
     slice are computed and not stored; zero rows are appended only where the
     weight ends first) and its scales a .. b; the W4A8 head's packed columns,
     which stay contiguous because the packing runs along K. The float head
-    slices the [V, D] weight's rows.
+    slices the [V, D] weight's rows. A quantized head split on ``model``
+    gives the gathered logits, then the slice, as a vocab-sharded float
+    head does.
     """
     if "lm_head_q" in params:
         p = params["lm_head_q"]
+        if C.model_dim(_node_weight(p)) is not None:
+            y = dense_head(p, hidden)
+            return y if vocab_slice is None else y[..., vocab_slice[0]:vocab_slice[1]]
         if is_quantized(p):
             if vocab_slice is not None:
                 a, b = vocab_slice

@@ -47,12 +47,13 @@ SIGNATURES = {
         # x, packed, scale4, act_scale, bias, bias dtype, out, out dtype, scratch (or None),
         # T, K, N, n, group, stream
         "w4a8_dense_launch": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
-        # dtype, x, x_int8, act_scale, T, K, stream
-        "quantize_activations_launch": (_I, _P, _P, _P, _I, _I, _P),
+        # dtype, x, x_int8 (or None), act_scale (or None), amax (or None), T, K, stream
+        "quantize_activations_launch": (_I, _P, _P, _P, _P, _I, _I, _P),
     },
     "int8": {
-        # acc, act_scale, scale, bias (or None), bias dtype, out, out dtype, M, n, ld, stream
-        "w8a8_epilogue_launch": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+        # acc, acc dtype, act_scale, scale (or None), bias (or None), bias dtype, out,
+        # out dtype, M, n, ld, stream
+        "w8a8_epilogue_launch": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     },
 }
 

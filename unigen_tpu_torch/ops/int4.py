@@ -24,12 +24,13 @@ kernel's reference on the card. Both count their launches on
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from . import _cuda
-from .quantization import QWEN2_PROJECTIONS, quantize_activations, quantize_layers
+from .quantization import (QWEN2_PROJECTIONS, quantize_activations, quantize_global,
+                           quantize_layers, w8a8_epilogue)
 
 KEY = "kernel_int4"
 _N_MULTIPLE = 512
@@ -56,12 +57,7 @@ def pack_int4(w: torch.Tensor, group: int = 256) -> Tuple[torch.Tensor, torch.Te
     wg = wf.reshape(g, group, npad)
     scale = torch.clamp(wg.abs().amax(dim=1) / 7.0, min=1e-8)          # [g, Npad]
     q = torch.clamp(torch.round(wg / scale[:, None, :]), -7, 7).to(torch.int32)
-    half = group // 2
-    lo, hi = q[:, :half], q[:, half:]
-    packed = ((hi << 4) | (lo & 0xF)).to(torch.int8)                    # wraps like JAX
-    # contiguous whatever w's strides (a transposed [N, K] weight with N a multiple
-    # of 512 would otherwise leave it transposed, and every launch would copy it)
-    return packed.reshape(k // 2, npad).contiguous(), scale
+    return pack_values(q.reshape(k, npad), group), scale
 
 
 def unpack_int4(packed: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,6 +68,24 @@ def unpack_int4(packed: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.T
     half = group // 2
     p = packed.to(torch.int32).reshape(k2 // half, half, npad)
     return (p << 28) >> 28, p >> 4
+
+
+def int4_values(packed: torch.Tensor, group: int) -> torch.Tensor:
+    """[K // 2, Npad] packed -> the int4 values [K, Npad] int32, in row order."""
+    lo, hi = unpack_int4(packed, group)
+    return torch.cat([lo, hi], dim=1).reshape(2 * packed.shape[0], packed.shape[1])
+
+
+def pack_values(q: torch.Tensor, group: int) -> torch.Tensor:
+    """[K, Npad] int4 values (int32 in [-8, 7]) -> packed [K // 2, Npad] at
+    ``group``: within each group, row j of the low half and row j of the
+    high half in one byte (the int8 cast wraps as JAX's), contiguous
+    whatever q's strides (a transposed layout would make every launch copy)."""
+    k, npad = q.shape
+    half = group // 2
+    qg = q.reshape(k // group, group, npad)
+    packed = ((qg[:, half:] << 4) | (qg[:, :half] & 0xF)).to(torch.int8)
+    return packed.reshape(k // 2, npad).contiguous()
 
 
 def w4a8_matmul_plain(x_int8: torch.Tensor, packed: torch.Tensor, scale4: torch.Tensor,
@@ -218,6 +232,53 @@ def dense_int4(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """W4A8 matmul with dynamic per-token activation scales; returns x.dtype."""
     x_int8, act_scale = quantize_activations(x)
     return dense_int4_prequant(p, x_int8, act_scale, x.dtype)
+
+
+def dense_int4_row(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   reduce_max: Callable[[torch.Tensor], torch.Tensor],
+                   reduce_sum: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """A row-parallel W4A8 layer on this rank's input slice x [..., K / m]
+    and packed rows (``kernel_int4 [K / 2m, Npad]``, ``scale4`` of its
+    groups; ``bias`` whole): the slice quantized with the rows' global
+    absmax, kernel 4's fp32 partial product (act_scale 1, a zero bias)
+    summed over the model ranks by ``reduce_sum``, then kernel 4's epilogue
+    ``* act_scale + bias`` and the cast once (``w8a8_epilogue`` on an fp32
+    sum). The group scales fold per rank, so the sum differs from the whole
+    layer's ordered fold by fp32 roundings."""
+    x_int8, act_scale = quantize_global(x, reduce_max)
+    lead, k = x_int8.shape[:-1], x_int8.shape[-1]
+    groups = p["scale4"].shape[0]
+    part = reduce_sum(w4a8_matmul(x_int8.reshape(-1, k), p[KEY], p["scale4"],
+                                  group=k // groups))
+    y = w8a8_epilogue(part, act_scale.reshape(-1), None, p["bias"], x.dtype)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def regroup(p: Dict[str, torch.Tensor], group: int, new_group: int) -> Dict[str, torch.Tensor]:
+    """A W4A8 leaf packed at ``group`` repacked at ``new_group`` (a divisor or
+    a multiple of it): the same int4 values, each group-``new_group`` scale
+    row the scale of the group of ``group`` that holds it. Going to a
+    multiple takes every (new / old)-th scale row, which inverts the split
+    when those rows are equal (as a split makes them)."""
+    packed, scale4 = p[KEY], p["scale4"]
+    q = pack_values(int4_values(packed, group), new_group)
+    if new_group <= group:
+        scale4 = scale4.repeat_interleave(group // new_group, dim=0)
+    else:
+        scale4 = scale4[::new_group // group]
+    return dict(p, **{KEY: q, "scale4": scale4.contiguous()})
+
+
+def column_slice(p: Dict[str, torch.Tensor], a: int, b: int) -> Dict[str, torch.Tensor]:
+    """Output columns a .. b of a W4A8 leaf, padded with zero columns (scale
+    1e-8, as ``pack_int4`` pads) to a multiple of 512: the leaf that
+    ``quantize_dense_int4`` makes of those columns of the float weight."""
+    n = b - a
+    npad = -(-n // _N_MULTIPLE) * _N_MULTIPLE
+    packed = torch.nn.functional.pad(p[KEY][:, a:b], (0, npad - n))
+    scale4 = torch.nn.functional.pad(p["scale4"][:, a:b], (0, npad - n), value=1e-8)
+    return {KEY: packed.contiguous(), "scale4": scale4.contiguous(),
+            "bias": p["bias"][a:b].contiguous()}
 
 
 def is_quantized_int4(p) -> bool:

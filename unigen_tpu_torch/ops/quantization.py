@@ -50,40 +50,87 @@ def _div127(device) -> torch.Tensor:
     return torch.full((), 127.0, device=device)
 
 
-def quantize_activations_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each row's ``max(|x|)`` over the last dimension, [..., 1] fp32."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_activations_plain(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token symmetric int8: (x_int8, act_scale [..., 1] fp32).
 
     fp32 math, ``max(|x|) / 127`` floored at 1e-8, round half to even (as
     ``jnp.round``), clipped to +-127: bit-identical to the JAX function.
+    ``amax`` [..., 1] fp32, when given, stands for each row's ``max(|x|)``
+    (a row-parallel layer's global absmax over its ranks' slices).
     """
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     act_scale = torch.clamp(amax / _div127(x.device), min=1e-8)
     x_int8 = torch.clamp(torch.round(xf / act_scale), -127, 127).to(torch.int8)
     return x_int8, act_scale
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-token symmetric int8 of x [..., K] (fp32 or bf16): (x_int8 [..., K],
-    act_scale [..., 1] fp32), bit-identical to ``quantize_activations_plain``."""
-    if x.device.type == "cpu":
-        return quantize_activations_plain(x)
+def _quantize_launch(x: torch.Tensor, amax: Optional[torch.Tensor], absmax_only: bool):
+    """One launch of ``csrc/int4.cu``'s quantization kernel (counted on
+    ``quantize_activations.launches``): the absmax pass, or the quantization
+    with its own or a given absmax."""
     code = _cuda.dtype_code(x.dtype)
     k = x.shape[-1] if x.dim() else 0
     if k < 1 or x.numel() == 0:
         raise ValueError(f"quantize_activations takes [..., K] with K >= 1, got {tuple(x.shape)}")
     x = x.contiguous()
-    x_int8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    act_scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    rows = (*x.shape[:-1], 1)
+    if amax is not None and (tuple(amax.shape) != rows or amax.dtype != torch.float32
+                             or amax.device != x.device):
+        raise ValueError(f"amax must be {rows} float32 on {x.device}, got {tuple(amax.shape)} "
+                         f"{amax.dtype} on {amax.device}")
+    if absmax_only:
+        x_int8 = act_scale = None
+        amax = torch.empty(rows, dtype=torch.float32, device=x.device)
+    else:
+        x_int8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        act_scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+        amax = None if amax is None else amax.contiguous()
+    ptr = (lambda t: None if t is None else t.data_ptr())
     rc = _cuda.library("int4").quantize_activations_launch(
-        code, x.data_ptr(), x_int8.data_ptr(), act_scale.data_ptr(),
-        x.numel() // k, k, _cuda.stream_of(x))
+        code, x.data_ptr(), ptr(x_int8), ptr(act_scale), ptr(amax), x.numel() // k, k,
+        _cuda.stream_of(x))
     _cuda.check(rc, "quantize_activations_launch")
     quantize_activations.launches += 1
-    return x_int8, act_scale
+    return amax if absmax_only else (x_int8, act_scale)
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """``row_absmax_plain`` on a CUDA tensor: the quantization kernel's
+    absmax pass (one launch, counted on ``quantize_activations.launches``)."""
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    return _quantize_launch(x, None, True)
+
+
+def quantize_activations(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 of x [..., K] (fp32 or bf16): (x_int8 [..., K],
+    act_scale [..., 1] fp32), bit-identical to ``quantize_activations_plain``
+    (``amax`` as there)."""
+    if x.device.type == "cpu":
+        return quantize_activations_plain(x, amax)
+    return _quantize_launch(x, amax, False)
 
 
 quantize_activations.launches = 0
+
+
+def quantize_global(x: torch.Tensor, reduce_max: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token quantization of a row-parallel layer's input slice x
+    [..., K / m] with each row's absmax over all m slices: ``reduce_max``
+    takes the MAX of this rank's row absmax over the model ranks. The int8
+    values and scales are then exactly those of the whole row's
+    quantization: two launches of the quantization kernel and the MAX."""
+    return quantize_activations(x, reduce_max(row_absmax(x)))
 
 
 # ---------------------------------------------------------------------------
@@ -137,46 +184,58 @@ def int8_matmul(x_int8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 int8_matmul.launches = 0
 
 
-def w8a8_epilogue_plain(acc: torch.Tensor, act_scale: torch.Tensor, scale: torch.Tensor,
-                        bias: Optional[torch.Tensor], out_dtype) -> torch.Tensor:
+def w8a8_epilogue_plain(acc: torch.Tensor, act_scale: torch.Tensor,
+                        scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                        out_dtype) -> torch.Tensor:
     """[M, >= n] int32 -> [M, n] in ``out_dtype``: JAX's
     ``float(acc) * act_scale * scale (+ bias.float())``, left to right, over
-    the first n = len(scale) columns."""
-    y = acc[:, :scale.shape[0]].float() * act_scale.reshape(-1, 1) * scale.float()
+    the first n = len(scale) columns. An fp32 ``acc`` with ``scale`` None
+    (the row-parallel W4A8 layer's summed partials, n = len(bias)) gets
+    kernel 4's epilogue ``acc * act_scale + bias.float()``."""
+    n = (scale if scale is not None else bias).shape[0]
+    y = acc[:, :n].float() * act_scale.reshape(-1, 1)
+    if scale is not None:
+        y = y * scale.float()
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
 
 
-def w8a8_epilogue(acc: torch.Tensor, act_scale: torch.Tensor, scale: torch.Tensor,
+def w8a8_epilogue(acc: torch.Tensor, act_scale: torch.Tensor, scale: Optional[torch.Tensor],
                   bias: Optional[torch.Tensor], out_dtype) -> torch.Tensor:
     """``w8a8_epilogue_plain`` in one launch of ``csrc/int8.cu`` on a CUDA
-    tensor (counted on ``w8a8_epilogue.launches``). acc may be a row slice of
-    a wider product (row stride >= n); the bias is read in its stored type."""
+    tensor (counted on ``w8a8_epilogue.launches``). acc (int32 with a
+    ``scale``, fp32 without) may be a row slice of a wider product (row
+    stride >= n); the bias is read in its stored type."""
     if acc.device.type == "cpu":
         return w8a8_epilogue_plain(acc, act_scale, scale, bias, out_dtype)
-    if acc.dim() != 2 or acc.dtype != torch.int32 or acc.stride(1) != 1:
-        raise ValueError(f"w8a8_epilogue takes a row-major int32 [M, N] product, got "
-                         f"{tuple(acc.shape)} {acc.dtype} strides {acc.stride()}")
-    m, n = acc.shape[0], scale.shape[0]
-    if (scale.dim() != 1 or not 1 <= n <= acc.shape[1] or act_scale.numel() != m
-            or (bias is not None and tuple(bias.shape) != (n,))):
-        raise ValueError(f"w8a8_epilogue: scale {tuple(scale.shape)} for {acc.shape[1]} "
-                         f"columns, act_scale {tuple(act_scale.shape)} for {m} rows, bias "
-                         f"{None if bias is None else tuple(bias.shape)}")
-    if scale.dtype != torch.float32 or act_scale.dtype != torch.float32:
-        raise TypeError(f"w8a8_epilogue: scales must be float32, got {scale.dtype}, "
-                        f"{act_scale.dtype}")
-    for a in (act_scale, scale) + (() if bias is None else (bias,)):
-        if a.device != acc.device:
+    acc_code = {torch.int32: 0, torch.float32: 1}.get(acc.dtype)
+    if acc.dim() != 2 or acc_code is None or acc.stride(1) != 1 or (acc_code == 0) != (
+            scale is not None) or (scale is None and bias is None):
+        raise ValueError(f"w8a8_epilogue takes a row-major int32 [M, N] product and its scale, "
+                         f"or an fp32 one and a bias, got {tuple(acc.shape)} {acc.dtype} "
+                         f"strides {acc.stride()}, scale {scale is not None}")
+    m, n = acc.shape[0], (scale if scale is not None else bias).shape[0]
+    if ((scale is not None and scale.dim() != 1) or not 1 <= n <= acc.shape[1]
+            or act_scale.numel() != m or (bias is not None and tuple(bias.shape) != (n,))):
+        raise ValueError(f"w8a8_epilogue: scale {None if scale is None else tuple(scale.shape)} "
+                         f"for {acc.shape[1]} columns, act_scale {tuple(act_scale.shape)} for "
+                         f"{m} rows, bias {None if bias is None else tuple(bias.shape)}")
+    if (scale is not None and scale.dtype != torch.float32) or act_scale.dtype != torch.float32:
+        raise TypeError(f"w8a8_epilogue: scales must be float32, got "
+                        f"{None if scale is None else scale.dtype}, {act_scale.dtype}")
+    for a in (act_scale, scale, bias):
+        if a is not None and a.device != acc.device:
             raise ValueError(f"w8a8_epilogue inputs on {acc.device} and {a.device}")
     out_code = _cuda.dtype_code(out_dtype)
     bias_code = 0 if bias is None else _cuda.dtype_code(bias.dtype)
-    act_scale, scale = act_scale.contiguous(), scale.contiguous()
+    act_scale = act_scale.contiguous()
+    scale = None if scale is None else scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
     rc = _cuda.library("int8").w8a8_epilogue_launch(
-        acc.data_ptr(), act_scale.data_ptr(), scale.data_ptr(),
+        acc.data_ptr(), acc_code, act_scale.data_ptr(),
+        None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), bias_code, out.data_ptr(), out_code,
         m, n, acc.stride(0), _cuda.stream_of(acc))
     _cuda.check(rc, "w8a8_epilogue_launch")
@@ -212,6 +271,22 @@ def dense_int8(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """W8A8 matmul with dynamic per-token activation scales; returns x.dtype."""
     x_int8, act_scale = quantize_activations(x)
     return dense_int8_prequant(p, x_int8, act_scale, x.dtype)
+
+
+def dense_int8_row(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   reduce_max: Callable[[torch.Tensor], torch.Tensor],
+                   reduce_sum: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """A row-parallel W8A8 layer on this rank's input slice x [..., K / m]
+    and weight columns ``kernel_int8 [Npad, K / m]`` (``scale`` and ``bias``
+    whole): the slice quantized with the rows' global absmax
+    (``quantize_global``), the local int32 product summed over the model
+    ranks by ``reduce_sum`` (exact), then the epilogue once. The result is
+    the whole layer's ``dense_int8``, bit for bit."""
+    x_int8, act_scale = quantize_global(x, reduce_max)
+    lead, k = x_int8.shape[:-1], x_int8.shape[-1]
+    acc = reduce_sum(int8_matmul(x_int8.reshape(-1, k), p[KEY]))
+    y = w8a8_epilogue(acc, act_scale.reshape(-1), p["scale"], p.get("bias"), x.dtype)
+    return y.reshape(*lead, y.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ backward calls a collective on activations or weights:
 
 Outside autograd the steps reduce gradients, losses' denominators and
 metrics over the batch group (``sync_grads``, ``batch_sum``) and the
-sharded grad norm's partial sums (``all_reduce``).
+sharded grad norm's partial sums (``all_reduce``); a row-parallel
+quantized layer (no backward: ``models/qwen2.py`` refuses it) takes its
+rows' absmax as a MAX over ``model`` (``max_over_model``) and sums its
+int32 or fp32 partial products (``sum_over_model``).
 
 Which leaves are sharded, and how: ``register(sharding, tree)`` records
 the spec of every sharded tensor of a local tree (``partition.shard_params``
@@ -83,10 +86,10 @@ def _timed(fn, t: torch.Tensor):
     return out
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum over ``group`` into a new tensor."""
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) over ``group`` into a new tensor."""
     out = t.contiguous().clone()
-    _timed(lambda: dist.all_reduce(out, group=group), out)
+    _timed(lambda: dist.all_reduce(out, op=op, group=group), out)
     return out
 
 
@@ -184,6 +187,21 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
 def gather_last(x: torch.Tensor) -> torch.Tensor:
     group = _model_group()
     return x if group is None else _GatherLast.apply(x, group)
+
+
+def sum_over_model(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the model group, outside autograd: a
+    row-parallel W8A8 layer's int32 products (exact) or a W4A8 layer's fp32
+    partials, before their epilogue."""
+    group = _model_group()
+    return t if group is None else _all_reduce(t, group)
+
+
+def max_over_model(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise MAX of ``t`` over the model group, outside autograd:
+    a row-parallel quantized layer's per-row absmax over its input slices."""
+    group = _model_group()
+    return t if group is None else _all_reduce(t, group, dist.ReduceOp.MAX)
 
 
 def model_index() -> int:

@@ -13,7 +13,32 @@ layout: JAX's column-parallel ``P(None, model)`` on an [in, out] kernel is
 the port's dimension 0, its row-parallel ``P(model, None)`` the port's
 dimension 1, a bias sharded on ``model`` dimension 0.
 
-Two deliberate differences from JAX's placement (ROADMAP):
+Quantized and LoRA leaves follow their projection's rule, where JAX's
+rules (written for ``kernel`` / ``weight`` / ``bias`` / ``scale``) leave
+``kernel_int8``, ``kernel_int4``, ``scale4`` and the adapters whole:
+
+* a W8A8 node ``{kernel_int8 [Npad, K], scale [N], bias? [N]}``: column
+  parallel, each rank takes N / m of the real rows (re-padded to a multiple
+  of 8), their scales and biases; row parallel, K / m columns, the scale and
+  bias whole;
+* a W4A8 node ``{kernel_int4 [K/2, Npad], scale4 [K/group, Npad], bias
+  [N]}``: column parallel, N / m real columns re-padded to a multiple of
+  512; row parallel, K / m rows by whole groups, the node first repacked at
+  ``gcd(group, K / m)`` where a group straddles the cut (the int4 values
+  unchanged, each new group taking its old group's scale row;
+  ``Sharding.groups`` keeps the old group, and ``gather_params`` rebuilds
+  the node bit for bit);
+* the text and image heads' quantized nodes (``lm_head_q``, ``img_head_q``)
+  are column parallel as the float heads;
+* adapters ``<name>_lora_a [in, r]`` / ``<name>_lora_b [r, out]``: a
+  column projection's b on ``out``, a row projection's a on ``in``, the
+  other whole.
+
+``sanitize_specs`` tests a node's real N (column) or K (row), never the
+padded Npad, and keeps the whole node's leaves together.
+
+Three deliberate differences from JAX's placement (ROADMAP), the sharding
+of the quantized and LoRA leaves above being the third:
 
 * JAX's layer leaves are stacked, and ``add_fsdp`` puts ``fsdp`` on the
   first free dimension, which there is the layer axis. The port's leaves
@@ -33,19 +58,35 @@ is its inverse.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..ops import int4
+from ..ops.quantization import int8_leaf
 from . import collectives as C
 from .mesh import AXES, BATCH_AXES, Mesh
 
 Spec = Tuple[Optional[str], ...]
 M = AXES.model
 
+_COLUMN = r"layers/\d+/([qkv]|gate|up)"
+_ROW = r"layers/\d+/(o|down)"
+
 # (regex over the port's path, spec of the port's leaf)
 _QWEN2_RULES = [
+    (_COLUMN + r"/kernel_int8$", (M, None)),             # W8A8 [Npad, K]
+    (_COLUMN + r"/(scale|bias)$", (M,)),
+    (_ROW + r"/kernel_int8$", (None, M)),
+    (_COLUMN + r"/(kernel_int4|scale4)$", (None, M)),    # W4A8 [K/2 | K/group, Npad]
+    (_ROW + r"/(kernel_int4|scale4)$", (M, None)),
+    (_COLUMN + r"_lora_b$", (None, M)),                  # LoRA b [r, out], a [in, r]
+    (_ROW + r"_lora_a$", (M, None)),
+    (r"lm_head_q/kernel_int8$", (M, None)),
+    (r"lm_head_q/(scale|bias)$", (M,)),
+    (r"lm_head_q/(kernel_int4|scale4)$", (None, M)),
     (r"embed$", (M, None)),                              # vocab-sharded embedding
     (r"lm_head$", (M, None)),
     (r"layers/\d+/[qkv]_w$", (M, None)),                 # column parallel
@@ -60,6 +101,8 @@ _QWEN2_RULES = [
 _UNIGEN_EXTRA_RULES = [
     (r"gen_embed$", (None, None)),
     (r"img_head$", (M, None)),
+    (r"img_head_q/kernel_int8$", (M, None)),
+    (r"img_head_q/(scale|bias)$", (M,)),
     (r"(gen_projector|mm_projector)/\d+/w$", (None, None)),
     (r"(gen_projector|mm_projector)/\d+/b$", ()),
 ]
@@ -76,7 +119,7 @@ _SIGLIP_RULES = [
 # leaves that are JAX kernels transposed ([out, in] here, [in, out] there)
 _TRANSPOSED = re.compile(r"(^|/)(\w+_w|w|img_head|lm_head)$")
 _LAYER = re.compile(r"(^|/)layers/\d+/")
-_UNSUPPORTED_TP = re.compile(r"_lora_|kernel_int8|kernel_int4|lm_head_q")
+_QUANT_KEYS = ("kernel_int8", "kernel_int4")
 
 
 def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -92,21 +135,43 @@ def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, torch.Tenso
         yield prefix, tree
 
 
-def _map(tree: Any, fn, prefix: str = "") -> Any:
-    """``fn(path, leaf)`` of every tensor, in ``tree``'s structure."""
-    if isinstance(tree, dict):
-        return {k: _map(v, fn, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(tree)]
-    return None if tree is None else fn(prefix, tree)
-
-
 def _spec_for(path: str, leaf: torch.Tensor, rules) -> Spec:
     for pat, spec in rules:
         if re.search(pat, path):
             # a rank mismatch (a rule for a kernel hitting a bias) replicates
             return spec if leaf.dim() == len(spec) else (None,) * leaf.dim()
     return (None,) * leaf.dim()
+
+
+def _units(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Dict]]:
+    """(path, node) of every W8A8 / W4A8 node of ``tree``."""
+    if isinstance(tree, dict):
+        if any(k in tree for k in _QUANT_KEYS):
+            yield prefix, tree
+            return
+        for k in sorted(tree):
+            yield from _units(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _units(v, f"{prefix}/{i}" if prefix else str(i))
+
+
+def _unit_split(path: str, node: Dict, specs: Dict[str, Spec]) -> Optional[str]:
+    """"column" or "row": how a quantized node's product is split on
+    ``model`` by its specs; None when it is not."""
+    int4 = "kernel_int4" in node
+    spec = specs[f"{path}/{'kernel_int4' if int4 else 'kernel_int8'}"]
+    if M not in spec:
+        return None
+    return "column" if (spec.index(M) == 1) == int4 else "row"
+
+
+def _unit_dims(node: Dict) -> Tuple[int, int, int]:
+    """(K, real N, group or 0) of a quantized node."""
+    if "kernel_int4" in node:
+        k = 2 * node["kernel_int4"].shape[0]
+        return k, node["bias"].shape[0], k // node["scale4"].shape[0]
+    return node["kernel_int8"].shape[1], node["scale"].shape[0], 0
 
 
 def _specs(params: Any, rules) -> Dict[str, Spec]:
@@ -175,17 +240,34 @@ def _axis_size(mesh: Mesh, d) -> int:
 
 def sanitize_specs(specs: Dict[str, Spec], params: Any, mesh: Mesh) -> Dict[str, Spec]:
     """Replicate any dimension whose size its mesh axis does not divide (a
-    161-entry tiny vocabulary cannot be sharded 2-way)."""
+    161-entry tiny vocabulary cannot be sharded 2-way). A quantized node's
+    ``model`` axis is kept or dropped on all its leaves at once, by its real
+    N (column) or K (row), not by the padded Npad: the flagship's 159,867-row
+    ``lm_head_q`` stays whole as the float head does."""
     leaves = dict(named_leaves(params))
-    return {p: tuple(None if d is None or leaves[p].shape[i] % _axis_size(mesh, d) else d
-                     for i, d in enumerate(spec))
-            for p, spec in specs.items()}
+    out = {p: tuple(None if d is None or leaves[p].shape[i] % _axis_size(mesh, d) else d
+                    for i, d in enumerate(spec))
+           for p, spec in specs.items()}
+    m = mesh.size(M)
+    for path, node in _units(params):
+        split = _unit_split(path, node, specs)
+        if split is None:
+            continue
+        k, n, group = _unit_dims(node)
+        ok = n % m == 0 if split == "column" else (
+            k % m == 0 and (not group or (k // m) % 2 == 0 and math.gcd(group, k // m) % 2 == 0))
+        for key in node:
+            p = f"{path}/{key}"
+            out[p] = tuple((M if ok else None) if a == M else b
+                           for a, b in zip(specs[p], out[p]))
+    return out
 
 
 def align_heads(specs: Dict[str, Spec], cfg, mesh: Mesh, prefix: str = "llm/") -> Dict[str, Spec]:
     """Column sharding by whole heads: raise when the query heads do not
     divide over ``model``; replicate k/v (weights and biases) when the KV
-    heads do not (each rank then takes its query group's KV heads)."""
+    heads do not (each rank then takes its query group's KV heads), and
+    with them their quantized nodes and adapters."""
     m = mesh.size(AXES.model)
     if m == 1:
         return specs
@@ -193,7 +275,7 @@ def align_heads(specs: Dict[str, Spec], cfg, mesh: Mesh, prefix: str = "llm/") -
         raise ValueError(f"{cfg.num_attention_heads} query heads do not split over model={m}")
     if cfg.num_key_value_heads % m == 0:
         return specs
-    kv = re.compile("^" + re.escape(prefix) + r"layers/\d+/[kv]_[wb]$")
+    kv = re.compile("^" + re.escape(prefix) + r"layers/\d+/([kv]_[wb]|[kv]_lora_[ab]|[kv]/\w+)$")
     return {p: ((None,) * len(s) if kv.search(p) else s) for p, s in specs.items()}
 
 
@@ -221,6 +303,8 @@ class Sharding:
     specs: Dict[str, Spec]
     mesh: Mesh
     moments: Optional[List[Spec]] = None
+    # a W4A8 node repacked to split on whole groups: {path: its own group}
+    groups: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def leaf_specs(self, tree: Any) -> List[Tuple[torch.Tensor, Spec]]:
         return [(t, self.specs[p]) for p, t in named_leaves(tree)]
@@ -239,20 +323,62 @@ def local_shard(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return t.contiguous()
 
 
+def _without_model(spec: Spec) -> Spec:
+    return tuple(None if a == M else a for a in spec)
+
+
+def _only_model(spec: Spec) -> Spec:
+    return tuple(a if a == M else None for a in spec)
+
+
+def _shard_unit(path: str, node: Dict, sharding: Sharding) -> Dict:
+    """This rank's piece of a quantized node: the relayout on ``model``
+    (module docstring), then the plain slices of the other axes."""
+    specs, mesh = sharding.specs, sharding.mesh
+    split = _unit_split(path, node, specs)
+    m, r = mesh.size(M), mesh.index(M)
+    k, n, group = _unit_dims(node)
+    if split == "column":
+        a, b = r * n // m, (r + 1) * n // m
+        if group:
+            node = int4.column_slice(node, a, b)
+        else:
+            node = int8_leaf(node["kernel_int8"][a:b], node["scale"][a:b],
+                             None if node.get("bias") is None else node["bias"][a:b])
+    elif split == "row":
+        g = math.gcd(group, k // m) if group else 0
+        if g != group:
+            node = int4.regroup(node, group, g)
+            sharding.groups[path] = group
+        node = {key: local_shard(t, _only_model(specs[f"{path}/{key}"]), mesh)
+                for key, t in node.items()}
+    return {key: local_shard(t, _without_model(specs[f"{path}/{key}"]), mesh)
+            for key, t in node.items()}
+
+
+def _map_units(tree: Any, leaf_fn, unit_fn, prefix: str = "") -> Any:
+    """``tree`` with each quantized node replaced by ``unit_fn(path, node)``
+    and every other tensor by ``leaf_fn(path, tensor)``."""
+    if isinstance(tree, dict):
+        if any(k in tree for k in _QUANT_KEYS):
+            return unit_fn(prefix, tree)
+        return {k: _map_units(v, leaf_fn, unit_fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_units(v, leaf_fn, unit_fn, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return None if tree is None else leaf_fn(prefix, tree)
+
+
 def shard_params(params: Any, specs: Dict[str, Spec], mesh: Mesh) -> Tuple[Any, Sharding]:
     """(this rank's local shards of ``params``, their ``Sharding``). The
-    specs are sanitized first. A LoRA or a W8A8 / W4A8 tree under
-    ``model > 1`` raises (ROADMAP Queue 1 item 15(c))."""
+    specs are sanitized first; quantized nodes are laid out as the module
+    docstring says."""
     specs = sanitize_specs(specs, params, mesh)
-    if mesh.size(AXES.model) > 1:
-        bad = [p for p, _ in named_leaves(params) if _UNSUPPORTED_TP.search(p)]
-        if bad:
-            raise NotImplementedError(
-                f"{bad[0]}: LoRA and quantized trees under model > 1 are not ported "
-                "(ROADMAP Queue 1 item 15(c)); shard them on data and fsdp only")
     sharding = Sharding(specs, mesh)
-    return C.register(sharding, _map(params, lambda p, t: local_shard(t, specs[p], mesh))), \
-        sharding
+    local = _map_units(params, lambda p, t: local_shard(t, specs[p], mesh),
+                       lambda p, node: _shard_unit(p, node, sharding))
+    return C.register(sharding, local), sharding
 
 
 @torch.no_grad()
@@ -267,6 +393,35 @@ def gather_full(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return t.contiguous()
 
 
+def _gather_unit(path: str, node: Dict, sharding: Sharding) -> Dict:
+    """The whole quantized node from every rank's piece, bit for bit:
+    ``_shard_unit`` undone."""
+    specs, mesh = sharding.specs, sharding.mesh
+    split = _unit_split(path, node, specs)
+    node = {key: gather_full(t.detach(), _without_model(specs[f"{path}/{key}"]), mesh)
+            for key, t in node.items()}
+    if split == "column":
+        _, n, group = _unit_dims(node)
+        if group:
+            # the real columns, gathered, padded back as pack_int4 pads
+            cols = {key: gather_full(node[key][:, :n], (None, M), mesh)
+                    for key in ("kernel_int4", "scale4")}
+            whole = {"bias": gather_full(node["bias"], (M,), mesh), **cols}
+            return int4.column_slice(whole, 0, whole["bias"].shape[0])
+        bias = node.get("bias")
+        return int8_leaf(gather_full(node["kernel_int8"][:n], (M, None), mesh),
+                         gather_full(node["scale"], (M,), mesh),
+                         None if bias is None else gather_full(bias, (M,), mesh))
+    if split == "row":
+        node = {key: gather_full(t, _only_model(specs[f"{path}/{key}"]), mesh)
+                for key, t in node.items()}
+        if path in sharding.groups:
+            node = int4.regroup(node, _unit_dims(node)[2], sharding.groups[path])
+    return node
+
+
 def gather_params(local: Any, sharding: Sharding) -> Any:
     """The whole tree on every rank, from the local shards."""
-    return _map(local, lambda p, t: gather_full(t.detach(), sharding.specs[p], sharding.mesh))
+    return _map_units(local, lambda p, t: gather_full(t.detach(), sharding.specs[p],
+                                                      sharding.mesh),
+                      lambda p, node: _gather_unit(p, node, sharding))

@@ -130,7 +130,10 @@ class UniGenPipeline:
         """The pipeline with this rank's shards of the UniGen tree on
         ``mesh`` (``parallel.unigen_specs``; the tokenizer and the vision
         tower stay whole): tensor parallelism for ``generate_images``, every
-        model rank running the sampler in lockstep."""
+        model rank running the sampler in lockstep. A W8A8 or W4A8 tree
+        shards its quantized nodes (the int8 image head over the codes),
+        and ``quantized_cache`` carries over: every cache holds the rank's
+        KV heads."""
         params, sharding = shard_params(self.params, unigen_specs(self.params, self.cfg, mesh),
                                         mesh)
         return dataclasses.replace(self, params=params, sharding=sharding)

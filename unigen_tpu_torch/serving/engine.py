@@ -58,10 +58,9 @@ bookkeeping against the plan (free slots, active rows) and raise on any
 difference. A follower's futures in flight are ``followed[rid]`` (an entry
 leaves when its request ends, unless ``keep_followed``); ``submit`` on a
 follower raises. The plan is a fixed-layout int64 header and payload (and
-the raw bytes of an embeddings group), not a pickle. The int8 cache and a
-separate decode tree that is not sharded (W4A8) are refused there, as
-``parallel.shard_params`` refuses quantized trees (ROADMAP Queue 1 item
-15(c)).
+the raw bytes of an embeddings group), not a pickle. A separate decode
+tree (W4A8) is sharded on the same mesh as ``params``; every cache, int8
+or not, holds the rank's KV heads (``qwen2.local_kv_heads``).
 """
 from __future__ import annotations
 
@@ -321,7 +320,8 @@ def _prefill(params, cfg: UniGenConfig, inputs_embeds: torch.Tensor, meta_bits: 
     slot at or beyond a row's prompt length as pad; pad positions repeat the
     last real one."""
     k, l = inputs_embeds.shape[:2]
-    tmp = qwen2.init_kv_cache(cfg.llm, k, l, inputs_embeds.device, quantize=quantize)
+    tmp = qwen2.init_kv_cache(cfg.llm, k, l, inputs_embeds.device, quantize=quantize,
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
     positions = torch.minimum(torch.arange(l, device=prompt_len.device)[None],
                               prompt_len[:, None] - 1)
     hidden, tmp = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=inputs_embeds,
@@ -339,7 +339,8 @@ def _prefill_suffixes(params, cfg: UniGenConfig, prefix: qwen2.KVCache,
     tail are never visible to a real query, and decode overwrites them."""
     p = prefix.k.shape[2]
     k, l = input_ids.shape
-    tmp = qwen2.init_kv_cache(cfg.llm, k, p + l, input_ids.device, quantize=quantize)
+    tmp = qwen2.init_kv_cache(cfg.llm, k, p + l, input_ids.device, quantize=quantize,
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
     for name in _leaves(tmp):
         getattr(tmp, name)[:, :, :p] = getattr(prefix, name)
     hidden, tmp = qwen2.forward(params["llm"], cfg.llm,
@@ -377,7 +378,8 @@ def _prefill_prefix(params, cfg: UniGenConfig, ids: torch.Tensor,
                     quantize: bool) -> qwen2.KVCache:
     """The shared prefix's K/V, once: a causal prefill (all-zero bits, the
     flash kernel) into a one-row cache."""
-    tmp = qwen2.init_kv_cache(cfg.llm, 1, ids.shape[1], ids.device, quantize=quantize)
+    tmp = qwen2.init_kv_cache(cfg.llm, 1, ids.shape[1], ids.device, quantize=quantize,
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
     _, tmp = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=embed_tokens(params, ids),
                            meta_bits=torch.zeros(ids.shape, dtype=torch.int32,
                                                  device=ids.device), cache=tmp)
@@ -691,10 +693,9 @@ class ServingEngine:
         if self._distributed:
             if current_mesh() is None:
                 raise ValueError("sharded params need their mesh current (parallel.make_mesh)")
-            if quantized_cache or (decode_params is not None and not _sharded(decode_params)):
-                raise NotImplementedError(
-                    "the int8 KV cache and an unsharded (W4A8) decode tree under tensor "
-                    "parallelism are not ported (ROADMAP Queue 1 item 15(c))")
+            if decode_params is not None and not _sharded(decode_params):
+                raise ValueError("decode_params must be sharded on the mesh of the sharded "
+                                 "params (parallel.shard_params)")
         self._follower = self._distributed and MH.process_index() != 0
         self.followed: Dict[int, GenerationResult] = {}   # a follower's, by rank 0's request id
         self._keep_followed = keep_followed
@@ -736,8 +737,9 @@ class ServingEngine:
             self._prefix_ids = pids
             self.prefix_len = pids.shape[1]
 
-        self._cache = qwen2.init_kv_cache(cfg.llm, slots, max_len, self.device,
-                                          quantize=quantized_cache, per_row_index=True)
+        self._cache = qwen2.init_kv_cache(
+            cfg.llm, slots, max_len, self.device, quantize=quantized_cache, per_row_index=True,
+            num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
         if speculate_k > 0:
             # each slot's token history for the draft, and where it starts
             self._ctx = torch.zeros((slots, max_len), dtype=torch.int64, device=self.device)

@@ -17,6 +17,11 @@ quantized base rides the forward; its backward is refused).
 only and ``decay_mask`` never decays them, as JAX's optimizer does; and
 ``weights.unigen_to_jax`` / ``unigen_from_jax`` carry them both ways.
 
+Under tensor parallelism (``parallel/partition.py``) a column projection's
+b is sharded on ``out`` with its base and a stays whole; a row projection's
+a is sharded on ``in`` and b stays whole (``models/qwen2.py`` reduces the
+[*, r] partial over ``model`` before ``@ b``). The steps train the shards.
+
 Standard LoRA semantics: ``a`` Gaussian (std in^-1/2), ``b`` zero (the
 adapted model equals the base at step 0), effective weight ``W + (alpha /
 r) a b``.
