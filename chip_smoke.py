@@ -39,7 +39,7 @@ read just after:
   requests, one cache-free forward;
 * ``lmms``: the lmms-eval adapter over the NaFlex flagship on 24 uint8
   requests of 384 x 384, 256 x 512 and 640 x 256 (H x W) with budgets of
-  16-128 tokens, stops and two 'concat' requests: ``generate_until`` static
+  8-64 tokens, stops and two 'concat' requests: ``generate_until`` static
   (batch 8) and served (16 slots, chunk 8) and ``loglikelihood`` batched
   and single, in bf16 with their rates and exact launches; in fp32 static =
   served strings and batched = single scores;
@@ -47,8 +47,8 @@ read just after:
   samples, every PNG read back against its batch's pixels;
 * ``cot``: ``evaluation.cot.run_cot`` (CoT-V Best-of-N) on one two-colour
   GenEval prompt (4 rule questions): 20 candidates rated through the SigLIP
-  tower (the candidates resized to 384 px, the Qwen system prompt, 128
-  greedy tokens), then 8 candidates rated over the tokenizer's codes (the
+  tower (the candidates resized to 384 px, the Qwen system prompt, 32
+  greedy tokens a rating), then 8 candidates rated over the tokenizer's codes (the
   encoder in bf16, the candidates' dtype); top 4 kept, and the selection
   also held on the table with planted answers whose scores do not tie;
 * ``dpg``: ``evaluation.dpg.run_dpg`` over 2 prompts x 4 samples at the
@@ -57,10 +57,11 @@ read just after:
   from 3 threads (one full batch, one padded), each image held against the
   direct call of its padded batch under the batch's derived generator;
 * ``serving``: the continuous-batching ``serving.ServingEngine`` on the JAX
-  serving bench's trace (96 requests of 600 prompt ids, budgets in [32,
+  serving bench's trace (48 requests of 600 prompt ids, budgets in [32,
   224], 32 slots, chunk 16, all queued at once), greedy, in bf16 (and in
   static waves of 32 over the same trace), ``int8+int4`` (W8A8 admission,
-  W4A8 decode chunks) and ``int8+kv`` (W8A8, int8 KV cache): useful
+  W4A8 decode chunks) and ``int8+kv`` (W8A8, int8 KV cache) on its
+  first 16: useful
   tokens/s, requests/s, TTFT, ITL, occupancy; launch counts exact from each
   run's admissions and decode steps;
 * ``serving_vqa``: 8 VQA requests through ``pipeline.vqa_serving_inputs``
@@ -109,12 +110,19 @@ read just after:
   tower (mmu rows of 3 + 256 + 64 over images of three aspects, padded
   patches), 1 warm + 2 timed steps, the same prints and gates; then a tiny
   fp32 NaFlex SFT step on the card against the CPU;
+* ``images``: the committed WebP, GIF, BMP, PPM / PGM and TIFF fixtures
+  (``unigen_tpu_torch/data/assets/images/``) through ``decode_image``, each
+  held to the sha256 of PIL's pixels and timed on one host thread (MP/s a
+  fixture and a format); a header of each format PIL reads and the port
+  refuses raises ``UnsupportedImageFormat`` naming it;
 * ``sft_real``: the SFT entry on files read from disk (``unigen_sft.yaml``,
-  ``dataset.synthetic`` off): t2i from 4 tar shards of 64 PNG samples of
-  five sizes (every PNG filter, json and txt captions, one corrupt sample a
-  shard) through the native streamer, the conversations from a LLaVA
-  ``.jsonl`` over PNGs at the SigLIP tower's 384 px (mmu rows of 3 + 729 +
-  512); the PNGs decoded without PIL (``data/decode.py``); 1 warm + 2 timed
+  ``dataset.synthetic`` off): t2i from 4 tar shards of 64 JPEG samples of
+  five sizes (one in eight a PNG of every filter, one in eight a WebP
+  fixture, json and txt captions, one corrupt sample a shard) through the
+  native streamer, the conversations from a LLaVA ``.jsonl`` over JPEGs,
+  PNGs, a GIF named ``.jpg``, a BMP, a TIFF and a PPM at the SigLIP tower's
+  384 px (mmu rows of 3 + 729 + 512); every image decoded without PIL
+  (``data/decode.py``), each fixture's decodes held to PIL's hash; 1 warm + 2 timed
   steps with the sft phase's gates, the loader's seconds a batch (Python
   and native readers, LLaVA, the entry's flows) and the loop a step beside
   the step and the sft phase; the decoder held to the encoded pixels for
@@ -124,8 +132,9 @@ read just after:
   ``task_flows`` on 8 such shards (t2i 5, mmu 3, native), the lm rows the
   entry's synthetic lm texts (no pyarrow on the card), the train phase's
   gates and the same prints beside it;
-* ``dpo_real`` (not in the default run): the DPO entry on 21 pairs of PNGs
-  (one corrupt), ``training.num_epoch=2``, its reference precompute pass
+* ``dpo_real`` (not in the default run): the DPO entry on 21 pairs of JPEGs,
+  PNGs and lossless WebPs (one corrupt), ``training.num_epoch=2``, its
+  reference precompute pass
   (exact launches) and its check that both passes see the same batches,
   1 warm + 2 timed steps with the dpo phase's gates;
 * ``checkpoints``: the seed-0 flagship with the SigLIP tower written in the
@@ -164,9 +173,9 @@ read just after:
   its plan; greedy, sampled and embeddings requests, speculation on) token
   for token against one rank's engine, with equal decode chunks and busy
   steps on both ranks, and the flagship t2i at model 2 as the flagship
-  phase runs it (batch 4, guidance 6, 50 steps) with its first-step image
-  logits against the unsharded forward, exact launches a rank, its codes
-  against the flagship phase's, the call's seconds and its collectives'
+  phase runs it but for its depth (batch 4, guidance 6, 10 steps) with its
+  first-step image logits against the unsharded forward, exact launches a
+  rank, its codes against one rank's, the call's seconds and its collectives'
   share (gloo on one card, not a multi-card speed); the kernels at a rank's
   shapes include the serving decode step (kernel 1 at [32, 1, 6, 128], S
   896) and admission (kernel 2 at [16, 640, 6, 128], pad bits), and kernel
@@ -229,8 +238,10 @@ every route, and each W4A8 layer is timed whole against bf16 ``F.linear``. Kerne
 and timed at all 11 conv shapes of the MAGViTv2 decoder and all 7 of its
 encoder, and again at the CoT slice's batches (the decoder at 20, the
 encoder in bf16 at 8); the flagship, understand_discrete and cot phases
-count its launches by shape in the warm run, and the sums of launches x ms
-over a t2i batch and over an encode are taken from those counts. Every check that
+count its launches by shape in their last run, and the sums of launches x ms
+over a t2i batch and over an encode are taken from those counts. A path whose
+call takes seconds runs once (``ONCE``), a shorter one cold and then warm; the
+wall time of each phase goes to stdout and to stderr. Every check that
 fails makes the exit code nonzero. The last line of stdout is a JSON object
 naming the device; the line before it holds the kernels' measurements.
 Without a CUDA device, or without the package beside it, the script exits
@@ -241,7 +252,8 @@ computed from each phase's inputs against the H100 SXM's published peaks.
 ``--phases`` (default: build,kernels,flagship,flagship_int8,flagship_ar,
 understand,understand_int8,understand_discrete,understand_naflex,score,lmms,
 geneval,cot,dpg,image_serving,serving,serving_vqa,serving_http,serving_spec,
-serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,sft_real,checkpoints,parallel,tiny)
+serve_entry,train,sft,sft_packed,dpo,cotv_post_sft,sft_naflex,jpeg,images,sft_real,checkpoints,
+parallel,tiny)
 runs a subset, for quick checks; ``pt2_real``, ``dpo_real``, ``parallel_train``,
 ``parallel_serving`` and ``parallel_quant`` run only when named;
 adding ``profile`` traces one more warm run of each path with ``torch.profiler`` and prints
@@ -264,7 +276,7 @@ PHASES = ("build", "kernels", "flagship", "flagship_int8", "flagship_ar", "under
           "understand_int8", "understand_discrete", "understand_naflex", "score", "lmms",
           "geneval", "cot", "dpg", "image_serving", "serving", "serving_vqa", "serving_http",
           "serving_spec", "serve_entry", "train", "sft", "sft_packed", "dpo", "cotv_post_sft",
-          "sft_naflex", "jpeg", "sft_real", "checkpoints", "parallel", "tiny")
+          "sft_naflex", "jpeg", "images", "sft_real", "checkpoints", "parallel", "tiny")
 OPTIONAL_PHASES = ("pt2_real", "dpo_real", "parallel_train", "parallel_serving",
                    "parallel_quant", "profile")
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
@@ -284,6 +296,9 @@ QUESTIONS = ("What is in this image?",
              "Which animal is sitting on the sofa?",
              "What is written on the red sign?")
 NEW_TOKENS = 128
+# the paths whose call takes seconds run once (their launches and output
+# checked, their time a first call's); the shorter ones cold, then warm
+ONCE = ("run",)
 # continuations of 1-16 tokens (one byte-tokenizer token a character) scored
 # after QUESTIONS by the score phase
 CONTINUATIONS = ("A", "Two.", "Red.", "A busy street.", "Day", "An umbrella", "A cat",
@@ -292,13 +307,16 @@ CONTINUATIONS = ("A", "Two.", "Red.", "A busy street.", "Day", "An umbrella", "A
 # through the SigLIP tower, and fewer over the tokenizer's codes; top-k kept
 COT_PROMPT = "a photo of a red cube and a blue sphere"
 COT_SAMPLES, COT_DISCRETE_SAMPLES, COT_TOPK = 20, 8, 4
+COT_RATING_TOKENS = 32   # greedy tokens a rating (run_cot's default 128, cut)
 DPG_TEXT_LEN = 256       # DPG-bench's text budget (GenEval's is 128)
 SERVING_BATCH = 4
-# the text serving engine at JAX's serving bench (bench.py::bench_serve): 96
+# the text serving engine at JAX's serving bench (bench.py::bench_serve): its
 # requests of 600 random prompt ids, budgets uniform in [32, 224], 32 slots,
-# chunk 16, bucket 640, cache 896, groups of up to 16 admitted at once
-SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_CHUNK = 32, 96, 600, 16
+# chunk 16, bucket 640, cache 896, groups of up to 16 admitted at once; 48
+# requests (the bench's 96, cut to keep the default run inside its time limit)
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_CHUNK = 32, 48, 600, 16
 SERVE_BUCKET, SERVE_MAX_LEN, SERVE_ADMIT = 640, 896, 16
+SERVE_QUANT_REQUESTS = 16   # the int8+int4 and int8+kv runs: the trace's first requests
 SERVE_VQA_BUCKET = 64    # vqa_serving_inputs' l2_bucket
 SPEC_K = 4               # the serving_spec phase's draft length (bench.py serve spec)
 # the serve_entry phase: the flagship SFT config, random init, served by a
@@ -306,7 +324,7 @@ SPEC_K = 4               # the serving_spec phase's draft length (bench.py serve
 SERVE_CONFIG = "configs/unigen_1_5b/unigen_sft.yaml"
 SERVE_ENTRY_PROMPTS = ("What is a GPU?", "Repeat after me: one two three, one two three.",
                        "Name three colours.")
-SERVE_ENTRY_NEW = 48
+SERVE_ENTRY_NEW = 16
 # the train phase: PT2 (8 t2i + 2 lm + 6 mmu rows of 576) at the flagship width,
 # random init, synthetic flows; steps warm and timed
 TRAIN_CONFIG = "configs/unigen_1_5b/unigen_pt2.yaml"
@@ -327,7 +345,7 @@ NAFLEX_PATCHES, NAFLEX_PX = 256, 256
 # the lmms phase: uint8 requests of three aspects (H, W), budgets in turn, the static
 # route's batch, the served route's slots and chunk
 LMMS_SIZES = ((384, 384), (256, 512), (640, 256))
-LMMS_BUDGETS = (16, 32, 64, 128)
+LMMS_BUDGETS = (8, 16, 32, 64)
 LMMS_REQUESTS, LMMS_BATCH, LMMS_SLOTS, LMMS_CHUNK = 24, 8, 16, 8
 SFT_NAFLEX_OVERRIDES = ("model.vision_tower.name=siglip2-so400m-patch16-naflex",)
 SFT_NAFLEX_WARM, SFT_NAFLEX_TIMED = 1, 2
@@ -348,8 +366,19 @@ REAL_FORMAT_SAMPLES = 32     # each of the JPEG-only and PNG-only shards the loa
 REAL_LLAVA_IMAGES = 16
 REAL_DPO_PAIRS = 21          # one with a corrupt image: 2 batches of 10 an epoch
 JPEG_DECODES = 20            # the jpeg phase's decodes a fixture (their median is printed)
+IMAGE_DECODES = 20           # the images phase's, likewise
+# the other formats in the real-data sets (unigen_tpu_torch/data/assets/images/, written
+# with PIL from seed 0): one image in REAL_OTHER_EVERY of the t2i shards and the DPO pairs
+# (the WebPs in turn), one in 4 of the LLaVA folder (a GIF under a .jpg name, as OCR-VQA
+# ships them, a BMP, a TIFF and a PPM in turn): (fixture, extension)
+REAL_OTHER_EVERY = 8
+REAL_T2I_OTHERS = (("web_640x480_q80.webp", ".webp"), ("web_500x333_q30_m6.webp", ".webp"),
+                   ("web_301x203_lossless.webp", ".webp"), ("web_161x97_alpha.webp", ".webp"))
+REAL_LLAVA_OTHERS = (("ocrvqa_300x450.gif", ".jpg"), ("scan_320x240_8bit.bmp", ".bmp"),
+                     ("scan_321x241_lzw_predictor.tif", ".tif"), ("imagenet_200x150.ppm", ".ppm"))
+REAL_DPO_OTHERS = (("web_257x129_palette.webp", ".webp"), ("web_301x203_lossless.webp", ".webp"))
 # free-running: more steps than the prefetch thread holds (data/prefetch.DEPTH + 1)
-REAL_WARM, REAL_TIMED, REAL_LOADER_BATCHES, REAL_FREE_STEPS = 1, 2, 3, 10
+REAL_WARM, REAL_TIMED, REAL_LOADER_BATCHES, REAL_FREE_STEPS = 1, 2, 3, 4
 SERVING_PROMPTS = ("a photo of a red cube and a blue sphere", "a cat sleeping on a windowsill",
                    "a lighthouse at dusk", "two cups of coffee on a table",
                    "a green bus in the rain", "a watercolor of a fox")
@@ -892,7 +921,8 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     wrapper's ``_launch``; with ``masked``, keys 128..255 are invisible to
     every row (a fully masked split at 8 splits) and row 0 sees no key at
     all. Timed warm (one K/V pair, which stays in L2) and cold (a cycle of
-    K/V pairs larger than L2, as the path's 28 layers' caches are). The
+    K/V pairs larger than L2, as the path's 28 layers' caches are), the
+    chosen route only. The
     bound reads the visible slots' K/V only (``kv_read_bytes``).
     ``heads``: query and KV heads (a model rank's under tensor parallelism)."""
     import torch
@@ -933,7 +963,6 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     if not timed:
         return None
     check(chosen > 1, f"the decode step q{list(q.shape)} S={s} did not take the split route")
-    ms_by = {n: time_ms(lambda n=n: CA._launch(q, k, v, kvalid, n), iters) for n in routes}
     ms = time_ms(lambda: CA.chunk_attention(q, k, v, kvalid), iters)
     plain_ms = time_ms(lambda: CA.chunk_attention_plain(q, k, v, kvalid), iters)
     lib_ms = sdpa_ms(q, k, v, kvalid[:, None, None, :], iters)
@@ -944,7 +973,7 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
     def cold(fn):
         ring = itertools.cycle(pairs)
         return time_ms(lambda: fn(*next(ring)), 5 * len(pairs))
-    cold_by = {n: cold(lambda kk, vv, n=n: CA._launch(q, kk, vv, kvalid, n)) for n in routes}
+    ms_cold = cold(lambda kk, vv: CA._launch(q, kk, vv, kvalid, chosen))
     mask4 = kvalid[:, None, None, :]
     lib_cold = cold(lambda kk, vv: F.scaled_dot_product_attention(
         q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask4,
@@ -953,12 +982,10 @@ def phase_chunk_decode(gen, b, l, prompt_len, step, dtype, rtol, iters, timed=Tr
                      kv_read_bytes(k, kvalid) + nbytes(q, kvalid, got), BF16_PEAK)
     print(f"    ms {ms:.4f} ({chosen} splits)  plain_ms {plain_ms:.4f}  library_ms (sdpa) "
           f"{lib_ms:.4f}  bound_ms {b_ms:.4f} ({by})")
-    print("    by splits (1 = unsplit), warm / cold ms: "
-          + ", ".join(f"{n}: {ms_by[n]:.4f} / {cold_by[n]:.4f}" for n in routes)
-          + f"; sdpa cold {lib_cold:.4f}")
+    print(f"    cold ms {ms_cold:.4f}; sdpa cold {lib_cold:.4f}")
     return dict(_measured(err, ms, plain_ms, lib_ms, b_ms, by,
                           f"{at} q [{b},1,{h},{dh}], S={s}, {chosen} splits"),
-                ms_cold=cold_by[chosen])
+                ms_cold=ms_cold)
 
 
 def phase_chunk_verify(gen, b, k, s, dtype, rtol, iters, timed, q_range=None,
@@ -1681,8 +1708,8 @@ def run_slice_kernel_phases(results):
                  prompt_len=torch.as_tensor(plen, device="cuda")), bf16, 2 ** -7, 10,
                  f"CoT rating prefill q [{b},{l},12,128], mmu_vit meta, system prompt")]
     chunk = [phase_chunk(gen, 2 * b, 258, lp, bf16, 2 ** -7, 20, True, at="CoT t2i step"),
-             phase_chunk_decode(gen, b, l, plen, 64, bf16, 2 ** -7, 50,
-                                at="CoT rating decode step")]
+             phase_chunk_decode(gen, b, l, plen, COT_RATING_TOKENS // 2, bf16, 2 ** -7, 50,
+                                new_tokens=COT_RATING_TOKENS, at="CoT rating decode step")]
     dlp, dmeta = pad_meta([PROMPTS[0]] * 4, DPG_TEXT_LEN)
     flash.append(phase_flash_meta(gen, dmeta, bf16, 2 ** -7, 20,
                                   f"DPG t2i prefill q [8,{dlp},12,128], pad bits"))
@@ -2060,14 +2087,14 @@ def _timed_runs(name, run_once, expect, runs=("cold", "warm"), census=None, vali
     """Runs a path ``runs`` times, each with the launch counts set to 0 just
     before and read just after, checks them against ``expect`` and each
     run's output with ``validate``; ``work`` = (count, unit) prints a rate.
-    The warm run also counts kernel 3's launches by shape into ``census``
+    The last run also counts kernel 3's launches by shape into ``census``
     when given. Returns (the last run's output, its wall seconds, enqueue
     seconds, counts)."""
     import torch
     for run in runs:
         _reset_counts()
         torch.cuda.synchronize()
-        with conv_census(census) if census is not None and run == "warm" else \
+        with conv_census(census) if census is not None and run == runs[-1] else \
                 contextlib.nullcontext():
             t0 = time.perf_counter()
             out = run_once()
@@ -2076,8 +2103,8 @@ def _timed_runs(name, run_once, expect, runs=("cold", "warm"), census=None, vali
             dt = time.perf_counter() - t0
         counts = _read_counts()
         rate = f", {work[0] / dt:.4f} {work[1]}/s" if work else ""
-        print(f"  {name} {run} run: {dt:.3f} s ({enqueued:.3f} s to enqueue){rate}, "
-              f"launches {counts}")
+        label = f"{name} {run} run" if len(runs) > 1 else f"{name} run"
+        print(f"  {label}: {dt:.3f} s ({enqueued:.3f} s to enqueue){rate}, launches {counts}")
         check(counts == expect, f"{name} launch counts {counts} != {expect}")
         if validate is not None:
             validate(out)
@@ -2258,7 +2285,8 @@ def run_understand(results, profile=False):
     for name, p, expect in (("w4a8", qpipe, expect_q),
                             ("bf16", pipe, dict(expect_q, w4a8_matmul=0, quantize_activations=0))):
         toks, dt, enqueued, counts = _timed_runs(f"understand {name}", lambda p=p: run(p), expect,
-                                                 validate=validate, work=(b * NEW_TOKENS, "tokens"))
+                                                 runs=ONCE, validate=validate,
+                                                 work=(b * NEW_TOKENS, "tokens"))
         out[name] = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": b * NEW_TOKENS / dt,
                      "tokens": toks, "counts": counts}
     agree = (out["w4a8"]["tokens"] == out["bf16"]["tokens"]).float().mean().item()
@@ -2307,7 +2335,7 @@ def run_understand_int8(results, profile=False):
     def run_once():
         return pipe.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
     toks, dt, enqueued, counts = _timed_runs(
-        "understand_int8 (int8+kv)", run_once, expect,
+        "understand_int8 (int8+kv)", run_once, expect, runs=ONCE,
         validate=_token_checker("understand_int8", pipe.cfg.llm.vocab_size),
         work=(b * NEW_TOKENS, "tokens"))
     out = {"seconds": dt, "enqueue_s": enqueued, "tokens_per_s": b * NEW_TOKENS / dt}
@@ -2386,7 +2414,7 @@ def run_understand_naflex(results, profile=False):
     def run_once():
         return pipe.understand(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
     toks, dt, enqueued, counts = _timed_runs(
-        "understand_naflex", run_once, expect,
+        "understand_naflex", run_once, expect, runs=ONCE,
         validate=_token_checker("understand_naflex", pipe.cfg.llm.vocab_size),
         work=(b * NEW_TOKENS, "tokens"))
     tower = []
@@ -2510,39 +2538,36 @@ def run_lmms(results, profile=False):
             shapes[a._prepared_shape(img)] = shapes.get(a._prepared_shape(img), 0) + 1
         return sum(-(-n // LMMS_BATCH) for n in shapes.values())
 
-    out, strings, warm_counts = {}, {}, {}
+    out, strings, route_counts = {}, {}, {}
     for name, serving in (("static", False), ("served", True)):
         a = adapter(pipe, serving=serving)
         record, sizes = {}, []
-        for run in ("cold", "warm"):
-            record.clear()
-            sizes.clear()
-            _reset_counts()
+        _reset_counts()
+        torch.cuda.synchronize()
+        with lmms_token_census(pipe, record) as futs, admission_census(sizes):
+            t0 = time.perf_counter()
+            texts = a.generate_until(reqs)
             torch.cuda.synchronize()
-            with lmms_token_census(pipe, record) as futs, admission_census(sizes):
-                t0 = time.perf_counter()
-                texts = a.generate_until(reqs)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-            counts = _read_counts()
-            if serving:
-                useful = sum(len(f.result(timeout=0)) for f in futs)
-                steps = sum(st.slot_steps for st in a.last_stats) // LMMS_SLOTS
-                expect = dict(NO_LAUNCHES, flash_attention=layers * len(sizes),
-                              chunk_attention=vit * tower_calls(a, [r[2] for r in reqs])
-                              + layers * steps)
-            else:
-                useful = sum(record.values())
-                n_calls, steps = static_calls(a)
-                expect = dict(NO_LAUNCHES, flash_attention=layers * n_calls,
-                              chunk_attention=vit * n_calls + layers * steps)
-            print(f"  generate_until {name} {run}: {dt:.3f} s, {LMMS_REQUESTS / dt:.4f} "
-                  f"requests/s, {useful} useful tokens, {useful / dt:.2f} useful tokens/s; "
-                  f"launches {counts}")
-            check(counts == expect, f"lmms {name} launch counts {counts} != {expect}")
-            check(len(texts) == LMMS_REQUESTS and all(isinstance(t, str) for t in texts),
-                  f"lmms {name} returned {texts!r}")
-        warm_counts[name] = counts
+            dt = time.perf_counter() - t0
+        counts = _read_counts()
+        if serving:
+            useful = sum(len(f.result(timeout=0)) for f in futs)
+            steps = sum(st.slot_steps for st in a.last_stats) // LMMS_SLOTS
+            expect = dict(NO_LAUNCHES, flash_attention=layers * len(sizes),
+                          chunk_attention=vit * tower_calls(a, [r[2] for r in reqs])
+                          + layers * steps)
+        else:
+            useful = sum(record.values())
+            n_calls, steps = static_calls(a)
+            expect = dict(NO_LAUNCHES, flash_attention=layers * n_calls,
+                          chunk_attention=vit * n_calls + layers * steps)
+        print(f"  generate_until {name}: {dt:.3f} s, {LMMS_REQUESTS / dt:.4f} "
+              f"requests/s, {useful} useful tokens, {useful / dt:.2f} useful tokens/s; "
+              f"launches {counts}")
+        check(counts == expect, f"lmms {name} launch counts {counts} != {expect}")
+        check(len(texts) == LMMS_REQUESTS and all(isinstance(t, str) for t in texts),
+              f"lmms {name} returned {texts!r}")
+        route_counts[name] = counts
         out[name] = {"seconds": dt, "requests_per_s": LMMS_REQUESTS / dt,
                      "useful_tokens": useful, "tokens_per_s": useful / dt}
         if serving:
@@ -2593,8 +2618,8 @@ def run_lmms(results, profile=False):
     del fpipe
     torch.cuda.empty_cache()
     results["lmms"] = out
-    # the warm static and served generate_until runs
-    return {k: warm_counts["static"][k] + warm_counts["served"][k] for k in NO_LAUNCHES}
+    # the static and served generate_until runs
+    return {k: route_counts["static"][k] + route_counts["served"][k] for k in NO_LAUNCHES}
 
 
 def run_flagship_ar(results, profile=False):
@@ -2609,7 +2634,7 @@ def run_flagship_ar(results, profile=False):
     expect = dict(NO_LAUNCHES, flash_attention=layers, chunk_attention=layers * (n - 1),
                   conv3x3_gn_swish=44, gn_affine=40)
     run_once = _t2i_run(pipe, mode="ar")
-    _, dt, enqueued, counts = _timed_runs("flagship_ar", run_once, expect,
+    _, dt, enqueued, counts = _timed_runs("flagship_ar", run_once, expect, runs=ONCE,
                                           validate=_t2i_checker("flagship_ar", pipe),
                                           work=(len(PROMPTS), "images"))
     if profile:
@@ -2643,7 +2668,7 @@ def run_understand_discrete(results, profile=False):
     def run_once():
         return pipe.understand_discrete(pixels, list(QUESTIONS), None, max_new_tokens=NEW_TOKENS)
     _, dt, enqueued, counts = _timed_runs(
-        "understand_discrete", run_once, expect, census=census,
+        "understand_discrete", run_once, expect, runs=ONCE, census=census,
         validate=_token_checker("understand_discrete", pipe.cfg.llm.vocab_size),
         work=(b * NEW_TOKENS, "tokens"))
     if profile:
@@ -2654,7 +2679,7 @@ def run_understand_discrete(results, profile=False):
         print("  profile of the encoder alone (encode_pixels):")
         profile_run(lambda: pipe.encode_pixels(pixels), time.perf_counter() - t0)
     expect_census = {(hw, c, cout, gn): [n, n] for hw, c, cout, gn, n in ENCODER_CONVS}
-    print("  warm run, kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
+    print("  kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
           + ", ".join(f"{k}: {v}" for k, v in sorted(census.items())))
     check(census == expect_census, f"encoder conv launches {census} != {expect_census}")
     codes = pipe.encode_pixels(pixels)
@@ -2749,7 +2774,7 @@ def run_geneval(results, profile=False):
 
 def run_cot(results, profile=False):
     """``evaluation.cot.run_cot`` on COT_PROMPT (4 rule questions), bf16,
-    guidance 6, 50 steps, text budget 128, 128 greedy rating tokens: 20
+    guidance 6, 50 steps, text budget 128, COT_RATING_TOKENS greedy rating tokens: 20
     candidates rated through the SigLIP tower (``flagship_pipeline(vision=
     True)``), then 8 rated over the tokenizer's codes (``flagship_pipeline()``);
     top 4 kept. Checks the table's size, that every candidate is its
@@ -2761,7 +2786,7 @@ def run_cot(results, profile=False):
     from unigen_tpu_torch.pipeline import pixels_to_uint8
     questions = cot.geneval_prompt2questions(COT_PROMPT)
     print(f"phase: cot (run_cot, {COT_PROMPT!r}: {len(questions)} rule questions, bf16, guidance "
-          f"6, 50 steps, {NEW_TOKENS} greedy rating tokens, top {COT_TOPK})")
+          f"6, 50 steps, {COT_RATING_TOKENS} greedy rating tokens, top {COT_TOPK})")
     decoder = {(hw, c, cout, gn): [k, k if gn else 0] for hw, c, cout, gn, k in DECODER_CONVS}
     out = {}
     counts_by_rater = {}
@@ -2770,7 +2795,7 @@ def run_cot(results, profile=False):
         batches = []
         pipe = _recording(flagship_pipeline(vision=vision), batches)
         layers = pipe.cfg.llm.num_hidden_layers
-        rating = dict(flash_attention=layers, chunk_attention=layers * (NEW_TOKENS - 1))
+        rating = dict(flash_attention=layers, chunk_attention=layers * (COT_RATING_TOKENS - 1))
         expect_census = dict(decoder)
         if vision:
             rating["flash_attention"] += pipe.vision_cfg.num_layers_used
@@ -2787,7 +2812,7 @@ def run_cot(results, profile=False):
         def run_once(pipe=pipe, vision=vision, n=n, batches=batches):
             batches.clear()
             return cot.run_cot(pipe, [COT_PROMPT], 0, n_samples=n, topk=COT_TOPK, style="rule",
-                               use_vision_tower=vision, max_new_tokens=NEW_TOKENS)
+                               use_vision_tower=vision, max_new_tokens=COT_RATING_TOKENS)
 
         def validate(result, n=n, batches=batches, rater=rater, pipe=pipe):
             (res,), table, stats = result
@@ -2828,9 +2853,9 @@ def run_cot(results, profile=False):
                   f"cot {rater}: on planted answers the selection is {chosen}, not {best}")
         census = censuses[rater] = {}
         result, dt, enqueued, counts = _timed_runs(
-            f"cot {rater} rater ({n} candidates)", run_once, expect, census=census,
+            f"cot {rater} rater ({n} candidates)", run_once, expect, runs=ONCE, census=census,
             validate=validate, work=(n, "candidates"))
-        print("  warm run, kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
+        print("  kernel 3 launches by (H = W, C, Cout, GN): [conv, statistics]: "
               + ", ".join(f"{k}: {v}" for k, v in sorted(census.items())))
         check(census == expect_census, f"cot {rater} conv launches {census} != {expect_census}")
         table = result[1]
@@ -2844,7 +2869,7 @@ def run_cot(results, profile=False):
                       "candidates_per_s": n / dt, "ratings_per_s": len(table) / dt}
         counts_by_rater[rater] = counts
     l, _, _ = cot_rating_shape(flagship_pipeline(vision=True))
-    print(f"  vision rating prefill [{COT_SAMPLES}, {l}], cache {l + NEW_TOKENS} slots, "
+    print(f"  vision rating prefill [{COT_SAMPLES}, {l}], cache {l + COT_RATING_TOKENS} slots, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     # the measured censuses: the vision run's is the decoder's (one generation
     # call); the discrete run's less it is the encoder's, once per question
@@ -2965,7 +2990,7 @@ def run_image_serving(results, profile=False):
     _cuda.stream_of = stream_of
     try:
         (_, latency), dt, enqueued, counts = _timed_runs(
-            "image_serving", run_once, expect, validate=validate,
+            "image_serving", run_once, expect, runs=ONCE, validate=validate,
             work=(len(SERVING_PROMPTS), "images"))
     finally:
         _cuda.stream_of = real_stream
@@ -3127,12 +3152,14 @@ def _serve_report(name, run, card_line=True):
 
 
 def run_serving(results, profile=False):
-    """The text serving engine at full width on bench_serve's trace: 96
-    requests of 600 prompt ids, greedy, budgets in [32, 224], all queued at
+    """The text serving engine at full width on bench_serve's trace:
+    SERVE_REQUESTS requests of 600 prompt ids, greedy, budgets in [32, 224], all queued at
     once, 32 slots, chunk 16; bf16 (and the static-wave discipline over the
     same trace), ``int8+int4`` (W8A8 admission, W4A8 decode chunks, bf16
-    cache) and ``int8+kv`` (W8A8 with the int8 cache, bench_serve's default).
-    Launch counts exact from each run's admissions and decode steps."""
+    cache) and ``int8+kv`` (W8A8 with the int8 cache, bench_serve's default)
+    on its first SERVE_QUANT_REQUESTS requests. Launch counts exact from
+    each run's admissions and decode steps. The bf16 run (with its tokens)
+    is kept in ``results["serving_bf16_run"]`` for serving_spec."""
     import torch
     from unigen_tpu_torch.generation import generate_text
     from unigen_tpu_torch.ops.int4 import quantize_unigen_params_int4
@@ -3153,15 +3180,19 @@ def run_serving(results, profile=False):
              ("int8+kv", w8, dict(quantized_cache=True)))
     out = {}
     for mode, params, kw in modes:
+        trace = requests if mode == "bf16" else requests[:SERVE_QUANT_REQUESTS]
         t0 = time.perf_counter()
         eng = serving_engine(params, cfg, **kw)
         warm = time.perf_counter() - t0
-        run = serve_run(eng, lambda: requests)
+        run = serve_run(eng, lambda trace=trace: trace)
+        run["requests"] = len(trace)
         expect = _serve_expect(run, layers, mode)
-        _serve_report(f"{mode} continuous (engine and warm-up {warm:.2f} s before)", run)
+        _serve_report(f"{mode} continuous, {len(trace)} requests (engine and warm-up "
+                      f"{warm:.2f} s before)", run)
         check(run["counts"] == expect, f"serving {mode} launch counts {run['counts']} != {expect}")
         out[mode] = run
     static = serve_run(serving_engine(pipe.params, cfg), lambda: requests, static=True)
+    static["requests"] = len(requests)
     _serve_report(f"bf16 static waves of {SERVE_SLOTS}", static)
     check(static["counts"] == _serve_expect(static, layers, "bf16"),
           f"serving static launch counts {static['counts']}")
@@ -3198,6 +3229,7 @@ def run_serving(results, profile=False):
     results["serving"] = {m: {k: v for k, v in r.items() if k != "tokens"}
                           for m, r in dict(out, static_bf16=static).items()}
     results["serving"]["continuous_over_static"] = ratio
+    results["serving_bf16_run"] = out["bf16"]
     del w8, w4
     return {f"serving_{m.replace('+', '_')}": r["counts"] for m, r in out.items()}
 
@@ -3216,25 +3248,21 @@ def run_serving_vqa(results, profile=False):
     l, plens, _ = serving_vqa_shape(pipe)
     layers, vit = pipe.cfg.llm.num_hidden_layers, pipe.vision_cfg.num_layers_used
     from unigen_tpu_torch.serving import ServingEngine
-    runs = []
-    for _ in ("cold", "warm"):
-        eng = ServingEngine(pipe.params, pipe.cfg, slots=len(QUESTIONS), max_len=l + NEW_TOKENS,
-                            buckets=(l,), chunk=SERVE_CHUNK, device="cuda",
-                            precompile=[("emb", l, pipe.cfg.llm.hidden_size)])
-        holder = {}
+    eng = ServingEngine(pipe.params, pipe.cfg, slots=len(QUESTIONS), max_len=l + NEW_TOKENS,
+                        buckets=(l,), chunk=SERVE_CHUNK, device="cuda",
+                        precompile=[("emb", l, pipe.cfg.llm.hidden_size)])
+    holder = {}
 
-        def requests():   # the tower and the splice, inside the counted window
-            reqs = pipe.vqa_serving_inputs(pixels, list(QUESTIONS), l2_bucket=SERVE_VQA_BUCKET)
-            holder["plens"] = [r[2] for r in reqs]
-            return [(dict(inputs_embeds=e, meta_bits=m, prompt_len=pl, max_new_tokens=NEW_TOKENS,
-                          eot_token=eos), NEW_TOKENS, eos) for e, m, pl in reqs]
-        run = serve_run(eng, requests)
-        check(holder["plens"] == plens, f"VQA prompt lengths {holder['plens']} != {plens}")
-        expect = _serve_expect(run, layers, "bf16", tower=vit)
-        check(run["counts"] == expect, f"serving_vqa launch counts {run['counts']} != {expect}")
-        runs.append(run)
-    run = runs[-1]
-    _serve_report(f"VQA warm (splice {l}, prompts {min(plens)}-{max(plens)})", run)
+    def requests():   # the tower and the splice, inside the counted window
+        reqs = pipe.vqa_serving_inputs(pixels, list(QUESTIONS), l2_bucket=SERVE_VQA_BUCKET)
+        holder["plens"] = [r[2] for r in reqs]
+        return [(dict(inputs_embeds=e, meta_bits=m, prompt_len=pl, max_new_tokens=NEW_TOKENS,
+                      eot_token=eos), NEW_TOKENS, eos) for e, m, pl in reqs]
+    run = serve_run(eng, requests)
+    check(holder["plens"] == plens, f"VQA prompt lengths {holder['plens']} != {plens}")
+    expect = _serve_expect(run, layers, "bf16", tower=vit)
+    check(run["counts"] == expect, f"serving_vqa launch counts {run['counts']} != {expect}")
+    _serve_report(f"VQA (splice {l}, prompts {min(plens)}-{max(plens)})", run)
     if "understand_tokens" in results:
         ref = results["understand_tokens"]["bf16"].cpu().tolist()
         same = sum(int(a == b) for t, r in zip(run["tokens"], ref) for a, b in zip(t, r))
@@ -3433,10 +3461,11 @@ def verify_against_decode(pipe, k=SPEC_K):
 
 def run_serving_spec(results, profile=False):
     """The speculative engine at full width on the serving phase's bf16
-    trace (96 requests of 600 ids, greedy, budgets in [32, 224], 32 slots,
+    trace (SERVE_REQUESTS requests of 600 ids, greedy, budgets in [32, 224], 32 slots,
     chunk 16, all queued at once), ``speculate_k=4``, beside the plain
-    engine on the same trace in this call. Launch counts exact: a verify
-    step is one kernel-1 launch a layer. Then the tiny fp32 engine: the
+    engine on the same trace in this call (the serving phase's bf16 run when
+    that phase ran: the same engine on the same trace). Launch counts exact:
+    a verify step is one kernel-1 launch a layer. Then the tiny fp32 engine: the
     speculative one on the card against the CPU and against the plain one
     (greedy; sampled rows card against card), and one verify chunk under
     CUDA's sync debug mode "error". Between them, ``verify_against_decode``
@@ -3456,6 +3485,10 @@ def run_serving_spec(results, profile=False):
     requests = [(dict(input_ids=p, max_new_tokens=b), b, None) for p, b in zip(prompts, budgets)]
     out = {}
     for mode, kw in (("plain", {}), ("spec", dict(speculate_k=SPEC_K))):
+        if mode == "plain" and "serving_bf16_run" in results:
+            out[mode] = results["serving_bf16_run"]
+            print("  plain: the serving phase's bf16 continuous run of this trace, in this call")
+            continue
         t0 = time.perf_counter()
         eng = serving_engine(pipe.params, cfg, **kw)
         warm = time.perf_counter() - t0
@@ -4985,6 +5018,19 @@ def jpeg_fixtures():
 
 
 @functools.lru_cache(maxsize=None)
+def image_fixtures():
+    """{file name: (bytes, its fixtures.json entry)} of the committed WebP,
+    GIF, BMP, PNM and TIFF fixtures (the sha256 is that of PIL's
+    ``convert("RGB")`` pixels)."""
+    import json
+    from pathlib import Path
+    import unigen_tpu_torch.data as data_pkg
+    root = Path(data_pkg.__file__).parent / "assets" / "images"
+    index = json.loads((root / "fixtures.json").read_text())
+    return {name: ((root / name).read_bytes(), meta) for name, meta in index.items()}
+
+
+@functools.lru_cache(maxsize=None)
 def fixture_pixels(name):
     """A fixture's pixels by the port's decoder (held to PIL's hash by the
     jpeg phase and check_real_reading)."""
@@ -4992,11 +5038,16 @@ def fixture_pixels(name):
     return decode_image(jpeg_fixtures()[name][0])
 
 
-def real_file(fixtures, i, fmt="mixed"):
+def real_file(fixtures, i, fmt="mixed", others=(), every=REAL_OTHER_EVERY):
     """(extension, bytes, what it holds) of the ``i``-th image of a set over
     ``fixtures``: that fixture's JPEG bytes, or (every REAL_PNG_EVERY-th with
     ``fmt`` "mixed", always with "png") a PNG of its pixels with the filter
-    set of REAL_FILTERS the PNG's turn gives."""
+    set of REAL_FILTERS the PNG's turn gives, or (with ``fmt`` "mixed", every
+    ``every``-th from the third, always with "other") the next of
+    ``others``, (image fixture, extension) pairs, in turn."""
+    if others and (fmt == "other" or (fmt == "mixed" and i % every == 3)):
+        name, ext = others[(i // every if fmt == "mixed" else i) % len(others)]
+        return ext, image_fixtures()[name][0], ("image", name, None)
     name = fixtures[i % len(fixtures)]
     if fmt == "png" or (fmt == "mixed" and i % REAL_PNG_EVERY == REAL_PNG_EVERY - 1):
         filters = REAL_FILTERS[(i // REAL_PNG_EVERY) % len(REAL_FILTERS)]
@@ -5060,6 +5111,107 @@ def run_jpeg(results):
     print(f"  the jpeg phase: {time.perf_counter() - start:.2f} s")
 
 
+def unsupported_images():
+    """{what: bytes} of formats PIL reads and the port refuses (headers
+    built here: the card's machine has no PIL to write them), each with the
+    word its ``UnsupportedImageFormat`` names."""
+    import struct
+
+    def tiff(compression, photometric=2, bits=(8, 8, 8), sample_format=1, big=False):
+        """An 8 x 8 one-strip TIFF header (the strip itself left out)."""
+        e = ">" if big else "<"
+        tags = {256: [8], 257: [8], 258: list(bits), 259: [compression], 262: [photometric],
+                273: [8], 277: [len(bits)], 278: [8], 279: [1], 339: [sample_format] * len(bits)}
+        at = 8 + 2 + 12 * len(tags) + 4
+        body, extra = b"", b""
+        for tag, values in sorted(tags.items()):
+            packed = struct.pack(e + "H" * len(values), *values)
+            body += struct.pack(e + "HHL", tag, 3, len(values))
+            if len(packed) <= 4:
+                body += packed.ljust(4, b"\x00")
+            else:
+                body += struct.pack(e + "L", at + len(extra))
+                extra += packed
+        head = (b"MM\x00*" if big else b"II*\x00") + struct.pack(e + "L", 8)
+        return head + struct.pack(e + "H", len(tags)) + body + bytes(4) + extra
+    return {
+        ("JPEG 2000 image", "JPEG 2000"): b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
+        ("JPEG 2000 codestream", "JPEG 2000"): b"\xffO\xffQ\x00/" + bytes(40),
+        ("ICO", "ICO"): b"\x00\x00\x01\x00\x01\x00\x10\x10" + bytes(40),
+        ("QOI", "QOI"): b"qoif\x00\x00\x00\x10\x00\x00\x00\x10\x03\x00" + bytes(8),
+        ("AVIF", "AVIF"): b"\x00\x00\x00\x20ftypavif" + bytes(40),
+        ("PSD", "PSD"): b"8BPS\x00\x01" + bytes(40),
+        ("BigTIFF", "BigTIFF"): b"II+\x00\x08\x00\x00\x00" + bytes(24),
+        ("TIFF, JPEG-compressed", "JPEG"): tiff(7),
+        ("TIFF, CCITT Group 4", "Group 4"): tiff(4, 0, (1,)),
+        ("TIFF, LZMA", "LZMA"): tiff(34925),
+        ("TIFF, ZSTD", "ZSTD"): tiff(50000, big=True),
+        ("TIFF, float samples", "float"): tiff(1, 1, (32,), 3),
+        ("TIFF, YCbCr", "YCbCr"): tiff(1, 6),
+        ("PFM", "PFM"): b"Pf\n2 2\n-1.0\n" + bytes(16),
+    }
+
+
+def run_images(results):
+    """The port's WebP, GIF, BMP, PNM and TIFF decoders (``csrc/webp_lossy.cpp``,
+    ``webp_lossless.cpp``, ``gif.cpp``, ``bmp.cpp``, ``tiff.cpp`` and
+    ``data/webp.py``, ``pnm.py``, ``tiff.py``) on the committed fixtures:
+    each one's pixels have the sha256 of PIL's ``convert("RGB")`` pixels
+    (taken where the fixtures were written: the card's machine has no PIL),
+    each decode timed on one host thread (``decode_image``, the median of
+    IMAGE_DECODES), MP/s a fixture and a format (megapixels over the summed
+    medians); then every format of ``unsupported_images`` raises
+    ``UnsupportedImageFormat`` naming it."""
+    import hashlib
+    import statistics
+    from unigen_tpu_torch.data import native
+    from unigen_tpu_torch.data.decode import UnsupportedImageFormat, decode_image
+    start = time.perf_counter()
+    path = native.build()
+    native.load_library()
+    print(f"phase: images (the committed fixtures through decode_image; {path.name} ready in "
+          f"{time.perf_counter() - start:.2f} s)")
+    rows, by_format = {}, {}
+    for name, (data, meta) in sorted(image_fixtures().items()):
+        arr = decode_image(data)
+        sha = hashlib.sha256(arr.tobytes()).hexdigest()
+        check(list(arr.shape) == meta["shape"] and sha == meta["sha256"],
+              f"{name}: pixels {list(arr.shape)} sha256 {sha}, PIL's {meta['sha256']}")
+        times = []
+        for _ in range(IMAGE_DECODES):
+            t0 = time.perf_counter()
+            decode_image(data)
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        h, w = arr.shape[:2]
+        rows[name] = dict(format=meta["format"], ms=ms, mp_per_s=h * w / 1e3 / ms,
+                          bytes=len(data), height=h, width=w)
+        fmt = by_format.setdefault(meta["format"], {"pixels": 0, "ms": 0.0, "files": 0})
+        fmt["pixels"] += h * w
+        fmt["ms"] += ms
+        fmt["files"] += 1
+        print(f"  {name} ({meta['use']}): {w}x{h}, {len(data)} bytes, sha256 = PIL's; decode "
+              f"{ms:.4f} ms (median of {IMAGE_DECODES}, one host thread), "
+              f"{h * w / 1e3 / ms:.2f} MP/s")
+    for fmt, agg in sorted(by_format.items()):
+        agg["mp_per_s"] = agg["pixels"] / 1e3 / agg["ms"]
+        print(f"  {fmt}: {agg['files']} fixtures, {agg['pixels'] / 1e6:.4f} MP in "
+              f"{agg['ms']:.4f} ms, {agg['mp_per_s']:.2f} MP/s on one host thread")
+    refused = []
+    for (what, word), data in unsupported_images().items():
+        try:
+            decode_image(data)
+            raised = None
+        except UnsupportedImageFormat as e:
+            raised = str(e)
+        check(raised is not None and word in raised,
+              f"{what}: no UnsupportedImageFormat naming {word!r} ({raised})")
+        refused.append(what)
+    print(f"  UnsupportedImageFormat, naming each: {', '.join(refused)}")
+    results["images"] = dict(fixtures=rows, formats=by_format)
+    print(f"  the images phase: {time.perf_counter() - start:.2f} s")
+
+
 def png_bytes(arr, filters):
     """uint8 [H, W, 3] -> PNG bytes (8-bit RGB), row y written with the
     filter ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average,
@@ -5100,7 +5252,8 @@ def _tar_add(tf, name, data):
 def write_real_shards(root, prefix, n_shards, per_shard, keep=0, fmt="mixed"):
     """``n_shards`` tar shards of ``per_shard`` samples: the web t2i fixtures
     in turn (``real_file``: their JPEG bytes, one in REAL_PNG_EVERY a PNG of
-    their pixels; only JPEG or only PNG with ``fmt`` "jpeg" or "png");
+    their pixels, one in REAL_OTHER_EVERY a WebP fixture of REAL_T2I_OTHERS;
+    only JPEG, only PNG or only WebP with ``fmt`` "jpeg", "png" or "other");
     captions in ``.json`` (a short and a long one, or a long one with
     ``<person>`` and a prefix to strip) or ``.txt``; with ``fmt`` "mixed" one
     truncated JPEG a shard. Returns the shard paths and, for the first
@@ -5115,7 +5268,7 @@ def write_real_shards(root, prefix, n_shards, per_shard, keep=0, fmt="mixed"):
         with tarfile.open(path, "w") as tf:
             for j in range(per_shard):
                 key = f"{s:04d}{j:05d}"
-                ext, data, holds = real_file(REAL_T2I_FIXTURES, j, fmt)
+                ext, data, holds = real_file(REAL_T2I_FIXTURES, j, fmt, REAL_T2I_OTHERS)
                 if s < keep:
                     kept[key] = holds
                 _tar_add(tf, key + ext, data)
@@ -5136,14 +5289,17 @@ def write_real_shards(root, prefix, n_shards, per_shard, keep=0, fmt="mixed"):
 
 def format_shards(root, prefix):
     """One JPEG-only and one PNG-only shard of REAL_FORMAT_SAMPLES samples at
-    the same sizes and pixels, the loaders' seconds a batch on each format."""
-    return {fmt: write_real_shards(root, f"{prefix}-{fmt}", 1, REAL_FORMAT_SAMPLES,
-                                   fmt=fmt)[0][0] for fmt in ("jpeg", "png")}
+    the same sizes and pixels, and one of the WebP fixtures: the loaders'
+    seconds a batch on each format."""
+    shards = {fmt: write_real_shards(root, f"{prefix}-{fmt}", 1, REAL_FORMAT_SAMPLES,
+                                     fmt=fmt)[0][0] for fmt in ("jpeg", "png", "other")}
+    shards["webp"] = shards.pop("other")
+    return shards
 
 
 def format_loader_s(shards, batch, res):
     """The Text2ImageDataset's seconds a batch alone (python reader and
-    native streamer) on the JPEG-only and the PNG-only shard."""
+    native streamer) on the JPEG-only, the PNG-only and the WebP-only shard."""
     from unigen_tpu_torch.data.text2image import Text2ImageDataset
     return {f"t2i {reader} {fmt.upper()} ({batch} rows)": loader_s(
                 lambda path=path, native=reader == "native": Text2ImageDataset(
@@ -5151,10 +5307,31 @@ def format_loader_s(shards, batch, res):
             for fmt, path in shards.items() for reader in ("python", "native")}
 
 
+def check_other_formats(what, decodes, others):
+    """``decodes`` [(fixture name, bytes)] of the image fixtures: each
+    decodes to PIL's sha256, and every fixture of ``others`` is among them;
+    prints the decodes by format."""
+    import hashlib
+    from unigen_tpu_torch.data.decode import decode_image
+    by_format = {}
+    for name, data in decodes:
+        meta = image_fixtures()[name][1]
+        arr = decode_image(data)
+        check(hashlib.sha256(arr.tobytes()).hexdigest() == meta["sha256"],
+              f"{what}: the decoder's pixels of {name} are not PIL's")
+        by_format[meta["format"]] = by_format.get(meta["format"], 0) + 1
+    seen = {name for name, _ in decodes}
+    check(seen == {name for name, _ in others}, f"{what}: fixtures {sorted(seen)} read")
+    print(f"  {what}: " + ", ".join(f"{n} {fmt}" for fmt, n in sorted(by_format.items()))
+          + f" decodes with PIL's pixels (sha256 of {sorted(seen)})")
+    return by_format
+
+
 def check_real_reading(shards, kept):
     """Every kept JPEG decodes to its fixture's pixels (PIL's sha256), every
     kept PNG to the fixture pixels it was written from, for every filter set
-    of REAL_FILTERS; the truncated JPEG of each shard is a ``CorruptImage``;
+    of REAL_FILTERS, every kept WebP to its fixture's PIL sha256 (each of
+    REAL_T2I_OTHERS); the truncated JPEG of each shard is a ``CorruptImage``;
     one pass over each unresampled shard gives the same samples through the
     native streamer and the Python reader."""
     import hashlib
@@ -5163,7 +5340,7 @@ def check_real_reading(shards, kept):
     from unigen_tpu_torch.data.native import NativeTarStream
     from unigen_tpu_torch.data.text2image import iterate_tar_samples
     fixtures = jpeg_fixtures()
-    filters, names, corrupt, jpegs, pngs = set(), set(), 0, 0, 0
+    filters, names, corrupt, jpegs, pngs, others = set(), set(), 0, 0, 0, []
     for shard in shards:
         py = list(iterate_tar_samples(shard))
         native = NativeTarStream([shard], seed=0, resample=False)
@@ -5176,6 +5353,9 @@ def check_real_reading(shards, kept):
             if sample["__key__"] not in kept:
                 continue
             kind, name, fl = kept[sample["__key__"]]
+            if kind == "image":
+                others.append((name, sample[".webp"]))
+                continue
             if kind == "jpeg":
                 arr = decode_image(sample[".jpg"])
                 check(hashlib.sha256(arr.tobytes()).hexdigest() == fixtures[name][1]["sha256"],
@@ -5199,6 +5379,7 @@ def check_real_reading(shards, kept):
     check(len(filters) == len(REAL_FILTERS) and corrupt == len(shards) and jpegs and
           names == set(REAL_T2I_FIXTURES),
           f"decoder checks: filter sets {filters}, corrupt {corrupt}, JPEGs {jpegs} of {names}")
+    check_other_formats("the kept shards' other formats", others, REAL_T2I_OTHERS)
 
 
 def loader_s(make, n=REAL_LOADER_BATCHES):
@@ -5409,17 +5590,21 @@ def write_llava(root):
     """LLaVA conversations (``.jsonl``, one to three turns, some without an
     image key, one whose image is a truncated JPEG) over REAL_LLAVA_IMAGES
     files of the COCO fixtures in turn (``real_file``: JPEG, one in
-    REAL_PNG_EVERY a PNG of their pixels)."""
+    REAL_PNG_EVERY a PNG of their pixels, one in 4 the next of
+    REAL_LLAVA_OTHERS: a GIF named .jpg, a BMP, a TIFF, a PPM). Returns the
+    ``.jsonl``, the folder and [(fixture, path)] of the other formats."""
     import json
     import os
     images = os.path.join(root, "llava_images")
     os.makedirs(images)
-    files = []
+    files, others = [], []
     for i in range(REAL_LLAVA_IMAGES):
-        ext, data, _ = real_file(REAL_LLAVA_FIXTURES, i)
+        ext, data, holds = real_file(REAL_LLAVA_FIXTURES, i, others=REAL_LLAVA_OTHERS, every=4)
         files.append(f"img{i:03d}{ext}")
         with open(os.path.join(images, files[-1]), "wb") as f:
             f.write(data)
+        if holds[0] == "image":
+            others.append((holds[1], os.path.join(images, files[-1])))
     with open(os.path.join(images, "corrupt.jpg"), "wb") as f:
         f.write(jpeg_fixtures()[REAL_TRUNCATED][0])
     path = os.path.join(root, "llava.jsonl")
@@ -5435,7 +5620,7 @@ def write_llava(root):
             if i % 7 != 6:
                 item["image"] = "corrupt.jpg" if i == 4 else files[i % REAL_LLAVA_IMAGES]
             f.write(json.dumps(item) + "\n")
-    return path, images
+    return path, images, others
 
 
 def run_sft_real(results, profile=False):
@@ -5453,16 +5638,23 @@ def run_sft_real(results, profile=False):
     from unigen_tpu_torch.data.text2image import Text2ImageDataset
     from unigen_tpu_torch.training import train_sft as SFT
     print(f"phase: sft_real ({SFT_CONFIG} on {REAL_SFT_SHARDS} tar shards and a LLaVA .jsonl over "
-          f"{REAL_LLAVA_IMAGES} images, JPEG with one PNG in {REAL_PNG_EVERY}; {REAL_WARM} warm + "
-          f"{REAL_TIMED} timed steps)")
+          f"{REAL_LLAVA_IMAGES} images, JPEG with one PNG in {REAL_PNG_EVERY}, one WebP in "
+          f"{REAL_OTHER_EVERY} in the shards, a GIF named .jpg, a BMP, a TIFF and a PPM in the "
+          f"folder; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
     root = tempfile.mkdtemp(prefix="chip_smoke_sft_")
     try:
         t0 = time.perf_counter()
         shards, kept = write_real_shards(root, "sft", REAL_SFT_SHARDS, REAL_PER_SHARD, keep=1)
         by_format = format_shards(root, "sft")
-        llava, images = write_llava(root)
+        llava, images, llava_others = write_llava(root)
         print(f"  wrote the shards and the conversations in {time.perf_counter() - t0:.2f} s")
         check_real_reading(shards, kept)
+
+        def read(path):
+            with open(path, "rb") as f:
+                return f.read()
+        check_other_formats("the LLaVA folder's other formats",
+                            [(name, read(p)) for name, p in llava_others], REAL_LLAVA_OTHERS)
         t2i = os.path.join(root, f"sft-{{0000..{REAL_SFT_SHARDS - 1:04d}}}.tar")
         data = ("dataset.synthetic=false", f"dataset.params.train_t2i_shards_path_or_url={t2i}",
                 f"dataset.params.llava_data_paths=[{llava}]",
@@ -5530,18 +5722,22 @@ def run_dpo_real(results, profile=False):
     from unigen_tpu_torch.training.train_dpo import DPORun, real_pairs
     steps = REAL_WARM + REAL_TIMED
     print(f"phase: dpo_real ({DPO_CONFIG} on {REAL_DPO_PAIRS} pairs of images, JPEG with one PNG "
-          f"in {REAL_PNG_EVERY}, num_epoch 2, the precomputed reference; {REAL_WARM} warm + "
-          f"{REAL_TIMED} timed steps)")
+          f"in {REAL_PNG_EVERY} and one lossless WebP in {REAL_OTHER_EVERY}, num_epoch 2, the "
+          f"precomputed reference; {REAL_WARM} warm + {REAL_TIMED} timed steps)")
     root = tempfile.mkdtemp(prefix="chip_smoke_dpo_")
     try:
         images = os.path.join(root, "dpo_images")
         os.makedirs(images)
         t0 = time.perf_counter()
+        dpo_others = []
         with open(os.path.join(root, "pairs.jsonl"), "w") as f:
             for i in range(REAL_DPO_PAIRS):
                 pair = {}
                 for side in ("c", "r"):
-                    ext, data, _ = real_file(REAL_DPO_FIXTURES, 2 * i + (side == "r"))
+                    ext, data, holds = real_file(REAL_DPO_FIXTURES, 2 * i + (side == "r"),
+                                                 others=REAL_DPO_OTHERS)
+                    if holds[0] == "image":
+                        dpo_others.append((holds[1], data))
                     if (i, side) == (7, "r"):
                         ext, data = ".jpg", jpeg_fixtures()[REAL_TRUNCATED][0]
                     pair[side] = f"{side}{i:03d}{ext}"
@@ -5550,6 +5746,7 @@ def run_dpo_real(results, profile=False):
                 f.write(json.dumps({"prompt": f"a photo of a red cup number {i} on a table",
                                     "chosen": pair["c"], "rejected": pair["r"]}) + "\n")
         print(f"  wrote {2 * REAL_DPO_PAIRS} images in {time.perf_counter() - t0:.2f} s")
+        check_other_formats("the pairs' lossless WebPs", dpo_others, REAL_DPO_OTHERS)
         data = ("dataset.synthetic=false", f"dataset.params.dpo_data_path={root}/pairs.jsonl",
                 f"dataset.params.dpo_image_root={images}", "training.num_epoch=2")
         resident = torch.cuda.memory_allocated()
@@ -6171,7 +6368,7 @@ def run_checkpoints(results, profile=False):
             out = {}
             (out["codes"], _), out["t2i_s"], _, out["t2i_counts"] = _timed_runs(
                 f"checkpoints {label} t2i", _t2i_run(pipe, timesteps=50),
-                dict(NO_LAUNCHES, **_t2i_launches(layers)), runs=("run",),
+                dict(NO_LAUNCHES, **_t2i_launches(layers)), runs=ONCE,
                 validate=_t2i_checker(f"checkpoints {label} t2i", pipe),
                 work=(len(PROMPTS), "images"))
             pixels = _vqa_pixels(pipe)
@@ -6180,7 +6377,7 @@ def run_checkpoints(results, profile=False):
                 lambda p=pipe: p.understand(pixels, list(QUESTIONS), None,
                                             max_new_tokens=NEW_TOKENS),
                 dict(NO_LAUNCHES, flash_attention=pipe.vision_cfg.num_layers_used + layers,
-                     chunk_attention=layers * (NEW_TOKENS - 1)), runs=("run",),
+                     chunk_attention=layers * (NEW_TOKENS - 1)), runs=ONCE,
                 validate=_token_checker(f"checkpoints {label} understand",
                                         pipe.cfg.llm.vocab_size),
                 work=(len(QUESTIONS) * NEW_TOKENS, "tokens"))
@@ -6288,6 +6485,7 @@ PARALLEL_RANKS = 2
 PARALLEL_TINY_MESHES = ((1, 1, 2), (2, 1, 1), (1, 2, 1))
 PARALLEL_TINY_RTOL = 1e-5
 PARALLEL_T2I_SEED = 21
+PARALLEL_T2I_STEPS = 10      # the flagship t2i's steps at model 2 (the flagship phase's 50, cut)
 PARALLEL_TRAIN_MESHES = ((1, 1, 2), (1, 2, 1))
 PARALLEL_TRAIN_WARM, PARALLEL_TRAIN_TIMED = 1, 2
 # the optional parallel_serving phase: the serving phase's trace, its first
@@ -6542,12 +6740,12 @@ def _mesh_steps(pipe, params, tx, step, batch, draws, meshes):
 
 
 def _parallel_flagship(rank):
-    """The flagship t2i at model 2, as the flagship phase runs it (batch 4,
-    guidance 6, 50 steps, text budget 128, generator seed 0, codes -> 256
-    px): the first step's image logits against the unsharded forward, the
-    exact launches a rank, the call's seconds and its collectives' share,
-    and (rank 0) the codes, which the parent holds against the flagship
-    phase's."""
+    """The flagship t2i at model 2, as the flagship phase runs it but for
+    its depth (batch 4, guidance 6, PARALLEL_T2I_STEPS steps, text budget
+    128, generator seed 0, codes -> 256 px): the first step's image logits
+    against the unsharded forward, the exact launches a rank, the call's
+    seconds and its collectives' share, and (rank 0) the share of its codes
+    equal to one rank's call."""
     import torch
     import torch.nn.functional as F
     from unigen_tpu_torch import parallel as P
@@ -6565,7 +6763,7 @@ def _parallel_flagship(rank):
     _reset_counts()
     with C.timing() as coll:
         t0 = time.perf_counter()
-        codes, pixels = _t2i_run(tp, timesteps=50)()
+        codes, pixels = _t2i_run(tp, timesteps=PARALLEL_T2I_STEPS)()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     counts = _read_counts()
@@ -6575,7 +6773,8 @@ def _parallel_flagship(rank):
            "local_heads": int(tp.params["llm"]["layers"][0]["q_w"].shape[0]) // 128,
            "kv_rows": int(tp.params["llm"]["layers"][0]["k_w"].shape[0])}
     if rank == 0:
-        out["codes"] = codes.tolist()
+        one, _ = _t2i_run(pipe, timesteps=PARALLEL_T2I_STEPS)()
+        out["codes_agree"] = (codes == one).float().mean().item()
     return out
 
 
@@ -6883,8 +7082,8 @@ def run_parallel(results):
         print(f"  tiny {mode} engine at model 2 (greedy and sampled requests): every rank's "
               f"tokens equal one rank's engine, {sq[0]['chunks']} decode chunks and "
               f"{sq[0]['busy']} busy steps on each rank, a cache of 1 KV head a rank (2 on one)")
-    want = dict(NO_LAUNCHES, flash_attention=28, chunk_attention=1400, conv3x3_gn_swish=44,
-                gn_affine=40)
+    want = dict(NO_LAUNCHES, flash_attention=28, chunk_attention=28 * PARALLEL_T2I_STEPS,
+                conv3x3_gn_swish=44, gn_affine=40)
     for rank, r in enumerate(ranks):
         f = r["flagship"]
         print(f"  flagship t2i at model 2, rank {rank}: {f['local_heads']} query heads and "
@@ -6897,15 +7096,9 @@ def run_parallel(results):
         check(f["counts"] == want, f"rank {rank}: launches {f['counts']} != {want}")
         check(f["finite"] and f["pixels_shape"] == [len(PROMPTS), 256, 256, 3],
               f"rank {rank}: pixels {f['pixels_shape']} finite {f['finite']}")
-    agree = None
-    if "flagship_codes" in results:
-        one = results["flagship_codes"].cpu()
-        agree = (torch.as_tensor(ranks[0]["flagship"]["codes"]) == one).float().mean().item()
-        print(f"  flagship codes at model 2 against the flagship phase's one-rank codes (same "
-              f"weights, prompts and seed): {agree:.4f} agree")
-    else:
-        print("  flagship codes against one rank's: not measured (the flagship phase did not "
-              "run)")
+    agree = ranks[0]["flagship"]["codes_agree"]
+    print(f"  flagship codes at model 2 against one rank's call (same weights, prompts, seed "
+          f"and {PARALLEL_T2I_STEPS} steps): {agree:.4f} agree")
     print("  collectives staged through host memory: none (gloo took CUDA tensors for every "
           "op)")
     seconds = time.perf_counter() - t0
@@ -7293,6 +7486,20 @@ def main(argv=None) -> int:
           "allow_tf32 matmul=False cudnn=False")
     results = {}
     path_counts = {}
+    start, walls = time.perf_counter(), {}
+
+    @contextlib.contextmanager
+    def clock(name):
+        """Times one phase: printed to stdout and to stderr, whose end a
+        caller sees when the run is cut at its time limit."""
+        t = time.perf_counter()
+        yield
+        walls[name] = time.perf_counter() - t
+        line = (f"the {name} phase: {walls[name]:.1f} s "
+                f"({time.perf_counter() - start:.1f} s since the start)")
+        print("  " + line)
+        print("chip_smoke: " + line, file=sys.stderr, flush=True)
+
     try:
         t0 = time.perf_counter()
         built = _cuda.build()
@@ -7303,80 +7510,111 @@ def main(argv=None) -> int:
         print(f"phase: build {time.perf_counter() - t0:.1f} s "
               f"({', '.join(_cuda.SOURCES)}, one nvcc each, in parallel)")
         if "kernels" in phases:
-            run_kernel_phases(results)
+            with clock("kernels"):
+                run_kernel_phases(results)
         if "flagship" in phases:
-            path_counts["t2i"] = run_flagship(results, profile="profile" in phases)
+            with clock("flagship"):
+                path_counts["t2i"] = run_flagship(results, profile="profile" in phases)
         if "flagship_int8" in phases:
-            path_counts["t2i_int8"] = run_flagship_int8(results, profile="profile" in phases)
+            with clock("flagship_int8"):
+                path_counts["t2i_int8"] = run_flagship_int8(results, profile="profile" in phases)
         if "flagship_ar" in phases:
-            path_counts["t2i_ar"] = run_flagship_ar(results, profile="profile" in phases)
+            with clock("flagship_ar"):
+                path_counts["t2i_ar"] = run_flagship_ar(results, profile="profile" in phases)
         if "understand" in phases:
-            path_counts["understand"] = run_understand(results, profile="profile" in phases)
+            with clock("understand"):
+                path_counts["understand"] = run_understand(results, profile="profile" in phases)
         if "understand_int8" in phases:
-            path_counts["understand_int8"] = run_understand_int8(results,
-                                                                 profile="profile" in phases)
+            with clock("understand_int8"):
+                path_counts["understand_int8"] = run_understand_int8(results,
+                                                                     profile="profile" in phases)
         if "understand_discrete" in phases:
-            path_counts["understand_discrete"] = run_understand_discrete(
-                results, profile="profile" in phases)
+            with clock("understand_discrete"):
+                path_counts["understand_discrete"] = run_understand_discrete(
+                    results, profile="profile" in phases)
         if "understand_naflex" in phases:
-            path_counts["understand_naflex"] = run_understand_naflex(
-                results, profile="profile" in phases)
+            with clock("understand_naflex"):
+                path_counts["understand_naflex"] = run_understand_naflex(
+                    results, profile="profile" in phases)
         if "score" in phases:
-            path_counts["score"] = run_score(results, profile="profile" in phases)
+            with clock("score"):
+                path_counts["score"] = run_score(results, profile="profile" in phases)
         if "lmms" in phases:
-            path_counts["lmms"] = run_lmms(results)
+            with clock("lmms"):
+                path_counts["lmms"] = run_lmms(results)
         if "geneval" in phases:
-            path_counts["geneval"] = run_geneval(results, profile="profile" in phases)
+            with clock("geneval"):
+                path_counts["geneval"] = run_geneval(results, profile="profile" in phases)
         if "cot" in phases:
-            for rater, counts in run_cot(results, profile="profile" in phases).items():
-                path_counts[f"cot_{rater}"] = counts
+            with clock("cot"):
+                for rater, counts in run_cot(results, profile="profile" in phases).items():
+                    path_counts[f"cot_{rater}"] = counts
         if "dpg" in phases:
-            path_counts["dpg"] = run_dpg(results, profile="profile" in phases)
+            with clock("dpg"):
+                path_counts["dpg"] = run_dpg(results, profile="profile" in phases)
         if "image_serving" in phases:
-            path_counts["image_serving"] = run_image_serving(results)
+            with clock("image_serving"):
+                path_counts["image_serving"] = run_image_serving(results)
         if "serving" in phases:
-            path_counts.update(run_serving(results, profile="profile" in phases))
+            with clock("serving"):
+                path_counts.update(run_serving(results, profile="profile" in phases))
         if "serving_vqa" in phases:
-            path_counts["serving_vqa"] = run_serving_vqa(results, profile="profile" in phases)
+            with clock("serving_vqa"):
+                path_counts["serving_vqa"] = run_serving_vqa(results, profile="profile" in phases)
         if "serving_http" in phases:
-            path_counts["serving_http"] = run_serving_http(results)
+            with clock("serving_http"):
+                path_counts["serving_http"] = run_serving_http(results)
         if "serving_spec" in phases:
-            path_counts["serving_spec"] = run_serving_spec(results)
+            with clock("serving_spec"):
+                path_counts["serving_spec"] = run_serving_spec(results)
         if "serve_entry" in phases:
-            path_counts["serve_entry"] = run_serve_entry(results)
+            with clock("serve_entry"):
+                path_counts["serve_entry"] = run_serve_entry(results)
         if "train" in phases:
-            path_counts["train"] = run_train(results, profile="profile" in phases)
+            with clock("train"):
+                path_counts["train"] = run_train(results, profile="profile" in phases)
         if "jpeg" in phases:
-            run_jpeg(results)
+            with clock("jpeg"):
+                run_jpeg(results)
+        if "images" in phases:
+            with clock("images"):
+                run_images(results)
         for name, fn in (("sft", run_sft), ("sft_packed", run_sft_packed), ("dpo", run_dpo),
                          ("cotv_post_sft", run_cotv_post_sft), ("sft_naflex", run_sft_naflex),
                          ("pt2_real", run_pt2_real), ("sft_real", run_sft_real),
                          ("dpo_real", run_dpo_real)):
             if name in phases:
-                path_counts[name] = fn(results, profile="profile" in phases)
+                with clock(name):
+                    path_counts[name] = fn(results, profile="profile" in phases)
         if "checkpoints" in phases:
-            t0 = time.perf_counter()
-            path_counts.update(run_checkpoints(results))
-            results["checkpoints"]["phase_s"] = time.perf_counter() - t0
-            print(f"  the checkpoints phase: {results['checkpoints']['phase_s']:.1f} s")
+            with clock("checkpoints"):
+                path_counts.update(run_checkpoints(results))
+            results["checkpoints"]["phase_s"] = walls["checkpoints"]
         if "parallel" in phases:
-            path_counts["parallel_t2i"] = run_parallel(results)
+            with clock("parallel"):
+                path_counts["parallel_t2i"] = run_parallel(results)
         if "parallel_train" in phases:
-            run_parallel_train(results)
+            with clock("parallel_train"):
+                run_parallel_train(results)
         if "parallel_serving" in phases:
-            path_counts["parallel_serving"] = run_parallel_serving(results)
+            with clock("parallel_serving"):
+                path_counts["parallel_serving"] = run_parallel_serving(results)
         if "parallel_quant" in phases:
-            path_counts["parallel_quant_t2i"] = run_parallel_quant(results)
+            with clock("parallel_quant"):
+                path_counts["parallel_quant_t2i"] = run_parallel_quant(results)
         if "tiny" in phases:
-            run_tiny_train()
-            run_tiny_post_training()
-            run_tiny()
-            run_tiny_understand()
-            run_tiny_int8()
-            run_tiny_slice()
-            run_tiny_cot()
-            run_tiny_serving()
+            with clock("tiny"):
+                run_tiny_train()
+                run_tiny_post_training()
+                run_tiny()
+                run_tiny_understand()
+                run_tiny_int8()
+                run_tiny_slice()
+                run_tiny_cot()
+                run_tiny_serving()
         conv_batch_sums(results)
+        print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+              + f"; {time.perf_counter() - start:.1f} s in all")
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7485,7 +7723,7 @@ def main(argv=None) -> int:
             print(f"serving {mode}: {r['tokens_per_s']:.2f} useful tokens/s, "
                   f"{r['requests_per_s']:.4f} requests/s, TTFT p50 {r['ttft_p50_s']:.3f} s p99 "
                   f"{r['ttft_p99_s']:.3f} s, per-request mean ITL p50 {r['itl_p50_s'] * 1e3:.2f} ms, "
-                  f"occupancy {r['occupancy']:.4f}, wall {r['seconds']:.3f} s ({SERVE_REQUESTS} requests, "
+                  f"occupancy {r['occupancy']:.4f}, wall {r['seconds']:.3f} s ({r['requests']} requests, "
                   f"{SERVE_SLOTS} slots) on {card}")
         print(f"serving continuous / static (bf16): {sv['continuous_over_static']:.4f}x on {card}")
     if "serving_vqa" in results:

@@ -217,10 +217,10 @@ def test_decode_png_every_filter(channels):
 
 
 def test_decode_failures():
-    """A broken image is ``CorruptImage`` (a skipped sample); WebP raises
-    ``UnsupportedImageFormat`` naming the format (the port imports no PIL).
-    An interlaced PNG short of its passes' bytes is broken; a 16-bit PNG
-    decodes as PIL's."""
+    """A broken image is ``CorruptImage`` (a skipped sample); a JPEG-compressed
+    TIFF raises ``UnsupportedImageFormat`` naming the compression (the port
+    imports no PIL). An interlaced PNG short of its passes' bytes is broken;
+    a 16-bit PNG decodes as PIL's."""
     png = _pil_png(_image(8, 8, 0))
     for bad in (b"not an image", png[:40], png[:-20],
                 png[:20] + bytes([png[20] ^ 1]) + png[21:]):
@@ -229,8 +229,8 @@ def test_decode_failures():
     with pytest.raises(D.CorruptImage, match="filter type 7"):
         D.decode_image(_png(4, 4, 0, bytes([0, 1, 2, 3, 4]) * 3 + bytes([7, 1, 2, 3, 4])))
     buf = io.BytesIO()
-    PIL.fromarray(_image(8, 8, 0)).save(buf, format="WEBP")
-    with pytest.raises(D.UnsupportedImageFormat, match="webp image"):
+    PIL.fromarray(_image(8, 8, 0)).save(buf, format="TIFF", compression="jpeg")
+    with pytest.raises(D.UnsupportedImageFormat, match="TIFF with JPEG compression"):
         D.decode_image(buf.getvalue())
     with pytest.raises(D.CorruptImage, match="truncated PNG pixels"):
         D.decode_image(_png(4, 4, 0, bytes(20), interlace=1))
@@ -241,16 +241,18 @@ def test_decode_failures():
 
 
 def test_loaders_raise_on_an_undecodable_format(tmp_path):
-    path = str(tmp_path / "webp.tar")
+    """A JPEG 2000 file under a .jpg name (PIL reads it, the port does not):
+    both readers stop, naming the format, rather than skip the sample."""
+    path = str(tmp_path / "jp2.tar")
     buf = io.BytesIO()
-    PIL.fromarray(_image(8, 8, 0)).save(buf, format="WEBP")
+    PIL.fromarray(_image(8, 8, 0)).save(buf, format="JPEG2000")
     with tarfile.open(path, "w") as tf:
-        _add(tf, "00000.webp", buf.getvalue())
+        _add(tf, "00000.jpg", buf.getvalue())
         _add(tf, "00000.txt", b"a caption")
     for native in (False, True):
         ds = P_t2i.Text2ImageDataset([path], per_device_batch_size=1, resolution=8,
                                      use_native=native)
-        with pytest.raises(RuntimeError, match="webp image: the port reads"):
+        with pytest.raises(RuntimeError, match="JPEG 2000 image: the port reads"):
             next(iter(ds))
 
 
@@ -261,7 +263,8 @@ def test_native_library_builds_from_the_port(tmp_path):
     assert path.parent == N.BUILD_DIR and path.name.startswith("libtarloader-")
     assert N.load_library() is N.load_library()
     assert N.SOURCE == N._PKG / "csrc" / "tarloader.cpp"
-    assert N.SOURCES == (N.SOURCE, N._PKG / "csrc" / "jpeg.cpp")
+    assert N.SOURCES == (N.SOURCE, *(N._PKG / "csrc" / f"{name}.cpp" for name in (
+        "jpeg", "webp_lossy", "webp_lossless", "gif", "bmp", "tiff")))
 
 
 @pytest.mark.parametrize("loader", ["llava", "dpo", "imagenet", "t2i_python", "t2i_native"])

@@ -1,16 +1,18 @@
-"""Image bytes -> uint8 [H, W, 3] RGB, JPEG and PNG without PIL.
+"""Image bytes -> uint8 [H, W, 3] RGB, the pixels of PIL's
+``Image.open(b).convert("RGB")``, without PIL.
 
 The JAX loaders open every image with PIL and convert it to RGB; the card's
-machine has no PIL and the port imports none. ``decode_image`` gives the
-same pixels from its own decoders:
+machine has no PIL and the port imports none. ``decode_image`` sniffs the
+format from the magic bytes and gives the same pixels from the port's own
+decoders, bit for bit:
 
-* JPEG by the port's native library (``native.jpeg_decode``, C++ that
-  follows libjpeg-turbo as PIL runs it: the ISLOW IDCT, fancy upsampling,
-  its YCbCr, CMYK and YCCK conversions), bit for bit for baseline,
-  extended and progressive JPEG. It raises where PIL raises (a truncated
-  file, a broken marker, a stream without tables). Where the entropy data
-  is corrupt and libjpeg only warns (a bad Huffman code, a flipped byte), it
-  returns pixels as PIL does, but those pixels may differ from PIL's.
+* JPEG by the native library (``native.jpeg_decode``, C++ that follows
+  libjpeg-turbo as PIL runs it: the ISLOW IDCT, fancy upsampling, its
+  YCbCr, CMYK and YCCK conversions): baseline, extended and progressive. It
+  raises where PIL raises (a truncated file, a broken marker, a stream
+  without tables). Where the entropy data is corrupt and libjpeg only warns
+  (a bad Huffman code, a flipped byte), it returns pixels as PIL does, but
+  those pixels may differ from PIL's.
 * PNG: the chunks with ``struct``, the IDAT stream with ``zlib``, the five
   row filters reversed by the native library (``native.png_unfilter``;
   ``png_unfilter_numpy`` is the same arithmetic in numpy, the tests'
@@ -19,17 +21,28 @@ same pixels from its own decoders:
   does: alpha dropped, grey repeated, low bit depths scaled to 0-255,
   16-bit samples cut to their high byte (16-bit grey, PIL's ``I;16``,
   clipped at 255 instead).
+* WebP (``data/webp.py``: the RIFF container as libwebp's demuxer walks it;
+  VP8, VP8L and ALPH by ``csrc/webp_lossy.cpp`` and ``webp_lossless.cpp``),
+  frame 0 of an animation on its canvas.
+* GIF (``csrc/gif.cpp``: frame 0, PIL's LZW) and BMP (``csrc/bmp.cpp``:
+  every header and pixel format PIL reads, RLE8 / RLE4 included).
+* PBM, PGM and PPM, binary and plain (``data/pnm.py``).
+* Baseline TIFF (``data/tiff.py``: IFD 0, strips or tiles, chunky or planar,
+  raw, LZW, PackBits or Deflate, predictor 2; LZW and PackBits by
+  ``csrc/tiff.cpp``).
 
 Two kinds of failure, kept apart:
 
 * ``CorruptImage`` (a ``ValueError``): the bytes are no image, or a broken
-  one (truncated, a bad chunk CRC before the pixels, an inflate error, a
-  filter type outside 0-4, a JPEG PIL fails on). The loaders skip such a
-  sample where JAX's skip it.
-* ``UnsupportedImageFormat`` (a ``RuntimeError``): an image the port does
-  not decode: WebP, GIF, BMP and TIFF, and arithmetic-coded, lossless,
-  hierarchical or 12-bit JPEG. It names the format, and the loaders let it
-  through: a shard of WebPs must stop a run, not be skipped sample by
+  one (truncated, a bad chunk, a corrupt stream: what PIL raises on). The
+  loaders skip such a sample where JAX's skip it.
+* ``UnsupportedImageFormat`` (a ``RuntimeError``): an image PIL reads and
+  the port does not decode: JPEG 2000, ICO, QOI, PSD, AVIF and the other
+  formats PIL knows by their magic bytes (``OTHER_FORMATS``); arithmetic-coded,
+  lossless, hierarchical or 12-bit JPEG; TIFF with a compression other than
+  LZW, PackBits or Deflate, predictor 3, YCbCr, CIELab, 12-, 32-bit or float
+  samples, BigTIFF; PFM. It names the format, and the loaders let it
+  through: a shard of such images must stop a run, not be skipped sample by
   sample. So do they let ``native.NativeLibraryError`` through (the
   decoders' library could not be built or loaded); both are
   ``NOT_A_BAD_SAMPLE``.
@@ -42,7 +55,12 @@ from typing import Optional
 
 import numpy as np
 
-from .native import JpegError, NativeLibraryError, jpeg_decode, png_unfilter
+from .errors import CorruptImage, UnsupportedImageFormat
+from .native import DecodeError, NativeLibraryError, bmp_decode, gif_decode, jpeg_decode, \
+    png_unfilter
+from .pnm import decode_pnm
+from .tiff import decode_tiff
+from .webp import decode_webp
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -52,16 +70,21 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
           (0, 1, 1, 2))
 
 
-class CorruptImage(ValueError):
-    """Bytes that are no image, or a broken one: a bad sample."""
-
-
-class UnsupportedImageFormat(RuntimeError):
-    """An image format the port does not decode."""
-
-
 # what the loaders raise where they skip a bad sample: no sample is at fault
 NOT_A_BAD_SAMPLE = (UnsupportedImageFormat, NativeLibraryError)
+
+# formats PIL 12 opens that the port does not decode, by the magic bytes its
+# plugins accept (AVIF by the ftyp box's major brand)
+OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 image"),
+                 (b"\xffO\xffQ", "JPEG 2000 codestream"), (b"qoif", "QOI image"),
+                 (b"8BPS", "PSD image"), (b"\x00\x00\x01\x00", "ICO image"),
+                 (b"\x00\x00\x02\x00", "CUR image"), (b"icns", "ICNS image"),
+                 (b"DDS ", "DDS image"), (b"\x59\xa6\x6a\x95", "Sun raster image"),
+                 (b"\xb1\x68\xde\x3a", "DCX image"), (b"\x01\xda", "SGI image"),
+                 (b"SIMPLE", "FITS image"), (b"BLP1", "BLP image"), (b"BLP2", "BLP image"),
+                 (b"/* XPM */", "XPM image"))
+FTYP_BRANDS = {b"avif": "AVIF image", b"avis": "AVIF image", b"mif1": "AVIF / HEIF image",
+               b"msf1": "AVIF / HEIF image"}
 
 
 def sniff(data: bytes) -> Optional[str]:
@@ -76,9 +99,27 @@ def sniff(data: bytes) -> Optional[str]:
         return "gif"
     if data[:2] == b"BM":
         return "bmp"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II\x00*", b"MM*\x00", b"II+\x00", b"MM\x00+"):
         return "tiff"
+    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"0123456fy":
+        return "pnm"
     return None
+
+
+def _other_format(data: bytes) -> Optional[str]:
+    """The name of a format PIL reads and the port does not, or None."""
+    for magic, name in OTHER_FORMATS:
+        if data.startswith(magic):
+            return name
+    if len(data) >= 2 and data[0] == 10 and data[1] in (0, 2, 3, 5):
+        return "PCX image"
+    if data[4:8] == b"ftyp" and data[8:12] in FTYP_BRANDS:
+        return FTYP_BRANDS[data[8:12]]
+    return None
+
+
+DECODERS = {"webp": decode_webp, "pnm": decode_pnm, "tiff": decode_tiff}
+NATIVE = {"jpeg": ("JPEG", jpeg_decode), "gif": ("GIF", gif_decode), "bmp": ("BMP", bmp_decode)}
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -86,23 +127,33 @@ def decode_image(data: bytes) -> np.ndarray:
     image and ``UnsupportedImageFormat`` for one the port does not read."""
     fmt = sniff(data)
     if fmt is None:
+        other = _other_format(data)
+        if other:
+            _unsupported(other)
         raise CorruptImage("unrecognised image bytes")
-    if fmt == "jpeg":
+    if fmt in NATIVE:
+        name, decode = NATIVE[fmt]
         try:
-            return jpeg_decode(data)
-        except JpegError as e:
+            return decode(data)
+        except DecodeError as e:
             if e.unsupported:
                 _unsupported(str(e))
-            raise CorruptImage(f"JPEG: {e}") from e
-    if fmt != "png":
-        _unsupported(f"{fmt} image")
+            raise CorruptImage(f"{name}: {e}") from e
+    if fmt in DECODERS:
+        try:
+            return DECODERS[fmt](data)
+        except DecodeError as e:
+            raise CorruptImage(f"{fmt}: {e}") from e
+        except UnsupportedImageFormat as e:
+            _unsupported(str(e))
     return decode_png(data)
 
 
 def _unsupported(what: str):
-    raise UnsupportedImageFormat(f"{what}: the port reads baseline, extended and progressive "
-                                 "JPEG and PNG only (it imports no PIL; its card's machine "
-                                 "has none)")
+    raise UnsupportedImageFormat(f"{what}: the port reads JPEG (baseline, extended, "
+                                 "progressive), PNG, WebP, GIF, BMP, PBM / PGM / PPM and "
+                                 "baseline TIFF (it imports no PIL; its card's machine has "
+                                 "none)")
 
 
 def _chunks(data: bytes):

@@ -15,8 +15,8 @@ operators when the trace holds no device event, as JAX falls back to its
 CPU plane), ``device_busy_ms``, ``busy_ms`` (the union of the device
 intervals), ``kernel_times`` (by name, raw durations), ``annotated_ms``
 (device time inside GPU annotations of a prefix), and ``device_traces`` /
-``traces_ms`` (the kernels of a function's calls, traced until two traces
-agree, and their device ms a call). Usage::
+``traces_ms`` (the kernels of a function's calls, one trace of whole calls
+or traced until two traces agree, and their device ms a call). Usage::
 
     from unigen_tpu_torch.utils import profiling, trace_analysis
     with profiling.trace("/tmp/tr"):
@@ -170,13 +170,25 @@ def annotated_ms(events: List[Event], prefix: str) -> Dict[str, float]:
     return parts
 
 
+def whole_calls(trace: List[Tuple[str, float]], iters: int) -> bool:
+    """Whether a trace (in launch order) holds ``iters`` calls that each
+    launched the same kernels in the same order; never for one call, which
+    has nothing to be held against."""
+    if iters < 2 or not trace or len(trace) % iters:
+        return False
+    k = len(trace) // iters
+    names = [name for name, _ in trace]
+    return all(names[i * k:(i + 1) * k] == names[:k] for i in range(1, iters))
+
+
 def device_traces(fn: Callable[[], object], iters: int) -> List[List[Tuple[str, float]]]:
     """The device kernels that ``iters`` calls of ``fn`` launch, as one
-    [(name, microseconds)] list a trace, after a warm-up call. A trace now
-    and then comes back with some or all of its device records missing, so
-    traces are taken until two hold the same number of device records (at
-    most four), and every trace is returned; raises ``NoDeviceTime`` if none
-    holds one."""
+    [(name, microseconds)] list a trace in launch order, after a warm-up
+    call. A trace now and then comes back with some or all of its device
+    records missing, so one trace is kept alone only when it holds
+    ``iters`` equal calls (``whole_calls``); else traces are taken until two
+    hold the same number of device records (at most four), and every trace
+    is returned. Raises ``NoDeviceTime`` if none holds one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -187,10 +199,11 @@ def device_traces(fn: Callable[[], object], iters: int) -> List[List[Tuple[str, 
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        traces.append([(e.name, e.end - e.start) for e in profiler_events(prof)
+        traces.append([(e.name, e.end - e.start) for e in
+                       sorted(profiler_events(prof), key=lambda e: e.start)
                        if e.kind == "device"])
         counts = [len(t) for t in traces if t]
-        if len(counts) > len(set(counts)):
+        if len(counts) > len(set(counts)) or (len(traces) == 1 and whole_calls(traces[0], iters)):
             break
     if not any(traces):
         raise NoDeviceTime(f"the profiler recorded no device time in {len(traces)} traces")
