@@ -191,7 +191,10 @@ read just after:
   token for token, with 1 KV head a rank's cache;
 * ``parallel_train`` (only when named): the flagship PT2 step at model 2
   and at fsdp 2, its first losses against one rank's and each rank's peak
-  memory;
+  memory; then the fsdp-2 state saved by both ranks and restored by pieces
+  onto model 2: its bytes, the seconds to save and restore, each rank's
+  host RSS rise over the restore, every restored leaf bit for bit the
+  saved one, and one step from it against the fsdp-2 mesh's next step;
 * ``parallel_serving`` (only when named): the flagship serving engine at
   model 2 in bf16 on the serving phase's first 48 requests: every rank's
   tokens, chunks, busy steps and exact launches, useful tokens/s, TTFT p50,
@@ -2159,6 +2162,21 @@ def _t2i_launches(layers, n=1):
                 conv3x3_gn_swish=n * 44, gn_affine=n * 40)
 
 
+GUARD_CALLS = 2000
+
+
+def _whole_tree_check_s(pipe):
+    """Seconds on the host of the shape checks that a forward and its head
+    run on a tree given no specs (``qwen2._check_whole``, ``lm_head``)."""
+    from unigen_tpu_torch.models import qwen2
+    llm, cfg = pipe.params["llm"], pipe.cfg.llm
+    t0 = time.perf_counter()
+    for _ in range(GUARD_CALLS):
+        qwen2._check_whole(llm, cfg)
+        qwen2.lm_head(llm, cfg)
+    return (time.perf_counter() - t0) / GUARD_CALLS
+
+
 def run_flagship(results, profile=False):
     import torch
     print("phase: flagship path (Qwen2.5-1.5B + MAGViTv2, random init, bf16, 4 prompts, "
@@ -2189,8 +2207,13 @@ def run_flagship(results, profile=False):
     ids, _ = pipe.prompt_ids(list(PROMPTS), 128)
     print(f"  prompt length {ids.shape[1]} (prefix {ids.shape[1] - 258}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    guard_s = _whole_tree_check_s(pipe)
+    forwards = 51                                   # the prefill and the 50 steps
+    print(f"  the whole-tree check of a forward given no specs (qwen2's layer 0, final_ln, "
+          f"embedding and head shapes): {guard_s * 1e6:.2f} us on the host a forward "
+          f"(mean of {GUARD_CALLS}), {forwards} forwards = {forwards * guard_s / dt:.2e} of the run")
     results["flagship"] = {"seconds": dt, "enqueue_s": enqueued,
-                           "images_per_s": len(PROMPTS) / dt}
+                           "images_per_s": len(PROMPTS) / dt, "guard_us": guard_s * 1e6}
     results["flagship_codes"] = codes
     return counts
 
@@ -6652,8 +6675,9 @@ def _parallel_tiny(rank):
 
 def _first_image_logits(pipe, prompts):
     """The t2i call's first image logits of ``prompts`` as a function of the
-    params: a cache-free forward of the prompts and their unconditional rows
-    (text budget 128), CFG 6 on the hidden states, fp32."""
+    params and their spec tree (None: whole): a cache-free forward of the
+    prompts and their unconditional rows (text budget 128), CFG 6 on the
+    hidden states, fp32."""
     import numpy as np
     import torch
     from unigen_tpu_torch.generation import t2i as T2I
@@ -6666,10 +6690,11 @@ def _first_image_logits(pipe, prompts):
     bits = M.pack_meta(M.t2i_attn_meta(x, pipe.prompting.pad_id, sp["<|soi|>"], sp["<|eoi|>"]))
 
     @torch.no_grad()
-    def logits(params):
-        h = unigen.forward(params, cfg, input_ids=x, meta_bits=bits, return_hidden=True)
+    def logits(params, specs=None):
+        h = unigen.forward(params, cfg, input_ids=x, meta_bits=bits, return_hidden=True,
+                           specs=specs)
         return T2I._cfg_head_logits(params, cfg, h[:, -(n + 1):-1], len(prompts), True, 6.0,
-                                    "hidden").float()
+                                    "hidden", specs).float()
     return logits
 
 
@@ -6677,7 +6702,7 @@ def _quant_first_forward(pipe, tp):
     """The relative difference of the first image logits of 2 prompts at
     model 2 from one rank's, and their argmax agreement."""
     logits = _first_image_logits(pipe, PROMPTS[:2])
-    a, b = logits(tp.params), logits(pipe.params)
+    a, b = logits(tp.params, tp.specs), logits(pipe.params)
     return {"rel": ((a - b).abs().max() / b.abs().max()).item(),
             "argmax": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
 
@@ -6754,7 +6779,7 @@ def _parallel_flagship(rank):
     mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
     tp = pipe.shard(mesh)
     first_step_logits = _first_image_logits(pipe, PROMPTS)
-    a, b = first_step_logits(tp.params), first_step_logits(pipe.params)
+    a, b = first_step_logits(tp.params, tp.specs), first_step_logits(pipe.params)
     cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
     argmax = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
@@ -6820,19 +6845,22 @@ def _parallel_serving_tiny(rank):
             return toks, eng.stats.decode_chunks, eng.stats.busy_steps, eng._cache.k.shape[3]
     whole = serve(pipe.params, False)
     mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
-    toks, chunks, busy, _ = serve(pipe.shard(mesh).params, rank != 0)
+    tp = pipe.shard(mesh)
+    toks, chunks, busy, _ = serve(tp.params, rank != 0, sharding=tp.sharding)
     out = {"equal": toks == whole[0], "toks": toks, "chunks": chunks, "busy": busy,
            "one_rank_chunks": whole[1]}
     # int8+kv (W8A8, the int8 cache) and int8+int4 (W8A8 admission, W4A8 decode
     # chunks, group 32), speculation off, on the text requests
     w8 = quantize_unigen_params(pipe.params, cfg, lm_head=True)
     w4 = quantize_unigen_params_int4(pipe.params, cfg, group=32)
-    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
-    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    l8, sh8 = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, sh4 = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
     for mode, (one, tp) in (("int8+kv", (dict(quantized_cache=True),) * 2),
-                            ("int8+int4", (dict(decode_params=w4), dict(decode_params=l4)))):
+                            ("int8+int4", (dict(decode_params=w4),
+                                           dict(decode_params=l4, decode_sharding=sh4)))):
         w_toks, w_chunks, _, w_heads = serve(w8, False, False, speculate_k=0, **one)
-        toks, chunks, busy, heads = serve(l8, rank != 0, False, speculate_k=0, **tp)
+        toks, chunks, busy, heads = serve(l8, rank != 0, False, speculate_k=0, sharding=sh8,
+                                          **tp)
         out[mode] = {"equal": toks == w_toks, "toks": toks, "chunks": chunks, "busy": busy,
                      "one_rank_chunks": w_chunks, "heads": heads, "one_rank_heads": w_heads}
     return out
@@ -7159,7 +7187,7 @@ def _parallel_serving_rank(rank):
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = serving_engine(tp.params, cfg, keep_followed=True)
+    eng = serving_engine(tp.params, cfg, keep_followed=True, sharding=tp.sharding)
     warm = time.perf_counter() - t0
     with C.timing() as coll:
         run = serve_run(eng, lambda: requests) if rank == 0 else _follow_run(eng)
@@ -7244,7 +7272,7 @@ def _parallel_quant_rank(rank):
     mesh = P.make_mesh(1, 1, PARALLEL_RANKS, device_type="cuda")
     tp = pipe.shard(mesh)
     first_step_logits = _first_image_logits(pipe, PROMPTS)
-    a, b = first_step_logits(tp.params), first_step_logits(pipe.params)
+    a, b = first_step_logits(tp.params, tp.specs), first_step_logits(pipe.params)
     t2i = {"cos": F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item(),
            "argmax": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
            "logits_equal": bool(torch.equal(a, b))}
@@ -7274,16 +7302,17 @@ def _parallel_quant_rank(rank):
     w8 = pipe.params
     w4 = quantize_unigen_params_int4(build_pipeline("flagship", dtype=torch.bfloat16,
                                                     device="cuda", seed=0).params, cfg)
-    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
-    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    l8, sh8 = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, sh4 = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
     prompts, budgets = serving_trace(PARALLEL_SERVE_REQUESTS)
     requests = [(dict(input_ids=p, max_new_tokens=b), b, None) for p, b in zip(prompts, budgets)]
-    for mode, (one_kw, tp_kw) in (("int8+int4", (dict(decode_params=w4), dict(decode_params=l4))),
+    for mode, (one_kw, tp_kw) in (("int8+int4", (dict(decode_params=w4),
+                                                 dict(decode_params=l4, decode_sharding=sh4))),
                                   ("int8+kv", (dict(quantized_cache=True),) * 2)):
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        eng = serving_engine(l8, cfg, keep_followed=True, **tp_kw)
+        eng = serving_engine(l8, cfg, keep_followed=True, sharding=sh8, **tp_kw)
         with C.timing() as coll:
             run = serve_run(eng, lambda: requests) if rank == 0 else _follow_run(eng)
         r = dict(run, collective_s=coll["seconds"], collectives=coll["calls"],
@@ -7367,11 +7396,137 @@ def run_parallel_quant(results):
     return t0r["counts"]
 
 
+def _dir_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _read_shares(saved, state, specs, sizes, moments):
+    """What a rank's piece of ``state`` (``specs`` on a mesh of ``sizes``)
+    reads of a checkpoint whose ``sharding.json`` is ``saved``, as {"inner":
+    ..., "whole": ...}, each {leaf family (layer index as *): its whole
+    bytes}: "inner" the leaves that the target cuts finer than the saved
+    pieces along a dimension inside the leaf's outermost dimension of more
+    than one element (a strided part of every saved piece, which touches
+    every page it crosses), "whole" the leaves the target keeps whole (read
+    and held whole by every rank). ``moments``: the trained leaves' paths,
+    which name the optimizer's moments."""
+    import math
+    import re
+    from unigen_tpu_torch.utils import checkpoint as CK
+
+    def cuts(spec, mesh):
+        return [mesh[a] if a is not None else 1 for a in spec]
+    out = {"inner": {}, "whole": {}}
+    for p, t in CK.state_leaves(state):
+        cut, saved_cut = cuts(specs[p], sizes), cuts(saved["specs"][p], saved["mesh"])
+        shape = [n * k for n, k in zip(t.shape, cut)]
+        outer = next((i for i, n in enumerate(shape) if n > 1), 0)
+        if any(c > s and i > outer for i, (c, s) in enumerate(zip(cut, saved_cut))):
+            kind = "inner"
+        elif all(c == 1 for c in cut):
+            kind = "whole"
+        else:
+            continue
+        m = re.match(r"opt_state/(mu|nu)/(\d+)$", p)
+        fam = re.sub(r"/\d+/", "/*/", f"opt_state/{m[1]}/{moments[int(m[2])]}" if m else p)
+        out[kind][fam] = out[kind].get(fam, 0) + math.prod(shape) * t.element_size()
+    return out
+
+
+def _sharded_restore(held, config, steps):
+    """The sharded checkpoint across meshes on the flagship PT2 state
+    (ROADMAP 15(f)): every rank saves the (1, 2, 1) trainer's state into a
+    temporary directory and checks its piece against the state leaf by leaf;
+    the (1, 2, 1) mesh takes its next step; the trainer is freed (``held``,
+    [the trainer], is emptied here: the caller keeps no reference) and a
+    (1, 1, 2) trainer restores by pieces (``utils/checkpoint.py``), each
+    rank's host RSS sampled over the restore and its device memory read
+    before and after the free; every restored leaf (params, moments, step)
+    is gathered whole on the device one at a time and held bit for bit
+    against the checkpoint's; one step from the restored state. Returns
+    (the record, the (1, 1, 2) trainer)."""
+    import gc
+    import json
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from unigen_tpu_torch import parallel as P
+    from unigen_tpu_torch.parallel.partition import gather_full
+    from unigen_tpu_torch.training import train as TRAIN
+    from unigen_tpu_torch.training.optimizer import named_leaves
+    from unigen_tpu_torch.utils import checkpoint as CK
+    from unigen_tpu_torch.utils.persistence import load_state_dict
+    box = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box)
+    root, rec = box[0], {}
+    trainer = held.pop()
+    try:
+        state = trainer.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = CK.save_checkpoint(state, root, int(state.step))
+        rec["save_s"] = time.perf_counter() - t0
+        state_dir = os.path.join(path, "state")
+        mesh = state.sharding.mesh
+        piece = load_state_dict(os.path.join(
+            state_dir, f"shard-f{mesh.coord['fsdp']}-m{mesh.coord['model']}"), mmap=True)
+        saved_equal = True
+        for p, t in CK.state_leaves(state):
+            saved_equal &= bool(torch.equal(piece[p].to(t.device), t.detach()))
+        del piece
+        rec["saved_equal"] = saved_equal
+        rec["bytes"] = _dir_bytes(state_dir)
+        rec["next"] = steps(trainer, 1)[0][2]            # the (1, 2, 1) mesh's next step
+        torch.cuda.synchronize()
+        rec["held_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["freed_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        dist.barrier()
+        mesh = P.make_mesh(1, 1, 2, device_type="cuda")
+        trainer = TRAIN.build_trainer(config, mesh=mesh)
+        dist.barrier()
+        timing = {}
+        with _step("the restore by pieces at (1, 1, 2)", timing):
+            trainer.state = CK.restore_checkpoint(path, trainer.state)
+        t = timing["the restore by pieces at (1, 1, 2)"]
+        rec.update(restore_s=t["s"], rss_before_gib=t["rss_before_gib"],
+                   rss_rise_gib=t["peak_rss_gib"] - t["rss_before_gib"])
+        specs = CK.state_specs(trainer.state)
+        with open(os.path.join(state_dir, CK.SHARDING_NAME)) as f:
+            saved = json.load(f)
+        trained = [p for (p, _), train in zip(named_leaves(trainer.state.params),
+                                              trainer.tx.trainable) if train]
+        rec["reads"] = _read_shares(saved, trainer.state, specs, mesh.shape, trained)
+        local = dict(CK.state_leaves(trainer.state))
+        names, leaves_equal = 0, True
+        for p, want in CK.read_pieces(state_dir, {p: (None,) * t.dim() for p, t in local.items()}):
+            got = gather_full(local[p].detach(), specs[p], mesh)
+            leaves_equal &= bool(torch.equal(want.to(got.device), got))
+            names += 1
+            del got, want
+        del local
+        rec["leaves"], rec["restored_equal"] = names, leaves_equal
+        rec["restored_step"] = int(trainer.state.step)
+        rec["first"] = steps(trainer, 1)[0][2]
+        dist.barrier()
+        return rec, trainer
+    finally:
+        if dist.get_rank() == 0:
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def _parallel_train_rank(rank):
     """The flagship PT2 step (the train phase's config) on each
     PARALLEL_TRAIN_MESHES mesh: 1 warm + 2 timed steps from one batch and a
     generator of one seed, each rank's peak memory over what it held before
-    the steps; then (rank 0) the one-rank step's first losses."""
+    the steps; after the (1, 2, 1) mesh's steps, its state saved and restored
+    onto (1, 1, 2) (``_sharded_restore``); then (rank 0) the one-rank step's
+    first losses."""
     import statistics
     import torch
     from unigen_tpu_torch import parallel as P
@@ -7410,6 +7565,9 @@ def _parallel_train_rank(rank):
             "step_s": statistics.median(t for t, _, _ in timed),
             "collective_s": statistics.median(c for _, c, _ in timed),
             "counts": _read_counts()}
+        if (d, f, m) == (1, 2, 1):
+            held, trainer = [trainer], None       # freed inside, before the restore
+            out["restore"], trainer = _sharded_restore(held, config, steps)
         del trainer
         torch.cuda.empty_cache()
     torch.distributed.barrier()
@@ -7425,10 +7583,53 @@ def _parallel_train_rank(rank):
     return out
 
 
+def _report_restore(res):
+    """Prints and checks ``_sharded_restore``'s records, one a rank."""
+    r0 = res[0]
+    size = r0["bytes"]
+    print(f"  sharded checkpoint (ROADMAP 15(f)): the (1,2,1) state at step "
+          f"{r0['restored_step']}, {size} bytes on disk ({size / 2 ** 30:.3f} GiB); saved in "
+          f"{r0['save_s']:.2f} s by both ranks, restored by pieces onto (1,1,2) in "
+          f"{r0['restore_s']:.2f} s (rank 0; the files just written, so the read was warm)")
+    out = {"bytes": size, "save_s": r0["save_s"], "restore_s": [r["restore_s"] for r in res],
+           "rss_rise_share": [], "held_gib": [r["held_gib"] for r in res],
+           "freed_gib": [r["freed_gib"] for r in res]}
+    for rank, r in enumerate(res):
+        share = r["rss_rise_gib"] * 2 ** 30 / size
+        out["rss_rise_share"].append(share)
+        print(f"  rank {rank}: host RSS {r['rss_before_gib']:.2f} GiB before the restore, its rise "
+              f"{r['rss_rise_gib']:.3f} GiB = {share:.3f} of the checkpoint (predicted 0.5-1.0; "
+              f"VmRSS sampled every 5 ms); restore {r['restore_s']:.2f} s; its saved piece equal to "
+              f"its state: {r['saved_equal']}; {r['leaves']} restored leaves gathered one at a "
+              f"time, bit for bit the checkpoint's: {r['restored_equal']}; device memory "
+              f"allocated {r['held_gib']:.2f} GiB with the (1,2,1) trainer, {r['freed_gib']:.2f} "
+              "GiB once it was freed, before the (1,1,2) trainer was built")
+        for kind, what in (("inner", "cut along an inner dimension of a saved piece"),
+                           ("whole", "kept whole by every rank")):
+            fams = r["reads"][kind]
+            print(f"  rank {rank}: leaves {what} ({sum(fams.values()) / size:.3f} of the "
+                  "checkpoint): " + ", ".join(
+                      f"{k} {v / size:.3f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])
+                      if v / size >= 0.001))
+        check(r["saved_equal"] and r["restored_equal"]
+              and r["restored_step"] == r0["restored_step"],
+              f"rank {rank}: the restored (1,1,2) state differs from the saved (1,2,1) one: {r}")
+    first, nxt = r0["first"], r0["next"]
+    rel = {k: abs(first[k] - nxt[k]) / max(abs(nxt[k]), 1e-30)
+           for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm")}
+    print(f"  the step from the restored state at (1,1,2) {first}, the (1,2,1) mesh's next step "
+          f"{nxt}, relative differences {rel} (losses need <= 1e-2, the grad norm <= 5e-2)")
+    check(all(rel[k] <= 1e-2 for k in ("loss_t2i", "loss_lm", "loss_mmu"))
+          and rel["grad_norm"] <= 5e-2, f"the restored step differs from (1,2,1)'s: {rel}")
+    out["rel"] = rel
+    return out
+
+
 def run_parallel_train(results):
     """The optional parallel_train phase: the flagship PT2 step at model 2
     and at fsdp 2, 2 ranks on the card; the first step's losses against the
-    one-rank step (the train phase's bf16 bounds), each rank's peak memory."""
+    one-rank step (the train phase's bf16 bounds), each rank's peak memory;
+    the (1,2,1) state's checkpoint restored onto (1,1,2) (``_report_restore``)."""
     t0 = time.perf_counter()
     print(f"phase: parallel_train ({TRAIN_CONFIG} at meshes {PARALLEL_TRAIN_MESHES}, "
           f"{PARALLEL_RANKS} ranks on the one card under gloo, {PARALLEL_TRAIN_WARM} warm + "
@@ -7455,6 +7656,7 @@ def run_parallel_train(results):
               and rel["grad_norm"] <= 5e-2, f"parallel_train {name} differs from one rank: {rel}")
         out[name] = {"peak_gib": [r[name]["peak_gib"] for r in ranks],
                      "step_s": ranks[0][name]["step_s"], "rel": rel}
+    out["restore"] = _report_restore([r["restore"] for r in ranks])
     seconds = time.perf_counter() - t0
     print(f"  the parallel_train phase: {seconds:.1f} s")
     results["parallel_train"] = dict(out, phase_s=seconds)

@@ -24,7 +24,12 @@ models with JAX's weights, batches and draws:
   one rank's (W8A8 bit for bit), the int8 t2i codes, the W4A8 backbone with
   the down projection's groups straddling a rank's cut; every quantized and
   LoRA tree gathered back from its shards bit for bit;
-* the SFT (separate and packed) and DPO steps with LoRA adapters at model 2.
+* the SFT (separate and packed) and DPO steps with LoRA adapters at model 2;
+* trees derived from shards (a clone, a deep copy, a ``torch.save`` /
+  ``torch.load`` round trip, a cast to float64 and back), run with their
+  ``Sharding``: the logits at model 2 and the PT2 step on (2, 2, 2) with
+  ``add_fsdp``, against JAX's and the port's unsharded runs; and the error
+  a sharded tree run without its specs raises.
 
 The JAX references are computed here while the ranks run.
 """
@@ -537,6 +542,13 @@ def _inputs():
     dpo_lora_opt = dict(tunable_parts=list(LORA), epsilon=1e-6)
     out["dpo_lora"] = dict(out["dpo"], params=lora_params, opt_kw=dpo_lora_opt)
     refs["dpo_lora"] = (jcfg, lora_jtree, jvq, vq_tree, dpo, dkey, dpo_lora_opt)
+
+    # trees derived from shards: PT2's tree, batch and draws, and a forward's ids
+    d_ids = np.random.default_rng(23).integers(3, jcfg.vocab_size, size=(4, 12))
+    out["derived"] = dict(out["pt2"], ids=torch.as_tensor(d_ids))
+    refs["derived"] = (jcfg, jtree, d_ids)
+    out["without_specs"] = dict(cfg=tcfg, params=tparams, ids=torch.as_tensor(d_ids),
+                                vs=tvs, vs_cfg=tvs_cfg)
     return out, refs
 
 
@@ -636,7 +648,15 @@ def _jax_serving_quant(refs):
     return out
 
 
+def _jax_derived(refs):
+    """JAX's logits of the derived trees' ids, unsharded, causal."""
+    jcfg, jtree, ids = refs["derived"]
+    return np.asarray(JU.forward(jax.tree.map(jnp.asarray, jtree), jcfg,
+                                 input_ids=jnp.asarray(ids, jnp.int32)))
+
+
 JAX_REFERENCES = (("pt2", _jax_pt2), ("sft", _jax_sft), ("dpo", _jax_dpo),
+                  ("derived", _jax_derived),
                   ("serving", _jax_serving), ("quant", _jax_quant),
                   ("serving_quant", _jax_serving_quant),
                   ("sft_lora", lambda r: _jax_sft(r, "sft_lora")),
@@ -1093,3 +1113,39 @@ def test_quantized_engine_model2(ranks, mode, what):
             assert o[:3] == ranks_out[0][:3]
     else:
         assert whole[3] == 2 and all(o[3] == 1 for o in ranks_out)
+
+
+@pytest.mark.parametrize("how", R.DERIVED)
+def test_derived_sharded_tree_matches_jax(ranks, how):
+    """A tree rebuilt from shards (``torch_parallel_ranks.derive``) runs as
+    the shards with its ``Sharding``: the tiny UniGen's logits at data 4 x
+    model 2 against the port's unsharded forward (rtol 1e-5) and JAX's
+    (1e-4); the PT2 step of a derived state on (2, 2, 2) with ``add_fsdp``
+    against the port's unsharded step (1e-5, parameters 1e-5) and JAX's
+    step (1e-4, parameters 1e-4)."""
+    out, jax_refs, inputs = ranks
+    r = out["derived"]
+    logits = r["logits"][how]
+    torch.testing.assert_close(logits, r["whole_logits"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(logits.numpy(), jax_refs["derived"], rtol=1e-4, atol=1e-4)
+    step = r["steps"][how]
+    _close_metrics(step["metrics"], out["pt2"]["whole_metrics"], PT2_METRICS, 1e-5, 1e-6)
+    assert _max_leaf_err(out["pt2"]["whole_params"], step["params"]) < 1e-5
+    jparams, jm = jax_refs["pt2"]
+    _close_metrics(step["metrics"], jm, PT2_METRICS, 1e-4, 1e-5)
+    errs = _leaf_errors(jparams, W.unigen_to_jax(step["params"], inputs["pt2"]["cfg"]))
+    assert max(errs.values()) < 1e-4, {k: v for k, v in errs.items() if v >= 1e-4}
+
+
+@pytest.mark.parametrize("tree,leaf,sizes", [
+    ("attention", "layers/0/q_w's output features", "32 here and 64"),
+    ("mlp", "layers/0/gate_w's output features", "64 here and 128"),
+    ("fsdp", "layers/0/gate_w's input features", "32 here and 64"),
+    ("siglip", "layers/0/q_w's shape", "(16, 32) here and (32, 32)")],
+    ids=["attention", "mlp", "fsdp", "siglip"])
+def test_sharded_tree_without_specs_raises(ranks, tree, leaf, sizes):
+    """A sharded tree run without its specs raises a ``ValueError`` naming
+    the leaf and both sizes, where it would fail on a reshape (attention)
+    or return a rank's partial sum (the MLP's down projection)."""
+    msg = ranks[0]["without_specs"][tree]
+    assert msg.startswith(f"{leaf} is {sizes} in the config"), msg

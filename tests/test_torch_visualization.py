@@ -176,11 +176,11 @@ def test_trainer_visualize_every_writes_jax_grids(tmp_path, monkeypatch):
     seen = []
     real = TV.visualize_predictions
 
-    def record(params, cfg, vq_params, vq_cfg, pixels, ids, *bits):
+    def record(params, cfg, vq_params, vq_cfg, pixels, ids, *bits, **kw):
         seen.append(dict(params=_jnp(W.unigen_to_jax(params, cfg)), vq=_jnp(vq_params),
                          cfg=cfg, vq_cfg=vq_cfg, pixels=pixels.numpy().copy(),
                          ids=ids.numpy().copy(), bits=bits))
-        return real(params, cfg, vq_params, vq_cfg, pixels, ids, *bits)
+        return real(params, cfg, vq_params, vq_cfg, pixels, ids, *bits, **kw)
     monkeypatch.setattr(TV, "visualize_predictions", record)
     trainer = _build(tmp_path, max_steps=2, visualize_every=1, save_every=0)
     trainer.train(_flows(2, 8, 5))

@@ -6,6 +6,8 @@ thread; every rank runs ``program(inputs, out_dir)`` after
 ``torch.distributed`` is up, and rank 0 writes what the test compares
 (``save``). The programs import torch and the port only.
 """
+import copy
+import io
 import os
 import re
 import socket
@@ -23,6 +25,8 @@ if REPO not in sys.path:
 from unigen_tpu_torch import parallel as P  # noqa: E402
 from unigen_tpu_torch import weights as W  # noqa: E402
 from unigen_tpu_torch.models import qwen2  # noqa: E402
+from unigen_tpu_torch.models import siglip as TSG  # noqa: E402
+from unigen_tpu_torch.models import unigen as TU  # noqa: E402
 from unigen_tpu_torch.parallel import collectives as C  # noqa: E402
 from unigen_tpu_torch.parallel import partition as PT  # noqa: E402
 from unigen_tpu_torch.training import dpo as TD  # noqa: E402
@@ -140,8 +144,9 @@ def sft(inp, out_dir, name="sft"):
         whole, wm = step(TSFT.init_sft_state(params, tx), vq, vs, batch, draws)
         mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
         local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
-        vs_local, _ = P.shard_params(vs, P.siglip_specs(vs, mesh), mesh)
-        state, m = step(TSFT.init_sft_state(local, tx, sh), vq, vs_local, batch, draws)
+        vs_local, vs_sh = P.shard_params(vs, P.siglip_specs(vs, mesh), mesh)
+        state, m = step(TSFT.init_sft_state(local, tx, sh), vq, vs_local, batch, draws,
+                        vision_sharding=vs_sh)
         out[case] = {"whole_metrics": _metrics(wm), "whole_params": whole.params,
                      "metrics": _metrics(m), "params": P.gather_params(state.params, sh),
                      "mode": step.mode}
@@ -173,10 +178,11 @@ def vocab(inp, out_dir):
     out = {"specs": specs}
     for name, tree, sh in (("whole", params, None),
                            ("sharded", *P.shard_params(params, specs, mesh))):
-        tree = C.register(sh, W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True)))
-        emb = qwen2.embed(tree, ids)
-        hidden, _ = qwen2.forward(tree, cfg, input_ids=ids)
-        logits = qwen2.logits(tree, cfg, hidden)
+        tree = W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True))
+        specs = None if sh is None else sh.tree(tree)
+        emb = qwen2.embed(tree, ids, specs)
+        hidden, _ = qwen2.forward(tree, cfg, input_ids=ids, specs=specs)
+        logits = qwen2.logits(tree, cfg, hidden, specs=specs)
         loss = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                                  labels.reshape(-1))
         leaves = [t for _, t in TO.named_leaves(tree)]
@@ -227,15 +233,15 @@ def t2i(inp, out_dir):
     from unigen_tpu_torch.generation import t2i_generate
     cfg, params, ids, uncond = inp["cfg"], inp["params"], inp["t2i_ids"], inp["t2i_uncond"]
 
-    def run(tree):
+    def run(tree, specs=None):
         g = torch.Generator().manual_seed(3)
         return t2i_generate(tree, cfg, g, ids, None, uncond_input_ids=uncond,
-                            guidance_scale=3.0, timesteps=4, pad_id=0)
+                            guidance_scale=3.0, timesteps=4, pad_id=0, specs=specs)
 
     whole = run(params)
     mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
-    local, _ = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
-    toks = run(local)
+    local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+    toks = run(local, sh.tree(local))
     everyone = MH.gather_objects(toks.tolist())
     save(out_dir, "t2i", {"whole": whole, "ranks": everyone})
 
@@ -271,7 +277,7 @@ def quant(inp, out_dir):
         return x[..., r * k:(r + 1) * k]
 
     cfg, w8 = inp["cfg"], inp["w8"]
-    local8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    local8, sh8 = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
     cfg4, w4 = inp["cfg4"], inp["w4"]
     local4, sh4 = P.shard_params(w4, P.unigen_specs(w4, cfg4, mesh), mesh)
     rows = {}
@@ -294,35 +300,37 @@ def quant(inp, out_dir):
         torch.cat([t2i["ids"], t2i["uncond"]]), t2i["pad"], t2i["soi"], t2i["eoi"],
         rm_pad_in_image=True)
 
-    def codes(tree, combine):
+    def codes(tree, combine, specs=None):
         return t2i_generate(tree, cfg, None, t2i["ids"], mask, uncond_input_ids=t2i["uncond"],
                             noise=t2i["noise"], pad_id=t2i["pad"], cfg_combine=combine,
-                            **t2i["kw"])
+                            specs=specs, **t2i["kw"])
     for combine in ("hidden", "logits"):
-        out[f"t2i_{combine}"] = {"whole": codes(w8, combine),
-                                 "ranks": MH.gather_objects(codes(local8, combine).tolist())}
+        out[f"t2i_{combine}"] = {"whole": codes(w8, combine), "ranks": MH.gather_objects(
+            codes(local8, combine, sh8.tree(local8)).tolist())}
 
     # the W4A8 backbone: prefill into a cache of the rank's KV heads, one decode step
     bb = inp["backbone"]
     with torch.no_grad():
-        for tag, tree in (("whole", w4), ("sharded", local4)):
+        for tag, tree, specs in (("whole", w4, None),
+                                 ("sharded", local4, sh4.tree(local4)["llm"])):
             llm = tree["llm"]
             cache = qwen2.init_kv_cache(cfg4.llm, bb["ids"].shape[0], bb["total"], "cpu",
-                                        num_kv_heads=qwen2.local_kv_heads(llm, cfg4.llm))
+                                        num_kv_heads=qwen2.local_kv_heads(llm, cfg4.llm, specs))
             h, cache = qwen2.forward(llm, cfg4.llm, input_ids=bb["ids"],
                                      meta_bits=TM.pack_meta(TM.lm_attn_meta(bb["ids"], None)),
-                                     cache=cache)
+                                     cache=cache, specs=specs)
             h2, _ = qwen2.forward(llm, cfg4.llm, input_ids=bb["tok"], positions=bb["pos"],
-                                  cache=cache, kv_rowmask=bb["valid"])
+                                  cache=cache, kv_rowmask=bb["valid"], specs=specs)
             out[f"backbone_{tag}"] = (h, h2, tuple(cache.k.shape))
 
     # the LoRA tree's gradients, every leaf's, at model 2 and at model 4 (k/v whole)
     lt, lcfg, ids, labels = inp["lora"], inp["lora_cfg"], inp["lora_ids"], inp["lora_labels"]
 
     def lora_grads(tree, sh):
-        tree = C.register(sh, W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True)))
-        h, _ = qwen2.forward(tree["llm"], lcfg.llm, input_ids=ids)
-        lg = qwen2.logits(tree["llm"], lcfg.llm, h)
+        tree = W.map_tree(tree, lambda t: t.detach().clone().requires_grad_(True))
+        specs = None if sh is None else sh.tree(tree)["llm"]
+        h, _ = qwen2.forward(tree["llm"], lcfg.llm, input_ids=ids, specs=specs)
+        lg = qwen2.logits(tree["llm"], lcfg.llm, h, specs=specs)
         loss = torch.nn.functional.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1))
         paths, leaves = zip(*TO.named_leaves(tree["llm"]))
         grads = torch.autograd.grad(loss, leaves)
@@ -364,10 +372,10 @@ def serving_quant(inp, out_dir):
     kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), device="cpu",
               keep_followed=True)
 
-    def serve(tree, **extra):
-        with ServingEngine(tree, cfg, **kw, **extra) as eng:
+    def serve(tree, sharding=None, **extra):
+        with ServingEngine(tree, cfg, sharding=sharding, **kw, **extra) as eng:
             heads = eng._cache.k.shape[3]
-            if MH.process_index() and C.spec_of(tree["llm"]["layers"][0]["q"]["kernel_int8"]):
+            if MH.process_index() and sharding is not None:
                 eng.close(timeout=120)
                 toks = [f.result(0) for _, f in sorted(eng.followed.items())]
             else:
@@ -378,14 +386,15 @@ def serving_quant(inp, out_dir):
 
     mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
     w8, w4 = inp["w8"], inp["w4"]
-    l8, _ = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
-    l4, _ = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
+    l8, sh8 = P.shard_params(w8, P.unigen_specs(w8, cfg, mesh), mesh)
+    l4, sh4 = P.shard_params(w4, P.unigen_specs(w4, cfg, mesh), mesh)
     out = {}
     for mode, (whole, sharded) in {
             "int8+kv": (dict(quantized_cache=True), dict(quantized_cache=True)),
-            "int8+int4": (dict(decode_params=w4), dict(decode_params=l4))}.items():
+            "int8+int4": (dict(decode_params=w4),
+                          dict(decode_params=l4, decode_sharding=sh4))}.items():
         out[mode] = {"whole": serve(w8, **whole),
-                     "ranks": MH.gather_objects(serve(l8, **sharded))}
+                     "ranks": MH.gather_objects(serve(l8, sh8, **sharded))}
     save(out_dir, "serving_quant", out)
 
 
@@ -405,9 +414,9 @@ def serving(inp, out_dir):
     kw = dict(slots=2, max_len=48, buckets=(16,), chunk=(2, 4), speculate_k=2, device="cpu",
               keep_followed=True)
 
-    def serve(tree):
-        with ServingEngine(tree, cfg, **kw) as eng:
-            if MH.process_index() and C.spec_of(tree["llm"]["layers"][0]["q_w"]) is not None:
+    def serve(tree, sharding=None):
+        with ServingEngine(tree, cfg, sharding=sharding, **kw) as eng:
+            if MH.process_index() and sharding is not None:
                 err = _raises(lambda: eng.submit(prompts[0], max_new_tokens=2), RuntimeError)
                 eng.close(timeout=120)
                 assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
@@ -418,8 +427,9 @@ def serving(inp, out_dir):
                                           lookup_ids=inp["emb_ids"]))
             return [f.result(60) for f in futs], eng.stats, ""
 
-    def cancelled(tree):
-        with ServingEngine(tree, cfg, **dict(kw, speculate_k=0, chunk=2)) as eng:
+    def cancelled(tree, sharding):
+        with ServingEngine(tree, cfg, sharding=sharding,
+                           **dict(kw, speculate_k=0, chunk=2)) as eng:
             if MH.process_index():
                 eng.close(timeout=120)
                 assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
@@ -433,9 +443,9 @@ def serving(inp, out_dir):
             except CancelledError:
                 return "cancelled"
 
-    def pruned(tree):
-        with ServingEngine(tree, cfg, **dict(kw, speculate_k=0, chunk=2,
-                                             keep_followed=False)) as eng:
+    def pruned(tree, sharding):
+        with ServingEngine(tree, cfg, sharding=sharding, **dict(kw, speculate_k=0, chunk=2,
+                                                                keep_followed=False)) as eng:
             if MH.process_index():
                 eng.close(timeout=120)
                 assert not eng._thread.is_alive(), "a follower outlived rank 0's stop"
@@ -446,16 +456,89 @@ def serving(inp, out_dir):
 
     whole, whole_stats, _ = serve(params)
     mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
-    local, _ = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
-    toks, stats, err = serve(local)
+    local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+    toks, stats, err = serve(local, sh)
     out = {"toks": toks, "decode_chunks": stats.decode_chunks, "busy_steps": stats.busy_steps,
-           "error": err, "cancel": cancelled(local), "followed_after": pruned(local)}
+           "error": err, "cancel": cancelled(local, sh), "followed_after": pruned(local, sh)}
     save(out_dir, "serving", {"whole": whole, "whole_chunks": whole_stats.decode_chunks,
                               "ranks": MH.gather_objects(out)})
 
 
+DERIVED = ("clone", "deepcopy", "save_load", "cast_roundtrip")
+
+
+def derive(tree, how: str):
+    """``tree`` rebuilt as new tensors with the same values, by one of the
+    means that lose a tensor's identity: ``clone``, ``deepcopy``, a
+    ``torch.save`` / ``torch.load`` round trip, or a cast to float64 and
+    back (``requires_grad`` kept)."""
+    if how == "deepcopy":
+        return copy.deepcopy(tree)
+    if how == "save_load":
+        buf = io.BytesIO()
+        torch.save(tree, buf)
+        buf.seek(0)
+        return torch.load(buf, weights_only=True)
+
+    def cast(t):
+        x = t.detach().double().to(t.dtype) if how == "cast_roundtrip" else t.detach().clone()
+        return x.requires_grad_(t.requires_grad)
+    return W.map_tree(tree, cast)
+
+
+def derived(inp, out_dir):
+    """Trees derived from shards (``derive``), run with their ``Sharding``:
+    the tiny UniGen's logits at data 4 x model 2 and the PT2 step of a
+    derived state's params on (2, 2, 2) with ``add_fsdp``, against the
+    unsharded forward (the step's references are pt2's)."""
+    cfg, vq_cfg, tcfg = inp["cfg"], inp["vq_cfg"], inp["tcfg"]
+    params, vq, batch, draws, ids = (inp[k] for k in ("params", "vq", "batch", "draws", "ids"))
+    out = {"logits": {}, "steps": {}}
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh), mesh)
+    with torch.no_grad():
+        out["whole_logits"] = TU.forward(params, cfg, input_ids=ids)
+        for how in DERIVED:
+            tree = derive(local, how)
+            out["logits"][how] = TU.forward(tree, cfg, input_ids=ids, specs=sh.tree(tree))
+    tx = TO.make_optimizer(params, 1e-3, _schedule(inp), max_grad_norm=1.0)
+    step = TT.make_train_step(cfg, vq_cfg, tx, tcfg)
+    mesh = P.make_mesh(data=2, fsdp=2, model=2, device_type="cpu")
+    local, sh = P.shard_params(params, P.unigen_specs(params, cfg, mesh, fsdp=True), mesh)
+    for how in DERIVED:
+        state = TT.init_train_state(local, tx, sharding=sh)
+        state, m = step(state._replace(params=derive(state.params, how)), vq, batch, draws)
+        out["steps"][how] = {"metrics": _metrics(m), "params": P.gather_params(state.params, sh)}
+    save(out_dir, "derived", out)
+
+
+def without_specs(inp, out_dir):
+    """The error of a sharded tree run without its specs: the tiny UniGen
+    split in its attention (data 4 x model 2), split only in its MLP (the
+    attention's specs dropped) and split on fsdp ((4, 2, 1) with
+    ``add_fsdp``), and the SigLIP tower at model 2."""
+    cfg, params, ids = inp["cfg"], inp["params"], inp["ids"]
+    attention = re.compile(r"layers/\d+/[qkvo]_[wb]$")
+    trees = {}
+    mesh = P.make_mesh(data=4, fsdp=1, model=2, device_type="cpu")
+    specs = P.unigen_specs(params, cfg, mesh)
+    trees["attention"] = P.shard_params(params, specs, mesh)[0]
+    mlp = {p: (None,) * len(s) if attention.search(p) else s for p, s in specs.items()}
+    trees["mlp"] = P.shard_params(params, mlp, mesh)[0]
+    vs = inp["vs"]
+    tower = P.shard_params(vs, P.siglip_specs(vs, mesh), mesh)[0]
+    mesh = P.make_mesh(data=4, fsdp=2, model=1, device_type="cpu")
+    trees["fsdp"] = P.shard_params(params, P.unigen_specs(params, cfg, mesh, fsdp=True),
+                                   mesh)[0]
+    out = {name: _raises(lambda t=t: TU.forward(t, cfg, input_ids=ids), ValueError)
+           for name, t in trees.items()}
+    pixels = torch.zeros((1, inp["vs_cfg"].image_size, inp["vs_cfg"].image_size, 3))
+    out["siglip"] = _raises(lambda: TSG.forward(tower, inp["vs_cfg"], pixels), ValueError)
+    save(out_dir, "without_specs", out)
+
+
 PROGRAMS = ("pt2", "sft", "dpo", "vocab", "ckpt", "t2i", "errors", "serving", "quant",
-            "serving_quant", "sft_lora", "dpo_lora")
+            "serving_quant", "sft_lora", "dpo_lora", "derived", "without_specs")
 
 
 def parallel_all(inp, out_dir):

@@ -220,7 +220,7 @@ class UniGenLmmsAdapter:
                                buckets=buckets, chunk=self.serving_chunk, top_k=top_k,
                                quantized_cache=self.serving_quantized_cache,
                                speculate_k=self.serving_speculate_k, seed=self.seed,
-                               device=pipe.device) as eng:
+                               device=pipe.device, sharding=pipe.sharding) as eng:
                 futs: Dict[int, Any] = {}
                 shape_groups: Dict[tuple, List[int]] = {}
                 for i in idxs:

@@ -26,7 +26,8 @@ The loop always runs its full length: a row that emitted ``eot_token``
 repeats it, as the JAX ``scan`` does, so the output and the kernel launches
 do not depend on the weights. ``noise=[max_new_tokens, B, V]`` takes
 pre-drawn uniform[0, 1) numbers instead of the generator (the shared-noise
-hook).
+hook). ``specs`` is the spec tree of a sharded ``params`` (None: whole),
+passed to every forward.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..models import qwen2
 from ..models.unigen import UniGenConfig, embed_tokens
 from ..ops import masks as M
 from ..ops import sampling as S
+from ..parallel import collectives as C
 
 
 def _sample_step(generator: Optional[torch.Generator], logits: torch.Tensor,
@@ -58,21 +60,22 @@ def _sample_step(generator: Optional[torch.Generator], logits: torch.Tensor,
 def _decode_loop(params, cfg: UniGenConfig, generator, cache: qwen2.KVCache,
                  valid: torch.Tensor, first_tok: torch.Tensor, prompt_len: torch.Tensor,
                  max_new_tokens: int, temperature: float, top_k: Optional[int],
-                 eot_token: Optional[int], noise: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 eot_token: Optional[int], noise: Optional[torch.Tensor] = None,
+                 specs=None) -> torch.Tensor:
     """Cached decode from the token sampled at the prefill: [B, max_new_tokens]."""
     b, total = valid.shape
     eot = -1 if eot_token is None else eot_token
     done = first_tok == eot
     slots = torch.arange(total, device=valid.device)
     tok, toks = first_tok, [first_tok]
+    llm_specs = C.sub(specs, "llm")
     for t in range(max_new_tokens - 1):
         valid = valid | (slots == cache.index)[None]         # the slot this step writes
         hidden, cache = qwen2.forward(params["llm"], cfg.llm,
-                                      inputs_embeds=embed_tokens(params, tok[:, None]),
+                                      inputs_embeds=embed_tokens(params, tok[:, None], specs),
                                       positions=(prompt_len + t)[:, None], cache=cache,
-                                      kv_rowmask=valid)
-        logits = qwen2.logits(params["llm"], cfg.llm, hidden[:, -1]).float()
+                                      kv_rowmask=valid, specs=llm_specs)
+        logits = qwen2.logits(params["llm"], cfg.llm, hidden[:, -1], specs=llm_specs).float()
         nxt = _sample_step(generator, logits, temperature, top_k,
                            None if noise is None else noise[t + 1])
         nxt = torch.where(done, eot, nxt)
@@ -99,29 +102,34 @@ def mmu_generate(
     eot_token: Optional[int] = None,
     quantized_cache: bool = False,
     noise: Optional[torch.Tensor] = None,
+    specs=None,
 ) -> torch.Tensor:
     """VQA / captioning decode. Returns [B, max_new_tokens] token ids; rows
     stop at ``eot_token`` and then repeat it. ``meta_bits`` must mark every
     slot at or beyond a row's ``prompt_len`` as pad. ``quantized_cache``
     keeps K/V in int8."""
     if input_embeddings is None:
-        input_embeddings = embed_tokens(params, input_ids)
+        input_embeddings = embed_tokens(params, input_ids, specs)
     b, l, _ = input_embeddings.shape
     dev = input_embeddings.device
     prompt_len = prompt_len.to(device=dev, dtype=torch.long)
+    llm_specs = C.sub(specs, "llm")
     cache = qwen2.init_kv_cache(cfg.llm, b, l + max_new_tokens, dev, quantize=quantized_cache,
-                                num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
+                                num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm,
+                                                                  llm_specs))
     pos = torch.arange(l, device=dev)[None]
     positions = torch.minimum(pos, prompt_len[:, None] - 1)   # pads collapse, masked anyway
     hidden, cache = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=input_embeddings,
-                                  meta_bits=meta_bits, positions=positions, cache=cache)
+                                  meta_bits=meta_bits, positions=positions, cache=cache,
+                                  specs=llm_specs)
     last_hidden = hidden[torch.arange(b, device=dev), prompt_len - 1]
-    first = _sample_step(generator, qwen2.logits(params["llm"], cfg.llm, last_hidden).float(),
+    first = _sample_step(generator, qwen2.logits(params["llm"], cfg.llm, last_hidden,
+                                                 specs=llm_specs).float(),
                          temperature, top_k, None if noise is None else noise[0])
     valid = torch.cat([pos < prompt_len[:, None],
                        torch.zeros((b, max_new_tokens), dtype=torch.bool, device=dev)], dim=1)
     return _decode_loop(params, cfg, generator, cache, valid, first, prompt_len,
-                        max_new_tokens, temperature, top_k, eot_token, noise)
+                        max_new_tokens, temperature, top_k, eot_token, noise, specs)
 
 
 def generate_text(
@@ -135,6 +143,7 @@ def generate_text(
     top_k: Optional[int] = None,
     eot_token: Optional[int] = None,
     quantized_cache: bool = False,
+    specs=None,
 ) -> torch.Tensor:
     """Plain causal text generation with the same cached decode loop."""
     prompt_len = prompt_len.to(device=input_ids.device, dtype=torch.long)
@@ -145,4 +154,4 @@ def generate_text(
     return mmu_generate(params, cfg, generator, input_ids=input_ids, meta_bits=meta,
                         prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                         temperature=temperature, top_k=top_k, eot_token=eot_token,
-                        quantized_cache=quantized_cache)
+                        quantized_cache=quantized_cache, specs=specs)

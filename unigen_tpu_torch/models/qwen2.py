@@ -63,9 +63,10 @@ through the quantized product raises ``NotImplementedError``: JAX's
 autodiff differentiates through its ``round`` (zero) and ``act_scale``, and
 matching that is open (ROADMAP Queue 1 item 17).
 
-Tensor and ZeRO-3 parallelism (``parallel/``): on a sharded tree (its
-tensors registered by ``parallel.collectives.register``) the forward reads
-each leaf's spec. Under column-sharded q/k/v the rank computes its own heads (local
+Tensor and ZeRO-3 parallelism (``parallel/``): a sharded tree runs with
+its spec tree (``specs=``, ``parallel.Sharding.tree``: shaped like the
+params, each leaf its spec or None), which every function here takes
+beside the params and reads. Under column-sharded q/k/v the rank computes its own heads (local
 heads = local q rows / ``head_dim``): the hidden states enter through
 ``copy_to_model``, kernels 1 and 2 run unchanged on the local heads, and o
 and down leave through ``reduce_from_model``, a row-parallel bias added
@@ -77,7 +78,11 @@ the vocabulary (``project``). Leaves sharded on ``fsdp`` are gathered at
 use: a layer's at the top of ``_layer``, so that ``remat`` gathers them
 again in the backward. RMSNorm, RoPE and the residual stream stay
 replicated. The KV cache holds the local KV heads (``local_kv_heads``),
-int8 or not.
+int8 or not. Without specs the tree must be whole: ``forward`` and
+``logits`` check the local shapes against the config (layer 0's
+projections and norms, ``final_ln``, the embedding; the head) and raise a
+``ValueError`` naming the leaf, where a sharded tree would otherwise fail
+on a reshape or return a rank's partial sum.
 
 Quantized and LoRA layers under tensor parallelism (``parallel/partition``
 lays their leaves out): a column-split W8A8 / W4A8 q/k/v or gate/up runs
@@ -348,7 +353,7 @@ def _dense(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return _lora(p, name, x, y)
 
 
-def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
+def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor, sp: Optional[Dict]):
     """Projections of one input: in a quantized layer the input is quantized
     once for all of them, as the JAX package does."""
     for name in names:
@@ -360,25 +365,29 @@ def _dense_shared(p: Dict, names: Tuple[str, ...], x: torch.Tensor):
             p[n], x8, xs, x.dtype), x) for n in names]
     else:
         ys = [F.linear(x, p[f"{n}_w"], p.get(f"{n}_b")) for n in names]
-    return [_lora(p, n, x, y, _split(p, n) == "column") for n, y in zip(names, ys)]
+    return [_lora(p, n, x, y, _split(p, n, sp) == "column") for n, y in zip(names, ys)]
 
 
-def _node_weight(node: Dict) -> torch.Tensor:
-    """A W8A8 / W4A8 node's ``kernel_int8`` or ``kernel_int4``."""
-    return node.get("kernel_int8", node.get("kernel_int4"))
+def _node_spec(node: Optional[Dict]):
+    """The spec of a W8A8 / W4A8 node's ``kernel_int8`` or ``kernel_int4``
+    (None: the node is whole)."""
+    if node is None:
+        return None
+    return node["kernel_int8"] if "kernel_int8" in node else node.get("kernel_int4")
 
 
-def _weight(p: Dict, name: str) -> Optional[torch.Tensor]:
-    """The leaf whose spec says how projection ``name`` is split: ``<name>_w``,
-    or its node's weight."""
-    leaf = p.get(name)
-    return _node_weight(leaf) if isinstance(leaf, dict) else p.get(f"{name}_w")
+def _weight_spec(p: Dict, name: str, sp: Optional[Dict]):
+    """The spec that says how projection ``name`` is split: ``<name>_w``'s,
+    or its node's weight's."""
+    if isinstance(p.get(name), dict):
+        return _node_spec(C.sub(sp, name))
+    return C.sub(sp, f"{name}_w")
 
 
-def _split(p: Dict, name: str) -> Optional[str]:
+def _split(p: Dict, name: str, sp: Optional[Dict]) -> Optional[str]:
     """"column" or "row" when projection ``name`` is split on ``model``
     (a W4A8 node's packed weight is [K/2, N], the others [N, K]), else None."""
-    d = C.model_dim(_weight(p, name))
+    d = C.model_dim(_weight_spec(p, name, sp))
     if d is None:
         return None
     return "column" if (d == 1) == is_quantized_int4(p.get(name)) else "row"
@@ -394,6 +403,43 @@ def _out_features(p: Dict, name: str) -> int:
     return p[f"{name}_w"].shape[0]
 
 
+def _in_features(p: Dict, name: str) -> int:
+    """Projection ``name``'s (local) input features."""
+    leaf = p.get(name)
+    if is_quantized(leaf):
+        return leaf["kernel_int8"].shape[1]
+    if is_quantized_int4(leaf):
+        return 2 * leaf["kernel_int4"].shape[0]
+    return p[f"{name}_w"].shape[1]
+
+
+def _check_whole(params: Dict, cfg: Qwen2Config) -> None:
+    """Without specs the tree must be whole: layer 0's projections (output
+    and input features) and norms, ``final_ln`` and the embedding, against
+    the config."""
+    d, hd = cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim
+    kv, inter = cfg.num_key_value_heads * cfg.head_dim, cfg.intermediate_size
+    lp = params["layers"][0]
+    for name, (n_out, n_in) in (("q", (hd, d)), ("k", (kv, d)), ("v", (kv, d)), ("o", (d, hd)),
+                                ("gate", (inter, d)), ("up", (inter, d)), ("down", (d, inter))):
+        w = "" if isinstance(lp.get(name), dict) else "_w"
+        C.expect_whole("layers/0/{}{}'s output features", _out_features(lp, name), n_out, name, w)
+        C.expect_whole("layers/0/{}{}'s input features", _in_features(lp, name), n_in, name, w)
+    for name in ("input_ln", "post_ln"):
+        C.expect_whole("layers/0/{}'s size", lp[name].numel(), d, name)
+    C.expect_whole("final_ln's size", params["final_ln"].numel(), d)
+    _check_table(params, cfg, "embed")
+
+
+def _check_table(params: Dict, cfg: Qwen2Config, name: str) -> None:
+    """An embedding or head [V, D], or a quantized head's rows, whole."""
+    leaf = params[name]
+    if isinstance(leaf, dict):
+        C.expect_whole("{}'s rows", _out_features(params, name), cfg.vocab_size, name)
+        return
+    C.expect_whole("{}'s shape", tuple(leaf.shape), (cfg.vocab_size, cfg.hidden_size), name)
+
+
 def kv_heads_of_rank(h: int, kvh: int, h_loc: int, r: int) -> Union[slice, List[int]]:
     """The KV heads that model rank ``r``'s query heads r*h_loc .. read: a
     slice when they are a contiguous GQA group of the local heads, else one
@@ -406,21 +452,23 @@ def kv_heads_of_rank(h: int, kvh: int, h_loc: int, r: int) -> Union[slice, List[
     return idx
 
 
-def _tp_heads(p: Dict, cfg: Qwen2Config):
+def _tp_heads(p: Dict, cfg: Qwen2Config, sp: Optional[Dict]):
     """(local query heads, KV heads to take from a whole k/v or None) of a
-    layer's bound leaves; (all heads, None) without tensor parallelism."""
+    layer under its specs ``sp``; (all heads, None) without tensor
+    parallelism."""
     h, dh = cfg.num_attention_heads, cfg.head_dim
-    if _split(p, "q") is None:
+    if _split(p, "q", sp) is None:
         return h, None
     h_loc = _out_features(p, "q") // dh
-    if _split(p, "k") is not None:
+    if _split(p, "k", sp) is not None:
         return h_loc, None
     return h_loc, kv_heads_of_rank(h, cfg.num_key_value_heads, h_loc, C.model_index())
 
 
-def local_kv_heads(params: Dict, cfg: Qwen2Config) -> int:
-    """The KV heads this rank's cache holds (all of them on a whole tree)."""
-    h_loc, sel = _tp_heads(params["layers"][0], cfg)
+def local_kv_heads(params: Dict, cfg: Qwen2Config, specs: Optional[Dict] = None) -> int:
+    """The KV heads this rank's cache holds under ``specs`` (all of them on
+    a whole tree)."""
+    h_loc, sel = _tp_heads(params["layers"][0], cfg, C.sub(specs, "layers", 0))
     if sel is None:
         return cfg.num_key_value_heads * h_loc // cfg.num_attention_heads
     return sel.stop - sel.start if isinstance(sel, slice) else len(sel)
@@ -456,17 +504,17 @@ def _attention_block(p: Dict, cfg: Qwen2Config, x: torch.Tensor,
                      meta_bits: Optional[torch.Tensor],
                      kv_rowmask: Optional[torch.Tensor],
                      where: Union[int, RowSlots, None],
-                     q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     q_start: Optional[torch.Tensor], sp: Optional[Dict]) -> torch.Tensor:
     b, l, _ = x.shape
     dh = cfg.head_dim
-    h, kv_sel = _tp_heads(p, cfg)
+    h, kv_sel = _tp_heads(p, cfg, sp)
     tp = h < cfg.num_attention_heads
     if tp:
         x = C.copy_to_model(x)
     if kv_sel is not None:
         # whole k/v, each rank on its own heads: their gradients are summed over model
         p = {**p, **{n: C.copy_to_model(p[n]) for n in _KV_WHOLE if n in p}}
-    q, k, v = _dense_shared(p, ("q", "k", "v"), x)
+    q, k, v = _dense_shared(p, ("q", "k", "v"), x, sp)
     q = q.view(b, l, h, dh)
     k = k.view(b, l, -1, dh)
     v = v.view(b, l, -1, dh)
@@ -510,19 +558,19 @@ _KV_WHOLE = ("k_w", "k_b", "v_w", "v_b") + tuple(f"{n}_lora_{s}" for n in "kv"
                                                   for s in ("a", "b", "scale"))
 
 
-def _mlp_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    tp = _split(p, "gate") is not None
+def _mlp_block(p: Dict, x: torch.Tensor, sp: Optional[Dict]) -> torch.Tensor:
+    tp = _split(p, "gate", sp) is not None
     if tp:
         x = C.copy_to_model(x)
-    gate, up = _dense_shared(p, ("gate", "up"), x)
+    gate, up = _dense_shared(p, ("gate", "up"), x, sp)
     return _dense_row(p, "down", F.silu(gate) * up, tp)
 
 
-def embed(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
+def embed(params: Dict, input_ids: torch.Tensor, specs: Optional[Dict] = None) -> torch.Tensor:
     """Token embeddings; a vocab-sharded table looks up the ids in its rows
     (zeros elsewhere) and the ranks' rows are summed over ``model``."""
-    w = C.gather_fsdp(params["embed"])
-    if C.model_dim(w) != 0:
+    w, spec = C.gather_fsdp(params["embed"], C.sub(specs, "embed"))
+    if C.model_dim(spec) != 0:
         return F.embedding(input_ids, w)
     vl = w.shape[0]
     local = input_ids - C.model_index() * vl
@@ -532,12 +580,12 @@ def embed(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(lp: Dict, cfg: Qwen2Config, x: torch.Tensor, mask, cos_sin, cache, li: int,
-           meta_bits, kv_rowmask, where, q_start) -> torch.Tensor:
-    lp = C.gather_tree(lp)
+           meta_bits, kv_rowmask, where, q_start, sp: Optional[Dict]) -> torch.Tensor:
+    lp, sp = C.gather_tree(lp, sp)
     hn = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
     x = x + _attention_block(lp, cfg, hn, mask, cos_sin, cache, li, meta_bits,
-                             kv_rowmask, where, q_start)
-    return x + _mlp_block(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+                             kv_rowmask, where, q_start, sp)
+    return x + _mlp_block(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps), sp)
 
 
 def forward(
@@ -552,6 +600,7 @@ def forward(
     cache: Optional[KVCache] = None,
     kv_rowmask: Optional[torch.Tensor] = None,   # [B, S] key visibility (chunk kernel)
     remat: bool = False,
+    specs: Optional[Dict] = None,                # the tree's specs (module docstring)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (hidden states [B, L, D], advanced cache or None).
 
@@ -561,11 +610,14 @@ def forward(
     chunk attends to itself (the prefill). With none of ``mask``,
     ``meta_bits`` and ``kv_rowmask`` the mask is JAX's default (module
     docstring). ``remat`` checkpoints each layer of a cache-free call.
+    ``specs`` None: the tree is whole, and checked so.
     """
     if remat and cache is not None:
         raise ValueError("remat is for the cache-free (training) forward")
+    if specs is None:
+        _check_whole(params, cfg)
     if inputs_embeds is None:
-        inputs_embeds = embed(params, input_ids)
+        inputs_embeds = embed(params, input_ids, specs)
     x = inputs_embeds.to(cfg.dtype)
     b, l, _ = x.shape
     start = cache.index if cache is not None else 0
@@ -598,43 +650,52 @@ def forward(
     cos_sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor)
     where = row_slots(start, l, cache.k.shape[2]) if per_row else start
     for li, lp in enumerate(params["layers"]):
-        args = (lp, cfg, x, mask, cos_sin, cache, li, meta_bits, kv_rowmask, where, q_start)
+        args = (lp, cfg, x, mask, cos_sin, cache, li, meta_bits, kv_rowmask, where, q_start,
+                C.sub(specs, "layers", li))
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
-    x = rms_norm(x, C.gather_fsdp(params["final_ln"]), cfg.rms_norm_eps)
+    x = rms_norm(x, C.gather_fsdp(params["final_ln"], C.sub(specs, "final_ln"))[0],
+                 cfg.rms_norm_eps)
     new_cache = None if cache is None else cache._replace(index=start + l)
     return x, new_cache
 
 
-def lm_head_weight(params: Dict, cfg: Qwen2Config) -> torch.Tensor:
-    """[V, D] output projection (the embedding unless the head is untied),
-    gathered over ``fsdp``; on a sharded tree it may be vocab-sharded
-    (``project``)."""
-    if cfg.tie_word_embeddings and "lm_head" not in params:
-        return C.gather_fsdp(params["embed"])
-    return C.gather_fsdp(params["lm_head"])
+def _head_name(params: Dict, cfg: Qwen2Config) -> str:
+    return "embed" if cfg.tie_word_embeddings and "lm_head" not in params else "lm_head"
 
 
-def project(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def lm_head(params: Dict, cfg: Qwen2Config, specs: Optional[Dict] = None):
+    """(the [V, D] output projection, the embedding unless the head is
+    untied, gathered over ``fsdp``; its spec left: vocab-sharded on a
+    tensor-parallel tree, for ``project``, or None). ``specs`` None: the
+    head is checked whole."""
+    name = _head_name(params, cfg)
+    if specs is None:
+        _check_table(params, cfg, name)
+    return C.gather_fsdp(params[name], C.sub(specs, name))
+
+
+def project(hidden: torch.Tensor, w: torch.Tensor, spec=None) -> torch.Tensor:
     """``hidden @ w.T`` in hidden's dtype over all of w's rows: a weight
-    sharded on its rows (a vocab- or code-parallel head) gives this rank's
-    columns of the logits, gathered over ``model``."""
-    if C.model_dim(w) != 0:
+    whose ``spec`` shards its rows (a vocab- or code-parallel head) gives
+    this rank's columns of the logits, gathered over ``model``."""
+    if C.model_dim(spec) != 0:
         return F.linear(hidden, w.to(hidden.dtype))
     return C.gather_last(F.linear(C.copy_to_model(hidden), w.to(hidden.dtype)))
 
 
-def dense_head(p: Dict, hidden: torch.Tensor) -> torch.Tensor:
+def dense_head(p: Dict, hidden: torch.Tensor, sp: Optional[Dict] = None) -> torch.Tensor:
     """A quantized head's (W8A8 or W4A8) product over all its rows: a node
-    split on its codes or vocabulary gives this rank's columns, gathered
-    over ``model``."""
+    whose specs ``sp`` split it on its codes or vocabulary gives this rank's
+    columns, gathered over ``model``."""
     y = (dense_int8 if is_quantized(p) else dense_int4)(p, hidden)
-    if C.model_dim(_node_weight(p)) is None:
+    if C.model_dim(_node_spec(sp)) is None:
         return y
     return C.gather_last(y)
 
 
 def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
-           vocab_slice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+           vocab_slice: Optional[Tuple[int, int]] = None,
+           specs: Optional[Dict] = None) -> torch.Tensor:
     """Project hidden states to (a slice of) the vocabulary, in hidden.dtype.
 
     A quantized head (``lm_head_q``, W8A8 or W4A8) is used when present;
@@ -645,12 +706,14 @@ def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
     which stay contiguous because the packing runs along K. The float head
     slices the [V, D] weight's rows. A quantized head split on ``model``
     gives the gathered logits, then the slice, as a vocab-sharded float
-    head does.
+    head does. ``specs`` None: the head is checked whole.
     """
     if "lm_head_q" in params:
-        p = params["lm_head_q"]
-        if C.model_dim(_node_weight(p)) is not None:
-            y = dense_head(p, hidden)
+        if specs is None:
+            _check_table(params, cfg, "lm_head_q")
+        p, sp = params["lm_head_q"], C.sub(specs, "lm_head_q")
+        if C.model_dim(_node_spec(sp)) is not None:
+            y = dense_head(p, hidden, sp)
             return y if vocab_slice is None else y[..., vocab_slice[0]:vocab_slice[1]]
         if is_quantized(p):
             if vocab_slice is not None:
@@ -662,12 +725,12 @@ def logits(params: Dict, cfg: Qwen2Config, hidden: torch.Tensor,
             p = {"kernel_int4": p["kernel_int4"][:, a:b], "scale4": p["scale4"][:, a:b],
                  "bias": p["bias"][a:b]}
         return dense_int4(p, hidden)
-    w = lm_head_weight(params, cfg)
+    w, spec = lm_head(params, cfg, specs)
     if vocab_slice is not None:
-        if C.model_dim(w) is not None:
-            return project(hidden, w)[..., vocab_slice[0]:vocab_slice[1]]
+        if C.model_dim(spec) is not None:
+            return project(hidden, w, spec)[..., vocab_slice[0]:vocab_slice[1]]
         w = w[vocab_slice[0]:vocab_slice[1]]
-    return project(hidden, w)
+    return project(hidden, w, spec)
 
 
 # ---------------------------------------------------------------------------

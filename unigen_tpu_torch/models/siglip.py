@@ -25,12 +25,16 @@ q/k/v and fc1, row-parallel o and fc2) a rank runs its own heads (16 of 72
 become 8 a rank at ``model=2``, padded to 80 for kernel 2 as before): the
 input enters through ``copy_to_model``, o and fc2 leave through
 ``reduce_from_model`` with their biases added after the reduce, and fsdp
-shards are gathered at the top of each layer.
+shards are gathered at the top of each layer. The tree's spec tree comes
+beside it (``specs=``, ``parallel.Sharding.tree``); without one the tree
+must be whole, and the forward checks each local shape it reads against
+the config (the patch embedding, the position table, layer 0's
+projections and norms), raising a ``ValueError`` that names the leaf.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -111,15 +115,34 @@ def _dense_row(p: Dict, name: str, x: torch.Tensor, tp: bool) -> torch.Tensor:
     return C.reduce_from_model(F.linear(x, p[f"{name}_w"])) + p[f"{name}_b"]
 
 
+def check_layers(layers, cfg) -> None:
+    """Layer 0 of a tower without specs is whole: its projections' output
+    and input features and its norms against the config (SigLIP's and
+    SigLIP2's)."""
+    d, inter = cfg.hidden_size, cfg.intermediate_size
+    p = layers[0]
+    for name, (n_out, n_in) in (("q", (d, d)), ("k", (d, d)), ("v", (d, d)), ("o", (d, d)),
+                                ("fc1", (inter, d)), ("fc2", (d, inter))):
+        if is_quantized(p.get(name)):
+            shape = (p[name]["scale"].shape[0], p[name]["kernel_int8"].shape[1])
+            C.expect_whole("layers/0/{}'s output and input features", shape, (n_out, n_in), name)
+        else:
+            C.expect_whole("layers/0/{}_w's shape", tuple(p[f"{name}_w"].shape), (n_out, n_in),
+                           name)
+    for name in ("ln1", "ln2"):
+        C.expect_whole("layers/0/{}/scale's size", p[name]["scale"].numel(), d, name)
+
+
 def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
-                   attend=_bidir_attention) -> torch.Tensor:
-    """One pre-LN layer; ``attend(q, k, v, scale)`` on [B, L, H, dh] is its
-    attention (SigLIP2-NaFlex passes its key-masked one)."""
-    p = C.gather_tree(p)
+                   attend=_bidir_attention, sp: Optional[Dict] = None) -> torch.Tensor:
+    """One pre-LN layer under its specs ``sp``; ``attend(q, k, v, scale)``
+    on [B, L, H, dh] is its attention (SigLIP2-NaFlex passes its key-masked
+    one)."""
+    p, sp = C.gather_tree(p, sp)
     b, l, d = x.shape
     h = cfg.num_attention_heads
     dh = d // h
-    tp = C.model_dim(p.get("q_w")) is not None
+    tp = C.model_dim(C.sub(sp, "q_w")) is not None
     if tp:
         h = p["q_w"].shape[0] // dh
     res = x
@@ -137,7 +160,7 @@ def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
     x = res + _dense_row(p, "o", attn, tp)
     res = x
     x = layer_norm(p["ln2"], x, cfg.layer_norm_eps)
-    tp_mlp = C.model_dim(p.get("fc1_w")) is not None
+    tp_mlp = C.model_dim(C.sub(sp, "fc1_w")) is not None
     if tp_mlp:
         x = C.copy_to_model(x)
     x = F.gelu(_dense(p, "fc1", x), approximate="tanh")
@@ -145,16 +168,25 @@ def _encoder_layer(p: Dict, cfg: SiglipConfig, x: torch.Tensor,
 
 
 @torch.no_grad()
-def forward(params: Dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """pixels [B, H, W, 3] (normalized to [-1, 1]) -> patch features [B, P, D]."""
-    pe = C.gather_tree(params["patch_embed"])
+def forward(params: Dict, cfg: SiglipConfig, pixel_values: torch.Tensor,
+            specs: Optional[Dict] = None) -> torch.Tensor:
+    """pixels [B, H, W, 3] (normalized to [-1, 1]) -> patch features [B, P, D].
+    ``specs`` None: the tower is whole, and checked so."""
+    if specs is None:
+        p, d = cfg.patch_size, cfg.hidden_size
+        C.expect_whole("patch_embed/kernel's shape", tuple(params["patch_embed"]["kernel"].shape),
+                (p, p, cfg.num_channels, d))
+        C.expect_whole("pos_embed's shape", tuple(params["pos_embed"].shape), (cfg.num_patches, d))
+        check_layers(params["layers"], cfg)
+    pe, _ = C.gather_tree(params["patch_embed"], C.sub(specs, "patch_embed"))
     w = pe["kernel"].to(cfg.dtype).permute(3, 2, 0, 1)   # HWIO -> OIHW
     x = F.conv2d(pixel_values.to(cfg.dtype).permute(0, 3, 1, 2), w, stride=cfg.patch_size)
     x = x.permute(0, 2, 3, 1) + pe["bias"].to(cfg.dtype)
     b, gh, gw, d = x.shape
-    x = x.reshape(b, gh * gw, d) + C.gather_fsdp(params["pos_embed"]).to(cfg.dtype)[None]
-    for lp in params["layers"]:
-        x = _encoder_layer(lp, cfg, x)
+    pos = C.gather_fsdp(params["pos_embed"], C.sub(specs, "pos_embed"))[0]
+    x = x.reshape(b, gh * gw, d) + pos.to(cfg.dtype)[None]
+    for i, lp in enumerate(params["layers"]):
+        x = _encoder_layer(lp, cfg, x, sp=C.sub(specs, "layers", i))
     return x
 
 

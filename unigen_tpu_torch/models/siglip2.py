@@ -18,11 +18,13 @@ to 80 with the real ``72 ** -0.5`` scale, as the SigLIP tower pads it.
 
 Parameters are a dict: ``patch_embed`` {w [D, 3 p p], b [D]}, ``pos_embed``
 [num_patches, D] and one dict per layer in ``models/siglip.py``'s layout.
+A sharded tower runs with its spec tree (``specs=``), a whole one without,
+checked as ``models/siglip.py`` checks its tower.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ from ..ops.chunk_attention import chunk_attention
 from ..ops.flash_attention import kernel_head_dim
 from ..parallel import collectives as C
 from ..utils.persistence import take
-from .siglip import _encoder_layer, hf_encoder_layers
+from .siglip import _encoder_layer, check_layers, hf_encoder_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,37 +118,49 @@ def _key_masked_attention(kvalid: torch.Tensor):
 
 
 def encoder_forward(params: Dict, cfg: Siglip2Config, embeddings: torch.Tensor,
-                    pixel_attention_mask: torch.Tensor) -> torch.Tensor:
+                    pixel_attention_mask: torch.Tensor, specs: Optional[Dict] = None
+                    ) -> torch.Tensor:
     """The pre-LN layers over [B, N, D] with padded keys masked; pad query
     rows are computed too."""
+    if specs is None:
+        check_layers(params["layers"], cfg)
     attend = _key_masked_attention(pixel_attention_mask.to(embeddings.device).bool()
                                    .contiguous())
     x = embeddings
-    for lp in params["layers"]:
-        x = _encoder_layer(lp, cfg, x, attend)
+    for i, lp in enumerate(params["layers"]):
+        x = _encoder_layer(lp, cfg, x, attend, C.sub(specs, "layers", i))
     return x
 
 
 @torch.no_grad()
 def forward_with_pos(params: Dict, cfg: Siglip2Config, pixel_values: torch.Tensor,
-                     pixel_attention_mask: torch.Tensor,
-                     pos_embeds: torch.Tensor) -> torch.Tensor:
+                     pixel_attention_mask: torch.Tensor, pos_embeds: torch.Tensor,
+                     specs: Optional[Dict] = None) -> torch.Tensor:
     """pixel_values [B, N, 3 p p] and pre-resized ``pos_embeds`` [B, N, D]
     -> features [B, N, D] (the NaFlex SFT step resizes once a batch)."""
-    pe = C.gather_tree(params["patch_embed"])
+    if specs is None:
+        C.expect_whole("patch_embed/w's shape", tuple(params["patch_embed"]["w"].shape),
+                (cfg.hidden_size, cfg.patch_dim))
+    pe, _ = C.gather_tree(params["patch_embed"], C.sub(specs, "patch_embed"))
     x = F.linear(pixel_values.to(cfg.dtype), pe["w"].to(cfg.dtype), pe["b"].to(cfg.dtype))
     x = x + pos_embeds.to(cfg.dtype)
-    return encoder_forward(params, cfg, x, pixel_attention_mask)
+    return encoder_forward(params, cfg, x, pixel_attention_mask, specs)
 
 
 @torch.no_grad()
 def forward(params: Dict, cfg: Siglip2Config, pixel_values: torch.Tensor,
-            pixel_attention_mask: torch.Tensor, spatial_shapes) -> torch.Tensor:
+            pixel_attention_mask: torch.Tensor, spatial_shapes,
+            specs: Optional[Dict] = None) -> torch.Tensor:
     """pixel_values [B, N, 3 p p] (normalized to [-1, 1]), the patch mask
-    [B, N] and each image's (h, w) in patches [B, 2] -> features [B, N, D]."""
-    pos = resize_positional_embeddings(C.gather_fsdp(params["pos_embed"]), spatial_shapes,
-                                       pixel_values.shape[1])
-    return forward_with_pos(params, cfg, pixel_values, pixel_attention_mask, pos)
+    [B, N] and each image's (h, w) in patches [B, 2] -> features [B, N, D].
+    ``specs`` None: the tower is whole, and checked so."""
+    if specs is None:
+        C.expect_whole("pos_embed's shape", tuple(params["pos_embed"].shape),
+                (cfg.num_patches, cfg.hidden_size))
+    pos = resize_positional_embeddings(
+        C.gather_fsdp(params["pos_embed"], C.sub(specs, "pos_embed"))[0], spatial_shapes,
+        pixel_values.shape[1])
+    return forward_with_pos(params, cfg, pixel_values, pixel_attention_mask, pos, specs)
 
 
 def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: Siglip2Config,

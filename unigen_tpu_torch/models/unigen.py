@@ -19,7 +19,9 @@ the port's parameters):
 Under ``parallel/``: ``img_head`` is column-parallel over the codes and its
 logits are gathered before the CE and the samplers (``qwen2.project``), as
 are the vocab-parallel text head's; the projectors and ``gen_embed``
-replicate (gathered at use when fsdp shards them). Inside a sharded step
+replicate (gathered at use when fsdp shards them). Every function here
+takes the tree's spec tree as ``specs`` (``parallel.Sharding.tree``; None
+for a whole tree) and hands each model its subtree. Inside a sharded step
 (``collectives.batch_sharded``) each CE's valid count is summed over the
 batch group before the division, so a rank's loss is its share of the
 global mean.
@@ -83,28 +85,35 @@ class UniGenConfig:
                    text_vocab_len=text_len, codebook_size=codebook, **defaults)
 
 
-def mlp_apply(layers: List[Dict], x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(layers: List[Dict], x: torch.Tensor, specs: Optional[List] = None
+              ) -> torch.Tensor:
     """Linear -> (GELU -> Linear)*; layers hold {"w": [out, in], "b": [out]}."""
     for i, p in enumerate(layers):
         if i > 0:
             x = F.gelu(x, approximate="none")
-        x = F.linear(x, C.gather_fsdp(p["w"]).to(x.dtype), C.gather_fsdp(p["b"]).to(x.dtype))
+        sp = C.sub(specs, i)
+        w, b = (C.gather_fsdp(p[k], C.sub(sp, k))[0] for k in ("w", "b"))
+        x = F.linear(x, w.to(x.dtype), b.to(x.dtype))
     return x
 
 
-def get_gen_embed(params: Dict, img_tokens: torch.Tensor) -> torch.Tensor:
+def get_gen_embed(params: Dict, img_tokens: torch.Tensor, specs: Optional[Dict] = None
+                  ) -> torch.Tensor:
     """(codebook+1)-space image tokens -> LLM hidden embeddings."""
-    return mlp_apply(params["gen_projector"],
-                     F.embedding(img_tokens, C.gather_fsdp(params["gen_embed"])))
+    table = C.gather_fsdp(params["gen_embed"], C.sub(specs, "gen_embed"))[0]
+    return mlp_apply(params["gen_projector"], F.embedding(img_tokens, table),
+                     C.sub(specs, "gen_projector"))
 
 
-def mm_project(params: Dict, image_feats: torch.Tensor) -> torch.Tensor:
+def mm_project(params: Dict, image_feats: torch.Tensor, specs: Optional[Dict] = None
+               ) -> torch.Tensor:
     """Vision-tower features [B, P, mm_input_dim] -> [B, P, hidden]."""
-    return mlp_apply(params["mm_projector"], image_feats)
+    return mlp_apply(params["mm_projector"], image_feats, C.sub(specs, "mm_projector"))
 
 
-def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return qwen2.embed(params["llm"], input_ids)
+def embed_tokens(params: Dict, input_ids: torch.Tensor, specs: Optional[Dict] = None
+                 ) -> torch.Tensor:
+    return qwen2.embed(params["llm"], input_ids, C.sub(specs, "llm"))
 
 
 def _splice_t2i_block(embeds: torch.Tensor, img: torch.Tensor, n: int) -> torch.Tensor:
@@ -115,14 +124,15 @@ def _splice_t2i_block(embeds: torch.Tensor, img: torch.Tensor, n: int) -> torch.
     return torch.cat([rows, embeds[bt:]], dim=0)
 
 
-def prepare_inputs_for_t2i(params: Dict, cfg: UniGenConfig,
-                           input_ids: torch.Tensor) -> torch.Tensor:
+def prepare_inputs_for_t2i(params: Dict, cfg: UniGenConfig, input_ids: torch.Tensor,
+                           specs: Optional[Dict] = None) -> torch.Tensor:
     """Token embeddings with the trailing image block routed through the gen
     projector when there is one."""
-    embeds = embed_tokens(params, input_ids)
+    embeds = embed_tokens(params, input_ids, specs)
     if cfg.use_gen_projector:
         n = cfg.num_vq_tokens
-        embeds = _splice_t2i_block(embeds, get_gen_embed(params, input_ids[:, -(n + 1):-1]), n)
+        embeds = _splice_t2i_block(
+            embeds, get_gen_embed(params, input_ids[:, -(n + 1):-1], specs), n)
     return embeds
 
 
@@ -139,8 +149,8 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_label_logps(h_c: torch.Tensor, w: torch.Tensor, lab_c: torch.Tensor,
-                       ignore_id: int, per_row: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = qwen2.project(h_c, w).float()
+                       ignore_id: int, per_row: bool, spec) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = qwen2.project(h_c, w, spec).float()
     valid = lab_c != ignore_id
     safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
     tok = torch.gather(torch.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
@@ -151,27 +161,29 @@ def _chunk_label_logps(h_c: torch.Tensor, w: torch.Tensor, lab_c: torch.Tensor,
 
 
 def _chunked_label_logps(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
-                         ignore_id: int = -100, chunk: int = 64, per_row: bool = False
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         ignore_id: int = -100, chunk: int = 64, per_row: bool = False,
+                         spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of label log-probs, valid count) projecting hidden [B, L, D]
-    through ``w`` [V, D] chunk by chunk along the sequence, each chunk
-    recomputed in the backward; scalar totals, or [B] with ``per_row``."""
+    through ``w`` [V, D] (of spec ``spec``: ``qwen2.project``) chunk by
+    chunk along the sequence, each chunk recomputed in the backward; scalar
+    totals, or [B] with ``per_row``."""
     b, l, _ = hidden.shape
     shape = (b,) if per_row else ()
     total = torch.zeros(shape, dtype=torch.float32, device=hidden.device)
     count = torch.zeros(shape, dtype=torch.int32, device=hidden.device)
     for s in range(0, l, chunk):
         t, c = checkpoint(_chunk_label_logps, hidden[:, s:s + chunk], w,
-                          labels[:, s:s + chunk], ignore_id, per_row, use_reentrant=False)
+                          labels[:, s:s + chunk], ignore_id, per_row, spec, use_reentrant=False)
         total = total + t
         count = count + c
     return total, count
 
 
 def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-                ignore_id: int = -100, chunk: int = 64) -> torch.Tensor:
+                ignore_id: int = -100, chunk: int = 64, spec=None) -> torch.Tensor:
     """Mean CE over non-ignored positions, chunked (== ``_cross_entropy``)."""
-    total, count = _chunked_label_logps(hidden, w, labels, ignore_id=ignore_id, chunk=chunk)
+    total, count = _chunked_label_logps(hidden, w, labels, ignore_id=ignore_id, chunk=chunk,
+                                        spec=spec)
     return -total / torch.clamp(C.batch_sum(count), min=1)
 
 
@@ -192,6 +204,7 @@ def forward(
     memory_efficient_loss: bool = False,
     return_hidden: bool = False,
     positions: Optional[torch.Tensor] = None,        # [B, L] RoPE positions
+    specs: Optional[Dict] = None,                    # the tree's specs (None: whole)
 ):
     """Unified forward. Without labels: the logits (the image logits when the
     gen projector is active and the batch is t2i). With labels: (logits,
@@ -201,44 +214,48 @@ def forward(
     states."""
     n = cfg.num_vq_tokens
     use_gen = cfg.use_gen_projector and batch_size_t2i > 0
+    llm_specs = C.sub(specs, "llm")
     if input_embeddings is None:
-        input_embeddings = embed_tokens(params, input_ids)
+        input_embeddings = qwen2.embed(params["llm"], input_ids, llm_specs)
         if use_gen:
             # only the t2i rows' image block goes through the gen projector
-            img = get_gen_embed(params, input_ids[:batch_size_t2i, -(n + 1):-1])
+            img = get_gen_embed(params, input_ids[:batch_size_t2i, -(n + 1):-1], specs)
             input_embeddings = _splice_t2i_block(input_embeddings, img, n)
 
     hidden, _ = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=input_embeddings,
                               mask=attention_mask, meta_bits=meta_bits, remat=remat,
-                              positions=positions)
+                              positions=positions, specs=llm_specs)
     if return_hidden:
         return hidden
     bt, bl, bm = batch_size_t2i, batch_size_lm, batch_size_mmu
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
 
     if memory_efficient_loss and labels is not None and not use_gen:
-        w = qwen2.lm_head_weight(params["llm"], cfg.llm)
+        w, spec = qwen2.lm_head(params["llm"], cfg.llm, llm_specs)
         loss_t2i = loss_lm = loss_mmu = zero
         if bt > 0:
             if t2i_mode == "mask":
-                loss_t2i = _chunked_ce(hidden[:bt, -(n + 1):-1], w, labels[:bt, -(n + 1):-1])
+                loss_t2i = _chunked_ce(hidden[:bt, -(n + 1):-1], w, labels[:bt, -(n + 1):-1],
+                                       spec=spec)
             else:
-                loss_t2i = _chunked_ce(hidden[:bt, -(n + 2):-1], w, labels[:bt, -(n + 1):])
+                loss_t2i = _chunked_ce(hidden[:bt, -(n + 2):-1], w, labels[:bt, -(n + 1):],
+                                       spec=spec)
         if bl > 0:
-            loss_lm = _chunked_ce(hidden[bt:bt + bl, :-1], w, labels[bt:bt + bl, 1:])
+            loss_lm = _chunked_ce(hidden[bt:bt + bl, :-1], w, labels[bt:bt + bl, 1:], spec=spec)
         if bm > 0:
-            loss_mmu = _chunked_ce(hidden[-bm:, :-1], w, labels[-bm:, 1:])
+            loss_mmu = _chunked_ce(hidden[-bm:, :-1], w, labels[-bm:, 1:], spec=spec)
         return None, loss_t2i, loss_lm, loss_mmu
 
     if use_gen:
-        img_logits = qwen2.project(hidden[:bt], C.gather_fsdp(params["img_head"]))
+        img_logits = qwen2.project(hidden[:bt], *C.gather_fsdp(params["img_head"],
+                                                               C.sub(specs, "img_head")))
         if labels is None:
             return img_logits
-        logits = qwen2.logits(params["llm"], cfg.llm, hidden[bt:])
+        logits = qwen2.logits(params["llm"], cfg.llm, hidden[bt:], specs=llm_specs)
         lm_start = 0
     else:
         img_logits = None
-        logits = qwen2.logits(params["llm"], cfg.llm, hidden)
+        logits = qwen2.logits(params["llm"], cfg.llm, hidden, specs=llm_specs)
         if labels is None:
             return logits
         lm_start = bt

@@ -302,5 +302,5 @@ def quantize_unigen_params_int4(params: Dict, cfg=None, lm_head: bool = True,
     out["llm"] = quantize_qwen2_params_int4(params["llm"], group)
     if lm_head and cfg is not None:
         out["llm"]["lm_head_q"] = quantize_dense_int4(
-            {"kernel": qwen2.lm_head_weight(params["llm"], cfg.llm).t()}, group)
+            {"kernel": qwen2.lm_head(params["llm"], cfg.llm)[0].t()}, group)
     return out

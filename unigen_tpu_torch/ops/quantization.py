@@ -333,7 +333,7 @@ def quantize_lm_head(llm_params: Dict, llm_cfg) -> Dict:
     ``models.qwen2.logits`` then uses."""
     from ..models import qwen2
     return dict(llm_params, lm_head_q=quantize_dense(
-        {"kernel": qwen2.lm_head_weight(llm_params, llm_cfg).t()}))
+        {"kernel": qwen2.lm_head(llm_params, llm_cfg)[0].t()}))
 
 
 def quantize_unigen_params(params: Dict, cfg=None, lm_head: bool = False) -> Dict:
@@ -350,7 +350,7 @@ def quantize_unigen_params(params: Dict, cfg=None, lm_head: bool = False) -> Dic
             head_w = params["img_head"]                                 # [CB, D]
         else:
             from ..models import qwen2
-            w = qwen2.lm_head_weight(params["llm"], cfg.llm)
+            w = qwen2.lm_head(params["llm"], cfg.llm)[0]
             head_w = w[cfg.text_vocab_len:cfg.text_vocab_len + cfg.codebook_size]
         out["img_head_q"] = quantize_dense({"kernel": head_w.t()})
     return out

@@ -20,13 +20,15 @@ quantized layer (no backward: ``models/qwen2.py`` refuses it) takes its
 rows' absmax as a MAX over ``model`` (``max_over_model``) and sums its
 int32 or fp32 partial products (``sum_over_model``).
 
-Which leaves are sharded, and how: ``register(sharding, tree)`` records
-the spec of every sharded tensor of a local tree (``partition.shard_params``
-does it for the shards it makes; ``init_train_state``, the checkpoint
-restore and ``UniGenPipeline.shard`` for the tensors they make), keyed by
-the tensor and dropped when it dies, so the models look a leaf's spec up
-(``spec_of``, ``model_dim``) without a second tree. An unregistered tensor
-is whole, and on it every function here is the identity.
+Which leaves are sharded, and how, travels beside the parameters: a spec
+tree shaped like the local tree (``partition.Sharding.tree``), each leaf
+its spec with the axes of one rank stripped, None where the leaf is whole.
+The forwards take the matching subtree (``sub``) as they take the
+parameters and read it (``model_dim``, ``gather_fsdp``, ``gather_tree``);
+a gathered leaf's remaining spec is returned beside it. No state here is
+keyed by a tensor: a copy of a shard, given its specs, runs as the shard.
+With no specs (None) every leaf is whole, and every function here is the
+identity on it.
 ``batch_sharded(mesh)`` marks the block in which each rank holds its rows
 of the global batch; only there do ``local_rows``, ``batch_sum`` and
 ``batch_mean`` act, and with no mesh (an unsharded state) they are the
@@ -42,8 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-import weakref
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,7 +53,6 @@ from .mesh import AXES, BATCH_AXES, Mesh, current_mesh, set_mesh
 
 Spec = Tuple[Optional[str], ...]
 
-_SPECS: Dict[int, Tuple[weakref.ref, Spec]] = {}
 _BATCH = [False]
 _TIMER: List[Optional[Dict[str, float]]] = [None]
 
@@ -212,63 +212,55 @@ def model_index() -> int:
 
 # ------------------------------------------------------------- leaf specs --
 
-def spec_of(t) -> Optional[Spec]:
-    """The bound spec of tensor ``t`` (None: whole, or not bound)."""
-    e = _SPECS.get(id(t))
-    if e is None or e[0]() is not t:
-        return None
-    return e[1]
+def sub(specs: Any, *keys) -> Any:
+    """The subtree of a spec tree at ``keys`` (dict keys or list indices);
+    None when ``specs`` is None (a whole tree) or holds no such key."""
+    for k in keys:
+        if specs is None:
+            return None
+        specs = specs.get(k) if isinstance(specs, dict) else specs[k]
+    return specs
 
 
-def _register(t: torch.Tensor, spec: Spec) -> None:
-    key = id(t)
-    _SPECS[key] = (weakref.ref(t, lambda _r, k=key: _SPECS.pop(k, None)), spec)
-
-
-def model_dim(t) -> Optional[int]:
-    """The dimension of ``t`` sharded on ``model``, or None."""
-    spec = spec_of(t)
+def model_dim(spec: Optional[Spec]) -> Optional[int]:
+    """The dimension that ``spec`` shards on ``model``, or None."""
     return spec.index(AXES.model) if spec is not None and AXES.model in spec else None
 
 
-def gather_fsdp(t):
-    """``t`` whole along its ``fsdp`` dimension (the all-gather at use, a
-    reduce-scatter of its gradient); any other tensor as it is. The result
-    keeps the leaf's ``model`` sharding in the binding."""
-    spec = spec_of(t)
-    group = current_mesh().group(AXES.fsdp) if spec is not None and AXES.fsdp in spec else None
-    if group is None:
-        return t
-    dim = spec.index(AXES.fsdp)
-    out = _GatherFsdp.apply(t, group, dim)
+def expect_whole(name: str, got, want, *args) -> None:
+    """Raise when a leaf's local size ``got`` is not the config's ``want``:
+    a forward given no specs takes its tree as whole. The leaf is named
+    ``name.format(*args)``, built only then (the check runs every forward)."""
+    if got != want:
+        raise ValueError(f"{name.format(*args)} is {got} here and {want} in the config: a "
+                         "sharded tree runs with its specs (specs=Sharding.tree(params))")
+
+
+def gather_fsdp(t: torch.Tensor, spec: Optional[Spec] = None
+                ) -> Tuple[torch.Tensor, Optional[Spec]]:
+    """(``t`` whole along its ``fsdp`` dimension, the spec left: its
+    ``model`` sharding or None): the all-gather at use, a reduce-scatter of
+    its gradient. A leaf not sharded on fsdp comes back as it is."""
+    if spec is None or AXES.fsdp not in spec:
+        return t, spec
+    group = current_mesh().group(AXES.fsdp)
+    if group is not None:
+        t = _GatherFsdp.apply(t, group, spec.index(AXES.fsdp))
     rest = tuple(None if a == AXES.fsdp else a for a in spec)
-    if any(a is not None for a in rest):
-        _register(out, rest)
-    return out
+    return t, (rest if any(a is not None for a in rest) else None)
 
 
-def gather_tree(tree: Dict) -> Dict:
+def gather_tree(tree: Dict, specs: Optional[Dict]) -> Tuple[Dict, Optional[Dict]]:
     """``gather_fsdp`` of every tensor of a dict of tensors and dicts (a
     layer's leaves, at the top of the layer: the remat recompute gathers
-    them again in the backward)."""
-    if not _SPECS:
-        return tree
-    return {k: gather_tree(v) if isinstance(v, dict) else gather_fsdp(v)
-            for k, v in tree.items()}
-
-
-def register(sharding, tree):
-    """Record the spec of every sharded tensor of the local ``tree`` under
-    ``sharding`` (a ``partition.Sharding``; None records nothing) for as
-    long as the tensor lives; returns ``tree``."""
-    if sharding is not None:
-        mesh = sharding.mesh
-        for t, spec in sharding.leaf_specs(tree):
-            # an axis of one rank shards nothing: the forward sees the leaf whole there
-            spec = tuple(a if a is not None and mesh.size(a) > 1 else None for a in spec)
-            if any(a is not None for a in spec):
-                _register(t, spec)
-    return tree
+    them again in the backward) and the specs left, shaped alike."""
+    if specs is None:
+        return tree, None
+    out, rest = {}, {}
+    for k, v in tree.items():
+        out[k], rest[k] = (gather_tree(v, specs.get(k)) if isinstance(v, dict)
+                           else gather_fsdp(v, specs.get(k)))
+    return out, rest
 
 
 # ------------------------------------------------------------ the batch --

@@ -53,7 +53,10 @@ of the quantized and LoRA leaves above being the third:
 
 ``shard_params`` returns a rank's local shards (contiguous fsdp and model
 slices) and a ``Sharding`` record of the specs and mesh; ``gather_params``
-is its inverse.
+is its inverse. The forwards read a leaf's layout from the spec tree
+``Sharding.tree(local)`` passed beside the parameters, never from the
+tensor: a clone, a deep copy, a ``torch.save`` / ``torch.load`` round trip
+or a cast of the shards runs with the same ``Sharding``.
 """
 from __future__ import annotations
 
@@ -306,11 +309,20 @@ class Sharding:
     # a W4A8 node repacked to split on whole groups: {path: its own group}
     groups: Dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def leaf_specs(self, tree: Any) -> List[Tuple[torch.Tensor, Spec]]:
-        return [(t, self.specs[p]) for p, t in named_leaves(tree)]
-
     def spec_list(self, tree: Any) -> List[Spec]:
         return [self.specs[p] for p, _ in named_leaves(tree)]
+
+    def tree(self, tree: Any) -> Any:
+        """The spec tree of the local ``tree`` (its params, or an EMA copy
+        of them): shaped like it, each leaf its spec with the axes of one
+        rank stripped, None where the leaf is whole here. The forwards take
+        it as ``specs``."""
+        def spec(path: str, _t) -> Optional[Spec]:
+            s = tuple(a if a is not None and _axis_size(self.mesh, a) > 1 else None
+                      for a in self.specs[path])
+            return s if any(a is not None for a in s) else None
+        return _map_units(tree, spec, lambda p, node: {
+            k: None if t is None else spec(f"{p}/{k}", t) for k, t in node.items()})
 
 
 def local_shard(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
@@ -378,7 +390,7 @@ def shard_params(params: Any, specs: Dict[str, Spec], mesh: Mesh) -> Tuple[Any, 
     sharding = Sharding(specs, mesh)
     local = _map_units(params, lambda p, t: local_shard(t, specs[p], mesh),
                        lambda p, node: _shard_unit(p, node, sharding))
-    return C.register(sharding, local), sharding
+    return local, sharding
 
 
 @torch.no_grad()

@@ -15,6 +15,8 @@ PIL images. With the SigLIP2-NaFlex tower (``models.siglip2``) each image is
 patchified at its own size, the batch padded to its longest and masked, as
 JAX's NaFlex branch does; ``pixels`` may then also be a list of [H, W, 3]
 images of several sizes, and the image tokens are the padded patch count.
+A sharded pipeline (``shard``) holds its ``Sharding`` and passes the spec
+tree (``specs``) beside the params to every forward.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from .weights import tree_to
 
 @torch.no_grad()
 def _generate_codes(params, cfg, ids, uncond_ids, generator, *, pad_id, guidance_scale,
-                    timesteps, temperature, mask_schedule, mode="mask", noise=None):
+                    timesteps, temperature, mask_schedule, mode="mask", noise=None,
+                    specs=None):
     """``t2i_generate`` on its prefix-cached path, which reads no dense omni
     mask, so none is built (JAX builds one and its jit drops it unread); or,
     with ``mode="ar"``, ``t2i_generate_ar`` with the non-pad tokens of the
@@ -47,16 +50,16 @@ def _generate_codes(params, cfg, ids, uncond_ids, generator, *, pad_id, guidance
         keep = torch.cat([ids, uncond_ids], dim=0) != pad_id
         return t2i_generate_ar(params, cfg, generator, ids, uncond_ids, keep,
                                guidance_scale=guidance_scale, temperature=temperature,
-                               noise=noise)
+                               noise=noise, specs=specs)
     return t2i_generate(params, cfg, generator, ids, None, uncond_input_ids=uncond_ids,
                         temperature=temperature, timesteps=timesteps,
                         guidance_scale=guidance_scale,
                         noise_schedule=S.get_mask_schedule(mask_schedule),
-                        pad_id=pad_id, noise=noise)
+                        pad_id=pad_id, noise=noise, specs=specs)
 
 
 @torch.no_grad()
-def _mmu_vit_score(params, cfg, part1, part2c, img_embeds, cont_mask, valid_len):
+def _mmu_vit_score(params, cfg, part1, part2c, img_embeds, cont_mask, valid_len, specs=None):
     """Sum of the log-likelihoods of ``part2c``'s continuation tokens
     (``cont_mask``) and whether each is the greedy choice: one cache-free
     forward through the flash kernel, pads at and beyond ``valid_len`` of
@@ -64,17 +67,20 @@ def _mmu_vit_score(params, cfg, part1, part2c, img_embeds, cont_mask, valid_len)
     fp32 ``log_softmax``. Pad query rows are never read: ``torch.where``
     drops them from the sum and the flag (a product with a 0/1 mask would
     carry a non-finite value into both)."""
-    e1 = unigen.embed_tokens(params, part1)
-    e2 = unigen.embed_tokens(params, part2c)
+    e1 = unigen.embed_tokens(params, part1, specs)
+    e2 = unigen.embed_tokens(params, part2c, specs)
     embeds = torch.cat([e1, img_embeds.to(e1.dtype), e2], dim=1)
     b, l, _ = embeds.shape
     off = l - part2c.shape[1]                        # start of part2c in the splice
     meta = M.pack_meta(M.mmu_vit_attn_meta(b, l, num_tokens=img_embeds.shape[1],
                                            prefix_length=part1.shape[1],
                                            prompt_len=off + valid_len))
-    hidden, _ = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=embeds, meta_bits=meta)
+    llm_specs = C.sub(specs, "llm")
+    hidden, _ = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=embeds, meta_bits=meta,
+                              specs=llm_specs)
     # the hidden state at splice position off + j - 1 predicts part2c[:, j]
-    logits = qwen2.logits(params["llm"], cfg.llm, hidden[:, off - 1:l - 1]).float()
+    logits = qwen2.logits(params["llm"], cfg.llm, hidden[:, off - 1:l - 1],
+                          specs=llm_specs).float()
     tok_lp = torch.gather(torch.log_softmax(logits, dim=-1), -1, part2c[..., None])[..., 0]
     greedy = torch.argmax(logits, dim=-1) == part2c
     return (torch.where(cont_mask, tok_lp, 0.0).sum(dim=-1),
@@ -82,7 +88,7 @@ def _mmu_vit_score(params, cfg, part1, part2c, img_embeds, cont_mask, valid_len)
 
 
 @torch.no_grad()
-def _mmu_vit_inputs(params, part1, part2, img_embeds, prompt_len):
+def _mmu_vit_inputs(params, part1, part2, img_embeds, prompt_len, specs=None):
     """The spliced embeddings [B, L, D] and mmu_vit meta bits [B, L] int32 of
     an understanding prompt, the construction ``understand`` performs before
     ``mmu_generate``, returned for the serving engine's ``submit_embeds``.
@@ -90,8 +96,8 @@ def _mmu_vit_inputs(params, part1, part2, img_embeds, prompt_len):
     flash kernel, and on every non-pad query row they are the same mask.
     Slots at and beyond ``prompt_len`` are pad, so a bucketed part2 changes
     no result."""
-    e1 = unigen.embed_tokens(params, part1)
-    e2 = unigen.embed_tokens(params, part2)
+    e1 = unigen.embed_tokens(params, part1, specs)
+    e2 = unigen.embed_tokens(params, part2, specs)
     embeds = torch.cat([e1, img_embeds.to(e1.dtype), e2], dim=1)
     b, l, _ = embeds.shape
     meta = M.pack_meta(M.mmu_vit_attn_meta(b, l, num_tokens=img_embeds.shape[1],
@@ -117,11 +123,16 @@ class UniGenPipeline:
     quantized_cache: bool = False   # int8 KV cache for understand and generate_text
     sharding: Optional[Any] = None  # parallel.partition.Sharding of a sharded params
 
+    @property
+    def specs(self):
+        """The spec tree of the params (``Sharding.tree``), None when whole."""
+        return None if self.sharding is None else self.sharding.tree(self.params)
+
     def to(self, device) -> "UniGenPipeline":
-        """A pipeline with every parameter moved to ``device``."""
+        """A pipeline with every parameter moved to ``device`` (a sharded
+        one keeps its ``sharding``)."""
         device = torch.device(device)
-        return dataclasses.replace(self, params=C.register(self.sharding,
-                                                           tree_to(self.params, device)),
+        return dataclasses.replace(self, params=tree_to(self.params, device),
                                    vq_params=tree_to(self.vq_params, device),
                                    vision_params=tree_to(self.vision_params, device),
                                    device=device)
@@ -175,7 +186,7 @@ class UniGenPipeline:
             self.params, self.cfg, torch.as_tensor(ids, device=self.device),
             torch.as_tensor(uncond_ids, device=self.device), generator,
             pad_id=self.prompting.pad_id, guidance_scale=guidance_scale, timesteps=timesteps, temperature=temperature,
-            mask_schedule=mask_schedule, mode=mode, noise=noise)
+            mask_schedule=mask_schedule, mode=mode, noise=noise, specs=self.specs)
         if return_codes:
             return codes
         return self.decode_codes(codes)
@@ -222,7 +233,7 @@ class UniGenPipeline:
                             prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_k=top_k,
                             eot_token=self.prompting.eos_token_id,
-                            quantized_cache=self.quantized_cache, noise=noise)
+                            quantized_cache=self.quantized_cache, noise=noise, specs=self.specs)
 
     def _mmu_prompt(self, codes: np.ndarray, questions: Sequence[str]
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -293,7 +304,7 @@ class UniGenPipeline:
                                     *self._naflex_inputs(pixels))
         else:
             feats = siglip.forward(self.vision_params, self.vision_cfg, self._pixels(pixels))
-        return unigen.mm_project(self.params, feats)
+        return unigen.mm_project(self.params, feats, self.specs)
 
     @torch.no_grad()
     def understand(
@@ -318,8 +329,9 @@ class UniGenPipeline:
         part1, part2, q_lens = self._vqa_parts(questions, p, system_prompt_ids)
         prompt_len = torch.as_tensor(part1.shape[1] + p + 1 + (q_lens - 1),
                                      device=self.device)      # part1 + img + eoi + text
-        e1 = unigen.embed_tokens(self.params, torch.as_tensor(part1, device=self.device))
-        e2 = unigen.embed_tokens(self.params, torch.as_tensor(part2, device=self.device))
+        specs = self.specs
+        e1 = unigen.embed_tokens(self.params, torch.as_tensor(part1, device=self.device), specs)
+        e2 = unigen.embed_tokens(self.params, torch.as_tensor(part2, device=self.device), specs)
         embeds = torch.cat([e1, img_embeds.to(e1.dtype), e2], dim=1)
         meta = M.pack_meta(M.mmu_vit_attn_meta(b, embeds.shape[1], num_tokens=p,
                                                prefix_length=part1.shape[1],
@@ -328,7 +340,7 @@ class UniGenPipeline:
                             meta_bits=meta, prompt_len=prompt_len,
                             max_new_tokens=max_new_tokens, temperature=temperature,
                             top_k=top_k, eot_token=self.prompting.eos_token_id,
-                            quantized_cache=self.quantized_cache, noise=noise)
+                            quantized_cache=self.quantized_cache, noise=noise, specs=specs)
 
     def score_continuations(
         self,
@@ -353,7 +365,7 @@ class UniGenPipeline:
                                     torch.as_tensor(part1, device=self.device),
                                     torch.as_tensor(part2c, device=self.device), img_embeds,
                                     torch.as_tensor(cont_mask, device=self.device),
-                                    torch.as_tensor(l2_real, device=self.device))
+                                    torch.as_tensor(l2_real, device=self.device), self.specs)
         lp, greedy = lp.cpu(), greedy.cpu()
         return [(float(lp[i]), bool(greedy[i])) for i in range(b)]
 
@@ -397,6 +409,7 @@ class UniGenPipeline:
         seeds of the same splices."""
         img_embeds = self._image_embeds(pixels)
         _, p, _ = img_embeds.shape
+        specs = self.specs
         out = []
         for i, q in enumerate(questions):
             part1, part2, _, _ = self.prompting((np.zeros((1, p, 1)), self._vqa_question_ids(q)[None],
@@ -407,7 +420,7 @@ class UniGenPipeline:
             plen = part1.shape[1] + p + l2
             embeds, meta = _mmu_vit_inputs(
                 self.params, to_device(part1, self.device), to_device(part2p, self.device),
-                img_embeds[i:i + 1], to_device(np.asarray([plen]), self.device))
+                img_embeds[i:i + 1], to_device(np.asarray([plen]), self.device), specs)
             out.append((embeds, meta, plen))
         return out
 
@@ -446,7 +459,7 @@ class UniGenPipeline:
                              torch.as_tensor([len(t) for t in tok_ids], device=self.device),
                              max_new_tokens=max_new_tokens, temperature=temperature,
                              top_k=top_k, eot_token=self.prompting.eos_token_id,
-                             quantized_cache=self.quantized_cache)
+                             quantized_cache=self.quantized_cache, specs=self.specs)
         return self.decode_text(out)
 
     def decode_text(self, token_ids) -> List[str]:

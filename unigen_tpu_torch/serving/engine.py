@@ -42,8 +42,9 @@ default stream; submitters on any thread only enqueue requests. Eager
 PyTorch compiles nothing, so the engine admits exactly K rows (no padding to
 a power of two), and ``precompile`` is a warm-up on the scheduler thread.
 
-Under tensor parallelism (params from ``parallel.shard_params``, every
-process of the mesh building the engine with the same arguments) the device
+Under tensor parallelism (params from ``parallel.shard_params``, passed
+with their ``Sharding`` as ``sharding=``, every process of the mesh
+building the engine with the same arguments) the device
 programs call collectives, so every rank must run them in one order. JAX's
 GSPMD hides this behind one controller; here process 0 alone takes
 ``submit`` / ``submit_embeds`` and decides, and at each loop iteration it
@@ -59,8 +60,10 @@ difference. A follower's futures in flight are ``followed[rid]`` (an entry
 leaves when its request ends, unless ``keep_followed``); ``submit`` on a
 follower raises. The plan is a fixed-layout int64 header and payload (and
 the raw bytes of an embeddings group), not a pickle. A separate decode
-tree (W4A8) is sharded on the same mesh as ``params``; every cache, int8
-or not, holds the rank's KV heads (``qwen2.local_kv_heads``).
+tree (W4A8) is sharded on the same mesh as ``params`` and comes with its
+own ``decode_sharding``; every cache, int8 or not, holds the rank's KV
+heads (``qwen2.local_kv_heads``). The device functions below take each
+tree's spec tree (``specs``, ``Sharding.tree``; None for a whole tree).
 """
 from __future__ import annotations
 
@@ -153,7 +156,7 @@ def _sample_rows(logits: torch.Tensor, temp: torch.Tensor, top_k: Optional[int],
 
 @torch.no_grad()
 def _decode_chunk(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: SlotState,
-                  steps: int, top_k: Optional[int], draws: Sequence[Draw] = ()
+                  steps: int, top_k: Optional[int], draws: Sequence[Draw] = (), specs=None
                   ) -> Tuple[qwen2.KVCache, SlotState, torch.Tensor]:
     """``steps`` decode steps over all slots: (cache, state, toks [B, steps]).
 
@@ -164,12 +167,13 @@ def _decode_chunk(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: SlotSt
     index does not advance and its sampled token is 0 until an admission
     resets it. Nothing here reads a tensor back to the host."""
     tok, act, emitted = state.last_tok, state.active, state.emitted
+    llm_specs = C.sub(specs, "llm")
     toks = []
     for s in range(steps):
         hidden, cache_n = qwen2.forward(params["llm"], cfg.llm,
-                                        inputs_embeds=embed_tokens(params, tok[:, None]),
-                                        cache=cache)
-        lg = qwen2.logits(params["llm"], cfg.llm, hidden[:, 0]).float()
+                                        inputs_embeds=embed_tokens(params, tok[:, None], specs),
+                                        cache=cache, specs=llm_specs)
+        lg = qwen2.logits(params["llm"], cfg.llm, hidden[:, 0], specs=llm_specs).float()
         emitted_n = emitted + act.to(torch.int32)
         stop = act & ((tok == state.eot) | (emitted_n >= state.budget))
         act_n = act & ~stop
@@ -207,7 +211,7 @@ def _draft_lookup(ctx: torch.Tensor, ctx_start: torch.Tensor, idx: torch.Tensor,
 @torch.no_grad()
 def _spec_decode_chunk(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: SlotState,
                        ctx: torch.Tensor, ctx_start: torch.Tensor, steps: int, k: int,
-                       top_k: Optional[int], draws: Sequence[Draw] = ()
+                       top_k: Optional[int], draws: Sequence[Draw] = (), specs=None
                        ) -> Tuple[qwen2.KVCache, SlotState, torch.Tensor, torch.Tensor]:
     """``steps`` speculative steps: (cache, state, toks [B, steps, k+1],
     counts [B, steps]); the host takes ``toks[b, s, :counts[b, s]]``.
@@ -226,14 +230,16 @@ def _spec_decode_chunk(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: S
     tok, act, emitted = state.last_tok, state.active, state.emitted
     greedy_row = state.temp == 0.0
     jpos = torch.arange(k + 1, device=tok.device)
+    llm_specs = C.sub(specs, "llm")
     toks, counts = [], []
     for s in range(steps):
         idx = cache.index
         prop = _draft_lookup(ctx, ctx_start, idx, tok, k)
         inputs = torch.cat([tok[:, None], prop], dim=1)                    # [B, k+1]
         hidden, cache_n = qwen2.forward(params["llm"], cfg.llm,
-                                        inputs_embeds=embed_tokens(params, inputs), cache=cache)
-        lg = qwen2.logits(params["llm"], cfg.llm, hidden).float()            # [B, k+1, V]
+                                        inputs_embeds=embed_tokens(params, inputs, specs),
+                                        cache=cache, specs=llm_specs)
+        lg = qwen2.logits(params["llm"], cfg.llm, hidden, specs=llm_specs).float()  # [B, k+1, V]
         noise = _noise(draws, s, lg.shape[0], lg.shape[-1], lg.device)
         g = torch.cat([_sample_rows(lg[:, 0], state.temp, top_k, noise)[:, None],
                        torch.argmax(lg[:, 1:], dim=-1)], dim=1)
@@ -305,32 +311,36 @@ def _install(cache: qwen2.KVCache, state: SlotState, tmp: qwen2.KVCache, index: 
 
 
 def _first_tokens(params, cfg: UniGenConfig, hidden: torch.Tensor, prompt_len: torch.Tensor,
-                  temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw]
+                  temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw], specs=None
                   ) -> torch.Tensor:
     """Each row's first token, sampled from its hidden state at prompt_len - 1."""
     last = hidden[torch.arange(hidden.shape[0], device=hidden.device), prompt_len - 1]
-    lg = qwen2.logits(params["llm"], cfg.llm, last).float()
+    lg = qwen2.logits(params["llm"], cfg.llm, last, specs=C.sub(specs, "llm")).float()
     return _sample_rows(lg, temp, top_k, _noise(draws, 0, lg.shape[0], lg.shape[-1], lg.device))
 
 
 def _prefill(params, cfg: UniGenConfig, inputs_embeds: torch.Tensor, meta_bits: torch.Tensor,
-             prompt_len: torch.Tensor, quantize: bool) -> Tuple[qwen2.KVCache, torch.Tensor]:
+             prompt_len: torch.Tensor, quantize: bool, specs=None
+             ) -> Tuple[qwen2.KVCache, torch.Tensor]:
     """K prompts in one cache-free forward through the flash kernel, into a
     K-row temp cache: (temp cache, hidden states). ``meta_bits`` marks every
     slot at or beyond a row's prompt length as pad; pad positions repeat the
     last real one."""
     k, l = inputs_embeds.shape[:2]
+    llm_specs = C.sub(specs, "llm")
     tmp = qwen2.init_kv_cache(cfg.llm, k, l, inputs_embeds.device, quantize=quantize,
-                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm,
+                                                                llm_specs))
     positions = torch.minimum(torch.arange(l, device=prompt_len.device)[None],
                               prompt_len[:, None] - 1)
     hidden, tmp = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=inputs_embeds,
-                                meta_bits=meta_bits, positions=positions, cache=tmp)
+                                meta_bits=meta_bits, positions=positions, cache=tmp,
+                                specs=llm_specs)
     return tmp, hidden
 
 
 def _prefill_suffixes(params, cfg: UniGenConfig, prefix: qwen2.KVCache,
-                      input_ids: torch.Tensor, quantize: bool
+                      input_ids: torch.Tensor, quantize: bool, specs=None
                       ) -> Tuple[qwen2.KVCache, torch.Tensor]:
     """The prefix block copied to the K rows of a temp cache, and only the
     suffixes prefilled against it: a cached chunk at positions P .. P + l - 1
@@ -339,13 +349,15 @@ def _prefill_suffixes(params, cfg: UniGenConfig, prefix: qwen2.KVCache,
     tail are never visible to a real query, and decode overwrites them."""
     p = prefix.k.shape[2]
     k, l = input_ids.shape
+    llm_specs = C.sub(specs, "llm")
     tmp = qwen2.init_kv_cache(cfg.llm, k, p + l, input_ids.device, quantize=quantize,
-                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm,
+                                                                llm_specs))
     for name in _leaves(tmp):
         getattr(tmp, name)[:, :, :p] = getattr(prefix, name)
     hidden, tmp = qwen2.forward(params["llm"], cfg.llm,
-                                inputs_embeds=embed_tokens(params, input_ids),
-                                cache=tmp._replace(index=p))
+                                inputs_embeds=embed_tokens(params, input_ids, specs),
+                                cache=tmp._replace(index=p), specs=llm_specs)
     return tmp, hidden
 
 
@@ -359,41 +371,47 @@ def _pad_bits(prompt_len: torch.Tensor, l: int) -> torch.Tensor:
 @torch.no_grad()
 def _admit_core(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: SlotState,
                 inputs_embeds: torch.Tensor, meta_bits: torch.Tensor, ints: torch.Tensor,
-                temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw]) -> None:
+                temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw],
+                specs=None) -> None:
     """Prefill K requests in one batched forward and install each into its
     slot row. ``ints`` [4, K]: slot, prompt length, budget, eot."""
-    tmp, hidden = _prefill(params, cfg, inputs_embeds, meta_bits, ints[1], cache.quantized)
-    first = _first_tokens(params, cfg, hidden, ints[1], temp, top_k, draws)
+    tmp, hidden = _prefill(params, cfg, inputs_embeds, meta_bits, ints[1], cache.quantized,
+                           specs)
+    first = _first_tokens(params, cfg, hidden, ints[1], temp, top_k, draws, specs)
     _install(cache, state, tmp, ints[1], first, ints, temp)
 
 
-def _admit_ids(params, cfg, cache, state, input_ids, ints, temp, top_k, draws) -> None:
+def _admit_ids(params, cfg, cache, state, input_ids, ints, temp, top_k, draws,
+               specs=None) -> None:
     """Batched text admission: the K rows' embeddings and pad bits, one prefill."""
-    _admit_core(params, cfg, cache, state, embed_tokens(params, input_ids),
-                _pad_bits(ints[1], input_ids.shape[1]), ints, temp, top_k, draws)
+    _admit_core(params, cfg, cache, state, embed_tokens(params, input_ids, specs),
+                _pad_bits(ints[1], input_ids.shape[1]), ints, temp, top_k, draws, specs)
 
 
 @torch.no_grad()
 def _prefill_prefix(params, cfg: UniGenConfig, ids: torch.Tensor,
-                    quantize: bool) -> qwen2.KVCache:
+                    quantize: bool, specs=None) -> qwen2.KVCache:
     """The shared prefix's K/V, once: a causal prefill (all-zero bits, the
     flash kernel) into a one-row cache."""
+    llm_specs = C.sub(specs, "llm")
     tmp = qwen2.init_kv_cache(cfg.llm, 1, ids.shape[1], ids.device, quantize=quantize,
-                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
-    _, tmp = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=embed_tokens(params, ids),
+                              num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm,
+                                                                llm_specs))
+    _, tmp = qwen2.forward(params["llm"], cfg.llm, inputs_embeds=embed_tokens(params, ids, specs),
                            meta_bits=torch.zeros(ids.shape, dtype=torch.int32,
-                                                 device=ids.device), cache=tmp)
+                                                 device=ids.device), cache=tmp, specs=llm_specs)
     return tmp
 
 
 @torch.no_grad()
 def _admit_ids_prefix(params, cfg: UniGenConfig, cache: qwen2.KVCache, state: SlotState,
                       prefix: qwen2.KVCache, input_ids: torch.Tensor, ints: torch.Tensor,
-                      temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw]) -> None:
+                      temp: torch.Tensor, top_k: Optional[int], draws: Sequence[Draw],
+                      specs=None) -> None:
     """Batched admission after a shared prefix (``_prefill_suffixes``); the
     combined blocks go into the slot rows, each row's index after its prompt."""
-    tmp, hidden = _prefill_suffixes(params, cfg, prefix, input_ids, cache.quantized)
-    first = _first_tokens(params, cfg, hidden, ints[1], temp, top_k, draws)
+    tmp, hidden = _prefill_suffixes(params, cfg, prefix, input_ids, cache.quantized, specs)
+    first = _first_tokens(params, cfg, hidden, ints[1], temp, top_k, draws, specs)
     _install(cache, state, tmp, prefix.k.shape[2] + ints[1], first, ints, temp)
 
 
@@ -421,20 +439,6 @@ class _Plan(NamedTuple):
     cancels: List[int]                               # request ids
     groups: List[Tuple[List["_Request"], List[int]]]
     active: Optional[np.ndarray]                     # [slots] bool at the chunk's dispatch
-
-
-def _sharded(tree) -> bool:
-    """Whether a leaf of ``tree`` is registered as sharded (``parallel.collectives``)."""
-    stack = [tree]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, (list, tuple)):
-            stack.extend(node)
-        elif isinstance(node, torch.Tensor) and C.spec_of(node) is not None:
-            return True
-    return False
 
 
 def _encode_plan(plan: _Plan) -> Tuple[List[int], List[int], List[torch.Tensor]]:
@@ -665,9 +669,11 @@ class ServingEngine:
     admission. ``speculate_k > 0`` turns on prompt-lookup speculative
     decoding (module docstring); the mean tokens a busy step accepts is
     ``stats.tokens_generated / stats.busy_steps``. One scheduler thread owns
-    the device; submissions come from any thread. With sharded ``params``
-    every process of the mesh builds the engine with the same arguments;
-    process 0 serves and the others follow its plan (module docstring). A
+    the device; submissions come from any thread. Sharded ``params`` come
+    with their ``sharding`` (``parallel.shard_params``' record), and a
+    sharded ``decode_params`` with its ``decode_sharding``; every process
+    of the mesh builds the engine with the same arguments, process 0 serves
+    and the others follow its plan (module docstring). A
     follower's ``followed`` holds the requests in flight; with
     ``keep_followed`` it keeps the finished ones too (a comparison of the
     ranks' tokens reads them after ``close``).
@@ -682,20 +688,22 @@ class ServingEngine:
                  prefix_ids: Optional[Sequence[int]] = None,
                  decode_params=None, admit_cap: Optional[int] = None,
                  precompile: Sequence[Tuple] = (), device: DeviceLike = None,
-                 keep_followed: bool = False):
+                 keep_followed: bool = False, sharding=None, decode_sharding=None):
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         if max(buckets) > max_len:
             raise ValueError(f"bucket {max(buckets)} exceeds max_len {max_len}")
         self.device = resolve_device(device)
         # tensor parallelism: rank 0 decides, the other ranks follow its plan
-        self._distributed = _sharded(params)
+        self._distributed = sharding is not None
         if self._distributed:
             if current_mesh() is None:
                 raise ValueError("sharded params need their mesh current (parallel.make_mesh)")
-            if decode_params is not None and not _sharded(decode_params):
+            if decode_params is not None and decode_sharding is None:
                 raise ValueError("decode_params must be sharded on the mesh of the sharded "
-                                 "params (parallel.shard_params)")
+                                 "params (parallel.shard_params), with its decode_sharding")
+        elif decode_sharding is not None:
+            raise ValueError("decode_sharding without a sharding: shard params on the same mesh")
         self._follower = self._distributed and MH.process_index() != 0
         self.followed: Dict[int, GenerationResult] = {}   # a follower's, by rank 0's request id
         self._keep_followed = keep_followed
@@ -706,6 +714,11 @@ class ServingEngine:
                                  f"runs on {self.device}")
         self.params = params
         self.decode_params = params if decode_params is None else decode_params
+        # the spec trees the device functions take beside each tree
+        self._specs = None if sharding is None else sharding.tree(params)
+        self._decode_specs = (self._specs if decode_params is None else
+                              None if decode_sharding is None else
+                              decode_sharding.tree(decode_params))
         self.cfg = cfg
         self.slots = slots
         self.max_len = max_len
@@ -733,13 +746,13 @@ class ServingEngine:
             if pids.shape[1] == 0:
                 raise ValueError("prefix_ids must contain at least one token")
             self._prefix = _prefill_prefix(params, cfg, to_device(pids, self.device),
-                                           quantized_cache)
+                                           quantized_cache, self._specs)
             self._prefix_ids = pids
             self.prefix_len = pids.shape[1]
 
         self._cache = qwen2.init_kv_cache(
             cfg.llm, slots, max_len, self.device, quantize=quantized_cache, per_row_index=True,
-            num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm))
+            num_kv_heads=qwen2.local_kv_heads(params["llm"], cfg.llm, C.sub(self._specs, "llm")))
         if speculate_k > 0:
             # each slot's token history for the draft, and where it starts
             self._ctx = torch.zeros((slots, max_len), dtype=torch.int64, device=self.device)
@@ -812,8 +825,9 @@ class ServingEngine:
                 break
             k *= 2
         dev = self.device
-        emb_dt = embed_tokens(self.params, torch.zeros((1, 1), dtype=torch.int64,
-                                                       device=dev)).dtype
+        emb_dt = embed_tokens(self.params, torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                              self._specs).dtype
+        specs = self._specs
         q = self._cache.quantized
         with torch.no_grad():
             for sig in sigs:
@@ -824,19 +838,19 @@ class ServingEngine:
                         ids = torch.zeros((kp, ln), dtype=torch.int64, device=dev)
                         if self._prefix is not None:
                             _, hidden = _prefill_suffixes(self.params, self.cfg, self._prefix,
-                                                          ids, q)
+                                                          ids, q, specs)
                         else:
                             _, hidden = _prefill(self.params, self.cfg,
-                                                 embed_tokens(self.params, ids),
-                                                 _pad_bits(plen, ln), plen, q)
+                                                 embed_tokens(self.params, ids, specs),
+                                                 _pad_bits(plen, ln), plen, q, specs)
                     elif sig[0] == "emb":
                         emb = torch.zeros((kp, ln, int(sig[2])), dtype=emb_dt, device=dev)
                         _, hidden = _prefill(self.params, self.cfg, emb, _pad_bits(plen, ln),
-                                             plen, q)
+                                             plen, q, specs)
                     else:
                         raise ValueError(f"unknown precompile signature {sig!r}")
                     _first_tokens(self.params, self.cfg, hidden, plen,
-                                  torch.zeros((kp,), device=dev), self.top_k, ())
+                                  torch.zeros((kp,), device=dev), self.top_k, (), specs)
             for steps in self.chunks:
                 self._cache, self._state = self._run_chunk(steps, ())[:2]
         with _PRECOMPILED_LOCK:
@@ -1163,17 +1177,17 @@ class ServingEngine:
             ids = to_device(np.concatenate([r.input_ids for r in group], axis=0), dev)
             if self._prefix is not None:
                 _admit_ids_prefix(self.params, self.cfg, self._cache, self._state,
-                                  self._prefix, ids, ints, temp, self.top_k, draws)
+                                  self._prefix, ids, ints, temp, self.top_k, draws, self._specs)
             else:
                 _admit_ids(self.params, self.cfg, self._cache, self._state, ids, ints, temp,
-                           self.top_k, draws)
+                           self.top_k, draws, self._specs)
         else:
             # embeddings (VQA: the splice and its mmu_vit bits) stay on the
             # device: concatenated there
             emb = torch.cat([r.inputs_embeds for r in group], dim=0)
             bits = torch.cat([r.meta_bits for r in group], dim=0)
             _admit_core(self.params, self.cfg, self._cache, self._state, emb, bits, ints,
-                        temp, self.top_k, draws)
+                        temp, self.top_k, draws, self._specs)
         if self.speculate_k > 0:
             rows, starts = [], []
             for req in group:
@@ -1223,10 +1237,10 @@ class ServingEngine:
         if self.speculate_k > 0:
             cache, state, toks, counts = _spec_decode_chunk(
                 self.decode_params, self.cfg, self._cache, self._state, self._ctx,
-                self._ctx_start, steps, self.speculate_k, self.top_k, draws)
+                self._ctx_start, steps, self.speculate_k, self.top_k, draws, self._decode_specs)
             return cache, state, torch.cat([toks, counts[..., None].to(toks.dtype)], dim=-1)
         return _decode_chunk(self.decode_params, self.cfg, self._cache, self._state, steps,
-                             self.top_k, draws)
+                             self.top_k, draws, self._decode_specs)
 
     def _dispatch_chunk(self, steps: int):
         """Queue one decode chunk of ``steps`` (``_pick_steps``) and the copy

@@ -28,7 +28,8 @@ A sharded state (``train_step``'s docstring) takes the global batch: each
 rank scores its rows of the batch group under its rows of the global
 draws, its loss and metrics are its shares of the means over all pairs,
 and the gradients are summed over the batch group. The reference tree is
-sharded as the policy's (``parallel.shard_params`` with the same specs).
+sharded as the policy's (``parallel.shard_params`` with the same specs),
+so the state's ``Sharding`` gives both spec trees.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ from ..ops import masks as M
 from ..ops import sampling as S
 from ..parallel import collectives as C
 from .optimizer import AdamW, named_leaves
-from .train_step import TrainState, _splice, apply_update, batch_grads, check_key, local_draws
+from .train_step import (TrainState, _splice, apply_update, batch_grads, check_key, local_draws,
+                         param_specs)
 
 PairKey = Union[torch.Generator, Sequence[MK.MaskDraws], None]
 
@@ -95,12 +97,12 @@ def get_batch_logps(logits: torch.Tensor, labels: torch.Tensor, *, num_vq_tokens
 
 def get_batch_logps_from_hidden(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
                                 average_log_prob: bool = False, label_pad_token_id: int = -100,
-                                chunk: int = 64) -> torch.Tensor:
-    """[B] label log-probs projecting ``hidden`` through ``w`` chunk by chunk
-    (``unigen._chunked_label_logps``); the caller slices both so that
-    position i of one predicts position i of the other."""
+                                chunk: int = 64, spec=None) -> torch.Tensor:
+    """[B] label log-probs projecting ``hidden`` through ``w`` (of spec
+    ``spec``) chunk by chunk (``unigen._chunked_label_logps``); the caller
+    slices both so that position i of one predicts position i of the other."""
     total, count = _chunked_label_logps(hidden, w, labels, ignore_id=label_pad_token_id,
-                                        chunk=chunk, per_row=True)
+                                        chunk=chunk, per_row=True, spec=spec)
     if average_log_prob:
         return total / count
     return total
@@ -135,23 +137,24 @@ def _encode_and_mask(cfg: UniGenConfig, vq_cfg: MagvitConfig, dcfg: DPOConfig, s
     return ids, labs, meta, mask_prob
 
 
-def _concatenated_logps(cfg: UniGenConfig, dcfg: DPOConfig, params, ids, labs, bits, b: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _concatenated_logps(cfg: UniGenConfig, dcfg: DPOConfig, params, ids, labs, bits, b: int,
+                        specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(chosen, rejected) log-probs [b] each of the [2b, L] rows."""
     n = cfg.num_vq_tokens
     if dcfg.memory_efficient_logps and not cfg.use_gen_projector:
         hidden = unigen.forward(params, cfg, input_ids=ids, meta_bits=bits,
                                 batch_size_t2i=2 * b, t2i_mode=dcfg.t2i_gen_mode,
-                                remat=dcfg.remat, return_hidden=True)
-        w = qwen2.lm_head_weight(params["llm"], cfg.llm)
+                                remat=dcfg.remat, return_hidden=True, specs=specs)
+        w, spec = qwen2.lm_head(params["llm"], cfg.llm, C.sub(specs, "llm"))
         if dcfg.t2i_gen_mode == "ar":
             h, lab = hidden[:, -(n + 1):-2], labs[:, -n:-1]
         else:
             h, lab = hidden[:, -(n + 1):-1], labs[:, -(n + 1):-1]
-        logps = get_batch_logps_from_hidden(h, w, lab, average_log_prob=dcfg.average_log_prob)
+        logps = get_batch_logps_from_hidden(h, w, lab, average_log_prob=dcfg.average_log_prob,
+                                            spec=spec)
         return logps[:b], logps[b:]
     logits = unigen.forward(params, cfg, input_ids=ids, meta_bits=bits, batch_size_t2i=2 * b,
-                            t2i_mode=dcfg.t2i_gen_mode, remat=dcfg.remat)
+                            t2i_mode=dcfg.t2i_gen_mode, remat=dcfg.remat, specs=specs)
     logps = get_batch_logps(logits, labs, num_vq_tokens=n, t2i_gen_mode=dcfg.t2i_gen_mode,
                             average_log_prob=dcfg.average_log_prob)
     return logps[:b], logps[b:]
@@ -185,7 +188,7 @@ def _build_pair_inputs(cfg, vq_cfg, dcfg, schedule, vq_params, batch, key: PairK
 
 
 def make_ref_logps_fn(cfg: UniGenConfig, vq_cfg: MagvitConfig, dcfg: DPOConfig):
-    """``ref_fn(params, vq_params, batch, key) -> {"ref_chosen_logps",
+    """``ref_fn(params, vq_params, batch, key, specs=None) -> {"ref_chosen_logps",
     "ref_rejected_logps"}``: the reference model's log-probs of one batch
     under its draws, a forward without gradients. DPO's reference is the
     step-0 policy, so these can be computed ahead of training, one a step,
@@ -193,11 +196,12 @@ def make_ref_logps_fn(cfg: UniGenConfig, vq_cfg: MagvitConfig, dcfg: DPOConfig):
     schedule = S.get_mask_schedule(dcfg.mask_schedule)
 
     @torch.no_grad()
-    def ref_logps(params, vq_params, batch, key: PairKey) -> Dict[str, torch.Tensor]:
+    def ref_logps(params, vq_params, batch, key: PairKey, specs=None
+                  ) -> Dict[str, torch.Tensor]:
         ids, labs, bits, _, _ = _build_pair_inputs(cfg, vq_cfg, dcfg, schedule, vq_params,
                                                    batch, key)
         rc, rr = _concatenated_logps(cfg, dcfg, params, ids, labs, bits,
-                                     batch["template"].shape[0])
+                                     batch["template"].shape[0], specs)
         return {"ref_chosen_logps": rc, "ref_rejected_logps": rr}
 
     return ref_logps
@@ -216,9 +220,11 @@ class DPOStep:
         self.schedule = S.get_mask_schedule(dcfg.mask_schedule)
         self.ref_fn = make_ref_logps_fn(cfg, vq_cfg, dcfg)
 
-    def loss_and_grads(self, params, ref_params, vq_params, batch, key: PairKey):
+    def loss_and_grads(self, params, ref_params, vq_params, batch, key: PairKey, specs=None,
+                       ref_specs=None):
         """(gradients in ``named_leaves`` order, None for a frozen leaf;
-        metrics); the parameters are not touched."""
+        metrics); the parameters are not touched. ``specs`` / ``ref_specs``:
+        the two trees' spec trees when sharded."""
         cfg, dcfg = self.cfg, self.dcfg
         b = batch["template"].shape[0]
         ids, labs, bits, c_prob, r_prob = _build_pair_inputs(
@@ -227,8 +233,8 @@ class DPOStep:
             rc, rr = batch["ref_chosen_logps"], batch["ref_rejected_logps"]
         else:
             with torch.no_grad():
-                rc, rr = _concatenated_logps(cfg, dcfg, ref_params, ids, labs, bits, b)
-        pc, pr = _concatenated_logps(cfg, dcfg, params, ids, labs, bits, b)
+                rc, rr = _concatenated_logps(cfg, dcfg, ref_params, ids, labs, bits, b, ref_specs)
+        pc, pr = _concatenated_logps(cfg, dcfg, params, ids, labs, bits, b, specs)
         logits_diff = (pc - pr) - (rc - rr)
         loss = dcfg.dpo_coef * C.batch_mean(-F.logsigmoid(dcfg.beta * logits_diff))
         leaves = [t for _, t in named_leaves(params)]
@@ -252,8 +258,12 @@ class DPOStep:
                 key, batch["template"].shape[0], self.cfg.num_vq_tokens,
                 self.cfg.codebook_size, state.step.device))
 
+        sh = state.sharding
+        ref_specs = None if sh is None or ref_params is None else sh.tree(ref_params)
+
         def grads_fn(rows, key):
-            return self.loss_and_grads(state.params, ref_params, vq_params, rows, key)
+            return self.loss_and_grads(state.params, ref_params, vq_params, rows, key,
+                                       param_specs(state), ref_specs)
         return self.apply(state, *batch_grads(state, batch, key, draw, grads_fn))
 
     def apply(self, state: TrainState, grads, metrics):

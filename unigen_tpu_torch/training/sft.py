@@ -47,7 +47,9 @@ rank runs the step on its rows of the batch group under its rows of the
 global t2i draws, in any of the modes (a packed rank packs its own rows),
 with every CE's count, the gradients and the metrics summed over the
 batch group. The frozen tower may be sharded by
-``parallel.partition.siglip_specs``. ``make_sft_grad_fns`` is unsharded.
+``parallel.partition.siglip_specs``: its ``Sharding`` comes to the step as
+``vision_sharding``. The losses take both trees' spec trees (``specs``,
+``vision_specs``) beside their params. ``make_sft_grad_fns`` is unsharded.
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ from ..ops import sampling as S
 from ..parallel import collectives as C
 from .optimizer import AdamW, named_leaves
 from .train_step import (Key, TrainState, TrainStepConfig, _splice, apply_update, batch_grads,
-                         global_draws, init_train_state, local_tcfg)
+                         global_draws, init_train_state, local_tcfg, param_specs)
 
 
 def grid_tiles(pixels: torch.Tensor, n_grid: int, tile_size: int) -> torch.Tensor:
@@ -145,20 +147,20 @@ class SFTStep:
 
     # ------------------------------------------------------------- inputs --
 
-    def vision_features(self, vision_params, batch) -> torch.Tensor:
+    def vision_features(self, vision_params, batch, vision_specs=None) -> torch.Tensor:
         """The frozen tower's features [Bm, P, D] (tiles concatenated along P)."""
         if self.naflex:
             return siglip2.forward_with_pos(
                 vision_params, self.vision_cfg, batch["mmu_pixel_values"],
-                batch["mmu_pixel_attention_mask"], batch["mmu_pos_embeds"])
+                batch["mmu_pixel_attention_mask"], batch["mmu_pos_embeds"], vision_specs)
         pixels = batch["mmu_pixels"]
         if self.tcfg.n_grid > 0:
             tiles = grid_tiles(pixels, self.tcfg.n_grid, self.tile)
             b, t = tiles.shape[:2]
             feats = siglip.forward(vision_params, self.vision_cfg,
-                                   tiles.reshape(b * t, self.tile, self.tile, 3))
+                                   tiles.reshape(b * t, self.tile, self.tile, 3), vision_specs)
             return feats.reshape(b, -1, feats.shape[-1])
-        return siglip.forward(vision_params, self.vision_cfg, pixels)
+        return siglip.forward(vision_params, self.vision_cfg, pixels, vision_specs)
 
     def build_tl_inputs(self, vq_params, batch, key: Key, target_len: Optional[int] = None):
         """(ids, labels, metas, bt, bl, mask_prob) of the t2i and lm flows;
@@ -210,14 +212,14 @@ class SFTStep:
             bl = ids.shape[0]
         return parts, labs_parts, metas, bt, bl, mask_prob
 
-    def build_mmu_inputs(self, params, vision_params, batch):
+    def build_mmu_inputs(self, params, vision_params, batch, specs=None, vision_specs=None):
         """([part1 | projected image | part2] embeddings, mmu_vit meta with
         each row's prompt_len, labels). With the NaFlex tower each row's
         bidirectional block is its own patches."""
-        feats = self.vision_features(vision_params, batch)
-        img = unigen.mm_project(params, feats)
-        e1 = unigen.embed_tokens(params, batch["mmu_part1"])
-        e2 = unigen.embed_tokens(params, batch["mmu_part2"])
+        feats = self.vision_features(vision_params, batch, vision_specs)
+        img = unigen.mm_project(params, feats, specs)
+        e1 = unigen.embed_tokens(params, batch["mmu_part1"], specs)
+        e2 = unigen.embed_tokens(params, batch["mmu_part2"], specs)
         embeds = torch.cat([e1, img.to(e1.dtype), e2], dim=1)
         b, l, _ = embeds.shape
         num_tokens = batch["mmu_spatial_shapes"] if self.naflex else img.shape[1]
@@ -228,11 +230,12 @@ class SFTStep:
 
     # ------------------------------------------------------------- losses --
 
-    def _forward(self, params, **kw):
+    def _forward(self, params, specs, **kw):
         return unigen.forward(params, self.cfg, remat=self.tcfg.remat,
-                              memory_efficient_loss=self.tcfg.memory_efficient_loss, **kw)
+                              memory_efficient_loss=self.tcfg.memory_efficient_loss,
+                              specs=specs, **kw)
 
-    def loss_tl(self, params, vq_params, batch, key: Key):
+    def loss_tl(self, params, vq_params, batch, key: Key, specs=None):
         """The weighted t2i + lm loss: one forward when the two flows share a
         length, else one a flow."""
         tcfg = self.tcfg
@@ -241,15 +244,16 @@ class SFTStep:
         total = torch.zeros((), dtype=torch.float32, device=mask_prob.device)
         if len(parts) < 2 or parts[0].shape[1] == parts[1].shape[1]:
             _, lt, ll, _ = self._forward(
-                params, input_ids=torch.cat(parts), labels=torch.cat(labs_parts),
+                params, specs, input_ids=torch.cat(parts), labels=torch.cat(labs_parts),
                 meta_bits=M.pack_meta(M.concat_meta(*metas)), batch_size_t2i=bt,
                 batch_size_lm=bl, t2i_mode=tcfg.t2i_gen_mode)
         else:
-            _, lt, _, _ = self._forward(params, input_ids=parts[0], labels=labs_parts[0],
-                                        meta_bits=M.pack_meta(metas[0]), batch_size_t2i=bt,
-                                        t2i_mode=tcfg.t2i_gen_mode)
-            _, _, ll, _ = self._forward(params, input_ids=parts[1], labels=labs_parts[1],
-                                        meta_bits=M.pack_meta(metas[1]), batch_size_lm=bl)
+            _, lt, _, _ = self._forward(params, specs, input_ids=parts[0],
+                                        labels=labs_parts[0], meta_bits=M.pack_meta(metas[0]),
+                                        batch_size_t2i=bt, t2i_mode=tcfg.t2i_gen_mode)
+            _, _, ll, _ = self._forward(params, specs, input_ids=parts[1],
+                                        labels=labs_parts[1], meta_bits=M.pack_meta(metas[1]),
+                                        batch_size_lm=bl)
         if bt:
             losses["loss_t2i"] = lt
             total = total + tcfg.t2i_coeff * lt
@@ -259,15 +263,17 @@ class SFTStep:
         losses["avg_masking_rate"] = C.batch_mean(mask_prob)
         return total, losses
 
-    def loss_mmu(self, params, vision_params, batch):
+    def loss_mmu(self, params, vision_params, batch, specs=None, vision_specs=None):
         """The weighted mmu (vision conversation) loss at its own length."""
-        embeds, meta, labels = self.build_mmu_inputs(params, vision_params, batch)
-        _, _, _, lm = self._forward(params, input_embeddings=embeds, labels=labels,
+        embeds, meta, labels = self.build_mmu_inputs(params, vision_params, batch, specs,
+                                                     vision_specs)
+        _, _, _, lm = self._forward(params, specs, input_embeddings=embeds, labels=labels,
                                     meta_bits=M.pack_meta(meta), batch_size_mmu=embeds.shape[0])
         return self.tcfg.mmu_coeff * lm, {"loss_mmu": lm}
 
-    def _common_mmu(self, params, vision_params, batch):
-        embeds, meta, labels = self.build_mmu_inputs(params, vision_params, batch)
+    def _common_mmu(self, params, vision_params, batch, specs, vision_specs):
+        embeds, meta, labels = self.build_mmu_inputs(params, vision_params, batch, specs,
+                                                     vision_specs)
         if embeds.shape[1] != self.tcfg.common_length:
             raise ValueError(f"common_length {self.tcfg.common_length} != mmu splice length "
                              f"{embeds.shape[1]}")
@@ -285,19 +291,21 @@ class SFTStep:
             total = total + tcfg.lm_coeff * ll
         return total, losses
 
-    def loss_fused(self, params, vq_params, vision_params, batch, key: Key):
+    def loss_fused(self, params, vq_params, vision_params, batch, key: Key, specs=None,
+                   vision_specs=None):
         """All three flows in one forward at ``common_length``: t2i / lm rows
         left-padded, their positions restarted at the first real token (pads
         clamped to 0)."""
         tcfg, lc = self.tcfg, self.tcfg.common_length
         parts, labs_parts, metas, bt, bl, mask_prob = self.build_tl_inputs(
             vq_params, batch, key, target_len=lc)
-        mmu_embeds, mmu_meta, mmu_labels = self._common_mmu(params, vision_params, batch)
+        mmu_embeds, mmu_meta, mmu_labels = self._common_mmu(params, vision_params, batch, specs,
+                                                            vision_specs)
         embeds = []
         if bt:
-            embeds.append(unigen.prepare_inputs_for_t2i(params, self.cfg, parts[0]))
+            embeds.append(unigen.prepare_inputs_for_t2i(params, self.cfg, parts[0], specs))
         if bl:
-            embeds.append(unigen.embed_tokens(params, parts[-1]))
+            embeds.append(unigen.embed_tokens(params, parts[-1], specs))
         embeds.append(mmu_embeds)
         bm = mmu_embeds.shape[0]
         steps = torch.arange(lc, device=mmu_embeds.device)
@@ -308,7 +316,7 @@ class SFTStep:
                 pos.append(torch.clamp(steps - off, min=0)[None].expand(rows, lc))
         pos.append(steps[None].expand(bm, lc))
         _, lt, ll, lmu = self._forward(
-            params, input_embeddings=torch.cat([e.to(mmu_embeds.dtype) for e in embeds]),
+            params, specs, input_embeddings=torch.cat([e.to(mmu_embeds.dtype) for e in embeds]),
             labels=torch.cat(labs_parts + [mmu_labels]),
             meta_bits=M.pack_meta(M.concat_meta(*metas, mmu_meta)),
             batch_size_t2i=bt, batch_size_lm=bl, batch_size_mmu=bm,
@@ -339,7 +347,8 @@ class SFTStep:
             seg_p[pr, o:o + ls] = slot
         return ids_p, labs_p, meta_builder(ids_p)._replace(seg=seg_p), pos_p
 
-    def loss_packed(self, params, vq_params, vision_params, batch, key: Key):
+    def loss_packed(self, params, vq_params, vision_params, batch, key: Key, specs=None,
+                    vision_specs=None):
         """``loss_fused`` with the short t2i / lm rows sequence-packed: each
         flow's rows fill ``common_length // row_length`` segments a row.
         The t2i labels are -100 outside each segment's image block, so the
@@ -347,7 +356,8 @@ class SFTStep:
         shifted CE with each lm segment's first label dropped."""
         tcfg, lc, n = self.tcfg, self.tcfg.common_length, self.cfg.num_vq_tokens
         parts, labs_parts, _, bt, bl, mask_prob = self.build_tl_inputs(vq_params, batch, key)
-        mmu_embeds, mmu_meta, mmu_labels = self._common_mmu(params, vision_params, batch)
+        mmu_embeds, mmu_meta, mmu_labels = self._common_mmu(params, vision_params, batch, specs,
+                                                            vision_specs)
         embeds, metas, poss = [], [], []
         rt = rl = 0
         t2i_labs_p = lm_labs_p = None
@@ -358,7 +368,7 @@ class SFTStep:
             ids_p, t2i_labs_p, meta_p, pos_p = self._pack(
                 parts[0], block,
                 lambda ip: M.t2i_attn_meta(ip, tcfg.pad_id, tcfg.soi_id, tcfg.eoi_id))
-            embeds.append(unigen.embed_tokens(params, ids_p))
+            embeds.append(unigen.embed_tokens(params, ids_p, specs))
             metas.append(meta_p)
             poss.append(pos_p)
             rt = ids_p.shape[0]
@@ -367,7 +377,7 @@ class SFTStep:
             lm_labs[:, 0] = -100
             ids_p, lm_labs_p, meta_p, pos_p = self._pack(
                 parts[-1], lm_labs, lambda ip: M.lm_attn_meta(ip, tcfg.pad_id))
-            embeds.append(unigen.embed_tokens(params, ids_p))
+            embeds.append(unigen.embed_tokens(params, ids_p, specs))
             metas.append(meta_p)
             poss.append(pos_p)
             rl = ids_p.shape[0]
@@ -375,15 +385,16 @@ class SFTStep:
         embeds.append(mmu_embeds)
         metas.append(mmu_meta)
         poss.append(torch.arange(lc, device=mmu_embeds.device)[None].expand(bm, lc))
+        llm_specs = C.sub(specs, "llm")
         hidden, _ = qwen2.forward(
             params["llm"], self.cfg.llm,
             inputs_embeds=torch.cat([e.to(mmu_embeds.dtype) for e in embeds]),
             meta_bits=M.pack_meta(M.concat_meta(*metas)), positions=torch.cat(poss),
-            remat=tcfg.remat)
-        w = qwen2.lm_head_weight(params["llm"], self.cfg.llm)
-        lt = _chunked_ce(hidden[:rt], w, t2i_labs_p) if bt else None
-        ll = _chunked_ce(hidden[rt:rt + rl, :-1], w, lm_labs_p[:, 1:]) if bl else None
-        lmu = _chunked_ce(hidden[rt + rl:, :-1], w, mmu_labels[:, 1:])
+            remat=tcfg.remat, specs=llm_specs)
+        w, spec = qwen2.lm_head(params["llm"], self.cfg.llm, llm_specs)
+        lt = _chunked_ce(hidden[:rt], w, t2i_labs_p, spec=spec) if bt else None
+        ll = _chunked_ce(hidden[rt:rt + rl, :-1], w, lm_labs_p[:, 1:], spec=spec) if bl else None
+        lmu = _chunked_ce(hidden[rt + rl:, :-1], w, mmu_labels[:, 1:], spec=spec)
         return self._total({"avg_masking_rate": C.batch_mean(mask_prob)}, lt, ll, lmu, bt, bl)
 
     # ---------------------------------------------------------- the step --
@@ -398,7 +409,8 @@ class SFTStep:
             return "packed" if packable else "fused"
         return "separate"
 
-    def loss_and_grads(self, params, vq_params, vision_params, batch, key: Key
+    def loss_and_grads(self, params, vq_params, vision_params, batch, key: Key, specs=None,
+                       vision_specs=None
                        ) -> Tuple[List[Optional[torch.Tensor]], Dict[str, torch.Tensor]]:
         """(gradients in ``named_leaves`` order, None for a frozen leaf;
         metrics); the parameters are not touched. The separate mode runs
@@ -407,18 +419,18 @@ class SFTStep:
         metrics: Dict[str, torch.Tensor] = {}
         if self.mode != "separate":
             fn = self.loss_packed if self.mode == "packed" else self.loss_fused
-            total, m = fn(params, vq_params, vision_params, batch, key)
+            total, m = fn(params, vq_params, vision_params, batch, key, specs, vision_specs)
             total.backward()
             metrics.update(m)
         else:
             total = None
             if tcfg.batch_size_t2i > 0 or tcfg.batch_size_lm > 0:
-                l1, m1 = self.loss_tl(params, vq_params, batch, key)
+                l1, m1 = self.loss_tl(params, vq_params, batch, key, specs)
                 l1.backward()
                 metrics.update(m1)
                 total = l1.detach()
             if tcfg.batch_size_mmu > 0:
-                l2, m2 = self.loss_mmu(params, vision_params, batch)
+                l2, m2 = self.loss_mmu(params, vision_params, batch, specs, vision_specs)
                 l2.backward()
                 metrics.update(m2)
                 total = l2.detach() if total is None else total + l2.detach()
@@ -431,8 +443,11 @@ class SFTStep:
         """The update of ``grads``: the grad norm metric, AdamW in place."""
         return apply_update(self.tx, state, grads, metrics)
 
-    def __call__(self, state: TrainState, vq_params, vision_params, batch, key: Key):
+    def __call__(self, state: TrainState, vq_params, vision_params, batch, key: Key,
+                 vision_sharding=None):
+        """``vision_sharding``: the ``Sharding`` of a sharded tower."""
         tcfg = self.tcfg
+        vision_specs = None if vision_sharding is None else vision_sharding.tree(vision_params)
 
         def draw(key):
             if tcfg.batch_size_t2i > 0:
@@ -442,7 +457,8 @@ class SFTStep:
 
         def grads_fn(rows, key):
             step = SFTStep(self.cfg, self.vq_cfg, self.vision_cfg, self.tx, local_tcfg(tcfg))
-            return step.loss_and_grads(state.params, vq_params, vision_params, rows, key)
+            return step.loss_and_grads(state.params, vq_params, vision_params, rows, key,
+                                       param_specs(state), vision_specs)
         return self.apply(state, *batch_grads(state, batch, key, draw, grads_fn))
 
 

@@ -38,7 +38,8 @@ before its division; and the gradients are summed over the batch group
 (``collectives.sync_grads``), each rank's loss being its share of the
 global mean. The metrics are summed the same way, the grad norm and the
 clip are the whole tree's, and AdamW and the EMA run on the shards. With no
-mesh each of these is the identity.
+mesh each of these is the identity. The forwards take the state's spec
+tree (``param_specs``, from ``TrainState.sharding``) beside its params.
 """
 from __future__ import annotations
 
@@ -98,16 +99,13 @@ def init_train_state(params: Any, tx: AdamW, ema_cfg: Optional[EMAConfig] = None
     """A state over a copy of ``params`` (the step updates it in place; the
     caller's tree is left as it is), its leaves requiring grad. With
     ``sharding`` (``parallel.shard_params``' record) ``params`` are this
-    rank's shards: the copies are registered as such."""
-    params = C.register(sharding, map_tree(
-        params, lambda t: t.detach().clone().requires_grad_(True)))
+    rank's shards, and the state carries the record."""
+    params = map_tree(params, lambda t: t.detach().clone().requires_grad_(True))
     leaves = [t for _, t in named_leaves(params)]
     if sharding is not None:
         sharding = dataclasses.replace(sharding, moments=[
             s for s, train in zip(sharding.spec_list(params), tx.trainable) if train])
     ema = ema_init(params) if ema_cfg is not None else None
-    if ema is not None:
-        C.register(sharding, ema.params)
     return TrainState(params, tx.init(leaves),
                       torch.zeros((), dtype=torch.int32, device=leaves[0].device), ema, sharding)
 
@@ -146,6 +144,12 @@ def global_draws(key, rows: int, n: int, codebook_size: int, device, accum: int 
 def leaf_specs(state: TrainState) -> Optional[List]:
     """The specs of the state's leaves in ``named_leaves`` order (None: whole)."""
     return None if state.sharding is None else state.sharding.spec_list(state.params)
+
+
+def param_specs(state: TrainState) -> Optional[Any]:
+    """The spec tree of the state's params (and of its EMA's), which the
+    forwards take; None for a whole state."""
+    return None if state.sharding is None else state.sharding.tree(state.params)
 
 
 def batch_grads(state: TrainState, batch: Dict[str, torch.Tensor], key,
@@ -258,22 +262,24 @@ class TrainStep:
         return (torch.cat(parts, dim=0), torch.cat(labels, dim=0),
                 M.pack_meta(M.concat_meta(*metas)), mask_prob)
 
-    def loss_fn(self, params, vq_params, batch, draws):
-        """(weighted loss, detached metrics) of one (micro-)batch."""
+    def loss_fn(self, params, vq_params, batch, draws, specs=None):
+        """(weighted loss, detached metrics) of one (micro-)batch; ``specs``
+        the spec tree of sharded ``params``."""
         tcfg = self.tcfg
         input_ids, label_ids, meta_bits, mask_prob = self.build_inputs(vq_params, batch, draws)
         _, lt, ll, lm = unigen.forward(
             params, self.cfg, input_ids=input_ids, meta_bits=meta_bits, labels=label_ids,
             batch_size_t2i=tcfg.batch_size_t2i, batch_size_lm=tcfg.batch_size_lm,
             batch_size_mmu=tcfg.batch_size_mmu, t2i_mode=tcfg.t2i_gen_mode, remat=tcfg.remat,
-            memory_efficient_loss=tcfg.memory_efficient_loss and not self.cfg.use_gen_projector)
+            memory_efficient_loss=tcfg.memory_efficient_loss and not self.cfg.use_gen_projector,
+            specs=specs)
         loss = tcfg.t2i_coeff * lt + tcfg.lm_coeff * ll + tcfg.mmu_coeff * lm
         metrics = {"loss": loss, "loss_t2i": lt, "loss_lm": ll, "loss_mmu": lm,
                    "avg_masking_rate": C.batch_mean(mask_prob)}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
-    def loss_and_grads(self, params, vq_params, batch: Dict[str, torch.Tensor], key: Key
-                       ) -> tuple:
+    def loss_and_grads(self, params, vq_params, batch: Dict[str, torch.Tensor], key: Key,
+                       specs=None) -> tuple:
         """(gradients in ``named_leaves`` order, metrics), averaged over the
         micro-batches; the parameters are not touched."""
         leaves = [t for _, t in named_leaves(params)]
@@ -286,7 +292,7 @@ class TrainStep:
         for i, k in enumerate(keys):
             micro = {name: x.reshape(a, x.shape[0] // a, *x.shape[1:])[i]
                      for name, x in batch.items()} if a > 1 else batch
-            loss, m = self.loss_fn(params, vq_params, micro, k)
+            loss, m = self.loss_fn(params, vq_params, micro, k, specs)
             g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             grads = list(g) if grads is None else [x + y for x, y in zip(grads, g)]
             metrics = m if not metrics else {n: metrics[n] + m[n] for n in metrics}
@@ -308,7 +314,7 @@ class TrainStep:
 
         def grads_fn(rows, key):
             step = TrainStep(self.cfg, self.vq_cfg, self.tx, local_tcfg(tcfg), self.ema_cfg)
-            return step.loss_and_grads(state.params, vq_params, rows, key)
+            return step.loss_and_grads(state.params, vq_params, rows, key, param_specs(state))
         return batch_grads(state, batch, key, draw, grads_fn, a)
 
     def __call__(self, state: TrainState, vq_params, batch: Dict[str, torch.Tensor],

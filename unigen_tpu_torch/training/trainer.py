@@ -41,7 +41,8 @@ from ..utils.logging import AverageMeter, MetricLogger, get_logger
 from ..utils.multihost import process_index
 from .ema import EMAConfig
 from .optimizer import AdamW
-from .train_step import TrainState, TrainStepConfig, init_train_state, make_train_step
+from .train_step import (TrainState, TrainStepConfig, init_train_state, make_train_step,
+                         param_specs)
 
 logger = get_logger(__name__)
 
@@ -166,7 +167,7 @@ class Trainer:
             min_masking_rate=self.tcfg.min_masking_rate)
         trip = VZ.visualize_predictions(
             self.state.params, self.cfg, self.vq_params, self.vq_cfg, batch["t2i_pixels"], ids,
-            self.tcfg.pad_id, self.tcfg.soi_id, self.tcfg.eoi_id)
+            self.tcfg.pad_id, self.tcfg.soi_id, self.tcfg.eoi_id, specs=param_specs(self.state))
         if process_index() == 0:
             vis_dir = os.path.join(self.tr.output_dir, "visualizations")
             os.makedirs(vis_dir, exist_ok=True)

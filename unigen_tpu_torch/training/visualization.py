@@ -51,16 +51,18 @@ def visualize_predictions(
     pixels: torch.Tensor,      # [B, H, W, 3] the training batch images
     input_ids: torch.Tensor,   # [B, L] the (masked) t2i training sequences
     pad_id: int, soi_id: int, eoi_id: int,
+    specs=None,
 ) -> np.ndarray:
     """[original | VQ reconstruction | model argmax prediction] triptychs
-    (reference: train.py:892-967). Returns [B, H, 3W, 3] uint8."""
+    (reference: train.py:892-967). Returns [B, H, 3W, 3] uint8. ``specs``:
+    the spec tree of a sharded ``params``."""
     n = cfg.num_vq_tokens
     codes = magvit.get_code(vq_params, vq_cfg, pixels)
     recon = magvit.decode_code(vq_params, vq_cfg, codes)
 
     bits = M.pack_meta(M.t2i_attn_meta(input_ids, pad_id, soi_id, eoi_id))
     logits = unigen.forward(params, cfg, input_ids=input_ids, meta_bits=bits,
-                            batch_size_t2i=input_ids.shape[0])
+                            batch_size_t2i=input_ids.shape[0], specs=specs)
     img_logits = logits[:, -(n + 1):-1]
     if not cfg.use_gen_projector:
         img_logits = img_logits[..., cfg.text_vocab_len:cfg.text_vocab_len + cfg.codebook_size]

@@ -33,12 +33,11 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..parallel import collectives as C
 from ..parallel.mesh import AXES, world
 from ..parallel.partition import Sharding
 from .persistence import _leaves, _unflatten, from_pretrained, load_state_dict, save_pretrained
@@ -76,6 +75,11 @@ def _to_tree(x: Any) -> Any:
     return x
 
 
+def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
+    """[(path, tensor)] of a ``TrainState`` as the checkpoint names them."""
+    return _leaves(_to_tree(state))
+
+
 def _like(loaded: Any, target: Any) -> Any:
     """``loaded`` (CPU tensors in ``_to_tree(target)``'s structure) rebuilt
     as ``target``: its NamedTuples, devices, dtypes and requires_grad."""
@@ -101,7 +105,7 @@ def state_specs(state: Any) -> Dict[str, tuple]:
     leaf, every other leaf replicated."""
     sh = state.sharding
     out = {}
-    for p, t in _leaves(_to_tree(state)):
+    for p, t in state_leaves(state):
         m = re.match(r"opt_state/(mu|nu)/(\d+)$", p)
         if m:
             out[p] = tuple(sh.moments[int(m.group(2))])
@@ -179,18 +183,18 @@ def _saved_pieces(state_dir: str):
     return info["mesh"], {p: tuple(s) for p, s in info["specs"].items()}, pieces
 
 
-def _read_pieces(state_dir: str, specs: Dict[str, tuple], sizes: Dict[str, int],
-                 coord: Dict[str, int]) -> Dict[str, torch.Tensor]:
-    """{path: this rank's piece} under ``specs`` on a mesh of ``sizes`` at
-    ``coord``: each copied from the parts of the saved pieces that overlap
-    it, and nothing else read."""
+def read_pieces(state_dir: str, specs: Dict[str, tuple], sizes: Optional[Dict[str, int]] = None,
+                coord: Optional[Dict[str, int]] = None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path, this rank's piece) of each leaf of ``specs``, one at a time,
+    on a mesh of ``sizes`` at ``coord`` (neither for specs that cut nothing:
+    whole leaves): each copied from the parts of the saved pieces that
+    overlap it, and nothing else read; the directory is mapped once."""
     saved_sizes, saved_specs, saved = _saved_pieces(state_dir)
-    out = {}
     for p, spec in specs.items():
         sspec = saved_specs[p]
         local = saved[0][1][p].shape
         whole = [n * (saved_sizes[a] if a is not None else 1) for n, a in zip(local, sspec)]
-        want = _ranges(spec, whole, sizes, coord)
+        want = _ranges(spec, whole, sizes or {}, coord or {})
         piece = torch.empty([b - a for a, b in want], dtype=saved[0][1][p].dtype)
         seen = set()
         for scoord, sd in saved:
@@ -204,15 +208,21 @@ def _read_pieces(state_dir: str, specs: Dict[str, tuple], sizes: Dict[str, int],
                 src = src.narrow(dim, a - have[dim][0], b - a)
                 dst = dst.narrow(dim, a - want[dim][0], b - a)
             dst.copy_(src)
-        out[p] = piece
-    return out
+        yield p, piece
+
+
+def _read_pieces(state_dir: str, specs: Dict[str, tuple], sizes: Dict[str, int],
+                 coord: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """{path: this rank's piece}: ``read_pieces`` gathered."""
+    return dict(read_pieces(state_dir, specs, sizes, coord))
 
 
 @torch.no_grad()
 def restore_checkpoint(path: str, target: Any, kind: str = "state") -> Any:
     """Restore into the structure, devices and dtypes of ``target``: a
     sharded target (``TrainState.sharding``) gets its rank's pieces of each
-    leaf, from a sharded checkpoint of any mesh or an unsharded one."""
+    leaf, from a sharded checkpoint of any mesh or an unsharded one, and the
+    restored state carries the target's ``Sharding``."""
     d = os.path.join(path, kind)
     sharding = getattr(target, "sharding", None)
     if not os.path.exists(os.path.join(d, SHARDING_NAME)) and sharding is None:
@@ -221,14 +231,8 @@ def restore_checkpoint(path: str, target: Any, kind: str = "state") -> Any:
     if sharding is not None:
         pieces = _read_pieces(d, state_specs(target), sharding.mesh.shape, sharding.mesh.coord)
     else:
-        pieces = _read_pieces(d, {p: (None,) * t.dim() for p, t in _leaves(_to_tree(target))},
-                              {}, {})
-    out = _like(_unflatten(pieces, _to_tree(target)), target)
-    if sharding is not None:
-        C.register(sharding, out.params)
-        if out.ema is not None:
-            C.register(sharding, out.ema.params)
-    return out
+        pieces = _read_pieces(d, {p: (None,) * t.dim() for p, t in state_leaves(target)}, {}, {})
+    return _like(_unflatten(pieces, _to_tree(target)), target)
 
 
 def resume_step(path: str) -> int:
