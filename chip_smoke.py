@@ -83,9 +83,9 @@ read just after:
   MAGViTv2, random init, bf16 parameters and AdamW state, remat and the
   chunked CE, 8 t2i + 2 lm + 6 mmu rows of 835 tokens; 2 warm and 5
   timed steps: s a step, samples/s, tokens/s, enqueue, peak memory, model
-  FLOPs; exact launches a step (kernel 2 28 + 28 in the remat recompute,
-  kernel 3 80 + 80 over both encodes); one step through kernel 2 against
-  the same step through the plain attention;
+  FLOPs; exact launches a step (kernel 2 28 + 28 in the remat recompute
+  and its backward kernel 28, kernel 3 80 + 80 over both encodes); one step
+  through kernel 2 against the same step through the plain attention;
 * ``sft``: SFT through the SFT entry's own run (``training.train_sft.SFTRun``)
   on ``configs/unigen_1_5b/unigen_sft.yaml`` (synthetic flows, random init):
   3 t2i + 1 lm rows of 1,603 tokens and 4 mmu rows of 3 + 729 + 64 = 796
@@ -592,6 +592,11 @@ def phase_flash(gen, b, l, dtype, rtol, iters, timed, ragged_bits=False, heads=(
     print(f"  flash_attention {dtype} q{list(q.shape)}{' omni/seg bits' if ragged_bits else ''}:"
           f" max_abs_err {err:.3e} (tol {tol:.2e})")
     check(err <= tol, f"flash_attention {dtype} L={l} disagrees with its plain version")
+    if ragged_bits:
+        g = torch.randn((b, l, h, dh), generator=gen, device="cuda").to(dtype)
+        worst = flash_grads_gate(q, k, v, bits, g, f"flash backward {dtype} L={l}")[2]
+        print(f"    its backward kernel: dq, dk, dv within the gate (largest err/tol {worst:.3f}), "
+              "two runs bit-equal")
     if not timed:
         return None
     ms = time_ms(lambda: flash_attention(q, k, v, bits), iters)
@@ -1227,7 +1232,9 @@ def phase_quant(gen, t, k, dtype, iters, timed, label=""):
 def phase_head_dims(gen):
     """Flash and chunk attention (both routes) at every head dim the
     wrappers' callers may pad to (``KERNEL_HEAD_DIMS``), bf16 and fp32: a dim
-    that the source does not instantiate fails to launch here."""
+    that the source does not instantiate fails to launch here. The flash
+    backward kernel too (``flash_grads_gate``), over bits with right pads,
+    bidirectional bits and two segments."""
     import torch
     from unigen_tpu_torch.ops import masks as M
     from unigen_tpu_torch.ops.chunk_attention import (_launch, chunk_attention,
@@ -1239,7 +1246,11 @@ def phase_head_dims(gen):
     pad = pos < torch.tensor([[0], [5]], device="cuda")
     z = torch.zeros_like(pad)
     bits = M.pack_meta(M.AttnMeta(pad=pad, bidir_q=z, bidir_k=z))
-    worst = 0.0
+    rpad = pad | (pos >= torch.tensor([[30], [l]], device="cuda"))
+    ragged = M.pack_meta(M.AttnMeta(pad=rpad, bidir_q=(pos % 5 == 0) & ~rpad,
+                                    bidir_k=(pos % 7 == 3) & ~rpad,
+                                    seg=(pos >= 12).to(torch.int32)))
+    worst = worst_grad = 0.0
     for dtype, rtol in ((torch.bfloat16, 2 ** -7), (torch.float32, 2e-5)):
         for dh in KERNEL_HEAD_DIMS:
             q, k, v = _attn_inputs(gen, b, l, l, 4, 2, dh, dtype)
@@ -1254,9 +1265,13 @@ def phase_head_dims(gen):
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"{name}_attention {dtype} head dim {dh}: max_abs_err {err} (tol {tol})")
                 worst = max(worst, err / tol)
+            g = torch.randn((b, l, 4, dh), generator=gen, device="cuda").to(dtype)
+            worst_grad = max(worst_grad, flash_grads_gate(
+                q, k, v, ragged, g, f"flash backward {dtype} head dim {dh}")[2])
     print(f"  flash and chunk attention (unsplit and split) at head dims {KERNEL_HEAD_DIMS}, "
           "bf16 and fp32: all "
-          f"match their plain versions (largest err/tol {worst:.3f})")
+          f"match their plain versions (largest err/tol {worst:.3f}); the flash backward "
+          f"kernel within its gate (largest err/tol {worst_grad:.3f}), two runs bit-equal")
 
 
 def run_kernel_phases(results):
@@ -1608,40 +1623,77 @@ def train_metas(config, device="cuda"):
             M.mmu_train_attn_meta(t(mmu), pr.pad_id, soi, eoi))
 
 
+def flash_grads_gate(q, k, v, bits, g, at):
+    """Kernel 2's gradients through its autograd function (the forward
+    writing the rows' log-sum-exp, then the backward kernel) against the
+    gradients of the plain version on the inputs upcast to fp32 (``ref``):
+    in bf16 each of dq, dk, dv within max(2 x the bf16 plain version's own
+    error against ``ref``, 2^-8 max |ref|); in fp32 within 1e-5 max |ref|.
+    A second backward of the same graph must give the same bits (no
+    atomics). Returns (out, the kernel's grads, the largest error / tol,
+    the largest max_abs_err)."""
+    import torch
+    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, bits)
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, g)
+    plain = torch.autograd.grad(flash_attention_plain(*leaves, bits), leaves, g)
+    up = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(flash_attention_plain(*up, bits), up, g.float())
+    torch.cuda.synchronize()
+    worst = worst_err = 0.0
+    for name, a, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        top = r.abs().max().item()
+        err = (a.float() - r).abs().max().item()
+        tol = (1e-5 * top if q.dtype == torch.float32
+               else max(2 * (p.float() - r).abs().max().item(), 2 ** -8 * top))
+        check(a.dtype == p.dtype and bool(torch.isfinite(a).all()) and err <= tol,
+              f"{at}: {name} max_abs_err {err:.3e} against the fp32 plain gradients (tol "
+              f"{tol:.3e}, max |ref| {top:.3e})")
+        worst, worst_err = max(worst, err / tol), max(worst_err, err)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{at}: two backward runs of the kernel differ")
+    return out, got, worst, worst_err
+
+
 def phase_flash_grad(gen, bits, iters, at, heads=(12, 2)):
     """Kernel 2 as the training steps call it: the autograd function at
     [B, L, 12, 128] with a step's ``bits``, bf16. Forward within 2^-7 of the
-    plain version; dq, dk, dv bit-equal to the plain version's autograd (the
-    backward is its dense recompute). Times the forward, forward + backward
-    (backward = the difference) of the kernel's function, the plain version
-    and SDPA (with the dense mask); the bounds count the least work: 4 h dh
-    per visible pair forward, 8 backward (dV, dP, dQ, dK), 12 both; the
-    forward reads q, k, v and the bits and writes the output, the backward
-    reads q, k, v, dO and the bits and writes dq, dk, dv, both together
-    read and write each once."""
+    plain version; dq, dk, dv by ``flash_grads_gate`` (fp32 plain gradients,
+    two runs bit for bit). Times the forward, forward + backward of the
+    kernel's function, the plain version and SDPA (with the dense mask), and
+    the backward kernel alone (``flash_attention_backward``) beside its plain
+    version (``flash_attention_backward_plain``); the bounds count the least
+    work: 4 h dh per visible pair forward, 8 backward (dV, dP, dQ, dK), 12
+    both; the forward reads q, k, v and the bits and writes the output, the
+    backward reads q, k, v, dO and the bits and writes dq, dk, dv, both
+    together read and write each once. The row's ``backward_kernel`` holds
+    the backward kernel's own fields."""
     import torch
     from unigen_tpu_torch.ops import masks as M
-    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from unigen_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_launch, flash_attention_plain)
     import torch.nn.functional as F
     b, l = bits.shape
     (h, kvh), dh = heads, 128
     q, k, v = (t.requires_grad_(True) for t in _attn_inputs(gen, b, l, l, h, kvh, dh,
                                                            torch.bfloat16))
     g = torch.randn((b, l, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    out = flash_attention(q, k, v, bits)
-    dq = torch.autograd.grad(out, (q, k, v), g)
+    out, _, worst, grad_err = flash_grads_gate(q, k, v, bits, g, at)
     ref = flash_attention_plain(q, k, v, bits)
-    dr = torch.autograd.grad(ref, (q, k, v), g)
-    torch.cuda.synchronize()
     err, tol = _err_tol(out.detach(), ref.detach(), 2 ** -7)
-    equal = all(torch.equal(a, r) for a, r in zip(dq, dr))
     print(f"  flash_attention {at} q{list(q.shape)}: forward max_abs_err {err:.3e} (tol "
-          f"{tol:.2e}); dq, dk, dv bit-equal to the plain version's: {equal}")
+          f"{tol:.2e}); dq, dk, dv against fp32 plain gradients: max_abs_err {grad_err:.3e}, "
+          f"largest err/tol {worst:.3f}; two backward runs bit-equal")
     check(err <= tol and bool(torch.isfinite(out).all()), f"{at} flash forward disagrees")
-    check(equal, f"{at} flash backward differs from the plain version's autograd")
     vis = M.unpack_meta(bits).visibility()
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     gt = g.transpose(1, 2)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    lse = torch.empty((b, h, l), dtype=torch.float32, device="cuda")
+    flash_attention_launch(qd, kd, vd, bits, lse=lse)
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis, enable_gqa=True)
@@ -1650,8 +1702,10 @@ def phase_flash_grad(gen, bits, iters, at, heads=(12, 2)):
         return lambda: torch.autograd.grad(fwd(), args, grad)
     fwd_ms = time_ms(lambda: flash_attention(q, k, v, bits), iters)
     all_ms = time_ms(both(lambda: flash_attention(q, k, v, bits), (q, k, v), g), iters)
+    bwd_ms = time_ms(lambda: flash_attention_backward(qd, kd, vd, bits, lse, g), iters)
     plain_fwd = time_ms(lambda: flash_attention_plain(q, k, v, bits), iters)
     plain_all = time_ms(both(lambda: flash_attention_plain(q, k, v, bits), (q, k, v), g), iters)
+    plain_bwd = time_ms(lambda: flash_attention_backward_plain(qd, kd, vd, bits, lse, g), iters)
     lib_fwd = time_ms(sdpa, iters)
     lib_all = time_ms(both(sdpa, (qt, kt, vt), gt), iters)
     pairs = attn_flops(vis, h, kvh, dh) / 4.0
@@ -1659,15 +1713,21 @@ def phase_flash_grad(gen, bits, iters, at, heads=(12, 2)):
     fwd_bound = bound(4.0 * pairs, nbytes(q, k, v, out, bits), BF16_PEAK)[0]
     bwd_bound, bwd_by = bound(8.0 * pairs, 2 * nbytes(q, k, v) + nbytes(g, bits), BF16_PEAK)
     print(f"    forward ms {fwd_ms:.4f} (plain {plain_fwd:.4f}, sdpa {lib_fwd:.4f}, bound "
-          f"{fwd_bound:.4f}); backward ms {all_ms - fwd_ms:.4f} (plain {plain_all - plain_fwd:.4f},"
-          f" sdpa {lib_all - lib_fwd:.4f}, bound {bwd_bound:.4f} ({bwd_by})); forward + backward "
-          f"ms {all_ms:.4f} (plain {plain_all:.4f}, sdpa {lib_all:.4f}); bound_ms {b_ms:.4f} ({by})")
-    row = _measured(err, all_ms, plain_all, lib_all, b_ms, by,
+          f"{fwd_bound:.4f}); backward kernel ms {bwd_ms:.4f} (its plain version "
+          f"{plain_bwd:.4f}; the plain autograd's backward {plain_all - plain_fwd:.4f}; sdpa "
+          f"{lib_all - lib_fwd:.4f}; bound {bwd_bound:.4f} ({bwd_by})); forward + backward "
+          f"ms {all_ms:.4f} (plain {plain_all:.4f}, sdpa {lib_all:.4f}); bound_ms {b_ms:.4f} "
+          f"({by})")
+    row = _measured(max(err, grad_err), all_ms, plain_all, lib_all, b_ms, by,
                     f"{at} q [{b},{l},{h},{dh}], forward + backward")
     row.update(forward_ms=fwd_ms, backward_ms=all_ms - fwd_ms, plain_forward_ms=plain_fwd,
                plain_backward_ms=plain_all - plain_fwd, library_forward_ms=lib_fwd,
                library_backward_ms=lib_all - lib_fwd, forward_bound_ms=fwd_bound,
-               backward_bound_ms=bwd_bound, backward_bound_by=bwd_by, backward_bit_equal=equal)
+               backward_bound_ms=bwd_bound, backward_bound_by=bwd_by,
+               backward_kernel=dict(_measured(grad_err, bwd_ms, plain_bwd, lib_all - lib_fwd,
+                                              bwd_bound, bwd_by, f"{at} q [{b},{l},{h},{dh}]"),
+                                    grad_err_over_tol=worst,
+                                    autograd_recompute_ms=plain_all - plain_fwd))
     return row
 
 
@@ -1932,18 +1992,21 @@ def _counters():
     """Every launch count a path phase reads: the port's kernels, and
     ``int8_matmul`` (the W8A8 layers' ``torch._int_mm`` calls on the card)."""
     from unigen_tpu_torch.ops.chunk_attention import chunk_attention
-    from unigen_tpu_torch.ops.flash_attention import flash_attention
+    from unigen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from unigen_tpu_torch.ops.fused_conv import conv3x3_gn_swish, gn_affine
     from unigen_tpu_torch.ops.int4 import w4a8_matmul
     from unigen_tpu_torch.ops.quantization import (int8_matmul, quantize_activations,
                                                    w8a8_epilogue)
-    return {"flash_attention": flash_attention, "chunk_attention": chunk_attention,
+    return {"flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
+            "chunk_attention": chunk_attention,
             "conv3x3_gn_swish": conv3x3_gn_swish, "gn_affine": gn_affine,
             "w4a8_matmul": w4a8_matmul, "quantize_activations": quantize_activations,
             "w8a8_epilogue": w8a8_epilogue, "int8_matmul": int8_matmul}
 
 
-NO_LAUNCHES = dict.fromkeys(("flash_attention", "chunk_attention", "conv3x3_gn_swish",
+NO_LAUNCHES = dict.fromkeys(("flash_attention", "flash_attention_backward", "chunk_attention",
+                             "conv3x3_gn_swish",
                              "gn_affine", "w4a8_matmul", "quantize_activations",
                              "w8a8_epilogue", "int8_matmul"), 0)
 
@@ -4104,8 +4167,8 @@ def _train_profile(step_once, tx, warm_s):
     """One more profiled training step (``step_once()``): device busy and idle
     share, time by kernel and family (``profile_run``), then the device time
     inside the annotated parts: the encodes (``magvit.get_code``), the SigLIP
-    or NaFlex tower, kernel 2's forward launches and its backward (the dense
-    recompute), the chunked CE's chunks (forward and recompute; their
+    or NaFlex tower, kernel 2's forward launches and its backward (the
+    backward kernel), the chunked CE's chunks (forward and recompute; their
     backward runs in autograd's engine, outside the annotation) and the
     optimizer update."""
     import torch
@@ -4150,7 +4213,7 @@ def run_train(results, profile=False):
     chunked CE, 8 t2i + 2 lm + 6 mmu rows of 576 tokens a step, synthetic
     flows; TRAIN_WARM + TRAIN_TIMED steps, each followed by a
     synchronize. Gates: exact launches a step (kernel 2: 28 forward + 28
-    in the remat recompute; kernel 3: both encodes), finite losses and grad
+    in the remat recompute, 28 backward; kernel 3: both encodes), finite losses and grad
     norms, a parameter moved; then one step's losses and grad norm through
     kernel 2 against the same step through the plain attention."""
     import os
@@ -4182,7 +4245,8 @@ def run_train(results, profile=False):
     print(f"  rows of {seq} tokens (max_seq_length {config.dataset.preprocessing.max_seq_length} "
           f"+ {cfg.num_vq_tokens} image tokens + 3), {rows * seq} a step")
     layers = cfg.llm.num_hidden_layers
-    per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, conv3x3_gn_swish=80, gn_affine=80)
+    per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, flash_attention_backward=layers,
+                    conv3x3_gn_swish=80, gn_affine=80)
     watched = {p: t.detach().clone() for p, t in named_leaves(trainer.state.params)
                if p.startswith("llm/layers/0/") or p in ("llm/final_ln", "llm/embed")}
     records, last = [], {}
@@ -4441,8 +4505,9 @@ def run_tiny_train():
           f"difference {gerr:.3e} of a largest gradient {gmax:.3e} (need <= 1e-4 of it); the "
           f"card's AdamW on the CPU's gradients: {upd:.3e} of each leaf's largest magnitude "
           "(need <= 1e-5)")
-    check(counts["flash_attention"] == 2 and counts["conv3x3_gn_swish"] > 0
-          and counts["gn_affine"] > 0, f"tiny train step launches {counts}")
+    check(counts["flash_attention"] == 2 and counts["flash_attention_backward"] == 2
+          and counts["conv3x3_gn_swish"] > 0 and counts["gn_affine"] > 0,
+          f"tiny train step launches {counts}")
     check(all(v <= 1e-4 for v in rel.values()), f"tiny train step card vs CPU: {rel}")
     check(gerr <= 1e-4 * gmax, f"tiny train gradients differ: {gerr} of {gmax}")
     check(upd <= 1e-5, f"tiny AdamW update on the card differs: {upd}")
@@ -4739,8 +4804,9 @@ def _sft_run(*extra, config_path=None):
 def _sft_per_step(run):
     """Exact launches of one SFT step, from the code: kernel 2 in the SigLIP
     tower or kernel 1 in the NaFlex tower (one a layer, forward only), kernel
-    2 in the backbone (one a layer a call, twice with remat: the recompute);
-    kernel 3 and its statistics 40 each a t2i encode (ENCODER_CONVS)."""
+    2 in the backbone (one a layer a call, twice with remat: the recompute)
+    and its backward kernel (one a layer a call); kernel 3 and its
+    statistics 40 each a t2i encode (ENCODER_CONVS)."""
     tc, layers = run.tcfg, run.cfg.llm.num_hidden_layers
     calls = 1 if run.step.mode != "separate" else (
         (tc.batch_size_t2i > 0 or tc.batch_size_lm > 0) + (tc.batch_size_mmu > 0))
@@ -4749,11 +4815,12 @@ def _sft_per_step(run):
     convs = sum(n for *_, n in ENCODER_CONVS) if tc.batch_size_t2i else 0
     naflex = run.step.naflex
     print(f"  launches a step from the code: kernel 2 {calls * layers} forward ({calls} backbone "
-          f"call(s) x {layers} layers) + {recompute} remat recompute"
+          f"call(s) x {layers} layers) + {recompute} remat recompute + {calls * layers} backward"
           + (f"; kernel 1 {tower} in the NaFlex tower" if naflex else f" + {tower} SigLIP")
           + f"; kernel 3 and its statistics {convs} each (the t2i encode)")
     return dict(NO_LAUNCHES, flash_attention=calls * layers + recompute + (0 if naflex else tower),
-                chunk_attention=tower if naflex else 0, conv3x3_gn_swish=convs, gn_affine=convs)
+                flash_attention_backward=calls * layers, chunk_attention=tower if naflex else 0,
+                conv3x3_gn_swish=convs, gn_affine=convs)
 
 
 def _sft_stage(results, name, warm, timed, *extra, config_path=None, profile=False):
@@ -5007,10 +5074,10 @@ def run_dpo(results, profile=False):
     convs = 2 * sum(k for *_, k in ENCODER_CONVS)
     recompute = layers if run.dcfg.remat else 0
     print(f"  launches a step from the code: kernel 2 {layers} reference forward + {layers} policy "
-          f"forward + {recompute} remat recompute; kernel 3 and its statistics {convs} each (the "
-          "chosen and the rejected encode)")
+          f"forward + {recompute} remat recompute + {layers} backward; kernel 3 and its "
+          f"statistics {convs} each (the chosen and the rejected encode)")
     per_step = dict(NO_LAUNCHES, flash_attention=2 * layers + recompute,
-                    conv3x3_gn_swish=convs, gn_affine=convs)
+                    flash_attention_backward=layers, conv3x3_gn_swish=convs, gn_affine=convs)
     profile_batch = two[0]
 
     def one_step():
@@ -5547,7 +5614,8 @@ def run_pt2_real(results, profile=False):
         resident = torch.cuda.memory_allocated()
         trainer = TRAIN.build_trainer(config)
         layers = trainer.cfg.llm.num_hidden_layers
-        per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, conv3x3_gn_swish=80, gn_affine=80)
+        per_step = dict(NO_LAUNCHES, flash_attention=2 * layers, flash_attention_backward=layers,
+                        conv3x3_gn_swish=80, gn_affine=80)
         vq = _snapshot(trainer.vq_params)
         keys = ("mmu_pixels", "t2i_pixels")
         records, real_step = _timed_steps(trainer, "step_fn", keys)
@@ -5794,7 +5862,8 @@ def run_dpo_real(results, profile=False):
               f"dpo_real precompute launches {pre}")
         recompute = layers if run.dcfg.remat else 0
         per_step = dict(NO_LAUNCHES, flash_attention=layers + recompute,
-                        conv3x3_gn_swish=convs, gn_affine=convs)
+                        flash_attention_backward=layers, conv3x3_gn_swish=convs,
+                        gn_affine=convs)
         first = next(run.step_schedule())[0]
         bits = M.pack_meta(M.t2i_attn_meta(torch.cat([first["template"]] * 2), run.dcfg.pad_id,
                                            run.dcfg.soi_id, run.dcfg.eoi_id))
@@ -5902,8 +5971,8 @@ def run_tiny_post_training():
               f"gradients {gerr:.3e} of a largest {gmax:.3e} (need <= 1e-4 of it); the card's "
               f"AdamW on the CPU's gradients {upd:.3e} of each leaf's largest magnitude "
               "(need <= 1e-5)")
-        check(counts["flash_attention"] > 0 and counts["conv3x3_gn_swish"] > 0,
-              f"tiny {name} skipped a kernel: {counts}")
+        check(counts["flash_attention"] > 0 and counts["flash_attention_backward"] > 0
+              and counts["conv3x3_gn_swish"] > 0, f"tiny {name} skipped a kernel: {counts}")
         check(all(v <= 1e-4 for v in rel.values()), f"tiny {name} card vs CPU: {rel}")
         check(gerr <= 1e-4 * gmax, f"tiny {name} gradients differ: {gerr} of {gmax}")
         check(upd <= 1e-5, f"tiny {name} AdamW on the card differs: {upd}")
@@ -7564,7 +7633,7 @@ def _parallel_train_rank(rank):
             "resident_gib": resident / 2 ** 30, "first": rec[0][2],
             "step_s": statistics.median(t for t, _, _ in timed),
             "collective_s": statistics.median(c for _, c, _ in timed),
-            "counts": _read_counts()}
+            "counts": _read_counts(), "layers": trainer.cfg.llm.num_hidden_layers}
         if (d, f, m) == (1, 2, 1):
             held, trainer = [trainer], None       # freed inside, before the restore
             out["restore"], trainer = _sharded_restore(held, config, steps)
@@ -7628,8 +7697,10 @@ def _report_restore(res):
 def run_parallel_train(results):
     """The optional parallel_train phase: the flagship PT2 step at model 2
     and at fsdp 2, 2 ranks on the card; the first step's losses against the
-    one-rank step (the train phase's bf16 bounds), each rank's peak memory;
-    the (1,2,1) state's checkpoint restored onto (1,1,2) (``_report_restore``)."""
+    one-rank step (the train phase's bf16 bounds), each rank's peak memory,
+    kernel 2's exact launches a rank (a step: 2 x layers forward with the
+    remat recompute, layers backward); the (1,2,1) state's checkpoint
+    restored onto (1,1,2) (``_report_restore``)."""
     t0 = time.perf_counter()
     print(f"phase: parallel_train ({TRAIN_CONFIG} at meshes {PARALLEL_TRAIN_MESHES}, "
           f"{PARALLEL_RANKS} ranks on the one card under gloo, {PARALLEL_TRAIN_WARM} warm + "
@@ -7650,6 +7721,11 @@ def run_parallel_train(results):
                   f"{m['resident_gib']:.2f} GiB held before them); {m['step_s']:.3f} s a step "
                   f"(median of {PARALLEL_TRAIN_TIMED}), collectives {m['collective_s']:.3f} s "
                   f"({GLOO_NOTE}); launches {m['counts']}")
+            steps = PARALLEL_TRAIN_WARM + PARALLEL_TRAIN_TIMED
+            check(m["counts"]["flash_attention"] == steps * 2 * m["layers"]
+                  and m["counts"]["flash_attention_backward"] == steps * m["layers"],
+                  f"parallel_train {name} rank {rank}: kernel 2 launches {m['counts']} over "
+                  f"{steps} steps of {m['layers']} layers")
         print(f"  mesh {name}: first step {first}, one rank {one}, relative differences {rel} "
               "(losses need <= 1e-2, the grad norm <= 5e-2)")
         check(all(rel[k] <= 1e-2 for k in ("loss_t2i", "loss_lm", "loss_mmu"))
@@ -7832,7 +7908,9 @@ def main(argv=None) -> int:
                 "w8a8_epilogue": "unigen_tpu/ops/quantization.py:62",
                 # kernel 2 under the train step: the custom_vjp (forward: the Pallas
                 # kernel; backward: _flash_bwd's XLA recompute)
-                "flash_attention_train": "unigen_tpu/ops/flash_attention.py:94"}
+                "flash_attention_train": "unigen_tpu/ops/flash_attention.py:94",
+                # that custom_vjp's backward, XLA's recompute in JAX, a kernel here
+                "flash_attention_backward": "unigen_tpu/ops/flash_attention.py:117"}
     sources = {"chunk_attention": "unigen_tpu_torch/csrc/attention.cu",
                "flash_attention": "unigen_tpu_torch/csrc/attention.cu",
                "conv3x3_gn_swish": "unigen_tpu_torch/csrc/fused_conv.cu",
@@ -7840,7 +7918,13 @@ def main(argv=None) -> int:
                "w4a8_matmul": "unigen_tpu_torch/csrc/int4.cu",
                "quantize_activations": "unigen_tpu_torch/csrc/int4.cu",
                "w8a8_epilogue": "unigen_tpu_torch/csrc/int8.cu",
-               "flash_attention_train": "unigen_tpu_torch/csrc/attention.cu"}
+               "flash_attention_train": "unigen_tpu_torch/csrc/attention.cu",
+               "flash_attention_backward": "unigen_tpu_torch/csrc/attention.cu"}
+    grad_rows = results.get("flash_attention_train") or {}
+    grad_rows = ([grad_rows] if "backward_kernel" in grad_rows else []) + grad_rows.get("shapes", [])
+    if grad_rows:
+        bwd = [r["backward_kernel"] for r in grad_rows]
+        results["flash_attention_backward"] = dict(bwd[0], shapes=bwd[1:])
     kernels = []
     for name in replaces:
         # launches: the sum over the main paths driven in this run (warm runs);

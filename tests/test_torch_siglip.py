@@ -59,7 +59,7 @@ def test_kernel_head_dims_match_the_cuda_source():
     """The head dims SigLIP pads to are the ones csrc/attention.cu builds."""
     src = (_cuda.CSRC / "attention.cu").read_text()
     switches = src.split("switch (Dh)")[1:]
-    assert len(switches) == 2                    # the unsplit launch and the split one
+    assert len(switches) == 3          # the unsplit launch, the split one and the backward
     for cases in switches:
         cases = cases[:cases.index("default:")]
         assert tuple(int(d) for d in re.findall(r"case (\d+):", cases)) == FA.KERNEL_HEAD_DIMS

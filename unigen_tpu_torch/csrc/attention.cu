@@ -121,6 +121,12 @@ struct RowMask {
   }
 };
 
+// The omni mask of query position qpos (word mq) and key position kpos (mk).
+__device__ __forceinline__ bool meta_visible(int qpos, int mq, int kpos, int mk) {
+  return ((kpos <= qpos) || (mq & 2) || (mk & 4)) && !((mq | mk) & 1) &&
+         ((mq >> 3) == (mk >> 3));
+}
+
 // Omni mask from the packed bitfield and the positions.
 struct MetaMask {
   const int* meta;  // [B, L]
@@ -128,9 +134,7 @@ struct MetaMask {
   __device__ int row_info(int b, int qpos) const { return meta[(size_t)b * L + qpos]; }
   __device__ int key_info(int b, int kpos) const { return meta[(size_t)b * L + kpos]; }
   __device__ float logit(float s, int qpos, int mq, int kpos, int mk) const {
-    bool vis = (kpos <= qpos) || (mq & 2) || (mk & 4);
-    vis = vis && !(mq & 1) && !(mk & 1) && ((mq >> 3) == (mk >> 3));
-    return vis ? s : -FLT_MAX;
+    return meta_visible(qpos, mq, kpos, mk) ? s : -FLT_MAX;
   }
 };
 
@@ -144,6 +148,7 @@ constexpr int kTileKeys = 32;             // keys per stage of the ring
 constexpr int kStages = 2;                // stages of the K/V ring
 constexpr int kMinBlocks = 4;             // blocks per SM: 128 registers a thread
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -313,7 +318,8 @@ template <int DH, typename Mask>
 __global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
 attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                      int Lq, int S, int H, int KVH, float scale2, Mask mask) {
+                      float* __restrict__ lse, int Lq, int S, int H, int KVH, float scale2,
+                      Mask mask) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = DH + 8;    // bf16 row stride in shared memory (16-byte pad)
   constexpr int ON = DH / 8;    // 8-wide column tiles of the output
@@ -422,6 +428,10 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     for (int n = 0; n < ON; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
           __floats2bfloat162_rn(o[n][2 * hf] * inv, o[n][2 * hf + 1] * inv);
+    // m is in base 2; a row with no visible key has m = -FLT_MAX
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * Lq + qp] =
+          m[hf] == -FLT_MAX ? -FLT_MAX : (m[hf] + log2f(l[hf])) * kLn2;
   }
 }
 
@@ -622,8 +632,9 @@ template <int DH, typename Mask, bool SPLIT>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      float* __restrict__ o_part, float* __restrict__ m_part,
-                      float* __restrict__ l_part, int Lq, int S, int H, int KVH,
+                      float* __restrict__ lse, float* __restrict__ o_part,
+                      float* __restrict__ m_part, float* __restrict__ l_part, int Lq, int S,
+                      int H, int KVH,
                       int keys_per_split, float scale, Mask mask) {
   constexpr int QS = DH + 4;             // padded fp32 row stride of q and k tiles
   constexpr int NO = (DH + 31) / 32;     // output dims per lane
@@ -755,6 +766,768 @@ attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int d = lane + 32 * i;
         if (d < DH) dst[d] = o[rr][i] / denom;
       }
+      if (lse != nullptr && lane == 0)
+        lse[((size_t)b * H + h) * Lq + qp] = m[rr] == -FLT_MAX ? -FLT_MAX : m[rr] + logf(denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward of flash attention: dQ, dK, dV (flash_attention_backward_launch)
+// ---------------------------------------------------------------------------
+//
+// Replaces the backward that the JAX package leaves to XLA
+// (unigen_tpu/ops/flash_attention.py:_flash_bwd, the vjp of the dense
+// _xla_reference). With P_ij = exp(s_ij - lse_i) on visible pairs and 0
+// elsewhere (s the scaled logits, lse the forward's row log-sum-exp),
+// dP_ij = dO_i . v_j and D_i = sum_j P_ij dP_ij (= dO_i . O_i):
+//   dV_j = sum_i P_ij dO_i,        dS_ij = P_ij (dP_ij - D_i),
+//   dQ_i = scale sum_j dS_ij k_j,  dK_j = scale sum_i dS_ij q_i.
+// A row with no visible key (only a pad row has none: a non-pad row sees
+// itself) has uniform weights 1/L over all L keys in the forward, and the
+// mask blocks its gradient to the logits: it adds dO_i / L to every dV_j of
+// its batch row and KV head, and nothing to dQ or dK. That weight cannot
+// come from its lse (-FLT_MAX + ln L rounds to -FLT_MAX), so the pad rows
+// are summed apart (flash_bwd_pad_kernel) and get P = 0 in the tile loops.
+//
+// Three kernels, queued in order on one stream by the one entry point:
+//  * flash_bwd_pad_kernel: the pad rows' dO summed a (batch row, KV head);
+//  * flash_bwd_dq_*_kernel: a block owns (batch row, KV head, 64 rows) and
+//    walks the key tiles twice: first for D, summed in fp32 from the same P
+//    and dP that dS uses (so each row's dS sums to zero but for rounding)
+//    and written out, then for dQ. D from dO . O would read O rounded to
+//    bf16, and with dS rounded to bf16 too that cost dQ and dK up to 1.5x
+//    the tolerance of their gate at head dims 16-32;
+//  * flash_bwd_dkv_*_kernel: a block owns (batch row, KV head, key tile)
+//    and walks the query rows of its whole group (the G = H / KVH heads
+//    folded into rows as the forward folds them), so GQA's sums over the
+//    group stay inside one block.
+// No atomics: every sum runs in a fixed order, so two runs give the same
+// bits. Each block first lists the tiles that the bits leave some visible
+// pair in (tile_list): a key tile wholly past a query tile's last position
+// with no bidirectional bit on either side, disjoint segment ranges, or an
+// all-pad tile are skipped; the causal halves of the t2i, lm and DPO rows
+// are most of the masked pairs.
+//
+// bfloat16: mma.sync m16n8k16 with fp32 accumulation, fragments by
+// ldmatrix, the walked tiles through a two-stage cp.async ring, as in
+// attention_bf16_kernel. P enters dV's product rounded to bf16 (as the plain
+// version's weights do); dS enters dQ's and dK's as two bf16 parts, hi =
+// bf16(dS) and lo = bf16(dS - hi), two products each (split_bf16), so that
+// dS keeps ~16 bits. dK/dV: four warps of 16 keys, 32 query rows a tile; a warp
+// computes S^T and dP^T for its keys (K and V as A, Q and dO as B), then
+// dV += P^T dO and dK += dS^T Q (Q and dO transposed by ldmatrix.trans), its
+// 16 x Dh dK and dV in registers. dQ: four warps of 16 rows, 32 keys a
+// tile, as the forward, with dQ += dS K (K by ldmatrix.trans). float32: the
+// CUDA cores, tiles of 32 rows x 32 keys, P and dS through shared memory.
+//
+// Bounds on this card. PT2's step ([16,835,12,128], 2 KV heads) does 8 h dh
+// operations a visible pair (the four products): ~18 GFLOP on its ~45% of
+// visible pairs, 0.02 ms at the bf16 peak, against ~0.04 ms for its bytes;
+// tile skipping leaves ~1.3x the visible pairs, and S and dP computed three
+// times (D's pass, dQ's, dK/dV's) with dS's two parts make it 11 products
+// where the bound counts 4. mma.sync reaches only part of the tensor-core
+// rate (no wgmma, TMA or clusters).
+
+// The non-pad positions of a range of one batch row: whether it has one,
+// whether one carries bidir_bit (2 for queries, 4 for keys), and the range of
+// their segment ids.
+struct Span {
+  bool any, bidir;
+  int seg_lo, seg_hi;
+};
+
+__device__ Span span_of(const int* meta_row, int p0, int p1, int bidir_bit) {
+  Span s{false, false, INT_MAX, INT_MIN};
+#pragma unroll 4
+  for (int p = p0; p <= p1; ++p) {
+    const int m = meta_row[p];
+    if (m & 1) continue;
+    s.any = true;
+    s.bidir = s.bidir || (m & bidir_bit);
+    s.seg_lo = min(s.seg_lo, m >> 3);
+    s.seg_hi = max(s.seg_hi, m >> 3);
+  }
+  return s;
+}
+
+// Whether a query span whose last position is q1 may see a key span whose
+// first position is k0: a visible pair needs a non-pad query and key of one
+// segment, and k <= q unless a bidirectional bit is set.
+__device__ __forceinline__ bool spans_meet(const Span& q, int q1, const Span& k, int k0) {
+  return q.any && k.any && q.seg_lo <= k.seg_hi && k.seg_lo <= q.seg_hi &&
+         (k0 <= q1 || q.bidir || k.bidir);
+}
+
+// list[0 .. returned count) = the tiles i < ntiles, in order, for which
+// visit(i) holds. list holds ntiles ints of shared memory and count one;
+// every thread of the block calls it.
+template <typename Visit>
+__device__ int tile_list(int ntiles, Visit visit, int* list, int* count) {
+  for (int i = threadIdx.x; i < ntiles; i += blockDim.x) list[i] = visit(i) ? 1 : 0;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    // compacted in place by one warp: a chunk's flags are all read before
+    // the ballot, and its writes land below the chunk's end
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int i = base + lane;
+      const bool f = i < ntiles && list[i];
+      const unsigned m = __ballot_sync(kFull, f);
+      if (f) list[n + __popc(m & ((1u << lane) - 1))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// The words of one query row: position, mask word, lse (times lse_scale:
+// base 2 for the bf16 kernels) and D (0 while dsum is null: the dQ kernel
+// sums it). A row past the last is a pad row, never visible.
+struct RowWords {
+  int pos, info;
+  float lse, del;
+};
+
+__device__ __forceinline__ RowWords row_words(int f, int rows_total, int G, int b, int kvh,
+                                              int H, int L, const int* mrow, const float* lse,
+                                              const float* dsum, float lse_scale) {
+  RowWords w{0, 1, 0.f, 0.f};
+  if (f < rows_total) {
+    const int p = f / G;
+    const size_t at = ((size_t)b * H + kvh * G + f % G) * L + p;
+    w = RowWords{p, mrow[p], lse[at] * lse_scale, dsum ? dsum[at] : 0.f};
+  }
+  return w;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+constexpr int kPrepWarps = 8;
+
+// pad_dout[b, kvh, d] = (1 / L) x the sum of dout[b, p, h, d] over the pad
+// positions p and the G heads h of KV head kvh: what the pad rows add to
+// every dV_j. Grid (KVH, B); warp w takes the 32-position chunks w, w + 8,
+// ... and finds a chunk's pad positions by one ballot; lane i owns dims i,
+// i + 32, ...; the warps' sums are added in warp order.
+template <typename T>
+__global__ void __launch_bounds__(kPrepWarps * 32)
+flash_bwd_pad_kernel(const T* __restrict__ dout, const int* __restrict__ meta,
+                     float* __restrict__ pad_dout, int L, int H, int KVH, int DH) {
+  __shared__ float part[kPrepWarps][128];
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = H / KVH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int base = 32 * warp; base < L; base += 32 * kPrepWarps) {
+    const int p = base + lane;
+    unsigned pads = __ballot_sync(kFull, p < L && (meta[(size_t)b * L + p] & 1));
+    while (pads) {
+      const int pp = base + __ffs(pads) - 1;
+      pads &= pads - 1;
+      const T* row = dout + (((size_t)b * L + pp) * H + kvh * G) * DH;
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          if (d < DH) acc[i] += to_float(row[(size_t)j * DH + d]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane + 32 * i < DH) part[warp][lane + 32 * i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float s = 0.f;
+    for (int w = 0; w < kPrepWarps; ++w) s += part[w][threadIdx.x];
+    pad_dout[((size_t)b * KVH + kvh) * DH + threadIdx.x] = s / L;
+  }
+}
+
+// x0, x1 as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi); a product
+// with hi plus one with lo keeps ~16 bits of x where one with bf16(x) keeps 8.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 r = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - r.x, x1 - r.y);
+}
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdKeys = 16 * kBwdWarps;   // keys a dK/dV block: 16 a warp
+constexpr int kBwdRows = 32;               // query rows a tile of the dK/dV loop
+constexpr int kBwdQRows = 16 * kBwdWarps;  // query rows a dQ block: 16 a warp
+constexpr int kBwdTileKeys = 32;           // keys a tile of the dQ loop
+constexpr int kBwdMinBlocks = 2;           // blocks an SM: up to 255 registers a thread
+
+template <int DH>
+__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ dsum, const int* __restrict__ meta,
+                          const float* __restrict__ pad_dout, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int L, int H, int KVH, float scale,
+                          float scale2) {
+  static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = DH + 8, KS = DH / 16, ON = DH / 8, NT = kBwdRows / 8;
+  constexpr int kThreads = kBwdWarps * 32;
+  constexpr int kStageElems = 2 * kBwdRows * LD;  // a stage: the Q tile, then the dO tile
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [kBwdKeys][LD]
+  __nv_bfloat16* vs = ks + kBwdKeys * LD;                          // [kBwdKeys][LD]
+  __nv_bfloat16* ring = vs + kBwdKeys * LD;                        // [kStages][2][kBwdRows][LD]
+  RowWords* words = reinterpret_cast<RowWords*>(ring + kStages * kStageElems);  // [2][kBwdRows]
+  int* count = reinterpret_cast<int*>(words + 2 * kBwdRows);
+  int* list = count + 4;  // [ntiles]
+
+  const int G = H / KVH;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBwdKeys;
+  const int rows_total = L * G;
+  const int ntiles = (rows_total + kBwdRows - 1) / kBwdRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t kv_stride = (size_t)KVH * DH;
+  const int* mrow = meta + (size_t)b * L;
+  const __nv_bfloat16* qb = q + (size_t)b * L * H * DH;
+  const __nv_bfloat16* ob = dout + (size_t)b * L * H * DH;
+
+  // group 0: this block's K and V rows, in flight while the tiles are listed
+  const size_t kv0 = (((size_t)b * L + k0) * KVH + kvh) * DH;
+  load_rows_async<DH>(ks, k + kv0, kv_stride, kBwdKeys, L - k0, tid, kThreads);
+  load_rows_async<DH>(vs, v + kv0, kv_stride, kBwdKeys, L - k0, tid, kThreads);
+  cp_async_commit();
+
+  const Span kspan = span_of(mrow, k0, min(k0 + kBwdKeys, L) - 1, 4);
+  const int n = tile_list(
+      ntiles,
+      [&](int i) {
+        const int p0 = i * kBwdRows / G, p1 = (min((i + 1) * kBwdRows, rows_total) - 1) / G;
+        return spans_meet(span_of(mrow, p0, p1, 2), p1, kspan, k0);
+      },
+      list, count);
+
+  auto fetch = [&](int i) {  // the i-th listed tile's Q and dO rows into stage i % kStages
+    __nv_bfloat16* st = ring + (i % kStages) * kStageElems;
+    const int f0 = list[i] * kBwdRows;
+    for (int c = tid; c < kBwdRows * (DH / 8); c += kThreads) {
+      const int r = c / (DH / 8), ch = c % (DH / 8), f = f0 + r;
+      const bool ok = f < rows_total;
+      const int fc = ok ? f : 0;
+      const size_t off = ((size_t)(fc / G) * H + kvh * G + fc % G) * DH + ch * 8;
+      cp_async16(st + r * LD + ch * 8, qb + off, ok ? 16 : 0);
+      cp_async16(st + (kBwdRows + r) * LD + ch * 8, ob + off, ok ? 16 : 0);
+    }
+  };
+  auto words_of = [&](int i) {  // thread r < kBwdRows: row r of the i-th listed tile
+    return row_words(list[i] * kBwdRows + tid, rows_total, G, b, kvh, H, L, mrow, lse, dsum,
+                     kLog2e);
+  };
+  if (n > 0) fetch(0);
+  cp_async_commit();
+  if (n > 0 && tid < kBwdRows) words[tid] = words_of(0);
+
+  // the thread's keys k0 + 16 warp + g and + 8: the rows of its accumulators
+  int kpos[2], kinfo[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    kpos[hf] = k0 + 16 * warp + g + 8 * hf;
+    kinfo[hf] = kpos[hf] < L ? mrow[kpos[hf]] : 1;
+  }
+  float dk_acc[ON][4], dv_acc[ON][4];
+#pragma unroll
+  for (int n8 = 0; n8 < ON; ++n8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n8][e] = dv_acc[n8][e] = 0.f;
+  // ldmatrix lanes: A of the warp's 16 keys (matrix i: keys 8 (i % 2), dims
+  // 8 (i / 2)); B from a [row][dim] tile (matrix i: rows 8 (i / 2), dims
+  // 8 (i % 2)); B transposed (matrix i: rows 8 (i % 2), dims 8 (i / 2))
+  const int arow = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
+  const int trow = (lane & 7) + 8 * ((lane >> 3) & 1), tcol = 8 * (lane >> 4);
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();  // K, V and tile i have landed (this thread's copies)
+    __syncthreads();     // everyone's have, and tile i - 1 is consumed
+    if (i + 1 < n) fetch(i + 1);
+    cp_async_commit();
+    RowWords next{0, 1, 0.f, 0.f};
+    if (i + 1 < n && tid < kBwdRows) next = words_of(i + 1);  // stored after the products
+    const __nv_bfloat16* qs = ring + (i % kStages) * kStageElems;
+    const __nv_bfloat16* os = qs + kBwdRows * LD;
+    const RowWords* w = words + (i & 1) * kBwdRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: [16 keys] x [32 rows] a warp
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, ks + arow * LD + 16 * kk + acol);
+      ldsm_x4(va, vs + arow * LD + 16 * kk + acol);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, qs + (16 * np + brow) * LD + 16 * kk + bcol);
+        ldsm_x4(bo, os + (16 * np + brow) * LD + 16 * kk + bcol);
+        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * np], va, bo[0], bo[1]);
+        mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+    // element e of column tile nt: key g + 8 (e >> 1), row 8 nt + 2 t + (e & 1)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const RowWords r = w[8 * nt + 2 * t + (e & 1)];
+        const float p = meta_visible(r.pos, r.info, kpos[hf], kinfo[hf])
+                            ? ex2(s[nt][e] * scale2 - r.lse)
+                            : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - r.del);
+      }
+    // dV += P^T dO and dK += dS^T Q (dS as hi + lo) over the tile's rows, 16 a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t dh[4], dl[4];
+      split_bf16(dp[2 * kk][0], dp[2 * kk][1], dh[0], dl[0]);
+      split_bf16(dp[2 * kk][2], dp[2 * kk][3], dh[1], dl[1]);
+      split_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1], dh[2], dl[2]);
+      split_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3], dh[3], dl[3]);
+#pragma unroll
+      for (int dn = 0; dn < DH / 16; ++dn) {
+        uint32_t ot[4], qt[4];
+        ldsm_x4_trans(ot, os + (16 * kk + trow) * LD + 16 * dn + tcol);
+        mma_bf16(dv_acc[2 * dn], pa, ot[0], ot[1]);
+        mma_bf16(dv_acc[2 * dn + 1], pa, ot[2], ot[3]);
+        ldsm_x4_trans(qt, qs + (16 * kk + trow) * LD + 16 * dn + tcol);
+        mma_bf16(dk_acc[2 * dn], dh, qt[0], qt[1]);
+        mma_bf16(dk_acc[2 * dn], dl, qt[0], qt[1]);
+        mma_bf16(dk_acc[2 * dn + 1], dh, qt[2], qt[3]);
+        mma_bf16(dk_acc[2 * dn + 1], dl, qt[2], qt[3]);
+      }
+    }
+    // slot (i + 1) & 1 was last read in iteration i - 1, before this barrier
+    if (tid < kBwdRows) words[((i + 1) & 1) * kBwdRows + tid] = next;
+  }
+  cp_async_wait<0>();  // with no listed tile, K and V were never waited for
+
+  const float* pad = pad_dout + ((size_t)b * KVH + kvh) * DH;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (kpos[hf] >= L) continue;
+    const size_t at = (((size_t)b * L + kpos[hf]) * KVH + kvh) * DH + 2 * t;
+#pragma unroll
+    for (int n8 = 0; n8 < ON; ++n8) {
+      const int d = 8 * n8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * n8) = __floats2bfloat162_rn(
+          dk_acc[n8][2 * hf] * scale, dk_acc[n8][2 * hf + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * n8) = __floats2bfloat162_rn(
+          dv_acc[n8][2 * hf] + pad[d], dv_acc[n8][2 * hf + 1] + pad[d + 1]);
+    }
+  }
+}
+
+// Walks the listed key tiles twice: pass 1 sums D_i = sum_j P_ij dP_ij for
+// the block's rows (written to dsum for the dK/dV kernel), pass 2 adds dQ.
+template <int DH>
+__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dsum, const int* __restrict__ meta,
+                         __nv_bfloat16* __restrict__ dq, int L, int H, int KVH, float scale,
+                         float scale2) {
+  static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = DH + 8, KS = DH / 16, ON = DH / 8, NT = kBwdTileKeys / 8;
+  constexpr int kThreads = kBwdWarps * 32;
+  constexpr int kStageElems = 2 * kBwdTileKeys * LD;  // a stage: the K tile, then the V tile
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [kBwdQRows][LD]
+  __nv_bfloat16* os = qs + kBwdQRows * LD;                         // [kBwdQRows][LD] dO
+  __nv_bfloat16* ring = os + kBwdQRows * LD;                       // [kStages][2][32][LD]
+  int* kwords = reinterpret_cast<int*>(ring + kStages * kStageElems);  // [2][kBwdTileKeys]
+  int* count = kwords + 2 * kBwdTileKeys;
+  int* list = count + 4;  // [ntiles]
+
+  const int G = H / KVH;
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * kBwdQRows;
+  const int rows_total = L * G;
+  const int ntiles = (L + kBwdTileKeys - 1) / kBwdTileKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t kv_stride = (size_t)KVH * DH;
+  const int* mrow = meta + (size_t)b * L;
+  const __nv_bfloat16* kbase = k + ((size_t)b * L * KVH + kvh) * DH;
+  const __nv_bfloat16* vbase = v + ((size_t)b * L * KVH + kvh) * DH;
+
+  // group 0: the block's Q and dO rows, in flight while the tiles are listed
+  for (int c = tid; c < kBwdQRows * (DH / 8); c += kThreads) {
+    const int r = c / (DH / 8), ch = c % (DH / 8), f = row0 + r;
+    const bool ok = f < rows_total;
+    const int fc = ok ? f : 0;
+    const size_t off = (((size_t)b * L + fc / G) * H + kvh * G + fc % G) * DH + ch * 8;
+    cp_async16(qs + r * LD + ch * 8, q + off, ok ? 16 : 0);
+    cp_async16(os + r * LD + ch * 8, dout + off, ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  const int p1 = (min(row0 + kBwdQRows, rows_total) - 1) / G;
+  const Span qspan = span_of(mrow, row0 / G, p1, 2);
+  const int n = tile_list(
+      ntiles,
+      [&](int j) {
+        const int j0 = j * kBwdTileKeys;
+        return spans_meet(qspan, p1, span_of(mrow, j0, min(j0 + kBwdTileKeys, L) - 1, 4), j0);
+      },
+      list, count);
+  const int steps = 2 * n;  // step i: pass i / n over the listed tile i % n
+
+  auto fetch = [&](int i) {  // step i's K and V rows into stage i % kStages
+    __nv_bfloat16* st = ring + (i % kStages) * kStageElems;
+    const int j0 = list[i % n] * kBwdTileKeys;
+    load_rows_async<DH>(st, kbase + (size_t)j0 * kv_stride, kv_stride, kBwdTileKeys, L - j0,
+                        tid, kThreads);
+    load_rows_async<DH>(st + kBwdTileKeys * LD, vbase + (size_t)j0 * kv_stride, kv_stride,
+                        kBwdTileKeys, L - j0, tid, kThreads);
+  };
+  auto key_word = [&](int i) {  // thread j < kBwdTileKeys: key j of step i's tile
+    const int kp = list[i % n] * kBwdTileKeys + tid;
+    return (tid < kBwdTileKeys && kp < L) ? mrow[kp] : 1;
+  };
+  if (n > 0) fetch(0);
+  cp_async_commit();
+  if (n > 0 && tid < kBwdTileKeys) kwords[tid] = key_word(0);
+
+  // This warp's 16 rows: the thread holds rows wr + g and wr + g + 8.
+  const int wr = warp * 16;
+  const bool active = row0 + wr < rows_total;  // a warp past the last row only loads
+  RowWords rw[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    rw[hf] = row_words(row0 + wr + g + 8 * hf, rows_total, G, b, kvh, H, L, mrow, lse, nullptr,
+                       kLog2e);
+  const int alane = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  const __nv_bfloat16* qrow = qs + (wr + alane) * LD + acol;
+  const __nv_bfloat16* orow = os + (wr + alane) * LD + acol;
+  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
+  const int trow = (lane & 7) + 8 * ((lane >> 3) & 1), tcol = 8 * (lane >> 4);
+  float dq_acc[ON][4], dpart[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n8 = 0; n8 < ON; ++n8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n8][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<0>();  // Q, dO and step i's tile have landed (this thread's copies)
+    __syncthreads();     // everyone's have, and step i - 1's tile is consumed
+    if (i + 1 < steps) fetch(i + 1);
+    cp_async_commit();
+    const int next = i + 1 < steps ? key_word(i + 1) : 1;  // stored after the products
+    if (i == n) {  // pass 1 is done: D of the thread's two rows is its quad's sum
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float d = dpart[hf];
+        d += __shfl_xor_sync(kFull, d, 1);
+        d += __shfl_xor_sync(kFull, d, 2);
+        rw[hf].del = d;
+        const int f = row0 + wr + g + 8 * hf;
+        if (t == 0 && f < rows_total)
+          dsum[((size_t)b * H + kvh * G + f % G) * L + f / G] = d;
+      }
+    }
+    if (active) {
+      const __nv_bfloat16* kt = ring + (i % kStages) * kStageElems;
+      const __nv_bfloat16* vt = kt + kBwdTileKeys * LD;
+      const int* kw = kwords + (i & 1) * kBwdTileKeys;
+      const int j0 = list[i % n] * kBwdTileKeys;
+      // S = Q K^T and dP = dO V^T: [16 rows] x [32 keys] a warp
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], oa[4];
+        ldsm_x4(qa, qrow + 16 * kk);
+        ldsm_x4(oa, orow + 16 * kk);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, kt + (16 * np + brow) * LD + 16 * kk + bcol);
+          ldsm_x4(vb, vt + (16 * np + brow) * LD + 16 * kk + bcol);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+        }
+      }
+      // element e of column tile nt: row g + 8 (e >> 1), key j0 + 8 nt + 2 t + (e & 1)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1, j = 8 * nt + 2 * t + (e & 1);
+          const float p = meta_visible(rw[hf].pos, rw[hf].info, j0 + j, kw[j])
+                              ? ex2(s[nt][e] * scale2 - rw[hf].lse)
+                              : 0.f;
+          if (i < n) dpart[hf] += p * dp[nt][e];
+          dp[nt][e] = p * (dp[nt][e] - rw[hf].del);
+        }
+      // pass 2: dQ += dS K (dS as hi + lo) over the tile's keys, 16 a step
+      if (i >= n) {
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+          uint32_t dh[4], dl[4];
+          split_bf16(dp[2 * kk][0], dp[2 * kk][1], dh[0], dl[0]);
+          split_bf16(dp[2 * kk][2], dp[2 * kk][3], dh[1], dl[1]);
+          split_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1], dh[2], dl[2]);
+          split_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3], dh[3], dl[3]);
+#pragma unroll
+          for (int dn = 0; dn < DH / 16; ++dn) {
+            uint32_t kb[4];
+            ldsm_x4_trans(kb, kt + (16 * kk + trow) * LD + 16 * dn + tcol);
+            mma_bf16(dq_acc[2 * dn], dh, kb[0], kb[1]);
+            mma_bf16(dq_acc[2 * dn], dl, kb[0], kb[1]);
+            mma_bf16(dq_acc[2 * dn + 1], dh, kb[2], kb[3]);
+            mma_bf16(dq_acc[2 * dn + 1], dl, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    // slot (i + 1) & 1 was last read in step i - 1, before this barrier
+    if (tid < kBwdTileKeys) kwords[((i + 1) & 1) * kBwdTileKeys + tid] = next;
+  }
+  cp_async_wait<0>();  // with no listed tile, Q and dO were never waited for
+  if (n == 0) {        // no visible key in any row: D = 0
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int f = row0 + wr + g + 8 * hf;
+      if (t == 0 && f < rows_total) dsum[((size_t)b * H + kvh * G + f % G) * L + f / G] = 0.f;
+    }
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int f = row0 + wr + g + 8 * hf;
+    if (f >= rows_total) continue;
+    __nv_bfloat16* dst =
+        dq + (((size_t)b * L + f / G) * H + kvh * G + f % G) * DH + 2 * t;
+#pragma unroll
+    for (int n8 = 0; n8 < ON; ++n8)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n8) = __floats2bfloat162_rn(
+          dq_acc[n8][2 * hf] * scale, dq_acc[n8][2 * hf + 1] * scale);
+  }
+}
+
+// float32: tiles of 32 rows x 32 keys on the CUDA cores.
+constexpr int kF32Threads = 256;
+constexpr int kF32Tile = 32;
+
+// P and dS of a tile of kF32Tile rows (qs, os [row][DH + 1], words rw) by
+// kF32Tile keys from j0 (ks, vs [key][DH + 1], mask words kw) into ps and
+// dss [row][kF32Tile + 1]; lanes run over the keys.
+template <int DH>
+__device__ __forceinline__ void f32_pair_tile(const float* qs, const float* os, const float* ks,
+                                              const float* vs, const RowWords* rw, int j0,
+                                              const int* kw, float scale, float* ps,
+                                              float* dss) {
+  constexpr int LF = DH + 1, PL = kF32Tile + 1;
+  for (int i = threadIdx.x; i < kF32Tile * kF32Tile; i += kF32Threads) {
+    const int r = i / kF32Tile, j = i % kF32Tile;
+    float s = 0.f, dp = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      s += qs[r * LF + d] * ks[j * LF + d];
+      dp += os[r * LF + d] * vs[j * LF + d];
+    }
+    const RowWords w = rw[r];
+    const float p = meta_visible(w.pos, w.info, j0 + j, kw[j]) ? expf(s * scale - w.lse) : 0.f;
+    ps[r * PL + j] = p;
+    dss[r * PL + j] = p * (dp - w.del);
+  }
+}
+
+// kF32Tile query rows from flattened row f0 (zeros past the last) into
+// qs and os [row][DH + 1], and their words into rw (D 0 while dsum is null).
+template <int DH>
+__device__ __forceinline__ void f32_rows(const float* q, const float* dout, const float* lse,
+                                         const float* dsum, const int* mrow, int f0,
+                                         int rows_total, int G, int b, int kvh, int H, int L,
+                                         float* qs, float* os, RowWords* rw) {
+  constexpr int LF = DH + 1;
+  for (int c = threadIdx.x; c < kF32Tile * DH; c += kF32Threads) {
+    const int r = c / DH, d = c % DH, f = f0 + r;
+    const bool ok = f < rows_total;
+    const size_t off = ok ? (((size_t)b * L + f / G) * H + kvh * G + f % G) * DH + d : 0;
+    qs[r * LF + d] = ok ? q[off] : 0.f;
+    os[r * LF + d] = ok ? dout[off] : 0.f;
+  }
+  if (threadIdx.x < kF32Tile)
+    rw[threadIdx.x] = row_words(f0 + threadIdx.x, rows_total, G, b, kvh, H, L, mrow, lse, dsum,
+                                1.f);
+}
+
+// kF32Tile keys from j0 (zeros past L) into ks and vs [key][DH + 1], their
+// mask words into kw.
+template <int DH>
+__device__ __forceinline__ void f32_keys(const float* k, const float* v, const int* mrow, int j0,
+                                         int b, int kvh, int KVH, int L, float* ks, float* vs,
+                                         int* kw) {
+  constexpr int LF = DH + 1;
+  for (int c = threadIdx.x; c < kF32Tile * DH; c += kF32Threads) {
+    const int j = c / DH, d = c % DH, kp = j0 + j;
+    const bool ok = kp < L;
+    const size_t off = ok ? (((size_t)b * L + kp) * KVH + kvh) * DH + d : 0;
+    ks[j * LF + d] = ok ? k[off] : 0.f;
+    vs[j * LF + d] = ok ? v[off] : 0.f;
+  }
+  const int j = threadIdx.x;
+  if (j < kF32Tile) kw[j] = j0 + j < L ? mrow[j0 + j] : 1;
+}
+
+template <int DH>
+constexpr size_t f32_bwd_smem() {
+  return sizeof(float) * (4 * kF32Tile * (DH + 1) + 2 * kF32Tile * (kF32Tile + 1)) +
+         sizeof(RowWords) * kF32Tile + sizeof(int) * (kF32Tile + 4);
+}
+
+// SLOT: 0 = dK/dV (a block owns kF32Tile keys and walks the row tiles), 1 =
+// dQ (a block owns kF32Tile rows and walks the key tiles twice: D, written
+// to dsum, then dQ). Thread i owns the outputs i, i + 256, ... of the
+// block's [kF32Tile][DH].
+template <int DH, int SLOT>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ dsum,
+                      const int* __restrict__ meta, const float* __restrict__ pad_dout,
+                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                      int L, int H, int KVH, float scale) {
+  constexpr int LF = DH + 1, PL = kF32Tile + 1, NE = kF32Tile * DH / kF32Threads;
+  static_assert(NE * kF32Threads == kF32Tile * DH, "a whole number of outputs a thread");
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [kF32Tile][LF]
+  float* vs = ks + kF32Tile * LF;
+  float* qs = vs + kF32Tile * LF;
+  float* os = qs + kF32Tile * LF;
+  float* ps = os + kF32Tile * LF;               // [kF32Tile][PL]
+  float* dss = ps + kF32Tile * PL;
+  RowWords* rw = reinterpret_cast<RowWords*>(dss + kF32Tile * PL);  // [kF32Tile]
+  int* kw = reinterpret_cast<int*>(rw + kF32Tile);                  // [kF32Tile]
+  int* count = kw + kF32Tile;
+  int* list = count + 4;
+
+  const int G = H / KVH;
+  const int b = blockIdx.z, kvh = blockIdx.y, own0 = blockIdx.x * kF32Tile;
+  const int rows_total = L * G;
+  const int* mrow = meta + (size_t)b * L;
+  float acc[NE][2];
+#pragma unroll
+  for (int u = 0; u < NE; ++u) acc[u][0] = acc[u][1] = 0.f;
+
+  if (SLOT == 0) {
+    f32_keys<DH>(k, v, mrow, own0, b, kvh, KVH, L, ks, vs, kw);
+    const Span kspan = span_of(mrow, own0, min(own0 + kF32Tile, L) - 1, 4);
+    const int n = tile_list(
+        (rows_total + kF32Tile - 1) / kF32Tile,
+        [&](int i) {
+          const int p0 = i * kF32Tile / G, p1 = (min((i + 1) * kF32Tile, rows_total) - 1) / G;
+          return spans_meet(span_of(mrow, p0, p1, 2), p1, kspan, own0);
+        },
+        list, count);
+    for (int i = 0; i < n; ++i) {
+      f32_rows<DH>(q, dout, lse, dsum, mrow, list[i] * kF32Tile, rows_total, G, b, kvh, H, L,
+                   qs, os, rw);
+      __syncthreads();
+      f32_pair_tile<DH>(qs, os, ks, vs, rw, own0, kw, scale, ps, dss);
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < NE; ++u) {
+        const int e = threadIdx.x + kF32Threads * u, j = e / DH, d = e % DH;
+        float a = 0.f, c = 0.f;
+        for (int r = 0; r < kF32Tile; ++r) {
+          a += dss[r * PL + j] * qs[r * LF + d];
+          c += ps[r * PL + j] * os[r * LF + d];
+        }
+        acc[u][0] += a;  // dK
+        acc[u][1] += c;  // dV
+      }
+      __syncthreads();
+    }
+    const float* pad = pad_dout + ((size_t)b * KVH + kvh) * DH;
+#pragma unroll
+    for (int u = 0; u < NE; ++u) {
+      const int e = threadIdx.x + kF32Threads * u, j = e / DH, d = e % DH, kp = own0 + j;
+      if (kp >= L) continue;
+      const size_t off = (((size_t)b * L + kp) * KVH + kvh) * DH + d;
+      dk[off] = acc[u][0] * scale;
+      dv[off] = acc[u][1] + pad[d];
+    }
+  } else {
+    f32_rows<DH>(q, dout, lse, nullptr, mrow, own0, rows_total, G, b, kvh, H, L, qs, os, rw);
+    const int p1 = (min(own0 + kF32Tile, rows_total) - 1) / G;
+    const Span qspan = span_of(mrow, own0 / G, p1, 2);
+    const int n = tile_list(
+        (L + kF32Tile - 1) / kF32Tile,
+        [&](int j) {
+          const int j0 = j * kF32Tile;
+          return spans_meet(qspan, p1, span_of(mrow, j0, min(j0 + kF32Tile, L) - 1, 4), j0);
+        },
+        list, count);
+    float d_row = 0.f;  // thread r < kF32Tile: D of row own0 + r, summed in pass 0
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int i = 0; i < n; ++i) {
+        const int j0 = list[i] * kF32Tile;
+        f32_keys<DH>(k, v, mrow, j0, b, kvh, KVH, L, ks, vs, kw);
+        __syncthreads();
+        f32_pair_tile<DH>(qs, os, ks, vs, rw, j0, kw, scale, ps, dss);  // pass 0: dss = P dP
+        __syncthreads();
+        if (pass == 0) {
+          if (threadIdx.x < kF32Tile)
+            for (int j = 0; j < kF32Tile; ++j) d_row += dss[threadIdx.x * PL + j];
+        } else {
+#pragma unroll
+          for (int u = 0; u < NE; ++u) {
+            const int e = threadIdx.x + kF32Threads * u, r = e / DH, d = e % DH;
+            float a = 0.f;
+            for (int j = 0; j < kF32Tile; ++j) a += dss[r * PL + j] * ks[j * LF + d];
+            acc[u][0] += a;
+          }
+        }
+        __syncthreads();
+      }
+      if (pass == 0 && threadIdx.x < kF32Tile) {
+        const int f = own0 + threadIdx.x;
+        rw[threadIdx.x].del = d_row;
+        if (f < rows_total) dsum[((size_t)b * H + kvh * G + f % G) * L + f / G] = d_row;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < NE; ++u) {
+      const int e = threadIdx.x + kF32Threads * u, r = e / DH, d = e % DH, f = own0 + r;
+      if (f >= rows_total) continue;
+      dq[(((size_t)b * L + f / G) * H + kvh * G + f % G) * DH + d] = acc[u][0] * scale;
     }
   }
 }
@@ -781,8 +1554,8 @@ constexpr size_t fp32_smem() {
 }
 
 template <int DH, typename Mask>
-int launch_dh_typed(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                    int Lq, int S, int H, int KVH, float scale, Mask mask,
+int launch_dh_typed(int dtype, const void* q, const void* k, const void* v, void* out,
+                    float* lse, int B, int Lq, int S, int H, int KVH, float scale, Mask mask,
                     cudaStream_t stream) {
   const int G = H / KVH;
   if (dtype == 1) {
@@ -796,8 +1569,8 @@ int launch_dh_typed(int dtype, const void* q, const void* k, const void* v, void
     dim3 grid((Lq * G + kMmaRows - 1) / kMmaRows, KVH, B);
     kern<<<grid, kMmaWarps * 32, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Lq, S, H, KVH,
-        scale * kLog2e, mask);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Lq, S, H,
+        KVH, scale * kLog2e, mask);
     return (int)cudaGetLastError();
   }
   auto kern = attention_fp32_kernel<DH, Mask, false>;
@@ -806,7 +1579,7 @@ int launch_dh_typed(int dtype, const void* q, const void* k, const void* v, void
   dim3 grid((Lq * G + kRows - 1) / kRows, KVH, B);
   kern<<<grid, kWarps * 32, fp32_smem<DH>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), nullptr, nullptr, nullptr, Lq, S, H, KVH, 0, scale, mask);
+      static_cast<float*>(out), lse, nullptr, nullptr, nullptr, Lq, S, H, KVH, 0, scale, mask);
   return (int)cudaGetLastError();
 }
 
@@ -849,7 +1622,7 @@ int launch_split_dh(int dtype, const void* q, const void* k, const void* v, void
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, kWarps * 32, fp32_smem<DH>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      nullptr, o_part, m_part, l_part, Lq, S, H, KVH, per, scale, mask);
+      nullptr, nullptr, o_part, m_part, l_part, Lq, S, H, KVH, per, scale, mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   chunk_combine_kernel<float, false><<<combine_grid, combine_threads, 0, stream>>>(
@@ -859,16 +1632,17 @@ int launch_split_dh(int dtype, const void* q, const void* k, const void* v, void
 
 // ops/flash_attention.py KERNEL_HEAD_DIMS lists the cases of both switches
 template <typename Mask>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Lq,
-           int S, int H, int KVH, int Dh, float scale, Mask mask, cudaStream_t stream) {
+int launch(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Lq, int S, int H, int KVH, int Dh, float scale, Mask mask,
+           cudaStream_t stream) {
   if (H % KVH != 0 || Lq <= 0 || S <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   switch (Dh) {
-    case 16: return launch_dh_typed<16>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
-    case 32: return launch_dh_typed<32>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
-    case 64: return launch_dh_typed<64>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
-    case 80: return launch_dh_typed<80>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
-    case 128: return launch_dh_typed<128>(dtype, q, k, v, out, B, Lq, S, H, KVH, scale, mask, stream);
+    case 16: return launch_dh_typed<16>(dtype, q, k, v, out, lse, B, Lq, S, H, KVH, scale, mask, stream);
+    case 32: return launch_dh_typed<32>(dtype, q, k, v, out, lse, B, Lq, S, H, KVH, scale, mask, stream);
+    case 64: return launch_dh_typed<64>(dtype, q, k, v, out, lse, B, Lq, S, H, KVH, scale, mask, stream);
+    case 80: return launch_dh_typed<80>(dtype, q, k, v, out, lse, B, Lq, S, H, KVH, scale, mask, stream);
+    case 128: return launch_dh_typed<128>(dtype, q, k, v, out, lse, B, Lq, S, H, KVH, scale, mask, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -889,6 +1663,69 @@ int launch_split(int dtype, const void* q, const void* k, const void* v, void* o
   }
 }
 
+// The backward's three launches on `stream`: the pad rows' sums, dQ (which
+// writes D), then dK/dV (which reads it); scratch holds B * H * L floats of
+// D, then B * KVH * DH of the pad rows' dO sums.
+template <int DH>
+int launch_bwd_dh(int dtype, const void* q, const void* k, const void* v, const int* meta,
+                  const void* dout, const float* lse, float* scratch, void* dq, void* dk,
+                  void* dv, int B, int L, int H, int KVH, float scale, cudaStream_t stream) {
+  const int G = H / KVH;
+  float* dsum = scratch;
+  float* pad = scratch + (size_t)B * H * L;
+  const dim3 pad_grid(KVH, B);
+  cudaError_t err;
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    if (misaligned16(q, k, v, dout) || misaligned16(dq, dk, dv, dq))
+      return (int)cudaErrorMisalignedAddress;
+    flash_bwd_pad_kernel<T><<<pad_grid, kPrepWarps * 32, 0, stream>>>(
+        static_cast<const T*>(dout), meta, pad, L, H, KVH, DH);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const size_t key_tiles = (L + kBwdTileKeys - 1) / kBwdTileKeys;
+    const size_t q_smem = sizeof(T) * (2 * kBwdQRows + kStages * 2 * kBwdTileKeys) * (DH + 8) +
+                          sizeof(int) * (2 * kBwdTileKeys + 4 + key_tiles);
+    auto qk = flash_bwd_dq_bf16_kernel<DH>;
+    if ((err = allow_smem(qk, q_smem)) != cudaSuccess) return (int)err;
+    qk<<<dim3((L * G + kBwdQRows - 1) / kBwdQRows, KVH, B), kBwdWarps * 32, q_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, dsum, meta, static_cast<T*>(dq), L, H, KVH, scale,
+        scale * kLog2e);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const size_t row_tiles = (L * G + kBwdRows - 1) / kBwdRows;
+    const size_t kv_smem = sizeof(T) * (2 * kBwdKeys + kStages * 2 * kBwdRows) * (DH + 8) +
+                           sizeof(RowWords) * 2 * kBwdRows + sizeof(int) * (4 + row_tiles);
+    auto kv = flash_bwd_dkv_bf16_kernel<DH>;
+    if ((err = allow_smem(kv, kv_smem)) != cudaSuccess) return (int)err;
+    kv<<<dim3((L + kBwdKeys - 1) / kBwdKeys, KVH, B), kBwdWarps * 32, kv_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, dsum, meta, pad, static_cast<T*>(dk),
+        static_cast<T*>(dv), L, H, KVH, scale, scale * kLog2e);
+    return (int)cudaGetLastError();
+  }
+  using T = float;
+  flash_bwd_pad_kernel<T><<<pad_grid, kPrepWarps * 32, 0, stream>>>(
+      static_cast<const T*>(dout), meta, pad, L, H, KVH, DH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int row_tiles = (L * G + kF32Tile - 1) / kF32Tile, key_tiles = (L + kF32Tile - 1) / kF32Tile;
+  const size_t kv_smem = f32_bwd_smem<DH>() + sizeof(int) * row_tiles;
+  const size_t q_smem = f32_bwd_smem<DH>() + sizeof(int) * key_tiles;
+  auto kv = flash_bwd_fp32_kernel<DH, 0>;
+  auto qk = flash_bwd_fp32_kernel<DH, 1>;
+  if ((err = allow_smem(kv, kv_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(qk, q_smem)) != cudaSuccess) return (int)err;
+  qk<<<dim3(row_tiles, KVH, B), kF32Threads, q_smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, dsum, meta, pad, static_cast<T*>(dq), nullptr, nullptr,
+      L, H, KVH, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kv<<<dim3(key_tiles, KVH, B), kF32Threads, kv_smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, dsum, meta, pad, nullptr, static_cast<T*>(dk),
+      static_cast<T*>(dv), L, H, KVH, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // nsplit <= 1: one block walks all S keys of its rows. nsplit > 1 (needs
@@ -902,14 +1739,42 @@ extern "C" int chunk_attention_launch(int dtype, const void* q, const void* k, c
   if (nsplit > 1)
     return launch_split(dtype, q, k, v, out, static_cast<float*>(scratch), B, Lq, S, H, KVH, Dh,
                         nsplit, scale, mask, static_cast<cudaStream_t>(stream));
-  return launch(dtype, q, k, v, out, B, Lq, S, H, KVH, Dh, scale, mask,
+  return launch(dtype, q, k, v, out, nullptr, B, Lq, S, H, KVH, Dh, scale, mask,
                 static_cast<cudaStream_t>(stream));
 }
 
+// lse (nullable, [B, H, L] float32): each row's natural-base log-sum-exp of its
+// scaled, masked logits, -FLT_MAX for a row with no visible key (a pad row).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                                      const void* meta, void* out, int B, int L, int H,
-                                      int KVH, int Dh, float scale, void* stream) {
+                                      const void* meta, void* out, void* lse, int B, int L,
+                                      int H, int KVH, int Dh, float scale, void* stream) {
   MetaMask mask{static_cast<const int*>(meta), L};
-  return launch(dtype, q, k, v, out, B, L, L, H, KVH, Dh, scale, mask,
+  return launch(dtype, q, k, v, out, static_cast<float*>(lse), B, L, L, H, KVH, Dh, scale, mask,
                 static_cast<cudaStream_t>(stream));
+}
+
+// dq, dk and dv of flash_attention_launch's attention for the gradient dout
+// of its output: lse as that launch wrote it (not null), q [B, L, H, Dh], k
+// and v [B, L, KVH, Dh], one dtype for all; dq like q, dk and dv like k.
+// scratch holds B * H * L + B * KVH * Dh floats. Dh as the forward's.
+extern "C" int flash_attention_backward_launch(int dtype, const void* q, const void* k,
+                                               const void* v, const void* meta, const void* dout,
+                                               const void* lse, void* scratch, void* dq,
+                                               void* dk, void* dv, int B, int L, int H, int KVH,
+                                               int Dh, float scale, void* stream) {
+  if (H % KVH != 0 || B <= 0 || L <= 0 || (dtype != 0 && dtype != 1) || lse == nullptr ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int* m = static_cast<const int*>(meta);
+  const float* ls = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 16: return launch_bwd_dh<16>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    case 32: return launch_bwd_dh<32>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    case 64: return launch_bwd_dh<64>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    case 80: return launch_bwd_dh<80>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    case 128: return launch_bwd_dh<128>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
