@@ -801,7 +801,10 @@ attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //  * flash_bwd_dkv_*_kernel: a block owns (batch row, KV head, key tile)
 //    and walks the query rows of its whole group (the G = H / KVH heads
 //    folded into rows as the forward folds them), so GQA's sums over the
-//    group stay inside one block.
+//    group stay inside one block. Where that grid is under one wave (bf16;
+//    SFT's mmu call [4, 796] has 104 blocks of 4 warps), the caller cuts the
+//    walk into row ranges (`splits`), each block writes fp32 sums, and
+//    flash_bwd_dkv_combine_kernel adds them in range order.
 // No atomics: every sum runs in a fixed order, so two runs give the same
 // bits. Each block first lists the tiles that the bits leave some visible
 // pair in (tile_list): a key tile wholly past a query tile's last position
@@ -965,6 +968,10 @@ constexpr int kBwdQRows = 16 * kBwdWarps;  // query rows a dQ block: 16 a warp
 constexpr int kBwdTileKeys = 32;           // keys a tile of the dQ loop
 constexpr int kBwdMinBlocks = 2;           // blocks an SM: up to 255 registers a thread
 
+// With R = gridDim.z / B > 1 the listed row tiles are cut into R ranges of
+// about equal count, blockIdx.z = b R + r takes range r, and the block
+// writes its unscaled fp32 sums to part[r] ([R][2][B, L, KVH, DH]: dK, then
+// dV) for flash_bwd_dkv_combine_kernel; with R = 1 it writes dk and dv.
 template <int DH>
 __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
 flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -973,8 +980,8 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ dsum, const int* __restrict__ meta,
                           const float* __restrict__ pad_dout, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int L, int H, int KVH, float scale,
-                          float scale2) {
+                          __nv_bfloat16* __restrict__ dv, float* __restrict__ part, int B,
+                          int L, int H, int KVH, float scale, float scale2) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = DH + 8, KS = DH / 16, ON = DH / 8, NT = kBwdRows / 8;
   constexpr int kThreads = kBwdWarps * 32;
@@ -988,7 +995,8 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   int* list = count + 4;  // [ntiles]
 
   const int G = H / KVH;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBwdKeys;
+  const int R = gridDim.z / B, b = blockIdx.z / R, r = blockIdx.z % R;
+  const int kvh = blockIdx.y, k0 = blockIdx.x * kBwdKeys;
   const int rows_total = L * G;
   const int ntiles = (rows_total + kBwdRows - 1) / kBwdRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1005,17 +1013,19 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   const Span kspan = span_of(mrow, k0, min(k0 + kBwdKeys, L) - 1, 4);
-  const int n = tile_list(
+  const int listed = tile_list(
       ntiles,
       [&](int i) {
         const int p0 = i * kBwdRows / G, p1 = (min((i + 1) * kBwdRows, rows_total) - 1) / G;
         return spans_meet(span_of(mrow, p0, p1, 2), p1, kspan, k0);
       },
       list, count);
+  const int first = (int)((long long)r * listed / R);      // this block's range of the list
+  const int n = (int)((long long)(r + 1) * listed / R) - first;
 
-  auto fetch = [&](int i) {  // the i-th listed tile's Q and dO rows into stage i % kStages
+  auto fetch = [&](int i) {  // the range's i-th tile's Q and dO rows into stage i % kStages
     __nv_bfloat16* st = ring + (i % kStages) * kStageElems;
-    const int f0 = list[i] * kBwdRows;
+    const int f0 = list[first + i] * kBwdRows;
     for (int c = tid; c < kBwdRows * (DH / 8); c += kThreads) {
       const int r = c / (DH / 8), ch = c % (DH / 8), f = f0 + r;
       const bool ok = f < rows_total;
@@ -1025,8 +1035,8 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(st + (kBwdRows + r) * LD + ch * 8, ob + off, ok ? 16 : 0);
     }
   };
-  auto words_of = [&](int i) {  // thread r < kBwdRows: row r of the i-th listed tile
-    return row_words(list[i] * kBwdRows + tid, rows_total, G, b, kvh, H, L, mrow, lse, dsum,
+  auto words_of = [&](int i) {  // thread j < kBwdRows: row j of the range's i-th tile
+    return row_words(list[first + i] * kBwdRows + tid, rows_total, G, b, kvh, H, L, mrow, lse, dsum,
                      kLog2e);
   };
   if (n > 0) fetch(0);
@@ -1091,12 +1101,12 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hf = e >> 1;
-        const RowWords r = w[8 * nt + 2 * t + (e & 1)];
-        const float p = meta_visible(r.pos, r.info, kpos[hf], kinfo[hf])
-                            ? ex2(s[nt][e] * scale2 - r.lse)
+        const RowWords row = w[8 * nt + 2 * t + (e & 1)];
+        const float p = meta_visible(row.pos, row.info, kpos[hf], kinfo[hf])
+                            ? ex2(s[nt][e] * scale2 - row.lse)
                             : 0.f;
         s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - r.del);
+        dp[nt][e] = p * (dp[nt][e] - row.del);
       }
     // dV += P^T dO and dK += dS^T Q (dS as hi + lo) over the tile's rows, 16 a step
 #pragma unroll
@@ -1133,6 +1143,18 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int hf = 0; hf < 2; ++hf) {
     if (kpos[hf] >= L) continue;
     const size_t at = (((size_t)b * L + kpos[hf]) * KVH + kvh) * DH + 2 * t;
+    if (R > 1) {
+      float* pk = part + (size_t)r * 2 * B * L * KVH * DH + at;
+      float* pv = pk + (size_t)B * L * KVH * DH;
+#pragma unroll
+      for (int n8 = 0; n8 < ON; ++n8) {
+        *reinterpret_cast<float2*>(pk + 8 * n8) = make_float2(dk_acc[n8][2 * hf],
+                                                             dk_acc[n8][2 * hf + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * n8) = make_float2(dv_acc[n8][2 * hf],
+                                                             dv_acc[n8][2 * hf + 1]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int n8 = 0; n8 < ON; ++n8) {
       const int d = 8 * n8 + 2 * t;
@@ -1142,6 +1164,27 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           dv_acc[n8][2 * hf] + pad[d], dv_acc[n8][2 * hf + 1] + pad[d + 1]);
     }
   }
+}
+
+// dk = scale x the R ranges' dK sums, dv = their dV sums + the pad rows'
+// share, each summed in range order: one thread an element of [B, L, KVH, DH].
+__global__ void flash_bwd_dkv_combine_kernel(const float* __restrict__ part,
+                                             const float* __restrict__ pad_dout,
+                                             __nv_bfloat16* __restrict__ dk,
+                                             __nv_bfloat16* __restrict__ dv, int R, int L,
+                                             int KVH, int DH, size_t elems, float scale) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= elems) return;
+  float a = 0.f, c = 0.f;
+  for (int r = 0; r < R; ++r) {
+    a += part[(size_t)r * 2 * elems + e];
+    c += part[((size_t)r * 2 + 1) * elems + e];
+  }
+  const size_t row = e / DH;  // (b, key, kvh)
+  const size_t b = row / ((size_t)L * KVH);
+  const int kvh = (int)(row % KVH), d = (int)(e % DH);
+  dk[e] = __float2bfloat16_rn(a * scale);
+  dv[e] = __float2bfloat16_rn(c + pad_dout[(b * KVH + kvh) * DH + d]);
 }
 
 // Walks the listed key tiles twice: pass 1 sums D_i = sum_j P_ij dP_ij for
@@ -1663,16 +1706,21 @@ int launch_split(int dtype, const void* q, const void* k, const void* v, void* o
   }
 }
 
-// The backward's three launches on `stream`: the pad rows' sums, dQ (which
-// writes D), then dK/dV (which reads it); scratch holds B * H * L floats of
-// D, then B * KVH * DH of the pad rows' dO sums.
+// The backward's launches on `stream`: the pad rows' sums, dQ (which writes
+// D), then dK/dV (which reads it), with `splits` (bf16 only) > 1 the dK/dV
+// walk cut into that many row ranges and their sums combined. scratch holds
+// 2 x splits x B * L * KVH * DH floats of those sums when splits > 1, then B
+// * H * L of D, then B * KVH * DH of the pad rows' dO sums.
 template <int DH>
 int launch_bwd_dh(int dtype, const void* q, const void* k, const void* v, const int* meta,
                   const void* dout, const float* lse, float* scratch, void* dq, void* dk,
-                  void* dv, int B, int L, int H, int KVH, float scale, cudaStream_t stream) {
+                  void* dv, int B, int L, int H, int KVH, int splits, float scale,
+                  cudaStream_t stream) {
   const int G = H / KVH;
-  float* dsum = scratch;
-  float* pad = scratch + (size_t)B * H * L;
+  const size_t kv_elems = (size_t)B * L * KVH * DH;
+  float* part = scratch;
+  float* dsum = scratch + (splits > 1 ? 2 * splits * kv_elems : 0);
+  float* pad = dsum + (size_t)B * H * L;
   const dim3 pad_grid(KVH, B);
   cudaError_t err;
   if (dtype == 1) {
@@ -1697,12 +1745,18 @@ int launch_bwd_dh(int dtype, const void* q, const void* k, const void* v, const 
                            sizeof(RowWords) * 2 * kBwdRows + sizeof(int) * (4 + row_tiles);
     auto kv = flash_bwd_dkv_bf16_kernel<DH>;
     if ((err = allow_smem(kv, kv_smem)) != cudaSuccess) return (int)err;
-    kv<<<dim3((L + kBwdKeys - 1) / kBwdKeys, KVH, B), kBwdWarps * 32, kv_smem, stream>>>(
+    kv<<<dim3((L + kBwdKeys - 1) / kBwdKeys, KVH, B * splits), kBwdWarps * 32, kv_smem,
+         stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), lse, dsum, meta, pad, static_cast<T*>(dk),
-        static_cast<T*>(dv), L, H, KVH, scale, scale * kLog2e);
+        static_cast<T*>(dv), part, B, L, H, KVH, scale, scale * kLog2e);
+    if (splits == 1) return (int)cudaGetLastError();
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    flash_bwd_dkv_combine_kernel<<<(unsigned)((kv_elems + 255) / 256), 256, 0, stream>>>(
+        part, pad, static_cast<T*>(dk), static_cast<T*>(dv), splits, L, KVH, DH, kv_elems, scale);
     return (int)cudaGetLastError();
   }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   using T = float;
   flash_bwd_pad_kernel<T><<<pad_grid, kPrepWarps * 32, 0, stream>>>(
       static_cast<const T*>(dout), meta, pad, L, H, KVH, DH);
@@ -1756,25 +1810,27 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, c
 // dq, dk and dv of flash_attention_launch's attention for the gradient dout
 // of its output: lse as that launch wrote it (not null), q [B, L, H, Dh], k
 // and v [B, L, KVH, Dh], one dtype for all; dq like q, dk and dv like k.
-// scratch holds B * H * L + B * KVH * Dh floats. Dh as the forward's.
+// splits: row ranges of the dK/dV walk (bf16; 1 for float32). scratch holds
+// B * H * L + B * KVH * Dh floats, and 2 * splits * B * L * KVH * Dh more
+// when splits > 1. Dh as the forward's.
 extern "C" int flash_attention_backward_launch(int dtype, const void* q, const void* k,
                                                const void* v, const void* meta, const void* dout,
                                                const void* lse, void* scratch, void* dq,
                                                void* dk, void* dv, int B, int L, int H, int KVH,
-                                               int Dh, float scale, void* stream) {
+                                               int Dh, int splits, float scale, void* stream) {
   if (H % KVH != 0 || B <= 0 || L <= 0 || (dtype != 0 && dtype != 1) || lse == nullptr ||
-      scratch == nullptr)
+      scratch == nullptr || splits < 1)
     return (int)cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(meta);
   const float* ls = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 16: return launch_bwd_dh<16>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
-    case 32: return launch_bwd_dh<32>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
-    case 64: return launch_bwd_dh<64>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
-    case 80: return launch_bwd_dh<80>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
-    case 128: return launch_bwd_dh<128>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, scale, st);
+    case 16: return launch_bwd_dh<16>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, splits, scale, st);
+    case 32: return launch_bwd_dh<32>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, splits, scale, st);
+    case 64: return launch_bwd_dh<64>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, splits, scale, st);
+    case 80: return launch_bwd_dh<80>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, splits, scale, st);
+    case 128: return launch_bwd_dh<128>(dtype, q, k, v, m, dout, ls, sc, dq, dk, dv, B, L, H, KVH, splits, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

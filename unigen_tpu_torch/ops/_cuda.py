@@ -35,9 +35,10 @@ SIGNATURES = {
                                    _F, _P),
         # dtype, q, k, v, meta, out, lse (or None), B, L, H, KVH, Dh, scale, stream
         "flash_attention_launch": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-        # dtype, q, k, v, meta, dout, lse, scratch, dq, dk, dv, B, L, H, KVH, Dh, scale, stream
+        # dtype, q, k, v, meta, dout, lse, scratch, dq, dk, dv, B, L, H, KVH, Dh, splits,
+        # scale, stream
         "flash_attention_backward_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                            _I, _I, _I, _F, _P),
+                                            _I, _I, _I, _I, _F, _P),
     },
     "fused_conv": {
         # dtype, x, ab, w, bias, out, B, H, W, C, Cout, stream

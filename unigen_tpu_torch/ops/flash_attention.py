@@ -203,6 +203,17 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _dkv_splits(b: int, l: int, kvh: int, device) -> int:
+    """Row ranges of the backward's dK/dV walk in bf16. Its grid has a block
+    a (batch row, KV head, 64 keys) that walks all the group's query rows;
+    where that grid is under one wave of two blocks an SM (SFT's mmu call
+    [4, 796] has 104 blocks on 132 SMs), the walk is cut into ranges that
+    fill one (at most 8) and their fp32 sums are added in range order."""
+    blocks = b * kvh * -(-l // 64)
+    wave = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(8, -(-wave // blocks)))
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              meta_bits: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                              scale: Optional[float] = None):
@@ -227,13 +238,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, g = q.contiguous(), g.to(dtype).contiguous()
     kc, vc = k.to(dtype).contiguous(), v.to(dtype).contiguous()
     meta_bits = meta_bits.contiguous()
-    scratch = torch.empty(b * h * l + b * kvh * dh, dtype=torch.float32, device=q.device)
+    splits = _dkv_splits(b, l, kvh, q.device) if dtype == torch.bfloat16 else 1
+    parts = 2 * splits * b * l * kvh * dh if splits > 1 else 0
+    scratch = torch.empty(parts + b * h * l + b * kvh * dh, dtype=torch.float32,
+                          device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(kc), torch.empty_like(vc)
     lib = _cuda.library("attention")
     rc = lib.flash_attention_backward_launch(
         _cuda.dtype_code(dtype), q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         meta_bits.data_ptr(), g.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, h, kvh, dh, scale,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, h, kvh, dh, splits, scale,
         _cuda.stream_of(q))
     _cuda.check(rc, "flash_attention_backward_launch")
     flash_attention_backward.launches += 1
